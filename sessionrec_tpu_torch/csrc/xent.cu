@@ -1,0 +1,604 @@
+// Fused full-catalog softmax cross-entropy for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of sessionrec_tpu/ops/xent.py:
+//   K1  _fwd_kernel (xent.py:71)  -> xent_fwd_partial + xent_fwd_merge
+//   K2  _bwd_kernel (xent.py:164) -> xent_bwd_dtable + xent_bwd_dsr
+//                                    (+ xent_bwd_dsr_reduce)
+//
+// The loss of every training step is  -log softmax(scale * sr @ t^T)[label]
+// over the whole catalog, with t = table / max(||table_row||, 1e-12) when
+// the table is normalised.  None of the kernels stores the [B, P] logits:
+// each recomputes its tile of them from sr and the table.
+//
+// What bounds it.  At the main path's shapes (B = 512, D = 256, P = 3,584
+// to 37,888) a pass performs 2*B*P*D operations on B*D + P*D elements, some
+// 2*B/(bytes per element) operations per byte: about 256 in float32 and 512
+// in bfloat16.  Both are above the card's ratio of float32 operations to
+// bytes (67 TFLOP/s over 3.35 TB/s = 20), so every kernel is bound by
+// operations, not by bytes.  In float32 the tensor cores are out of reach
+// (TF32 would change the numerics), so the products run on the FP32 FMA
+// pipes.
+//
+// What the design does about it (a first, simple design):
+//   * The TPU kernels hold all B rows and walk the catalog in order, so
+//     they need one pass per row chunk and a row cap.  Hopper runs blocks
+//     in parallel and in no order, so every kernel tiles over both B and
+//     P, and no block depends on another.
+//   * Each block stages its operand rows in shared memory once, in float32
+//     (a row stride of D + 1 floats keeps the column reads free of bank
+//     conflicts), and every thread computes a register tile of outputs, so
+//     each operand element read from device memory feeds 32 to 64 FMAs.
+//   * The forward pass splits the catalog over blockIdx.y so that the grid
+//     fills the card; each split writes a partial (max, sum-exp, label
+//     logit) per row, and xent_fwd_merge combines them the way the
+//     catalog-sharded JAX path combines shards (xent.py:339-345).
+//   * The backward pass is two kernels with no atomics, so its result is
+//     deterministic: xent_bwd_dtable is parallel over catalog tiles and
+//     loops over all rows; xent_bwd_dsr is parallel over row tiles and
+//     catalog splits, and xent_bwd_dsr_reduce sums the splits in a fixed
+//     order.  Each recomputes the logits: four products where three bound
+//     the function.
+//   * bfloat16 inputs: operands are rounded to bfloat16 where the JAX
+//     kernel feeds bfloat16 to its matrix unit (the normalised table and
+//     dz in the backward pass) and products accumulate in float32, so the
+//     numerics are those of a bfloat16 MMA with float32 accumulation.
+//     The products themselves still run on the FMA pipes; mma / wgmma
+//     tiles are later work.
+//
+// Interface.  Every kernel takes n_valid (columns at or past it are
+// masked), a column offset (the global id of the table's first row; local
+// column j is compared as col_offset + j) and labels already localised to
+// the table (-1 matches no column), as the catalog-sharded JAX path does
+// (xent.py:293-309).  Each C entry point launches on the given stream,
+// does not synchronise and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;   // ops/masked.py:NEG_INF
+constexpr float NORM_EPS = 1e-12f;  // layers.l2norm eps
+constexpr int NT = 256;             // threads per block
+constexpr int NWARPS = NT / 32;
+constexpr int MAX_D = 256;          // D <= MAX_D (register tiles below)
+constexpr unsigned FULL = 0xffffffffu;
+
+// forward / dsr tiles: 32 rows x 64 catalog columns
+constexpr int F_BM = 32;
+constexpr int F_BN = 64;
+// dtable tiles: 32 catalog rows x 64 batch rows
+constexpr int T_BN = 32;
+constexpr int T_BM = 64;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+// round to the operand type and back (identity for float32)
+template <typename T> __device__ __forceinline__ float round_op(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// rows [row0, row0 + rows) of a row-major [n_rows, D] array into shared
+// memory with row stride ld, as float; rows at or past n_rows read as 0
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src,
+                                           int row0, int n_rows, int rows,
+                                           int D) {
+  for (int r = 0; r < rows; ++r) {
+    const int gr = row0 + r;
+    for (int k = threadIdx.x; k < D; k += NT)
+      dst[r * ld + k] = gr < n_rows ? to_f(src[(size_t)gr * D + k]) : 0.f;
+  }
+}
+
+// nrm[c] = max(||tile row c||, eps), one warp per row
+__device__ __forceinline__ void tile_norms(const float* tile, int ld,
+                                           float* nrm, int rows, int D) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < rows; c += NWARPS) {
+    float acc = 0.f;
+    for (int k = lane; k < D; k += 32) {
+      const float v = tile[c * ld + k];
+      acc += v * v;
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) nrm[c] = fmaxf(sqrtf(acc), NORM_EPS);
+  }
+}
+
+// stage a catalog tile as the backward pass's product operand: the
+// (normalised) rows rounded to the operand type; nrm gets the norms
+template <typename T>
+__device__ __forceinline__ void stage_operand_tile(float* tile, int ld,
+                                                   float* nrm, const T* tab,
+                                                   int p0, int p_end, int rows,
+                                                   int D, int normalize) {
+  stage_rows(tile, ld, tab, p0, p_end, rows, D);
+  __syncthreads();
+  if (normalize) {
+    tile_norms(tile, ld, nrm, rows, D);
+    __syncthreads();
+    for (int r = 0; r < rows; ++r)
+      for (int k = threadIdx.x; k < D; k += NT)
+        tile[r * ld + k] = round_op<T>(tile[r * ld + k] / nrm[r]);
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// K1, forward: partial online log-sum-exp over one catalog split.
+// grid = (ceil(B / F_BM), n_split); thread (ty, tx) owns rows ty, ty + 16
+// and columns tx + 16 j (j < 4) of each 32 x 64 logits tile, keeps its own
+// running (max, sum-exp, label logit) per row over the columns it sees, and
+// the 16 threads of a row merge them by shuffles at the end.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_fwd_partial(
+    const T* __restrict__ sr, const T* __restrict__ tab,
+    const int* __restrict__ labels, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int normalize, int cols_per_split,
+    float* __restrict__ m_out, float* __restrict__ s_out,
+    float* __restrict__ zl_out) {
+  extern __shared__ float smem[];
+  const int ld = D + 1;
+  float* A_s = smem;               // [F_BM][ld] sr rows
+  float* B_s = A_s + F_BM * ld;    // [F_BN][ld] table rows
+  float* n_s = B_s + F_BN * ld;    // [F_BN] row norms
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int row0 = blockIdx.x * F_BM;
+  const int split = blockIdx.y;
+  const int p_begin = split * cols_per_split;
+  const int p_end = min(P, p_begin + cols_per_split);
+
+  stage_rows(A_s, ld, sr, row0, B, F_BM, D);
+  int lbl[2];
+  float m[2], s[2], zl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + ty + 16 * i;
+    lbl[i] = r < B ? labels[r] : -1;
+    m[i] = NEG_INF;
+    s[i] = 0.f;
+    zl[i] = 0.f;
+  }
+
+  for (int p0 = p_begin; p0 < p_end; p0 += F_BN) {
+    __syncthreads();  // the previous tile is consumed
+    stage_rows(B_s, ld, tab, p0, p_end, F_BN, D);
+    __syncthreads();
+    if (normalize) {
+      tile_norms(B_s, ld, n_s, F_BN, D);
+      __syncthreads();
+    }
+    float acc[2][4] = {};
+    const float* a0 = A_s + ty * ld;
+    const float* a1 = A_s + (ty + 16) * ld;
+#pragma unroll 4
+    for (int k = 0; k < D; ++k) {
+      const float x0 = a0[k], x1 = a1[k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float y = B_s[(tx + 16 * j) * ld + k];
+        acc[0][j] = fmaf(x0, y, acc[0][j]);
+        acc[1][j] = fmaf(x1, y, acc[1][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float z[4];
+      float tmax = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const int col = p0 + c;
+        const int gcol = col_offset + col;
+        float v = scale * acc[i][j];
+        if (normalize) v = v / n_s[c];
+        const bool in_table = col < p_end;
+        if (!in_table || gcol >= n_valid) v = NEG_INF;
+        if (in_table && gcol == lbl[i]) zl[i] += v;
+        z[j] = v;
+        tmax = fmaxf(tmax, v);
+      }
+      const float m_new = fmaxf(m[i], tmax);
+      // guard: exp(NEG_INF - NEG_INF) on an all-masked first tile
+      const float m_safe = fmaxf(m_new, NEG_INF * 0.5f);
+      float acc_s = s[i] * expf(m[i] - m_safe);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc_s += expf(z[j] - m_safe);
+      s[i] = acc_s;
+      m[i] = m_new;
+    }
+  }
+
+  // merge the 16 per-thread partials of each row (lanes of one half-warp)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 8; off; off >>= 1) {
+      const float mo = __shfl_xor_sync(FULL, m[i], off);
+      const float so = __shfl_xor_sync(FULL, s[i], off);
+      const float zo = __shfl_xor_sync(FULL, zl[i], off);
+      const float mn = fmaxf(m[i], mo);
+      const float ms = fmaxf(mn, NEG_INF * 0.5f);
+      s[i] = s[i] * expf(m[i] - ms) + so * expf(mo - ms);
+      zl[i] += zo;
+      m[i] = mn;
+    }
+    const int r = row0 + ty + 16 * i;
+    if (tx == 0 && r < B) {
+      const size_t o = (size_t)split * B + r;
+      m_out[o] = m[i];
+      s_out[o] = s[i];
+      zl_out[o] = zl[i];
+    }
+  }
+}
+
+// K1, merge: lse and per-row loss from the splits' partials (the combine of
+// sharded_xent_fwd, xent.py:339-345, and the tiny guard of _finish_lse)
+__global__ void xent_fwd_merge(const float* __restrict__ m_p,
+                               const float* __restrict__ s_p,
+                               const float* __restrict__ zl_p, int n_split,
+                               int B, float* __restrict__ loss,
+                               float* __restrict__ lse) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= B) return;
+  float mg = NEG_INF;
+  for (int sp = 0; sp < n_split; ++sp) mg = fmaxf(mg, m_p[(size_t)sp * B + r]);
+  const float ms = fmaxf(mg, NEG_INF * 0.5f);
+  float sg = 0.f, zg = 0.f;
+  for (int sp = 0; sp < n_split; ++sp) {
+    const size_t o = (size_t)sp * B + r;
+    sg += s_p[o] * expf(fmaxf(m_p[o], NEG_INF) - ms);
+    zg += zl_p[o];
+  }
+  const float l = ms + logf(fmaxf(sg, FLT_MIN));
+  lse[r] = l;
+  loss[r] = l - zg;
+}
+
+// dz = (p - onehot) * scale * g for one logits value (0 for padding rows)
+template <typename T>
+__device__ __forceinline__ float dlogit(float z, int col, int p_end,
+                                        int col_offset, int n_valid, int lbl,
+                                        float lse_r, float g_r, bool row_ok,
+                                        float scale) {
+  const int gcol = col_offset + col;
+  const bool in_table = col < p_end;
+  if (!row_ok || !in_table) return 0.f;
+  const float p = gcol < n_valid ? expf(z - lse_r) : 0.f;
+  const float oh = gcol == lbl ? 1.f : 0.f;
+  return round_op<T>((p - oh) * (scale * g_r));
+}
+
+// ---------------------------------------------------------------------------
+// K2, d_table: grid = ceil(P / T_BN).  A block owns 32 catalog rows, loops
+// over the batch in 64-row chunks, recomputes the 64 x 32 dz tile and
+// accumulates G = dz^T @ sr in registers (warp w owns catalog rows
+// 4w .. 4w + 3, lane l owns features l + 32 q), then applies the l2norm
+// VJP (G - (G . t) t [n > eps]) / max(n, eps) and writes d_table.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_bwd_dtable(
+    const float* __restrict__ g, const T* __restrict__ sr,
+    const T* __restrict__ tab, const int* __restrict__ labels,
+    const float* __restrict__ lse, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int normalize, T* __restrict__ dtab) {
+  extern __shared__ float smem[];
+  const int ld = D + 1;
+  constexpr int LDZ = T_BN + 1;
+  float* B_s = smem;              // [T_BN][ld] operand table rows
+  float* A_s = B_s + T_BN * ld;   // [T_BM][ld] sr rows
+  float* dz_s = A_s + T_BM * ld;  // [T_BM][LDZ]
+  float* n_s = dz_s + T_BM * LDZ; // [T_BN]
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int p0 = blockIdx.x * T_BN;
+
+  stage_operand_tile(B_s, ld, n_s, tab, p0, P, T_BN, D, normalize);
+
+  float G[4][MAX_D / 32] = {};
+  for (int b0 = 0; b0 < B; b0 += T_BM) {
+    __syncthreads();  // the previous chunk is consumed
+    stage_rows(A_s, ld, sr, b0, B, T_BM, D);
+    __syncthreads();
+    float acc[4][2] = {};
+#pragma unroll 4
+    for (int k = 0; k < D; ++k) {
+      const float y0 = B_s[tx * ld + k], y1 = B_s[(tx + 16) * ld + k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = A_s[(ty + 16 * i) * ld + k];
+        acc[i][0] = fmaf(x, y0, acc[i][0]);
+        acc[i][1] = fmaf(x, y1, acc[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = ty + 16 * i, r = b0 + rl;
+      const bool row_ok = r < B;
+      const int lbl = row_ok ? labels[r] : -1;
+      const float lse_r = row_ok ? lse[r] : 0.f;
+      const float g_r = row_ok ? g[r] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = tx + 16 * j;
+        dz_s[rl * LDZ + c] =
+            dlogit<T>(scale * acc[i][j], p0 + c, P, col_offset, n_valid, lbl,
+                      lse_r, g_r, row_ok, scale);
+      }
+    }
+    __syncthreads();
+    for (int b = 0; b < T_BM; ++b) {
+      float w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = dz_s[b * LDZ + warp * 4 + i];
+#pragma unroll
+      for (int q = 0; q < MAX_D / 32; ++q) {
+        const int d = lane + 32 * q;
+        if (d < D) {
+          const float x = A_s[b * ld + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) G[i][q] = fmaf(w[i], x, G[i][q]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = warp * 4 + i, col = p0 + c;
+    if (col >= P) continue;  // warp-uniform
+    if (normalize) {
+      const float n = n_s[c];
+      const float live = n > NORM_EPS ? 1.f : 0.f;
+      float t[MAX_D / 32];
+      float dot = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_D / 32; ++q) {
+        const int d = lane + 32 * q;
+        t[q] = d < D ? to_f(tab[(size_t)col * D + d]) / n : 0.f;
+        dot += G[i][q] * t[q];
+      }
+      dot = warp_sum(dot);
+#pragma unroll
+      for (int q = 0; q < MAX_D / 32; ++q) {
+        const int d = lane + 32 * q;
+        if (d < D)
+          dtab[(size_t)col * D + d] =
+              from_f<T>((G[i][q] - dot * t[q] * live) / n);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < MAX_D / 32; ++q) {
+        const int d = lane + 32 * q;
+        if (d < D) dtab[(size_t)col * D + d] = from_f<T>(G[i][q]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, d_sr: grid = (ceil(B / F_BM), n_split).  A block owns 32 batch rows
+// and one catalog split, recomputes each 32 x 64 dz tile and accumulates
+// dz @ t in registers (warp w owns rows 4w .. 4w + 3, lane l features
+// l + 32 q); each split writes its partial sum, reduced in a fixed order by
+// xent_bwd_dsr_reduce.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_bwd_dsr(
+    const float* __restrict__ g, const T* __restrict__ sr,
+    const T* __restrict__ tab, const int* __restrict__ labels,
+    const float* __restrict__ lse, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int normalize, int cols_per_split,
+    float* __restrict__ dsr_part) {
+  extern __shared__ float smem[];
+  const int ld = D + 1;
+  constexpr int LDZ = F_BN + 1;
+  float* A_s = smem;              // [F_BM][ld] sr rows
+  float* B_s = A_s + F_BM * ld;   // [F_BN][ld] operand table rows
+  float* dz_s = B_s + F_BN * ld;  // [F_BM][LDZ]
+  float* n_s = dz_s + F_BM * LDZ; // [F_BN]
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * F_BM;
+  const int split = blockIdx.y;
+  const int p_begin = split * cols_per_split;
+  const int p_end = min(P, p_begin + cols_per_split);
+
+  stage_rows(A_s, ld, sr, row0, B, F_BM, D);
+  int lbl[2];
+  float lse_r[2], g_r[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + ty + 16 * i;
+    row_ok[i] = r < B;
+    lbl[i] = row_ok[i] ? labels[r] : -1;
+    lse_r[i] = row_ok[i] ? lse[r] : 0.f;
+    g_r[i] = row_ok[i] ? g[r] : 0.f;
+  }
+
+  float acc_d[4][MAX_D / 32] = {};
+  for (int p0 = p_begin; p0 < p_end; p0 += F_BN) {
+    __syncthreads();  // the previous tile is consumed
+    stage_operand_tile(B_s, ld, n_s, tab, p0, p_end, F_BN, D, normalize);
+    float acc[2][4] = {};
+    const float* a0 = A_s + ty * ld;
+    const float* a1 = A_s + (ty + 16) * ld;
+#pragma unroll 4
+    for (int k = 0; k < D; ++k) {
+      const float x0 = a0[k], x1 = a1[k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float y = B_s[(tx + 16 * j) * ld + k];
+        acc[0][j] = fmaf(x0, y, acc[0][j]);
+        acc[1][j] = fmaf(x1, y, acc[1][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        dz_s[(ty + 16 * i) * LDZ + c] =
+            dlogit<T>(scale * acc[i][j], p0 + c, p_end, col_offset, n_valid,
+                      lbl[i], lse_r[i], g_r[i], row_ok[i], scale);
+      }
+    __syncthreads();
+    const int cols = min(F_BN, p_end - p0);
+    for (int c = 0; c < cols; ++c) {
+      float w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = dz_s[(warp * 4 + i) * LDZ + c];
+#pragma unroll
+      for (int q = 0; q < MAX_D / 32; ++q) {
+        const int d = lane + 32 * q;
+        if (d < D) {
+          const float y = B_s[c * ld + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc_d[i][q] = fmaf(w[i], y, acc_d[i][q]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + warp * 4 + i;
+    if (r >= B) continue;
+#pragma unroll
+    for (int q = 0; q < MAX_D / 32; ++q) {
+      const int d = lane + 32 * q;
+      if (d < D) dsr_part[((size_t)split * B + r) * D + d] = acc_d[i][q];
+    }
+  }
+}
+
+__global__ void xent_bwd_dsr_reduce(const float* __restrict__ dsr_part,
+                                    int n_split, int n,
+                                    float* __restrict__ dsr) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) acc += dsr_part[(size_t)sp * n + e];
+    dsr[e] = acc;
+  }
+}
+
+size_t fwd_smem(int D) { return ((size_t)(F_BM + F_BN) * (D + 1) + F_BN) * 4; }
+size_t dtable_smem(int D) {
+  return ((size_t)(T_BN + T_BM) * (D + 1) + T_BM * (T_BN + 1) + T_BN) * 4;
+}
+size_t dsr_smem(int D) {
+  return ((size_t)(F_BM + F_BN) * (D + 1) + F_BM * (F_BN + 1) + F_BN) * 4;
+}
+
+template <typename T>
+int fwd(const void* sr, const void* tab, const int* labels, int B, int P,
+        int D, int n_valid, int col_offset, float scale, int normalize,
+        int n_split, int cols_per_split, float* part, float* loss, float* lse,
+        cudaStream_t stream) {
+  const size_t smem = fwd_smem(D);
+  cudaFuncSetAttribute(xent_fwd_partial<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  float* m_p = part;
+  float* s_p = part + (size_t)n_split * B;
+  float* zl_p = part + (size_t)2 * n_split * B;
+  dim3 grid((B + F_BM - 1) / F_BM, n_split);
+  xent_fwd_partial<T><<<grid, NT, smem, stream>>>(
+      (const T*)sr, (const T*)tab, labels, B, P, D, n_valid, col_offset,
+      scale, normalize, cols_per_split, m_p, s_p, zl_p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  xent_fwd_merge<<<(B + 255) / 256, 256, 0, stream>>>(m_p, s_p, zl_p, n_split,
+                                                      B, loss, lse);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd(const float* g, const void* sr, const void* tab, const int* labels,
+        const float* lse, int B, int P, int D, int n_valid, int col_offset,
+        float scale, int normalize, int n_split, int cols_per_split,
+        float* dsr_part, float* dsr, void* dtab, cudaStream_t stream) {
+  const size_t smem_t = dtable_smem(D), smem_s = dsr_smem(D);
+  cudaFuncSetAttribute(xent_bwd_dtable<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem_t);
+  cudaFuncSetAttribute(xent_bwd_dsr<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem_s);
+  xent_bwd_dtable<T><<<(P + T_BN - 1) / T_BN, NT, smem_t, stream>>>(
+      g, (const T*)sr, (const T*)tab, labels, lse, B, P, D, n_valid,
+      col_offset, scale, normalize, (T*)dtab);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((B + F_BM - 1) / F_BM, n_split);
+  xent_bwd_dsr<T><<<grid, NT, smem_s, stream>>>(
+      g, (const T*)sr, (const T*)tab, labels, lse, B, P, D, n_valid,
+      col_offset, scale, normalize, cols_per_split, dsr_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = B * D;
+  xent_bwd_dsr_reduce<<<(n + 255) / 256, 256, 0, stream>>>(dsr_part, n_split,
+                                                           n, dsr);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// tile sizes the wrapper needs to size the catalog splits and the checks
+int srt_xent_tile_cols() { return F_BN; }
+int srt_xent_tile_rows() { return F_BM; }
+int srt_xent_max_d() { return MAX_D; }
+
+// K1: per-row loss and lse; part is scratch of 3 * n_split * B floats
+int srt_xent_fwd(const void* sr, const void* tab, const void* labels, int B,
+                 int P, int D, int n_valid, int col_offset, float scale,
+                 int normalize, int is_bf16, int n_split, int cols_per_split,
+                 void* part, void* loss, void* lse, void* stream) {
+  auto f = is_bf16 ? fwd<__nv_bfloat16> : fwd<float>;
+  return f(sr, tab, (const int*)labels, B, P, D, n_valid, col_offset, scale,
+           normalize, n_split, cols_per_split, (float*)part, (float*)loss,
+           (float*)lse, (cudaStream_t)stream);
+}
+
+// K2: d_sr (float32) and d_table (table's type); dsr_part is scratch of
+// n_split * B * D floats
+int srt_xent_bwd(const void* g, const void* sr, const void* tab,
+                 const void* labels, const void* lse, int B, int P, int D,
+                 int n_valid, int col_offset, float scale, int normalize,
+                 int is_bf16, int n_split, int cols_per_split, void* dsr_part,
+                 void* dsr, void* dtab, void* stream) {
+  auto f = is_bf16 ? bwd<__nv_bfloat16> : bwd<float>;
+  return f((const float*)g, sr, tab, (const int*)labels, (const float*)lse, B,
+           P, D, n_valid, col_offset, scale, normalize, n_split,
+           cols_per_split, (float*)dsr_part, (float*)dsr, dtab,
+           (cudaStream_t)stream);
+}
+
+}  // extern "C"

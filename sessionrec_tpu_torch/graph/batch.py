@@ -1,0 +1,133 @@
+"""Fixed-shape batch containers — the dense replacement for ``dgl.batch``.
+
+Counterpart of ``sessionrec_tpu/graph/batch.py``: one row per session,
+padded to static maxima, with masks marking the real entries.  The
+conventions are the same:
+
+  * ``intra_adj[b, u, v]`` marks edge ``u -> v`` (src-major); in-neighbour
+    aggregation for destinations contracts axis 1.
+  * node indices 0 .. n_nodes-1 are real, the rest padding; padded
+    ``iid`` entries are 0 (in range for gathers, never selected).
+  * ``valid`` marks real examples; a partial batch is padded with
+    ``valid = 0`` rows.
+
+The containers are plain dataclasses.  The loader's prefetch thread fills
+them with numpy arrays; ``to(device)`` turns every array into a tensor on
+``device`` (through pinned host memory when the device is a GPU), and is
+called on the consuming thread only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+def _move(x, device):
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    device = torch.device(device)
+    if device.type == "cuda" and not x.is_cuda:
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
+class _Container:
+    def to(self, device):
+        """Copy of this batch with every array a tensor on ``device``."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, tuple):
+                out[f.name] = tuple(e.to(device) if isinstance(e, _Container)
+                                    else _move(e, device) for e in v)
+            elif isinstance(v, _Container):
+                out[f.name] = v.to(device)
+            else:
+                out[f.name] = _move(v, device)
+        return type(self)(**out)
+
+
+@dataclass
+class CcsLevel(_Container):
+    """One granularity level of the CCS heterograph (collate.py:87-217).
+
+    Level ``k`` nodes are the distinct consecutive k-grams of the session
+    in first-occurrence order; ``iid`` stores the k member item ids per
+    node.  A session shorter than ``k`` gets a single pad node whose iid
+    is the session's smallest item id repeated (collate.py:203-207).
+    """
+
+    iid: torch.Tensor        # [B, Nk, k] int32 member item ids
+    mask: torch.Tensor       # [B, Nk] float32
+    intra_adj: torch.Tensor  # [B, Nk, Nk] float32 0/1 (dedup)
+    last_idx: torch.Tensor   # [B] int32
+
+
+@dataclass
+class CcsBatch(_Container):
+    """Multi-granularity CCS heterograph batch for MSGIFSR."""
+
+    levels: tuple     # tuple[CcsLevel] for k = 1..K
+    inter_in: tuple   # [B, N1, Nk] 0/1 per k >= 2 (s1 -> sk)
+    inter_out: tuple  # [B, Nk, N1] 0/1 per k >= 2 (sk -> s1)
+    labels: torch.Tensor  # [B] int32
+    valid: torch.Tensor   # [B] float32
+
+    @property
+    def order(self) -> int:
+        return len(self.levels)
+
+
+def _cat(a, b):
+    if isinstance(a, np.ndarray):
+        return np.concatenate([a, b], axis=0)
+    return torch.cat([a, b], dim=0)
+
+
+@dataclass
+class SplitBatch(_Container):
+    """Length-bucketed batch: the SAME example set as an unsplit batch,
+    partitioned by prefix length into sub-blocks built at different
+    static node caps (see ``sessionrec_tpu/graph/batch.py:SplitBatch``).
+
+    ``short`` may itself be a SplitBatch (three or more tiers, shortest
+    first); every consumer recurses.  ``labels`` / ``valid`` are the
+    row-concatenated views, in the order the model heads concatenate
+    their session vectors.
+    """
+
+    short: object
+    long: object
+
+    @property
+    def labels(self):
+        return _cat(self.short.labels, self.long.labels)
+
+    @property
+    def valid(self):
+        return _cat(self.short.valid, self.long.valid)
+
+    @property
+    def order(self) -> int:
+        return self.long.order
+
+
+def flatten_blocks(batch):
+    """Leaf blocks of a (possibly nested) SplitBatch, shortest tier
+    first; ``[batch]`` for an unsplit batch."""
+    if isinstance(batch, SplitBatch):
+        return flatten_blocks(batch.short) + flatten_blocks(batch.long)
+    return [batch]
+
+
+def nest_blocks(blocks):
+    """Left-nested SplitBatch over ``blocks`` (inverse of
+    ``flatten_blocks``); identity for a single block."""
+    nested = blocks[0]
+    for b in blocks[1:]:
+        nested = SplitBatch(short=nested, long=b)
+    return nested

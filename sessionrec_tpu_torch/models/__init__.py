@@ -1,0 +1,15 @@
+"""Models of the port: MSGIFSR at order 1 so far."""
+
+from sessionrec_tpu_torch.models.msgifsr import MSGIFSR  # noqa: F401
+
+_REGISTRY = {"msgifsr": MSGIFSR}
+
+
+def build_model(cfg, num_items: int):
+    """Instantiate a model from a ModelConfig + catalog size."""
+    name = cfg.name.lower()
+    if name not in _REGISTRY:
+        raise NotImplementedError(
+            f"model {cfg.name!r} is not ported yet (ROADMAP.md, queue 1 "
+            f"item 8); the port has {sorted(_REGISTRY)}")
+    return _REGISTRY[name].from_config(cfg, num_items)

@@ -1,0 +1,375 @@
+"""Fused full-catalog softmax cross-entropy.
+
+Counterpart of ``sessionrec_tpu/ops/xent.py``.  Every training step's loss
+is ``nll(log_softmax(scale * sr @ table^T))`` over the whole item catalog,
+optionally against ``l2norm(table)``.  On CUDA tensors the loss runs the
+hand-written kernels of ``csrc/xent.cu``; the ``[B, P]`` logits never
+exist in device memory:
+
+* K1 (``xent_fwd``, replaces the Pallas ``_fwd_kernel``) streams the
+  catalog and keeps a running row max, sum-exp and label logit; it returns
+  the per-row loss and the log-partition ``lse``, the only residual the
+  backward pass needs.
+* K2 (``xent_bwd``, replaces the Pallas ``_bwd_kernel``) recomputes the
+  logits tile by tile and writes ``d_sr`` and ``d_table`` with the l2norm
+  VJP folded in.
+
+Beside each kernel sits its plain PyTorch version (``_fwd_plain``,
+``_bwd_plain``), the oracle: a wrapper takes it only for tensors on the
+CPU.  For CUDA tensors it launches the kernel or raises.  Logits and the
+softmax always accumulate in float32, also for bfloat16 inputs.
+
+The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
+``build/`` at the repository root and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from sessionrec_tpu_torch.ops.masked import NEG_INF
+
+_NORM_EPS = 1e-12   # torch F.normalize eps (layers.l2norm)
+_TINY = torch.finfo(torch.float32).tiny
+
+# launch counts of the two kernel wrappers (K1, K2); each adds one where it
+# launches its kernels, nowhere else
+fwd_launches = 0
+bwd_launches = 0
+
+
+def reset_launches():
+    global fwd_launches, bwd_launches
+    fwd_launches = 0
+    bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the oracles)
+# ---------------------------------------------------------------------------
+
+def _columns(P, col_offset, device):
+    return col_offset + torch.arange(P, device=device)
+
+
+def _fwd_plain(sr, table, labels, n_valid, col_offset=0, *, scale,
+               normalize_table):
+    """``(m, s, zl)`` per row over the whole table, as one tile of the
+    Pallas forward kernel computes them: running max, sum-exp relative to
+    it, and the label logit (0 when no column matches the label)."""
+    t = table.to(torch.float32)
+    z = scale * torch.matmul(sr.to(torch.float32), t.T)
+    if normalize_table:
+        n = torch.linalg.vector_norm(t, dim=1)
+        z = z / torch.clamp(n, min=_NORM_EPS)[None, :]
+    col = _columns(table.shape[0], col_offset, sr.device)[None, :]
+    z = torch.where(col < n_valid, z, NEG_INF)
+    lbl = labels.to(torch.int64)[:, None]
+    zl = torch.sum(torch.where(col == lbl, z, 0.0), dim=1)
+    m = torch.amax(z, dim=1)
+    m_safe = torch.clamp(m, min=NEG_INF * 0.5)
+    s = torch.sum(torch.exp(z - m_safe[:, None]), dim=1)
+    return m, s, zl
+
+
+def _finish_lse(m, s):
+    """log-sum-exp from a (running max, relative sum-exp) pair."""
+    return torch.clamp(m, min=NEG_INF * 0.5) + \
+        torch.log(torch.clamp(s, min=_TINY))
+
+
+def _operand(table, normalize_table):
+    """The backward products' table operand: ``t / max(||t||, eps)`` in
+    float32, rounded to the table's type (the JAX kernel's MXU operand),
+    and the clamped norms."""
+    t = table.to(torch.float32)
+    n = torch.clamp(torch.linalg.vector_norm(t, dim=1, keepdim=True),
+                    min=_NORM_EPS)
+    if normalize_table:
+        that = t / n
+        return that, that.to(table.dtype).to(torch.float32), n
+    return t, t, n
+
+
+def _bwd_plain(g, sr, table, labels, lse, n_valid, col_offset=0, *, scale,
+               normalize_table):
+    """``(d_sr [B, D] float32, d_table [P, D] in the table's type)`` for the
+    per-row loss cotangent ``g`` — the Pallas backward kernel's math over
+    the whole table as one tile."""
+    mxu = table.dtype
+    that, tmm, n = _operand(table, normalize_table)
+    srf = sr.to(torch.float32)
+    z = scale * torch.matmul(srf, tmm.T)
+    col = _columns(table.shape[0], col_offset, sr.device)[None, :]
+    p = torch.where(col < n_valid, torch.exp(z - lse[:, None]), 0.0)
+    onehot = (col == labels.to(torch.int64)[:, None]).to(torch.float32)
+    dz = ((p - onehot) * (scale * g.to(torch.float32))[:, None]) \
+        .to(mxu).to(torch.float32)
+    gtab = torch.matmul(dz.T, srf)
+    if normalize_table:
+        # VJP of t_hat = t / max(||t||, eps):
+        #   dt = (G - (G . t_hat) t_hat [n > eps]) / max(n, eps)
+        gdot = torch.sum(gtab * that, dim=1, keepdim=True)
+        live = (n > _NORM_EPS).to(torch.float32)
+        gtab = (gtab - gdot * that * live) / n
+    dsr = torch.matmul(dz, tmm)
+    return dsr, gtab.to(table.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/xent.cu)
+# ---------------------------------------------------------------------------
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "xent.cu"
+_BUILD = Path(__file__).resolve().parents[2] / "build"
+_lib = None
+
+# blocks the kernels' grids aim for: two resident blocks on each of the
+# H100's 132 SMs
+_TARGET_BLOCKS = 264
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found: the CUDA kernels of "
+                       "sessionrec_tpu_torch need the CUDA toolkit")
+
+
+def build_library():
+    """Compile ``csrc/xent.cu`` for sm_90a (once per source version) and
+    return the path of the shared library."""
+    src = _SRC.read_bytes()
+    out = _BUILD / f"libsrt_xent-{hashlib.sha256(src).hexdigest()[:12]}.so"
+    if out.exists():
+        return out
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-o", tmp, str(_SRC)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.srt_xent_fwd.argtypes = [vp, vp, vp, i, i, i, i, i, f, i, i, i,
+                                     i, vp, vp, vp, vp]
+        lib.srt_xent_fwd.restype = i
+        lib.srt_xent_bwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, f, i,
+                                     i, i, i, vp, vp, vp, vp]
+        lib.srt_xent_bwd.restype = i
+        for name in ("srt_xent_tile_cols", "srt_xent_tile_rows",
+                     "srt_xent_max_d"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        _lib = lib
+    return _lib
+
+
+def _check(sr, table, labels, *vectors):
+    """Raise on anything the kernels do not take."""
+    dev = sr.device
+    if sr.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sr must be float32 or bfloat16, got {sr.dtype}")
+    if table.dtype != sr.dtype:
+        raise TypeError(f"table dtype {table.dtype} != sr dtype {sr.dtype}")
+    if sr.dim() != 2 or table.dim() != 2 or sr.shape[1] != table.shape[1]:
+        raise ValueError(f"need sr [B, D] and table [P, D], got "
+                         f"{tuple(sr.shape)} and {tuple(table.shape)}")
+    if labels.dtype != torch.int32 or labels.shape != (sr.shape[0],):
+        raise TypeError(f"labels must be int32 [B], got {labels.dtype} "
+                        f"{tuple(labels.shape)}")
+    for v in vectors:
+        if v.dtype != torch.float32 or v.shape != (sr.shape[0],):
+            raise TypeError(f"row vectors must be float32 [B], got "
+                            f"{v.dtype} {tuple(v.shape)}")
+    for t in (sr, table, labels) + vectors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    B, D = sr.shape
+    if B == 0 or table.shape[0] == 0:
+        raise ValueError("empty batch or catalog")
+    if not 0 < D <= _library().srt_xent_max_d():
+        raise ValueError(f"feature width {D} not in (0, "
+                         f"{_library().srt_xent_max_d()}]")
+
+
+def _splits(B, P):
+    """(n_split, cols_per_split): catalog splits so that row tiles times
+    splits fill but do not pass ``_TARGET_BLOCKS`` (a block past it would
+    run in a second wave), each split a whole number of tiles."""
+    lib = _library()
+    bn, bm = lib.srt_xent_tile_cols(), lib.srt_xent_tile_rows()
+    tiles = -(-P // bn)
+    want = max(1, _TARGET_BLOCKS // -(-B // bm))
+    per = -(-tiles // min(want, tiles))
+    return -(-tiles // per), per * bn
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _fwd_cuda(sr, table, labels, n_valid, col_offset, *, scale,
+              normalize_table):
+    global fwd_launches
+    _check(sr, table, labels)
+    lib = _library()
+    B, D = sr.shape
+    P = table.shape[0]
+    n_split, per = _splits(B, P)
+    part = torch.empty(3 * n_split * B, dtype=torch.float32,
+                       device=sr.device)
+    loss = torch.empty(B, dtype=torch.float32, device=sr.device)
+    lse = torch.empty(B, dtype=torch.float32, device=sr.device)
+    stream = torch.cuda.current_stream(sr.device).cuda_stream
+    err = lib.srt_xent_fwd(
+        sr.data_ptr(), table.data_ptr(), labels.data_ptr(), B, P, D,
+        int(n_valid), int(col_offset), float(scale), int(normalize_table),
+        int(sr.dtype == torch.bfloat16), n_split, per, part.data_ptr(),
+        loss.data_ptr(), lse.data_ptr(), stream)
+    _raise_on(err, "xent_fwd launch")
+    fwd_launches += 1
+    return loss, lse
+
+
+def _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset, *, scale,
+              normalize_table):
+    global bwd_launches
+    _check(sr, table, labels, g, lse)
+    lib = _library()
+    B, D = sr.shape
+    P = table.shape[0]
+    n_split, per = _splits(B, P)
+    dsr_part = torch.empty(n_split * B * D, dtype=torch.float32,
+                           device=sr.device)
+    dsr = torch.empty(B, D, dtype=torch.float32, device=sr.device)
+    dtab = torch.empty_like(table)
+    stream = torch.cuda.current_stream(sr.device).cuda_stream
+    err = lib.srt_xent_bwd(
+        g.data_ptr(), sr.data_ptr(), table.data_ptr(), labels.data_ptr(),
+        lse.data_ptr(), B, P, D, int(n_valid), int(col_offset),
+        float(scale), int(normalize_table), int(sr.dtype == torch.bfloat16),
+        n_split, per, dsr_part.data_ptr(), dsr.data_ptr(), dtab.data_ptr(),
+        stream)
+    _raise_on(err, "xent_bwd launch")
+    bwd_launches += 1
+    return dsr, dtab
+
+
+# ---------------------------------------------------------------------------
+# dispatch: the kernel for CUDA tensors, the plain version for CPU tensors
+# ---------------------------------------------------------------------------
+
+def xent_fwd(sr, table, labels, n_valid, col_offset=0, *, scale,
+             normalize_table):
+    """K1: ``(per-row loss [B], lse [B])``, float32."""
+    if sr.is_cuda:
+        return _fwd_cuda(sr, table, labels, n_valid, col_offset,
+                         scale=scale, normalize_table=normalize_table)
+    if sr.device.type != "cpu":
+        raise NotImplementedError(f"no xent kernel for {sr.device}")
+    m, s, zl = _fwd_plain(sr, table, labels, n_valid, col_offset,
+                          scale=scale, normalize_table=normalize_table)
+    lse = _finish_lse(m, s)
+    return lse - zl, lse
+
+
+def xent_bwd(g, sr, table, labels, lse, n_valid, col_offset=0, *, scale,
+             normalize_table):
+    """K2: ``(d_sr [B, D] float32, d_table [P, D])`` for cotangent ``g``."""
+    if sr.is_cuda:
+        return _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset,
+                         scale=scale, normalize_table=normalize_table)
+    if sr.device.type != "cpu":
+        raise NotImplementedError(f"no xent kernel for {sr.device}")
+    return _bwd_plain(g, sr, table, labels, lse, n_valid, col_offset,
+                      scale=scale, normalize_table=normalize_table)
+
+
+class _CatalogXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sr, table, labels, scale, num_items, normalize_table):
+        sr, table = sr.contiguous(), table.contiguous()
+        labels = labels.to(torch.int32).contiguous()
+        loss, lse = xent_fwd(sr, table, labels, num_items, scale=scale,
+                             normalize_table=normalize_table)
+        ctx.save_for_backward(sr, table, labels, lse)
+        ctx.cfg = (scale, num_items, normalize_table)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        sr, table, labels, lse = ctx.saved_tensors
+        scale, num_items, normalize_table = ctx.cfg
+        dsr, dtab = xent_bwd(g.to(torch.float32).contiguous(), sr, table,
+                             labels, lse, num_items, scale=scale,
+                             normalize_table=normalize_table)
+        return dsr.to(sr.dtype), dtab, None, None, None, None
+
+
+def catalog_xent(sr, table, labels, *, scale: float, num_items: int,
+                 normalize_table: bool = False):
+    """Per-row ``-log softmax(scale * sr @ table^T)[label]`` over the first
+    ``num_items`` table rows (the rest are padding).  ``sr [B, D]``,
+    ``table [P, D]`` of one type (float32 or bfloat16), ``labels [B]``.
+    Returns ``[B]`` float32.  ``normalize_table`` scores against
+    ``l2norm(table)`` with the normalisation folded into the kernels."""
+    return _CatalogXent.apply(sr, table, labels, float(scale),
+                              int(num_items), bool(normalize_table))
+
+
+def reference_xent(sr, table, labels, *, scale: float, num_items: int,
+                   normalize_table: bool = False):
+    """Plain autograd oracle with the semantics of ``catalog_xent``."""
+    if normalize_table:
+        # sqrt(max(.)) so all-zero rows get a zero (not NaN) gradient
+        nsq = torch.sum(table.to(torch.float32) ** 2, dim=-1, keepdim=True)
+        n = torch.sqrt(torch.clamp(nsq, min=_NORM_EPS * _NORM_EPS))
+        table = table / n.to(table.dtype)
+    logits = scale * torch.matmul(sr.to(torch.float32),
+                                  table.to(torch.float32).T)
+    imask = torch.arange(table.shape[0], device=sr.device) < num_items
+    logits = torch.where(imask[None, :], logits, NEG_INF)
+    lp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(lp, 1, labels.to(torch.int64)[:, None])[:, 0]
+
+
+def fused_nll_loss(sr, table, labels, valid, *, scale: float, num_items: int,
+                   normalize_table: bool = False):
+    """Masked-mean catalog cross-entropy (train.py:99 semantics)."""
+    per_row = catalog_xent(sr, table, labels, scale=scale,
+                           num_items=num_items,
+                           normalize_table=normalize_table)
+    v = valid.to(per_row.dtype)
+    return torch.sum(per_row * v) / torch.clamp(torch.sum(v), min=1.0)
