@@ -272,8 +272,8 @@ def phase_path(torch, xent, steps, seed, dataset_dir, smi):
                  log_interval=10, device="cuda")
     xent.reset_launches()
     t0 = time.perf_counter()
-    (mrr, hit), runner = run_training(cfg, max_epoch_batches=steps,
-                                      return_runner=True)
+    runner = run_training(cfg, max_epoch_batches=steps)
+    mrr, hit = runner.max_mrr, runner.max_hit
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches}
@@ -309,7 +309,7 @@ def phase_path(torch, xent, steps, seed, dataset_dir, smi):
     cpu_model.zero_grad(set_to_none=True)
     loss_cpu = make_loss(cpu_model, batch.to("cpu"), None)
     loss_cpu.backward()
-    errs = {"loss": abs(float(loss_gpu) - float(loss_cpu))}
+    errs = {"loss": abs(float(loss_gpu.detach()) - float(loss_cpu.detach()))}
     ok = errs["loss"] <= 1e-4 * abs(float(loss_cpu))
     for name in ("embedding", "fc_sr.0.weight",
                  "layers.0.conv1.intra1.fc"):

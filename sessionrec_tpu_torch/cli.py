@@ -33,11 +33,8 @@ def _add_train_flags(p):
                         "ascending length thresholds (default '4,8'); 0 "
                         "disables")
     p.add_argument("--log-interval", type=int, default=100)
-    p.add_argument("--order", type=int, default=None, help="MSGIFSR order")
-    p.add_argument("--reducer", default=None, choices=["mean", "max", "concat"])
-    p.add_argument("--no-norm", action="store_true")
-    p.add_argument("--extra", action="store_true", help="MSGIFSR REnorm")
-    p.add_argument("--fusion", action="store_true", help="MSGIFSR IFR")
+    p.add_argument("--order", type=int, default=None,
+                   help="MSGIFSR order (the port runs order 1)")
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--shuffle", action="store_true", default=None)
     p.add_argument("--no-shuffle", dest="shuffle", action="store_false")
@@ -60,12 +57,6 @@ def build_config(args):
         m.feat_drop = args.feat_drop
     if args.order is not None:
         m.order = args.order
-    if args.reducer is not None:
-        m.reducer = args.reducer
-    if args.no_norm:
-        m.norm = False
-    m.extra = args.extra
-    m.fusion = args.fusion
     d.dataset_dir = args.dataset_dir
     if args.batch_size is not None:
         d.batch_size = args.batch_size
@@ -93,9 +84,9 @@ def build_config(args):
 def cmd_train(args):
     from sessionrec_tpu_torch.train.session import run_training
     cfg = build_config(args)
-    mrr, hit = run_training(cfg, max_epoch_batches=args.max_epoch_batches)
+    runner = run_training(cfg, max_epoch_batches=args.max_epoch_batches)
     print("MRR@20\tHR@20")
-    print(f"{mrr * 100:.3f}%\t{hit * 100:.3f}%")
+    print(f"{runner.max_mrr * 100:.3f}%\t{runner.max_hit * 100:.3f}%")
 
 
 def main(argv=None):

@@ -33,10 +33,6 @@ def embedding_lookup(table, ids):
     return table[ids.to(torch.int64)]
 
 
-def linear(lin: nn.Linear, x):
-    return F.linear(x, lin.weight, lin.bias)
-
-
 def l2norm(x, eps=1e-12, dim=-1):
     """torch F.normalize: x / max(||x||, eps) (norm computed in f32)."""
     n = torch.linalg.vector_norm(x.to(torch.float32), dim=dim, keepdim=True)

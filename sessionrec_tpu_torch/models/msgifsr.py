@@ -8,8 +8,9 @@ whose parameter names follow the JAX parameter tree (``embedding``,
 ``sessionrec_tpu_torch.convert`` maps JAX parameters one to one.
 
 At order 1 without REnorm (``extra``) the loss is the softmax
-cross-entropy of 12 * the order-1 logits (``has_plain_head``), which the
-trainer computes with the fused catalog loss (ops/xent.py).  Orders above
+cross-entropy of 12 * the order-1 logits (the JAX package's
+``has_plain_head``), which the trainer computes with the fused catalog
+loss (ops/xent.py).  Orders above
 1, ``extra`` and ``fusion`` wait for the paper-head slice (ROADMAP.md,
 queue 1 item 7).
 
@@ -67,14 +68,11 @@ class _ScSr(nn.Module):
 
 
 class MSGIFSR(nn.Module):
-    graph_kind = "ccs"
-    has_max_norm = True
     num_heads = 8
     scale = 12.0
 
     def __init__(self, num_items, embedding_dim, num_layers, feat_drop=0.0,
-                 reducer="mean", order=1, norm=True, extra=False,
-                 fusion=False):
+                 order=1, norm=True, extra=False, fusion=False):
         super().__init__()
         if order != 1 or extra or fusion:
             raise NotImplementedError(
@@ -85,7 +83,6 @@ class MSGIFSR(nn.Module):
         self.embedding_dim = d = embedding_dim
         self.num_layers = num_layers
         self.feat_drop = feat_drop
-        self.reducer = reducer
         self.order = K = order
         self.norm = norm
         self.embedding = nn.Parameter(torch.empty(self.padded_items, d))
@@ -102,16 +99,12 @@ class MSGIFSR(nn.Module):
     def from_config(cls, cfg, num_items):
         return cls(num_items=num_items, embedding_dim=cfg.embedding_dim,
                    num_layers=cfg.num_layers, feat_drop=cfg.feat_drop,
-                   reducer=cfg.reducer, order=cfg.order, norm=cfg.norm,
+                   order=cfg.order, norm=cfg.norm,
                    extra=cfg.extra, fusion=cfg.fusion)
 
     @property
     def padded_items(self):
         return scoring.pad_catalog(self.num_items)
-
-    @property
-    def has_plain_head(self):
-        return True
 
     @property
     def table_norm(self):
@@ -145,10 +138,9 @@ class MSGIFSR(nn.Module):
         outs = []
         for i in range(self.order):
             last = self._last(feats[i], batch.levels[i].last_idx)
-            fu = L.linear(self.readout.fc_u[i], all_feat)
-            fv = L.linear(self.readout.fc_v[i], last)
-            e = L.linear(self.readout.fc_e[i],
-                         torch.sigmoid(fu + fv[:, None, :]))
+            fu = self.readout.fc_u[i](all_feat)
+            fv = self.readout.fc_v[i](last)
+            e = self.readout.fc_e[i](torch.sigmoid(fu + fv[:, None, :]))
             alpha = masked_softmax(e, all_mask[..., None], dim=1)
             outs.append(torch.sum(all_feat * alpha, dim=1))
         return torch.stack(outs, dim=1)                    # [B, K, d]
@@ -178,7 +170,7 @@ class MSGIFSR(nn.Module):
         sr_l = torch.stack([self._last(h[i], batch.levels[i].last_idx)
                             for i in range(self.order)], dim=1)
         sr = torch.cat([sr_l, sr_g], dim=-1)               # [B, K, 2d]
-        sr = torch.stack([L.linear(self.fc_sr[i], sr[:, i])
+        sr = torch.stack([self.fc_sr[i](sr[:, i])
                           for i in range(self.order)], dim=1)
         if self.norm:
             sr = L.l2norm(sr)

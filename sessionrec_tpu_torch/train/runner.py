@@ -112,7 +112,7 @@ class TrainRunner:
     def __init__(self, model, train_loader, test_loader, *, lr=1e-3,
                  weight_decay=1e-4, patience=3, seed=123, cutoff=20,
                  lr_step_size=3, lr_gamma=0.1, eval_before_train=True,
-                 device="cuda", init=True):
+                 device="cuda"):
         set_precision()
         self.device = resolve_device(str(device))
         self.model = model
@@ -121,8 +121,7 @@ class TrainRunner:
         self.patience = patience
         self.cutoff = cutoff
         self.eval_before_train = eval_before_train
-        if init:
-            model.reset_parameters(torch.Generator().manual_seed(seed))
+        model.reset_parameters(torch.Generator().manual_seed(seed))
         model.to(self.device)
         self.drop_gen = torch.Generator().manual_seed(seed + 1)
         # establish the step invariant; identity for fresh inits

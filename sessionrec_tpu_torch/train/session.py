@@ -49,9 +49,9 @@ def make_loaders(cfg, model_name=None, order=1, device=None):
     return train_loader, test_loader, num_items, max_len
 
 
-def run_training(cfg, max_epoch_batches=None, return_runner=False):
-    """Train as ``cfg`` says; returns (max MRR, max HR), or the runner too
-    with ``return_runner``."""
+def run_training(cfg, max_epoch_batches=None):
+    """Train as ``cfg`` says; returns the TrainRunner, whose ``max_mrr`` /
+    ``max_hit`` are the run's result."""
     name = cfg.model.name.lower()
     device = resolve_device(cfg.train.device)
     train_loader, test_loader, num_items, max_len = make_loaders(
@@ -70,8 +70,8 @@ def run_training(cfg, max_epoch_batches=None, return_runner=False):
         cutoff=cfg.train.cutoff, lr_step_size=cfg.train.lr_step_size,
         lr_gamma=cfg.train.lr_gamma,
         eval_before_train=cfg.train.eval_before_train, device=device)
-    result = runner.train(cfg.train.epochs, cfg.train.log_interval)
-    return (result, runner) if return_runner else result
+    runner.train(cfg.train.epochs, cfg.train.log_interval)
+    return runner
 
 
 class _CappedLoader:

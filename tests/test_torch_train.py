@@ -37,6 +37,7 @@ def test_three_steps_match_jax():
     tl = TLoader(sess, "ccs", 32, 11, prefetch=0, split_len=(4, 8),
                  device="cpu")
     jbs, tbs = list(jl)[:STEPS], list(tl)[:STEPS]
+    start = params_from_jax(jax.device_get(jp))
 
     # one step per "epoch" and a drop every epoch: the LR changes at each
     # step, so a schedule that counts differently shows in the params
@@ -51,8 +52,8 @@ def test_three_steps_match_jax():
         jlosses.append(float(loss))
 
     runner = TrainRunner(tm, tbs[:1], [], lr=LR, weight_decay=WD,
-                         device="cpu", init=False, lr_step_size=1,
-                         lr_gamma=0.5)
+                         device="cpu", lr_step_size=1, lr_gamma=0.5)
+    tm.load_state_dict(start)        # the runner drew its own init
     tlosses = [float(runner.train_step(b)) for b in tbs]
 
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
@@ -92,7 +93,7 @@ def test_cuda_device_is_not_silently_replaced():
 
 def test_non_finite_loss_aborts():
     _, _, tm = make_pair()
-    runner = TrainRunner(tm, [None], [], device="cpu", init=False)
+    runner = TrainRunner(tm, [None], [], device="cpu")
     with pytest.raises(FloatingPointError):
         runner._drain_losses([torch.tensor(1.0), torch.tensor(float("nan"))])
 

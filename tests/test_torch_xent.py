@@ -5,7 +5,7 @@ interpret mode as tests/test_xent.py runs them, and the jnp oracle.
 Tolerances: values rtol/atol 1e-5, gradients rtol 1e-3 / atol 2e-4 (those
 of tests/test_xent.py: the sums run in another order), bfloat16 inputs
 1e-2.  The CUDA kernels themselves are held against the plain versions on
-the card by the ``gpu`` test at the end and by chip_smoke.py.
+the card by tests/test_torch_kernels_gpu.py and by chip_smoke.py.
 """
 
 import jax
@@ -191,40 +191,3 @@ def test_cpu_launches_no_kernel():
     tx.catalog_xent(s, _t(table), _t(labels, torch.int32), scale=12.0,
                     num_items=512).sum().backward()
     assert tx.fwd_launches == 0 and tx.bwd_launches == 0
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the port's kernels have no "
-                    "interpret mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("norm", [True, False])
-def test_kernels_match_plain_on_card(cuda_device, dtype, norm):
-    B, D, P, n = 64, 256, 1536, 1400
-    sr, table, labels, _ = _case(B, D, P, n, seed=7, zero_row=2)
-    labels[0] = -1
-    s = _t(sr, dtype).to(cuda_device)
-    t = (_t(table, dtype) / 16).to(cuda_device)
-    lbl = _t(labels, torch.int32).to(cuda_device)
-    loss, lse = tx._fwd_cuda(s, t, lbl, n, 0, scale=12.0,
-                             normalize_table=norm)
-    m, st, zl = tx._fwd_plain(s, t, lbl, n, scale=12.0,
-                              normalize_table=norm)
-    lse_p = tx._finish_lse(m, st)
-    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(loss, lse_p - zl, rtol=1e-5, atol=1e-4)
-    g = torch.full((B,), 1.0 / B, device=cuda_device)
-    dsr, dtab = tx._bwd_cuda(g, s, t, lbl, lse_p, n, 0, scale=12.0,
-                             normalize_table=norm)
-    dsr_p, dtab_p = tx._bwd_plain(g, s, t, lbl, lse_p, n, scale=12.0,
-                                  normalize_table=norm)
-    tol = 1e-3 if dtype == torch.float32 else 1e-2
-    keep = torch.arange(P, device=cuda_device) != 2
-    assert float((dsr - dsr_p).abs().max()) <= tol * float(dsr_p.abs().max())
-    assert float((dtab[keep].float() - dtab_p[keep].float()).abs().max()) \
-        <= tol * float(dtab_p[keep].float().abs().max())
