@@ -310,7 +310,7 @@ def phase_path(torch, xent, steps, seed, dataset_dir, smi):
     loss_cpu = make_loss(cpu_model, batch.to("cpu"), None)
     loss_cpu.backward()
     errs = {"loss": abs(float(loss_gpu.detach()) - float(loss_cpu.detach()))}
-    ok = errs["loss"] <= 1e-4 * abs(float(loss_cpu))
+    ok = errs["loss"] <= 1e-4 * abs(float(loss_cpu.detach()))
     for name in ("embedding", "fc_sr.0.weight",
                  "layers.0.conv1.intra1.fc"):
         pg = dict(model.named_parameters())[name].grad.cpu()
