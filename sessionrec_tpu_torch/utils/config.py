@@ -1,16 +1,15 @@
-"""Dataclass configuration with per-model presets.
+"""Dataclass configuration with the MSGIFSR preset.
 
-Reproduces the exact per-script flag defaults of the reference
-(SURVEY.md §5): LESSR main_lessr.py:11-52, NISER main_niser.py:11-52,
-MSGIFSR main_msgifsr.py:36-111; shared trainer defaults train.py:74-75.
-SRGNN has no dedicated reference script (start.sh:6 points at a missing
-file); its preset mirrors NISER's graph/trainer wiring with SRGNN's
-model.
+Reproduces the reference's flag defaults for the fields this port reads
+(SURVEY.md §5): MSGIFSR main_msgifsr.py:36-111; shared trainer defaults
+train.py:74-75.
 
-A copy of ``sessionrec_tpu/utils/config.py`` (the port imports nothing of
-the JAX package).  Fields the PyTorch trainer does not read yet
-(checkpointing, parallelism, the bf16 table) are kept so the two
-packages share one configuration surface.
+Cut down from ``sessionrec_tpu/utils/config.py`` (the port imports
+nothing of the JAX package) to the fields the PyTorch trainer reads, so
+``preset`` raises ``KeyError`` on an option the port does not implement
+(the bf16 table, checkpoints, parallelism, the other models' knobs)
+instead of ignoring it.  A later slice adds a field with the code that
+reads it.
 """
 
 from __future__ import annotations
@@ -27,50 +26,24 @@ class DataConfig:
     valid_split: float | None = None
     max_len: int | None = None    # static node cap; None -> computed from data
     # Length-bucketed batches: each threshold adds a tier of examples
-    # (by prefix length) compiled at its own smaller static node cap
-    # (the same example set per step — graph/batch.py:SplitBatch;
-    # metric identity is tested and confirmed end-to-end, RESULTS.md
-    # round 5).  Default ON at (4, 8) — real prefix-augmented workloads
-    # are short (92% of sample examples are <= 8 items, median 2) and
-    # the measured training speedups are 1.8-2.3x vs unsplit, with the
-    # 4-tier beating the single 8 split by 16% on the order-3 paper
-    # config (BENCH_NOTES.md round 5, scripts/probe_split3.py).
-    # --split-len 0 disables; thresholds >= the data's max length drop
-    # out automatically; disabled on multi-host runs
-    # (train/session.py).
+    # (by prefix length) built at its own smaller static node cap (the
+    # same example set per step — graph/batch.py:SplitBatch).  Default ON
+    # at (4, 8); --split-len 0 disables; thresholds >= the data's max
+    # length drop out automatically.
     split_len: int | tuple | None = (4, 8)
     num_prefetch: int = 2
-    use_native_collate: bool = True
 
 
 @dataclass
 class ModelConfig:
-    name: str = "msgifsr"         # srgnn | niser | lessr | msgifsr
+    name: str = "msgifsr"
     embedding_dim: int = 256
     num_layers: int = 1
     feat_drop: float = 0.1
-    # NISER
-    norm: bool = True
-    scale: float = 12.0
-    # MSGIFSR
+    norm: bool = True             # l2-normalised table and session repr
     order: int = 1
-    reducer: str = "mean"         # mean | max | concat
     extra: bool = False           # REnorm (store_true flag, default off)
     fusion: bool = False          # IFR (store_true flag, default off)
-    # LESSR
-    batch_norm: bool = True
-    # Parity quirk (SURVEY.md §7.4): the reference SRGNN/NISER readout uses
-    # the *pre-GNN* embedding, leaving the GNN output unused
-    # (srgnn.py:141-142).  True reproduces that; False feeds the GNN
-    # output to the readout.
-    readout_on_embedding: bool = True
-    # numerics
-    compute_dtype: str = "float32"   # set "bfloat16" for faster matmuls
-    # Storage dtype of the item-embedding table (the one big tensor).
-    # "bfloat16" halves the table + Adam-moment HBM traffic of every
-    # optimizer step; updates apply with unbiased stochastic rounding
-    # (ops/sround.py) so low-LR updates don't stall on bf16 resolution.
-    table_dtype: str = "float32"
 
 
 @dataclass
@@ -85,19 +58,6 @@ class TrainConfig:
     lr_gamma: float = 0.1
     cutoff: int = 20              # HR@K / MRR@K
     eval_before_train: bool = True  # reference evaluates once pre-training (train.py:91)
-    # the JAX trainer's steps per dispatch; the PyTorch trainer runs one
-    # optimizer step per Python iteration and ignores it
-    unroll: int = 8
-    # new capabilities (absent in reference, flag-gated)
-    checkpoint_dir: str | None = None
-    checkpoint_every_epochs: int = 1
-    resume: bool = False
-    # parallelism
-    data_parallel: int = 1
-    model_parallel: int = 1
-    # observability (absent in reference, SURVEY.md §5)
-    metrics_file: str | None = None   # JSONL sink (utils/metrics.py)
-    profile_dir: str | None = None    # profiler trace dir
     # PyTorch device of the trainer; "cpu" must be asked for explicitly
     device: str = "cuda"
 
@@ -110,21 +70,6 @@ class Config:
 
 
 _PRESETS = {
-    # main_lessr.py defaults: dim 32, 3 layers, drop 0.2, bs 512, patience 2
-    "lessr": dict(model=dict(name="lessr", embedding_dim=32, num_layers=3,
-                             feat_drop=0.2),
-                  data=dict(batch_size=512, shuffle_train=False),
-                  train=dict(patience=2)),
-    # main_niser.py defaults: dim 64, 2 layers, drop 0.5, bs 128, shuffled
-    "niser": dict(model=dict(name="niser", embedding_dim=64, num_layers=2,
-                             feat_drop=0.5),
-                  data=dict(batch_size=128, shuffle_train=True),
-                  train=dict(patience=2)),
-    # no reference script exists; NISER-like wiring, SRGNN model
-    "srgnn": dict(model=dict(name="srgnn", embedding_dim=64, num_layers=2,
-                             feat_drop=0.5),
-                  data=dict(batch_size=128, shuffle_train=True),
-                  train=dict(patience=2)),
     # main_msgifsr.py defaults: dim 256, 1 layer, drop 0.1, bs 512,
     # patience 3, order 3 (start.sh:10 runs --order 1)
     "msgifsr": dict(model=dict(name="msgifsr", embedding_dim=256, num_layers=1,

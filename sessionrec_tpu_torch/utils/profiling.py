@@ -10,9 +10,12 @@ Runs the main path's configuration (MSGIFSR order 1, d=256, 1 layer, batch
   training loop, and to run one step synchronised (forward, backward,
   Adam, projection), with the examples/s of that loop;
 * ``profile`` — a ``torch.profiler`` window over the same loop without
-  per-step synchronisation: the wall time, the device's busy time (sum of
-  kernel times on its one stream) and idle share, and device time by
-  kernel name, the largest first.
+  per-step synchronisation: the wall time, the device's busy time and
+  idle share, and device time by kernel name, the largest first.  Busy
+  time is the union of the intervals of the trace's kernel, memcpy and
+  memset events; annotated ranges (``Optimizer.step#Adam.step``,
+  ``ProfilerStep``), which span kernels that are counted on their own,
+  are left out.
 
 It needs a CUDA device; there is no CPU fallback.
 """
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +76,30 @@ def host_breakdown(train, runner, warmup, steps):
             "examples_per_s": steps * bs / (wait + step)}
 
 
+# trace categories of work the device does; "gpu_user_annotation" ranges
+# cover kernels already listed and would count them twice
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(trace):
+    """(name, start_us, dur_us) of the device's own work in a Chrome trace
+    exported by ``torch.profiler``."""
+    return [(e["name"], float(e["ts"]), float(e["dur"]))
+            for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+
+def busy_us(events):
+    """Length of the union of the events' intervals."""
+    total, end = 0.0, float("-inf")
+    for _, ts, dur in sorted(events, key=lambda e: e[1]):
+        if ts + dur <= end:
+            continue
+        total += ts + dur - max(ts, end)
+        end = ts + dur
+    return total
+
+
 def device_breakdown(train, runner, warmup, steps, top):
     from torch.profiler import ProfilerActivity, profile
     it = iter(train)
@@ -86,15 +114,17 @@ def device_breakdown(train, runner, warmup, steps, top):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     it.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = device_events(json.loads(path.read_text()))
     kernels = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if dev_us > 0 and str(ev.device_type).endswith("CUDA"):
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
-    busy_ms = sum(kernels.values()) / 1e3
+    for name, _, dur in events:
+        kernels[name] = kernels.get(name, 0.0) + dur
+    busy_ms = busy_us(events) / 1e3
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     return {"phase": "profile", "steps": steps, "wall_ms": wall * 1e3,
-            "device_busy_ms": busy_ms,
+            "device_busy_ms": busy_ms, "device_events": len(events),
             "idle_share": 1.0 - busy_ms / (wall * 1e3),
             "per_step_ms": {"wall": wall * 1e3 / steps,
                             "device": busy_ms / steps},

@@ -91,6 +91,18 @@ def test_cuda_device_is_not_silently_replaced():
             resolve_device("cuda")
 
 
+@pytest.mark.parametrize("option", [
+    dict(table_dtype="bfloat16"), dict(compute_dtype="bfloat16"),
+    dict(data_parallel=4), dict(checkpoint_dir="ckpt"),
+    dict(use_native_collate=True)])
+def test_preset_refuses_options_the_port_does_not_run(option):
+    from sessionrec_tpu_torch.utils.config import preset
+    with pytest.raises(KeyError, match="unknown config field"):
+        preset("msgifsr", order=1, **option)
+    with pytest.raises(KeyError):
+        preset("lessr")
+
+
 def test_non_finite_loss_aborts():
     _, _, tm = make_pair()
     runner = TrainRunner(tm, [None], [], device="cpu")
