@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--steps 40]
 
 Phases, one JSON line each on stdout:
 
 1. device  — the card's name and power limit (nvidia-smi).
-2. build   — compile the CUDA kernels (csrc/xent.cu) for sm_90a.
+2. build   — compile the CUDA kernels (csrc/*.cu) for sm_90a.
 3. kernels — hold K1 (xent_fwd) and K2 (xent_bwd) against their plain
    PyTorch versions on the card at B=512, D=256, catalogs of 3,429 and
    37,484 items, float32 and bfloat16, with the table normalised and not,
    including a masked row, a zero-norm and a large-norm table row; then
-   time each kernel, its plain version and one PyTorch call that computes
-   the same function (``library_ms``, a yardstick the port never calls).
+   K3 (xent_multi_fwd) and K4 (xent_multi_bwd) at K=3 orders of those
+   rows, with session item lists of up to 19 ids (-1 padded), a row with
+   none, labels inside and outside the session, and the cotangents of the
+   paper head's loss.  Then time each kernel, its plain version and the
+   PyTorch expression of the same function (``library_ms``, a yardstick
+   the port never calls).
 4. path    — train MSGIFSR order 1 at d=256, 1 layer, batch 512, tiers
    (4, 8), feat_drop 0.1 on datasets/sample through ``run_training``: an
-   initial eval, ``--steps`` optimizer steps, a final eval.  The kernels'
-   launch counts are set to 0 just before and read just after, and must
-   equal the step count.  The loss must be finite and fall, HR@20 and
-   MRR@20 finite, and one batch's loss and gradients must agree with the
-   plain-PyTorch path on the CPU from the same parameters.
+   initial eval, ``--steps`` optimizer steps, a final eval.  Every
+   kernel's launch count is set to 0 just before and read just after: K1
+   and K2 must equal the step count, K3 and K4 be 0.  The loss must be
+   finite and fall, HR@20 and MRR@20 finite, and one batch's loss and
+   gradients must agree with the plain-PyTorch path on the CPU from the
+   same parameters.
+5. paper   — the same for the WSDM'22 paper head (order 3, REnorm,
+   fusion) at the same widths: K3 and K4 launch once per step, K1 and K2
+   never.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before the last line.  Without a CUDA
@@ -40,6 +48,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 B, D, SCALE = 512, 256, 12.0
+K = 3                         # orders of the paper head
+NS = 19                       # longest session item list on datasets/sample
 CATALOGS = (3429, 37484)      # datasets/sample; yoochoose-1/4 (bench.py:47)
 PATH_ITEMS = 3429
 ZERO_ROW = 5                  # the table row set to zero in the checks
@@ -58,6 +68,10 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 # (2^-8 relative)
 TOL = {("fwd", "float32"): 1e-5, ("fwd", "bfloat16"): 1e-5,
        ("bwd", "float32"): 1e-3, ("bwd", "bfloat16"): 1e-2}
+# K3's five stats are held element by element to 1e-5 (TOL "fwd") of their
+# scale (stats_errors), K4 as K2, with d_table's rows hit only by session
+# items (p_in terms) a group of their own
+STATS = ("m_in", "s_in", "m_ex", "s_ex", "zl")
 
 
 def emit(obj):
@@ -120,39 +134,51 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def dtable_groups(torch, labels, n_items, P):
-    """Boolean row masks of d_table, each held to its own scale."""
+def dtable_groups(torch, labels, n_items, P, iids=None):
+    """Boolean row masks of d_table, each held to its own scale: rows hit
+    by a label, rows hit only by a session item (given ``iids``), the
+    other catalog rows, padding rows, the zero-norm and norm-50 rows."""
     rows = torch.arange(P, device=labels.device)
     special = (rows == ZERO_ROW) | (rows == LARGE_ROW)
     hit = torch.zeros(P, dtype=torch.bool, device=labels.device)
     hit[labels[labels >= 0].long()] = True
-    groups = {"labelled": hit & ~special,
-              "unlabelled": ~hit & ~special & (rows < n_items),
-              "zero_row": rows == ZERO_ROW, "large_row": rows == LARGE_ROW}
+    groups = {"labelled": hit & ~special}
+    if iids is not None:
+        sess = torch.zeros(P, dtype=torch.bool, device=labels.device)
+        sess[iids[iids >= 0].long()] = True
+        groups["session"] = sess & ~hit & ~special
+        hit = hit | sess
+    groups.update({"unlabelled": ~hit & ~special & (rows < n_items),
+                   "zero_row": rows == ZERO_ROW,
+                   "large_row": rows == LARGE_ROW})
     if P > n_items:
         groups["padding"] = rows >= n_items
     return groups
 
 
-def dtable_errors(torch, got, want, labels, n_items, tol):
+def dtable_errors(torch, got, want, labels, n_items, tol, iids=None):
     """{group: [max abs err, tolerance]} of d_table, each group of rows
     held to tol times its own largest reference magnitude."""
     return {name: [max_err(got[rows], want[rows]),
                    tol * float(want[rows].float().abs().max())]
             for name, rows in dtable_groups(torch, labels, n_items,
-                                            want.shape[0]).items()}
+                                            want.shape[0], iids).items()}
+
+
+def check_cases(torch):
+    """(items, table rows, type, normalised) of every kernel check: both
+    catalogs, padded and not, float32 and bfloat16, normalised and not."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    return [(n_items, P, dtype, norm) for n_items in CATALOGS
+            for P in (pad_catalog(n_items), n_items)
+            for dtype in (torch.float32, torch.bfloat16)
+            for norm in (True, False)]
 
 
 def phase_kernel_checks(torch, xent, seed):
-    cases = []
-    for n_items in CATALOGS:
-        from sessionrec_tpu_torch.ops.scoring import pad_catalog
-        for P in (pad_catalog(n_items), n_items):
-            for dtype in (torch.float32, torch.bfloat16):
-                for norm in (True, False):
-                    cases.append((n_items, P, dtype, norm))
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
     worst = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    for i, (n_items, P, dtype, norm) in enumerate(cases):
+    for i, (n_items, P, dtype, norm) in enumerate(check_cases(torch)):
         sr, tab, labels, g = make_inputs(torch, n_items, P, dtype, seed + i)
         kw = dict(scale=SCALE, normalize_table=norm)
         loss_k, lse_k = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
@@ -188,6 +214,109 @@ def phase_kernel_checks(torch, xent, seed):
         if P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm:
             worst["xent_fwd"] = e_fwd
             worst["xent_bwd"] = max(
+                [e_dsr] + [e for name, (e, _) in dtab.items()
+                           if name != "zero_row"])
+    return worst
+
+
+def make_multi_inputs(torch, xm, n_items, P, dtype, seed, norm=True,
+                      dev="cuda"):
+    """K3/K4 inputs: sr3 [K, B, D] of unit rows, the K1 checks' table and
+    labels (row 3 masked), session item lists iids [B, NS] of 1 to NS ids
+    (-1 padded; none on row 1; the label inside the session on the other
+    even rows), and the cotangents (gz, gin, gex) that the paper head's
+    loss (REnorm and fusion, random phi and alpha, masked mean) gives the
+    plain stats, with those stats' (lse_in, lse_ex)."""
+    gen = torch.Generator().manual_seed(seed + 1000)
+    _, tab, labels, _ = make_inputs(torch, n_items, P, dtype, seed, dev)
+    sr3 = torch.randn(K, B, D, generator=gen)
+    sr3 = (sr3 / sr3.norm(dim=-1, keepdim=True)).to(dev, dtype)
+    iids = torch.randint(0, n_items, (B, NS), generator=gen,
+                         dtype=torch.int32)
+    lens = torch.randint(1, NS + 1, (B,), generator=gen)
+    iids[torch.arange(NS)[None, :] >= lens[:, None]] = -1
+    iids[1] = -1
+    iids = iids.to(dev)
+    even = torch.arange(B, device=dev) % 2 == 0
+    labels = torch.where(even & (labels >= 0), iids[:, 0], labels)
+    valid = (labels >= 0).float()
+    m_in, s_in, m_ex, s_ex, zl = xm._fwd_plain(
+        sr3, tab, labels, iids, n_items, 0, scale=SCALE,
+        normalize_table=norm)
+    stats = [t.detach().requires_grad_(True)
+             for t in (zl, xm._finish(m_in, s_in), xm._finish(m_ex, s_ex))]
+    phi = torch.softmax(torch.randn(B, K, 2, generator=gen), -1).to(dev)
+    alpha = torch.randn(K, generator=gen).to(dev)
+    lbl_in = torch.any(iids == labels[:, None], dim=1)
+    per_row = xm.combine_stats(*stats, phi, alpha, lbl_in, extra=True,
+                               fusion=True)
+    loss = torch.sum(per_row * valid) / valid.sum()
+    cot = torch.autograd.grad(loss, stats)
+    return sr3, tab, labels, iids, cot, tuple(t.detach() for t in stats[1:])
+
+
+def stats_errors(torch, got, want, tol):
+    """{stat: [max error, tolerance]} of K3's five stats.  A logit is a
+    float32 dot product whose rounding scales with its terms, not with its
+    value, so m_in, m_ex and zl are held to tol times the case's largest
+    logit magnitude z (at least 1), absolutely; an error d in a logit moves
+    exp(z - m) by a factor e^d, so s_in and s_ex are held relatively, each
+    element to tol * z times its own value (an empty partition's 0 exactly).
+    """
+    m_in, _, m_ex, _, _ = want
+    live = torch.cat([m[m > -1e29] for m in (m_in, m_ex)])
+    zmax = max(1.0, float(live.abs().max()))
+    errs = {}
+    for name, g, w in zip(STATS, got, want):
+        d = (g - w).abs()
+        if name.startswith("s_"):
+            rel = torch.where(d == 0, 0.0, d / w.abs().clamp(min=1e-30))
+            errs[name] = [float(rel.max()), tol * zmax]
+        else:
+            errs[name] = [float(d.max()), tol * zmax]
+    return errs
+
+
+def phase_multi_checks(torch, xm, seed):
+    """K3 and K4 against their plain versions; returns the largest errors
+    of the main path's case (padded path catalog, float32, normalised)."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    worst = {}
+    for i, (n_items, P, dtype, norm) in enumerate(check_cases(torch)):
+        sr3, tab, labels, iids, cot, lse = make_multi_inputs(
+            torch, xm, n_items, P, dtype, seed + i, norm)
+        kw = dict(scale=SCALE, normalize_table=norm)
+        got = xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
+        want = xm._fwd_plain(sr3, tab, labels, iids, n_items, 0, **kw)
+        dsr_k, dtab_k = xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
+                                     n_items, 0, **kw)
+        dsr_p, dtab_p = xm._bwd_plain(*cot, sr3, tab, labels, iids, *lse,
+                                      n_items, 0, **kw)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        stats = stats_errors(torch, got, want, TOL[("fwd", dname)])
+        e_fwd = max(max_err(a, b) for a, b in zip(got, want))
+        tol = TOL[("bwd", dname)]
+        e_dsr = max_err(dsr_k, dsr_p)
+        dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol,
+                             iids)
+        row = {"phase": "multi_kernel_check", "items": n_items, "P": P,
+               "K": K, "dtype": dname, "normalize_table": norm,
+               "stats_err_tol": stats, "stats_max_abs_err": e_fwd,
+               "dsr_max_abs_err": e_dsr,
+               "dsr_tol": tol * float(dsr_p.abs().max()),
+               "dtable_err_tol": dtab}
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (*got[1::2], dsr_k, dtab_k))
+        row["ok"] = (finite and all(e <= t for e, t in stats.values())
+                     and e_dsr <= row["dsr_tol"]
+                     and all(e <= t for e, t in dtab.values()))
+        emit(row)
+        check(row["ok"], f"multi kernel disagrees with its plain version: "
+              f"{row}")
+        if P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm:
+            worst["xent_multi_fwd"] = e_fwd
+            worst["xent_multi_bwd"] = max(
                 [e_dsr] + [e for name, (e, _) in dtab.items()
                            if name != "zero_row"])
     return worst
@@ -283,31 +412,125 @@ def phase_kernel_times(torch, xent, seed, smi):
     return rows
 
 
+def phase_multi_times(torch, xm, seed, smi):
+    """K3/K4 times at B=512, K=3, D=256, normalised table, both catalogs
+    and types.  The yardstick is the shortest PyTorch expression of the
+    same function, several calls: one batched product, the membership
+    mask (built once, outside the timing) in ``torch.where``, two
+    ``logsumexp`` and a gather; for K4 its autograd backward."""
+    import torch.nn.functional as F
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    rows = {}
+    for n_items in CATALOGS:
+        P = pad_catalog(n_items)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            sr3, tab, labels, iids, cot, lse = make_multi_inputs(
+                torch, xm, n_items, P, dtype, seed)
+            kw = dict(scale=SCALE, normalize_table=True)
+            iters = 50 if P < 10000 else 10
+            member = xm._member(iids, P, 0)
+            imask = torch.arange(P, device="cuda") < n_items
+            lbl = labels.clamp(min=0).long()[None, :, None].expand(K, B, 1)
+            srl = sr3.detach().clone().requires_grad_(True)
+            tabl = tab.detach().clone().requires_grad_(True)
+
+            def lib_fwd():
+                z = SCALE * torch.matmul(srl, F.normalize(tabl, dim=1).T)
+                z = torch.where(imask, z, -1e30)
+                return (torch.gather(z, 2, lbl)[..., 0],
+                        torch.logsumexp(torch.where(member, z, -1e30), -1),
+                        torch.logsumexp(torch.where(member, -1e30, z), -1))
+
+            lib_out = lib_fwd()
+            lib_cot = tuple(c.to(dtype) for c in cot)
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, (srl, tabl), lib_cot,
+                                           retain_graph=True)
+
+            esz = sr3.element_size()
+            small = B * 4 + B * NS * 4                 # labels, iids
+            ops_f = 2 * K * B * P * D + 2 * P * D
+            bytes_f = (K * B * D + P * D) * esz + small + 5 * K * B * 4
+            ops_b = 3 * 2 * K * B * P * D + 2 * P * D
+            bytes_b = ((K * B * D + 2 * P * D) * esz + small + 5 * K * B * 4
+                       + K * B * D * 4)
+            bf, byf = bounds(bytes_f, ops_f, dname)
+            bb, byb = bounds(bytes_b, ops_b, dname)
+            res = {
+                "xent_multi_fwd": {
+                    "ms": time_ms(torch, lambda: xm._fwd_cuda(
+                        sr3, tab, labels, iids, n_items, 0, **kw), iters),
+                    "plain_ms": time_ms(torch, lambda: xm._fwd_plain(
+                        sr3, tab, labels, iids, n_items, 0, **kw), iters),
+                    "library_ms": time_ms(torch, lib_fwd, iters),
+                    "bound_ms": bf, "bound_by": byf},
+                "xent_multi_bwd": {
+                    "ms": time_ms(torch, lambda: xm._bwd_cuda(
+                        *cot, sr3, tab, labels, iids, *lse, n_items, 0,
+                        **kw), iters),
+                    "plain_ms": time_ms(torch, lambda: xm._bwd_plain(
+                        *cot, sr3, tab, labels, iids, *lse, n_items, 0,
+                        **kw), iters),
+                    "library_ms": time_ms(torch, lib_bwd, iters),
+                    "bound_ms": bb, "bound_by": byb},
+            }
+            for name, r in res.items():
+                emit({"phase": "kernel_time", "kernel": name,
+                      "items": n_items, "P": P, "K": K, "B": B, "D": D,
+                      "dtype": dname, "normalize_table": True, **r,
+                      "card": smi})
+            rows[(n_items, dname)] = res
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phases 4 and 5: the paths
 # ---------------------------------------------------------------------------
 
-def phase_path(torch, xent, steps, seed, dataset_dir, smi):
+# the two paths: the model options, the kernels that must launch once per
+# step (the others never), and the parameters whose gradients are held
+# against the CPU
+PATHS = {
+    "path": dict(model=dict(order=1), kernels=("xent_fwd", "xent_bwd"),
+                 grads=("embedding", "fc_sr.0.weight",
+                        "layers.0.conv1.intra1.fc")),
+    "paper": dict(model=dict(order=3, extra=True, fusion=True),
+                  kernels=("xent_multi_fwd", "xent_multi_bwd"),
+                  grads=("embedding", "alpha", "sc_sr.0.l1.weight",
+                         "expander.grus.0.w_ih")),
+}
+
+def read_launches(xent, xm):
+    return {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
+            "xent_multi_fwd": xm.fwd_launches,
+            "xent_multi_bwd": xm.bwd_launches}
+
+
+def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
     from sessionrec_tpu_torch.train.runner import make_loss
     from sessionrec_tpu_torch.train.session import run_training
     from sessionrec_tpu_torch.utils.config import preset
 
-    cfg = preset("msgifsr", order=1, embedding_dim=256, num_layers=1,
+    spec = PATHS[name]
+    cfg = preset("msgifsr", embedding_dim=256, num_layers=1,
                  feat_drop=0.1, batch_size=512, split_len=(4, 8),
                  dataset_dir=str(dataset_dir), epochs=1, seed=seed,
-                 log_interval=10, device="cuda")
+                 log_interval=10, device="cuda", **spec["model"])
     xent.reset_launches()
+    xm.reset_launches()
     t0 = time.perf_counter()
     runner = run_training(cfg, max_epoch_batches=steps)
     mrr, hit = runner.max_mrr, runner.max_hit
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches}
+    launches = read_launches(xent, xm)
 
     losses = runner.losses
     n = runner.steps
     head, tail = losses[:5], losses[-5:]
-    row = {"phase": "path", "model": "msgifsr", "order": 1, "dim": 256,
+    row = {"phase": name, "model": "msgifsr", **spec["model"], "dim": 256,
            "layers": 1, "batch": 512, "tiers": [4, 8], "steps": n,
            "launches": launches, "first_losses": head, "last_losses": tail,
            "mrr20": mrr, "hr20": hit,
@@ -318,8 +541,8 @@ def phase_path(torch, xent, steps, seed, dataset_dir, smi):
            "wall_seconds": wall, "card": smi}
     emit(row)
     check(n == steps, f"ran {n} steps, expected {steps}")
-    check(launches["xent_fwd"] == n and launches["xent_bwd"] == n,
-          f"kernel launches {launches} != steps {n}")
+    want = {k: (n if k in spec["kernels"] else 0) for k in launches}
+    check(launches == want, f"kernel launches {launches}, expected {want}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     check(sum(tail) / len(tail) < sum(head) / len(head),
           f"loss did not fall: {head} -> {tail}")
@@ -337,15 +560,14 @@ def phase_path(torch, xent, steps, seed, dataset_dir, smi):
     loss_cpu.backward()
     errs = {"loss": abs(float(loss_gpu.detach()) - float(loss_cpu.detach()))}
     ok = errs["loss"] <= 1e-4 * abs(float(loss_cpu.detach()))
-    for name in ("embedding", "fc_sr.0.weight",
-                 "layers.0.conv1.intra1.fc"):
-        pg = dict(model.named_parameters())[name].grad.cpu()
-        pc = dict(cpu_model.named_parameters())[name].grad
-        errs[name] = max_err(pg, pc)
-        ok = ok and errs[name] <= 1e-3 * float(pc.abs().max())
-    emit({"phase": "path_vs_cpu", "max_abs_err": errs, "ok": ok})
-    check(ok, f"GPU path disagrees with the CPU plain path: {errs}")
-    return launches
+    for pname in spec["grads"]:
+        pg = dict(model.named_parameters())[pname].grad.cpu()
+        pc = dict(cpu_model.named_parameters())[pname].grad
+        errs[pname] = max_err(pg, pc)
+        ok = ok and errs[pname] <= 1e-3 * float(pc.abs().max())
+    emit({"phase": f"{name}_vs_cpu", "max_abs_err": errs, "ok": ok})
+    check(ok, f"GPU {name} disagrees with the CPU plain path: {errs}")
+    return {k: launches[k] for k in spec["kernels"]}
 
 
 def main(argv=None):
@@ -359,43 +581,57 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (HERE / "sessionrec_tpu_torch" / "csrc" / "xent.cu").is_file():
+    csrc = HERE / "sessionrec_tpu_torch" / "csrc"
+    if not all((csrc / f).is_file() for f in ("xent.cu", "xent_multi.cu")):
         print("chip_smoke: sessionrec_tpu_torch not found beside this file",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
-    from sessionrec_tpu_torch.ops import xent
+    from sessionrec_tpu_torch.ops import cuda_build, xent
+    from sessionrec_tpu_torch.ops import xent_multi as xm
     from sessionrec_tpu_torch.train.runner import set_precision
     set_precision()
 
     try:
         smi = phase_device(torch)
         t0 = time.perf_counter()
-        lib = xent.build_library()
-        xent._library()
+        lib = cuda_build.build_library()
+        xm._library()
         emit({"phase": "build", "library": lib.name,
+              "sources": [p.name for p in cuda_build.sources()],
               "seconds": time.perf_counter() - t0})
         errs = phase_kernel_checks(torch, xent, args.seed)
+        errs.update(phase_multi_checks(torch, xm, args.seed))
         times = phase_kernel_times(torch, xent, args.seed, smi)
-        launches = phase_path(torch, xent, args.steps, args.seed,
-                              args.dataset_dir, smi)
+        multi_times = phase_multi_times(torch, xm, args.seed, smi)
+        launches = {}
+        for name in PATHS:
+            launches.update(phase_path(torch, xent, xm, name, args.steps,
+                                       args.seed, args.dataset_dir, smi))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    path = times[(PATH_ITEMS, "float32")]
-    replaces = {"xent_fwd": "sessionrec_tpu/ops/xent.py:71",
-                "xent_bwd": "sessionrec_tpu/ops/xent.py:164"}
+    path = dict(times[(PATH_ITEMS, "float32")],
+                **multi_times[(PATH_ITEMS, "float32")])
+    kernels = {
+        "xent_fwd": ("xent.cu", "sessionrec_tpu/ops/xent.py:71"),
+        "xent_bwd": ("xent.cu", "sessionrec_tpu/ops/xent.py:164"),
+        "xent_multi_fwd": ("xent_multi.cu",
+                           "sessionrec_tpu/ops/xent_multi.py:57"),
+        "xent_multi_bwd": ("xent_multi.cu",
+                           "sessionrec_tpu/ops/xent_multi.py:157"),
+    }
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": "sessionrec_tpu_torch/csrc/xent.cu",
-         "replaces": replaces[name], "launches": launches[name],
+         "source": f"sessionrec_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": errs[name], "ms": path[name]["ms"],
          "plain_ms": path[name]["plain_ms"],
          "bound_ms": path[name]["bound_ms"],
          "bound_by": path[name]["bound_by"],
          "library_ms": path[name]["library_ms"]}
-        for name in ("xent_fwd", "xent_bwd")]})
+        for name, (src, replaces) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,10 +5,12 @@ layout (``data/``, ``graph/``, ``models/``, ``ops/``, ``train/``,
 ``utils/``, ``cli.py``) so each module's counterpart is found at the same
 relative path.  It imports ``torch`` and ``numpy`` and nothing of JAX.
 
-Implemented so far: MSGIFSR order-1 training on one device.  The fused
-catalog cross-entropy (``ops/xent.py``) runs hand-written CUDA kernels
-(``csrc/xent.cu``) on CUDA tensors and its plain PyTorch version on CPU
-tensors.
+Implemented so far: MSGIFSR training on one device, at order 1 and as
+the WSDM'22 paper head (order 3, REnorm, fusion).  The fused catalog
+cross-entropy (``ops/xent.py``) and the fused multi-order REnorm/fusion
+loss (``ops/xent_multi.py``) run hand-written CUDA kernels
+(``csrc/xent.cu``, ``csrc/xent_multi.cu``) on CUDA tensors and their
+plain PyTorch versions on CPU tensors.
 """
 
 __version__ = "0.1.0"

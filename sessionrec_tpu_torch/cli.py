@@ -2,6 +2,8 @@
 
     python -m sessionrec_tpu_torch.cli train --model msgifsr --order 1 \
         --dataset-dir datasets/sample
+    python -m sessionrec_tpu_torch.cli train --model msgifsr --order 3 \
+        --extra --fusion                       # the WSDM'22 paper head
 
 Flag names and defaults follow ``sessionrec_tpu/cli.py train`` (the
 reference scripts' surface, see utils/config.py) for the flags this slice
@@ -33,8 +35,10 @@ def _add_train_flags(p):
                         "ascending length thresholds (default '4,8'); 0 "
                         "disables")
     p.add_argument("--log-interval", type=int, default=100)
-    p.add_argument("--order", type=int, default=None,
-                   help="MSGIFSR order (the port runs order 1)")
+    p.add_argument("--order", type=int, default=None, help="MSGIFSR order")
+    p.add_argument("--reducer", default=None, choices=["mean", "max", "concat"])
+    p.add_argument("--extra", action="store_true", help="MSGIFSR REnorm")
+    p.add_argument("--fusion", action="store_true", help="MSGIFSR IFR")
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--shuffle", action="store_true", default=None)
     p.add_argument("--no-shuffle", dest="shuffle", action="store_false")
@@ -57,6 +61,10 @@ def build_config(args):
         m.feat_drop = args.feat_drop
     if args.order is not None:
         m.order = args.order
+    if args.reducer is not None:
+        m.reducer = args.reducer
+    m.extra = args.extra
+    m.fusion = args.fusion
     d.dataset_dir = args.dataset_dir
     if args.batch_size is not None:
         d.batch_size = args.batch_size

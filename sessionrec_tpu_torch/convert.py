@@ -26,12 +26,13 @@ def _linear(out, prefix, p):
 
 def params_from_jax(tree) -> dict:
     """JAX MSGIFSR params -> ``state_dict`` of the port's MSGIFSR."""
-    if tree["expander"]["grus"] or tree["expander"]["Ws"]:
-        raise NotImplementedError(
-            "semantic expander parameters (order > 1) are not ported yet "
-            "(ROADMAP.md, queue 1 item 7)")
     out = {"embedding": _t(tree["embedding"]), "alpha": _t(tree["alpha"]),
            "beta": _t(tree["beta"])}
+    for i, gru in enumerate(tree["expander"]["grus"]):
+        for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            out[f"expander.grus.{i}.{name}"] = _t(gru[name])
+    for i, p in enumerate(tree["expander"]["Ws"]):
+        _linear(out, f"expander.Ws.{i}", p)
     for i, layer in enumerate(tree["layers"]):
         for conv in ("conv1", "conv2"):
             for rel, gat in layer[conv].items():

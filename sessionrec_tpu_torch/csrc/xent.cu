@@ -52,98 +52,9 @@
 // (xent.py:293-309).  Each C entry point launches on the given stream,
 // does not synchronise and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;   // ops/masked.py:NEG_INF
-constexpr float NORM_EPS = 1e-12f;  // layers.l2norm eps
-constexpr int NT = 256;             // threads per block
-constexpr int NWARPS = NT / 32;
-constexpr int MAX_D = 256;          // D <= MAX_D (register tiles below)
-constexpr unsigned FULL = 0xffffffffu;
-
-// forward / dsr tiles: 32 rows x 64 catalog columns
-constexpr int F_BM = 32;
-constexpr int F_BN = 64;
-// dtable tiles: 32 catalog rows x 64 batch rows
-constexpr int T_BN = 32;
-constexpr int T_BM = 64;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// round to the operand type and back (identity for float32)
-template <typename T> __device__ __forceinline__ float round_op(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
-
-// rows [row0, row0 + rows) of a row-major [n_rows, D] array into shared
-// memory with row stride ld, as float; rows at or past n_rows read as 0
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src,
-                                           int row0, int n_rows, int rows,
-                                           int D) {
-  for (int r = 0; r < rows; ++r) {
-    const int gr = row0 + r;
-    for (int k = threadIdx.x; k < D; k += NT)
-      dst[r * ld + k] = gr < n_rows ? to_f(src[(size_t)gr * D + k]) : 0.f;
-  }
-}
-
-// nrm[c] = max(||tile row c||, eps), one warp per row
-__device__ __forceinline__ void tile_norms(const float* tile, int ld,
-                                           float* nrm, int rows, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int c = warp; c < rows; c += NWARPS) {
-    float acc = 0.f;
-    for (int k = lane; k < D; k += 32) {
-      const float v = tile[c * ld + k];
-      acc += v * v;
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) nrm[c] = fmaxf(sqrtf(acc), NORM_EPS);
-  }
-}
-
-// stage a catalog tile as the backward pass's product operand: the
-// (normalised) rows rounded to the operand type; nrm gets the norms
-template <typename T>
-__device__ __forceinline__ void stage_operand_tile(float* tile, int ld,
-                                                   float* nrm, const T* tab,
-                                                   int p0, int p_end, int rows,
-                                                   int D, int normalize) {
-  stage_rows(tile, ld, tab, p0, p_end, rows, D);
-  __syncthreads();
-  if (normalize) {
-    tile_norms(tile, ld, nrm, rows, D);
-    __syncthreads();
-    for (int r = 0; r < rows; ++r)
-      for (int k = threadIdx.x; k < D; k += NT)
-        tile[r * ld + k] = round_op<T>(tile[r * ld + k] / nrm[r]);
-  }
-  __syncthreads();
-}
 
 // ---------------------------------------------------------------------------
 // K1, forward: partial online log-sum-exp over one catalog split.
@@ -191,18 +102,7 @@ __global__ void __launch_bounds__(NT) xent_fwd_partial(
       __syncthreads();
     }
     float acc[2][4] = {};
-    const float* a0 = A_s + ty * ld;
-    const float* a1 = A_s + (ty + 16) * ld;
-#pragma unroll 4
-    for (int k = 0; k < D; ++k) {
-      const float x0 = a0[k], x1 = a1[k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float y = B_s[(tx + 16 * j) * ld + k];
-        acc[0][j] = fmaf(x0, y, acc[0][j]);
-        acc[1][j] = fmaf(x1, y, acc[1][j]);
-      }
-    }
+    product_32x64(acc, A_s, B_s, ld, D);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float z[4];
@@ -313,7 +213,6 @@ __global__ void __launch_bounds__(NT) xent_bwd_dtable(
   float* dz_s = A_s + T_BM * ld;  // [T_BM][LDZ]
   float* n_s = dz_s + T_BM * LDZ; // [T_BN]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
   const int p0 = blockIdx.x * T_BN;
 
   stage_operand_tile(B_s, ld, n_s, tab, p0, P, T_BN, D, normalize);
@@ -324,16 +223,7 @@ __global__ void __launch_bounds__(NT) xent_bwd_dtable(
     stage_rows(A_s, ld, sr, b0, B, T_BM, D);
     __syncthreads();
     float acc[4][2] = {};
-#pragma unroll 4
-    for (int k = 0; k < D; ++k) {
-      const float y0 = B_s[tx * ld + k], y1 = B_s[(tx + 16) * ld + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = A_s[(ty + 16 * i) * ld + k];
-        acc[i][0] = fmaf(x, y0, acc[i][0]);
-        acc[i][1] = fmaf(x, y1, acc[i][1]);
-      }
-    }
+    product_64x32(acc, A_s, B_s, ld, D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int rl = ty + 16 * i, r = b0 + rl;
@@ -350,53 +240,10 @@ __global__ void __launch_bounds__(NT) xent_bwd_dtable(
       }
     }
     __syncthreads();
-    for (int b = 0; b < T_BM; ++b) {
-      float w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = dz_s[b * LDZ + warp * 4 + i];
-#pragma unroll
-      for (int q = 0; q < MAX_D / 32; ++q) {
-        const int d = lane + 32 * q;
-        if (d < D) {
-          const float x = A_s[b * ld + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) G[i][q] = fmaf(w[i], x, G[i][q]);
-        }
-      }
-    }
+    accumulate_dtable(G, dz_s, LDZ, A_s, ld, D);
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = warp * 4 + i, col = p0 + c;
-    if (col >= P) continue;  // warp-uniform
-    if (normalize) {
-      const float n = n_s[c];
-      const float live = n > NORM_EPS ? 1.f : 0.f;
-      float t[MAX_D / 32];
-      float dot = 0.f;
-#pragma unroll
-      for (int q = 0; q < MAX_D / 32; ++q) {
-        const int d = lane + 32 * q;
-        t[q] = d < D ? to_f(tab[(size_t)col * D + d]) / n : 0.f;
-        dot += G[i][q] * t[q];
-      }
-      dot = warp_sum(dot);
-#pragma unroll
-      for (int q = 0; q < MAX_D / 32; ++q) {
-        const int d = lane + 32 * q;
-        if (d < D)
-          dtab[(size_t)col * D + d] =
-              from_f<T>((G[i][q] - dot * t[q] * live) / n);
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < MAX_D / 32; ++q) {
-        const int d = lane + 32 * q;
-        if (d < D) dtab[(size_t)col * D + d] = from_f<T>(G[i][q]);
-      }
-    }
-  }
+  store_dtable(G, n_s, tab, p0, P, D, normalize, dtab);
 }
 
 // ---------------------------------------------------------------------------
@@ -421,7 +268,6 @@ __global__ void __launch_bounds__(NT) xent_bwd_dsr(
   float* dz_s = B_s + F_BN * ld;  // [F_BM][LDZ]
   float* n_s = dz_s + F_BM * LDZ; // [F_BN]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * F_BM;
   const int split = blockIdx.y;
   const int p_begin = split * cols_per_split;
@@ -445,18 +291,7 @@ __global__ void __launch_bounds__(NT) xent_bwd_dsr(
     __syncthreads();  // the previous tile is consumed
     stage_operand_tile(B_s, ld, n_s, tab, p0, p_end, F_BN, D, normalize);
     float acc[2][4] = {};
-    const float* a0 = A_s + ty * ld;
-    const float* a1 = A_s + (ty + 16) * ld;
-#pragma unroll 4
-    for (int k = 0; k < D; ++k) {
-      const float x0 = a0[k], x1 = a1[k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float y = B_s[(tx + 16 * j) * ld + k];
-        acc[0][j] = fmaf(x0, y, acc[0][j]);
-        acc[1][j] = fmaf(x1, y, acc[1][j]);
-      }
-    }
+    product_32x64(acc, A_s, B_s, ld, D);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -467,44 +302,9 @@ __global__ void __launch_bounds__(NT) xent_bwd_dsr(
                       lbl[i], lse_r[i], g_r[i], row_ok[i], scale);
       }
     __syncthreads();
-    const int cols = min(F_BN, p_end - p0);
-    for (int c = 0; c < cols; ++c) {
-      float w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = dz_s[(warp * 4 + i) * LDZ + c];
-#pragma unroll
-      for (int q = 0; q < MAX_D / 32; ++q) {
-        const int d = lane + 32 * q;
-        if (d < D) {
-          const float y = B_s[c * ld + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc_d[i][q] = fmaf(w[i], y, acc_d[i][q]);
-        }
-      }
-    }
+    accumulate_dsr(acc_d, dz_s, LDZ, B_s, ld, min(F_BN, p_end - p0), D);
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + warp * 4 + i;
-    if (r >= B) continue;
-#pragma unroll
-    for (int q = 0; q < MAX_D / 32; ++q) {
-      const int d = lane + 32 * q;
-      if (d < D) dsr_part[((size_t)split * B + r) * D + d] = acc_d[i][q];
-    }
-  }
-}
-
-__global__ void xent_bwd_dsr_reduce(const float* __restrict__ dsr_part,
-                                    int n_split, int n,
-                                    float* __restrict__ dsr) {
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int sp = 0; sp < n_split; ++sp) acc += dsr_part[(size_t)sp * n + e];
-    dsr[e] = acc;
-  }
+  store_dsr_part(acc_d, dsr_part + (size_t)split * B * D, row0, B, D);
 }
 
 size_t fwd_smem(int D) { return ((size_t)(F_BM + F_BN) * (D + 1) + F_BN) * 4; }

@@ -1,4 +1,5 @@
-"""Models of the port: MSGIFSR at order 1 so far."""
+"""Models of the port: MSGIFSR so far (order 1 and the order-3 paper
+head)."""
 
 from sessionrec_tpu_torch.models.msgifsr import MSGIFSR  # noqa: F401
 

@@ -1,5 +1,4 @@
-"""Neural layers over the dense graph layout — the parts MSGIFSR order 1
-uses.
+"""Neural layers over the dense graph layout — the parts MSGIFSR uses.
 
 Counterpart of ``sessionrec_tpu/models/layers.py``.  Parameters live in
 ``nn.Module``s whose attribute names follow the JAX parameter tree, and
@@ -14,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sessionrec_tpu_torch.ops import dropout as _dropout
+from sessionrec_tpu_torch.ops.gru import gru_scan
 from sessionrec_tpu_torch.ops.masked import masked_mean, masked_softmax
 
 
@@ -46,14 +46,55 @@ def dropout(rng, x, rate: float, training: bool):
     return _dropout.dropout(x, rate, rng.next())
 
 
-def semantic_expander_apply(feat, level: int):
-    """Embed a k-gram node set ``feat [B, Nk, k, d]`` -> ``[B, Nk, d]``.
-    Only level 1 (the identity on the single member) is ported."""
-    if level != 1:
-        raise NotImplementedError(
-            "semantic expander levels > 1 (GRU + reducer) are not ported "
-            "yet (ROADMAP.md, queue 1 item 7)")
-    return feat[:, :, 0, :]
+# ---------------------------------------------------------------------------
+# SemanticExpander (reference msgifsr.py:14-45)
+# ---------------------------------------------------------------------------
+
+class GRU(nn.Module):
+    """One GRU layer's weights in torch's layout (ops/gru.py), named as
+    the JAX package's ``init.gru_params``."""
+
+    def __init__(self, in_dim, hidden):
+        super().__init__()
+        self.w_ih = nn.Parameter(torch.empty(3 * hidden, in_dim))
+        self.w_hh = nn.Parameter(torch.empty(3 * hidden, hidden))
+        self.b_ih = nn.Parameter(torch.empty(3 * hidden))
+        self.b_hh = nn.Parameter(torch.empty(3 * hidden))
+
+
+class SemanticExpander(nn.Module):
+    """One GRU per gram size k >= 2 (``grus[k - 2]``) and, under the
+    ``concat`` reducer, one linear ``Ws[k - 2]`` from ``k * d`` to ``d``
+    (``sessionrec_tpu/models/layers.py:init_semantic_expander``)."""
+
+    def __init__(self, dim, reducer: str, order: int):
+        super().__init__()
+        self.grus = nn.ModuleList(GRU(dim, dim) for _ in range(order - 1))
+        self.Ws = nn.ModuleList(
+            nn.Linear(dim * (i + 1), dim, bias=True)
+            for i in range(1, order)) if reducer == "concat" \
+            else nn.ModuleList()
+
+
+def semantic_expander_apply(p: SemanticExpander, feat, level: int,
+                            reducer: str):
+    """Embed a k-gram node set ``feat [B, Nk, k, d]`` -> ``[B, Nk, d]``:
+    the single member at level 1, else the mean of the reducer's output
+    (mean, max or a linear over the concatenated members) and the GRU's
+    final hidden state over the k members."""
+    if level == 1:
+        return feat[:, :, 0, :]
+    if reducer == "mean":
+        invar = torch.mean(feat, dim=2)
+    elif reducer == "max":
+        invar = torch.amax(feat, dim=2)
+    elif reducer == "concat":
+        B, Nk = feat.shape[0], feat.shape[1]
+        invar = p.Ws[level - 2](feat.reshape(B, Nk, -1))
+    else:
+        raise ValueError(f"unknown reducer {reducer!r}")
+    var = gru_scan(p.grus[level - 2], feat)
+    return 0.5 * invar + 0.5 * var
 
 
 # ---------------------------------------------------------------------------
@@ -109,10 +150,10 @@ def gat_apply(p: GAT, f_src, f_dst, adj, rng, *, num_heads, feat_drop,
 
 class MSHGNN(nn.Module):
     """Two HeteroGraphConvs (forward + reversed graph), each a dict of
-    GATConvs: one per intra relation and one shared 'inter' module
-    (``sessionrec_tpu/models/layers.py:init_mshgnn``).  At order 1 the
-    'inter' modules exist, as in the reference, but no relation uses
-    them."""
+    GATConvs: one per intra relation and one 'inter' module shared by
+    every inter relation (``sessionrec_tpu/models/layers.py:init_mshgnn``).
+    At order 1 the 'inter' modules exist, as in the reference, but no
+    relation uses them."""
 
     def __init__(self, dim, order, num_heads=8):
         super().__init__()
@@ -125,21 +166,41 @@ class MSHGNN(nn.Module):
 
 def mshgnn_apply(p: MSHGNN, feats, batch, rng, *, feat_drop, training,
                  num_heads=8):
-    """Hetero message passing over the CCS batch, order 1: GAT over the
-    forward relation (conv1) + GAT over the reversed graph (conv2), max
-    over the heads, plus the broadcast per-graph mean of the input
-    features (msgifsr.py:84-89)."""
-    if batch.order != 1:
-        raise NotImplementedError(
-            "MSHGNN inter relations (order > 1) are not ported yet "
-            "(ROADMAP.md, queue 1 item 7)")
+    """Hetero message passing over the CCS batch.  For each level: GAT over
+    the forward relations (conv1) plus GAT over the reversed graph (conv2),
+    summed per destination, max over the heads, plus the broadcast
+    per-graph mean of the input features (msgifsr.py:84-89).
+
+    The inter relations join level 1 with each level k >= 2: at level 1,
+    conv1 reads ``inter_out[k - 2]`` (sk -> s1) and conv2 the transpose of
+    ``inter_in[k - 2]``; at level l >= 2 it is the mirror image.  Their
+    source is another level, so each applies its own dropout mask to the
+    source and the destination features."""
+    K = batch.order
     kw = dict(num_heads=num_heads, feat_drop=feat_drop, attn_drop=feat_drop,
               training=training)
-    lv = batch.levels[0]
-    f = feats[0]
-    acc = gat_apply(p.conv1["intra1"], f, f, lv.intra_adj, rng, **kw)
-    acc = acc + gat_apply(p.conv2["intra1"], f, f,
-                          lv.intra_adj.transpose(1, 2), rng, **kw)
-    h = torch.amax(acc, dim=2)                             # head max
-    h_mean = masked_mean(f, lv.mask[..., None], dim=1)     # per-graph mean
-    return [h + h_mean[:, None, :]]
+    out = []
+    for l in range(1, K + 1):
+        lv = batch.levels[l - 1]
+        f = feats[l - 1]
+        acc = gat_apply(p.conv1[f"intra{l}"], f, f, lv.intra_adj, rng, **kw)
+        acc = acc + gat_apply(p.conv2[f"intra{l}"], f, f,
+                              lv.intra_adj.transpose(1, 2), rng, **kw)
+        if l == 1:
+            for k in range(2, K + 1):
+                fk = feats[k - 1]
+                acc = acc + gat_apply(p.conv1["inter"], fk, f,
+                                      batch.inter_out[k - 2], rng, **kw)
+                acc = acc + gat_apply(p.conv2["inter"], fk, f,
+                                      batch.inter_in[k - 2].transpose(1, 2),
+                                      rng, **kw)
+        else:
+            acc = acc + gat_apply(p.conv1["inter"], feats[0], f,
+                                  batch.inter_in[l - 2], rng, **kw)
+            acc = acc + gat_apply(p.conv2["inter"], feats[0], f,
+                                  batch.inter_out[l - 2].transpose(1, 2),
+                                  rng, **kw)
+        h = torch.amax(acc, dim=2)                         # head max
+        h_mean = masked_mean(f, lv.mask[..., None], dim=1)  # per-graph mean
+        out.append(h + h_mean[:, None, :])
+    return out

@@ -1,18 +1,23 @@
 """MSGIFSR — multi-granularity consecutive-intent-unit session recommender
-(WSDM'22; reference src/models/msgifsr.py:157-323), order 1.
+(WSDM'22; reference src/models/msgifsr.py:157-323).
 
 Counterpart of ``sessionrec_tpu/models/msgifsr.py`` as an ``nn.Module``
 whose parameter names follow the JAX parameter tree (``embedding``,
-``alpha``, ``beta``, ``layers[i].conv{1,2}.{intra1,inter}``,
-``readout.fc_{u,v,e}[k]``, ``fc_sr[k]``, ``sc_sr[k].{l1,l2}``), so
-``sessionrec_tpu_torch.convert`` maps JAX parameters one to one.
+``alpha``, ``beta``, ``expander.{grus,Ws}[i]``,
+``layers[i].conv{1,2}.{intra<k>,inter}``, ``readout.fc_{u,v,e}[k]``,
+``fc_sr[k]``, ``sc_sr[k].{l1,l2}``), so ``sessionrec_tpu_torch.convert``
+maps JAX parameters one to one.
 
-At order 1 without REnorm (``extra``) the loss is the softmax
-cross-entropy of 12 * the order-1 logits (the JAX package's
-``has_plain_head``), which the trainer computes with the fused catalog
-loss (ops/xent.py).  Orders above
-1, ``extra`` and ``fusion`` wait for the paper-head slice (ROADMAP.md,
-queue 1 item 7).
+Two heads, as in the JAX package:
+
+* ``head`` (``has_plain_head``: no REnorm, and order 1 or no fusion): the
+  loss is the softmax cross-entropy of 12 * the order-1 logits, which the
+  trainer computes with the fused catalog loss (ops/xent.py).
+* ``head_multi`` (the WSDM'22 paper head, ``--order 3 --extra --fusion``):
+  per-order session vectors, the REnorm gate ``phi``, the fusion weights
+  ``alpha`` and the level-1 session item ids, the inputs of the fused
+  multi-order loss (ops/xent_multi.py).  ``apply`` is the same head over
+  materialised ``[B, K, P]`` scores, for eval.
 
 The ``max_norm=1`` embedding is a whole-table projection
 (``project_params``) that the trainer applies after every update, so
@@ -28,7 +33,11 @@ from torch import nn
 from sessionrec_tpu_torch.graph.batch import SplitBatch
 from sessionrec_tpu_torch.models import layers as L
 from sessionrec_tpu_torch.ops import scoring
-from sessionrec_tpu_torch.ops.masked import masked_softmax
+from sessionrec_tpu_torch.ops.masked import NEG_INF, masked_softmax
+
+# safe-log floor of the REnorm/fusion score (sessionrec_tpu/models/
+# msgifsr.py:_TINY): a normal float32 far below any reachable probability
+_TINY = 1e-30
 
 
 @torch.no_grad()
@@ -59,7 +68,7 @@ class _Readout(nn.Module):
 
 
 class _ScSr(nn.Module):
-    """REnorm gate (unused without ``extra``; kept for parameter parity)."""
+    """REnorm gate; only ``sc_sr[0]`` is ever used (msgifsr.py:283)."""
 
     def __init__(self, d):
         super().__init__()
@@ -71,23 +80,27 @@ class MSGIFSR(nn.Module):
     num_heads = 8
     scale = 12.0
 
+    has_multi_head = True
+
     def __init__(self, num_items, embedding_dim, num_layers, feat_drop=0.0,
-                 order=1, norm=True, extra=False, fusion=False):
+                 reducer="mean", order=1, norm=True, extra=False,
+                 fusion=False):
         super().__init__()
-        if order != 1 or extra or fusion:
-            raise NotImplementedError(
-                "the PyTorch port runs MSGIFSR at order 1 without "
-                "--extra/--fusion; the paper head (order > 1, REnorm, "
-                "fusion) is ROADMAP.md queue 1 item 7")
+        if reducer not in ("mean", "max", "concat"):
+            raise ValueError(f"unknown reducer {reducer!r}")
         self.num_items = num_items
         self.embedding_dim = d = embedding_dim
         self.num_layers = num_layers
         self.feat_drop = feat_drop
+        self.reducer = reducer
         self.order = K = order
         self.norm = norm
+        self.extra = extra
+        self.fusion = fusion
         self.embedding = nn.Parameter(torch.empty(self.padded_items, d))
         self.alpha = nn.Parameter(torch.empty(K))
         self.beta = nn.Parameter(torch.empty(1))
+        self.expander = L.SemanticExpander(d, reducer, K)
         self.layers = nn.ModuleList(L.MSHGNN(d, K, self.num_heads)
                                     for _ in range(num_layers))
         self.readout = _Readout(d, K)
@@ -99,7 +112,7 @@ class MSGIFSR(nn.Module):
     def from_config(cls, cfg, num_items):
         return cls(num_items=num_items, embedding_dim=cfg.embedding_dim,
                    num_layers=cfg.num_layers, feat_drop=cfg.feat_drop,
-                   order=cfg.order, norm=cfg.norm,
+                   reducer=cfg.reducer, order=cfg.order, norm=cfg.norm,
                    extra=cfg.extra, fusion=cfg.fusion)
 
     @property
@@ -109,6 +122,13 @@ class MSGIFSR(nn.Module):
     @property
     def table_norm(self):
         return self.norm
+
+    @property
+    def has_plain_head(self):
+        """Without REnorm the loss reduces to softmax-CE of 12 * the
+        order-1 logits (no fusion takes score[:, 0], msgifsr.py:316-317;
+        fusion over K=1 is the identity)."""
+        return (not self.extra) and (self.order == 1 or not self.fusion)
 
     def reset_parameters(self, gen: torch.Generator):
         from sessionrec_tpu_torch.models.init import reset_msgifsr
@@ -121,14 +141,18 @@ class MSGIFSR(nn.Module):
     # -- pieces ------------------------------------------------------------
 
     def _embed_levels(self, batch, rng, training):
-        lv = batch.levels[0]
-        feat = L.embedding_lookup(self.embedding, lv.iid) \
-            .to(torch.float32)                             # [B, N1, 1, d]
-        feat = L.dropout(rng, feat, self.feat_drop, training)
-        feat = L.semantic_expander_apply(feat, 1)
-        if self.norm:
-            feat = L.l2norm(feat)
-        return [feat]
+        feats = []
+        for l in range(1, self.order + 1):
+            lv = batch.levels[l - 1]
+            feat = L.embedding_lookup(self.embedding, lv.iid) \
+                .to(torch.float32)                         # [B, Nk, k, d]
+            feat = L.dropout(rng, feat, self.feat_drop, training)
+            feat = L.semantic_expander_apply(self.expander, feat, l,
+                                             self.reducer)
+            if self.norm:
+                feat = L.l2norm(feat)
+            feats.append(feat)
+        return feats
 
     def _readout(self, batch, feats):
         """Attention readout over the combined node set of all orders
@@ -176,6 +200,41 @@ class MSGIFSR(nn.Module):
             sr = L.l2norm(sr)
         return sr
 
+    def _session_item_mask(self, batch):
+        """[B, P] 0/1 float: items occurring in the session (level-1
+        iids)."""
+        if isinstance(batch, SplitBatch):
+            return torch.cat([self._session_item_mask(batch.short),
+                              self._session_item_mask(batch.long)], dim=0)
+        lv1 = batch.levels[0]
+        B = lv1.iid.shape[0]
+        mask = torch.zeros(B, self.padded_items, device=lv1.mask.device)
+        return mask.scatter_reduce(1, lv1.iid[:, :, 0].to(torch.int64),
+                                   lv1.mask.to(torch.float32), reduce="amax")
+
+    def _session_iids(self, batch):
+        """[B, N1] int32 level-1 (unique session item) ids, -1 on padding:
+        the REnorm membership input of the fused multi-order loss.  For a
+        SplitBatch the narrower tier pads with -1 to the wider tier's
+        width before the rows are concatenated."""
+        if isinstance(batch, SplitBatch):
+            a = self._session_iids(batch.short)
+            b = self._session_iids(batch.long)
+            w = max(a.shape[1], b.shape[1])
+            a = torch.nn.functional.pad(a, (0, w - a.shape[1]), value=-1)
+            b = torch.nn.functional.pad(b, (0, w - b.shape[1]), value=-1)
+            return torch.cat([a, b], dim=0)
+        lv1 = batch.levels[0]
+        return torch.where(lv1.mask.bool(), lv1.iid[:, :, 0].to(torch.int32),
+                           -1)
+
+    def _phi(self, sr):
+        """REnorm gate ``softmax(l2(relu(l1(sr))))`` of ``sc_sr[0]``,
+        float32 ``[B, K, 2]``."""
+        sc = self.sc_sr[0]
+        return torch.softmax(sc.l2(torch.relu(sc.l1(sr))).to(torch.float32),
+                             dim=-1)
+
     def head(self, batch, *, training=False, gen=None):
         """``(sr [B, d], raw table)`` for the fused softmax-CE path (logit
         scale 12; the loss folds in l2norm(table) when ``table_norm``).
@@ -183,3 +242,45 @@ class MSGIFSR(nn.Module):
         rng = L.RngGen(gen) if gen is not None else None
         sr = self._session_repr(batch, rng, training)
         return sr[:, 0], self.embedding
+
+    def head_multi(self, batch, *, training=False, gen=None):
+        """Inputs of the fused REnorm/fusion loss (ops/xent_multi.py):
+        ``(sr [B, K, d], raw table, phi [B, K, 2] | None, alpha [K],
+        iids [B, N1])``.  ``iids`` are the level-1 session item ids, -1 on
+        padding; the [B, P] session mask never exists."""
+        rng = L.RngGen(gen) if gen is not None else None
+        sr = self._session_repr(batch, rng, training)
+        phi = self._phi(sr) if self.extra else None
+        return sr, self.embedding, phi, self.alpha, self._session_iids(batch)
+
+    def apply(self, batch, *, training=False, gen=None):
+        """``[B, P]`` log-probabilities over the catalog (padded columns
+        NEG_INF), materialising the per-order scores: REnorm splits each
+        order's softmax into in-session and other items, blended by
+        ``phi``; fusion weights the orders by ``softmax(alpha)``, else
+        order 1 is taken (msgifsr.py:276-321)."""
+        rng = L.RngGen(gen) if gen is not None else None
+        sr = self._session_repr(batch, rng, training)
+        table = L.l2norm(self.embedding) if self.norm else self.embedding
+        imask = scoring.item_mask(self.num_items, self.padded_items,
+                                  sr.device).to(torch.float32)
+        logits = torch.einsum("bkd,pd->bkp", sr.to(torch.float32),
+                              table.to(torch.float32))
+        if self.extra:
+            phi = self._phi(sr)
+            smask = self._session_item_mask(batch)
+            in_mask = (smask * imask)[:, None, :]
+            ex_mask = ((1.0 - smask) * imask)[:, None, :]
+            score_in = scoring.masked_catalog_softmax(12.0 * logits, in_mask)
+            score_ex = scoring.masked_catalog_softmax(12.0 * logits, ex_mask)
+            score = phi[..., 0:1] * score_in + phi[..., 1:2] * score_ex
+        else:
+            score = scoring.masked_catalog_softmax(12.0 * logits,
+                                                   imask[None, None, :])
+        if self.order > 1 and self.fusion:
+            w = torch.softmax(self.alpha, dim=0)[None, :, None]
+            score = torch.sum(score * w, dim=1)
+        else:
+            score = score[:, 0]
+        return torch.where(imask.bool(),
+                           torch.log(torch.clamp(score, min=_TINY)), NEG_INF)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from sessionrec_tpu_torch.ops.masked import NEG_INF
+
 
 def pad_catalog(num_items: int, multiple: int = 512) -> int:
     """Padded catalog size: the embedding table's row count.  Kept equal
@@ -29,6 +31,24 @@ def catalog_logits(sr, table):
     it to XLA.
     """
     return torch.matmul(sr.to(torch.float32), table.to(torch.float32).T)
+
+
+def masked_catalog_softmax(logits, col_mask):
+    """softmax over the last axis restricted to ``col_mask``; rows with an
+    empty mask return zeros (MSGIFSR's REnorm split, msgifsr.py:289-292)."""
+    keep = col_mask.bool()
+    x = torch.where(keep, logits, NEG_INF)
+    m = torch.clamp(torch.amax(x, dim=-1, keepdim=True), min=NEG_INF * 0.5)
+    ex = torch.where(keep, torch.exp(x - m), 0.0)
+    s = torch.sum(ex, dim=-1, keepdim=True)
+    return ex / torch.clamp(s, min=torch.finfo(ex.dtype).tiny)
+
+
+def nll_loss(log_probs, labels, valid):
+    """Mean negative log-likelihood over valid rows (train.py:99)."""
+    lp = torch.gather(log_probs, -1, labels.to(torch.int64)[:, None])[:, 0]
+    v = valid.to(lp.dtype)
+    return -torch.sum(lp * v) / torch.clamp(torch.sum(v), min=1.0)
 
 
 def label_ranks_by_count(scores, labels, k: int):

@@ -20,21 +20,17 @@ CPU.  For CUDA tensors it launches the kernel or raises.  Logits and the
 softmax always accumulate in float32, also for bfloat16 inputs.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
-``build/`` at the repository root and loaded with ctypes.
+``build/`` at the repository root and loaded with ctypes
+(``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
+from sessionrec_tpu_torch.ops import cuda_build
 from sessionrec_tpu_torch.ops.masked import NEG_INF
 
 _NORM_EPS = 1e-12   # torch F.normalize eps (layers.l2norm)
@@ -128,8 +124,6 @@ def _bwd_plain(g, sr, table, labels, lse, n_valid, col_offset=0, *, scale,
 # CUDA kernels (csrc/xent.cu)
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "xent.cu"
-_BUILD = Path(__file__).resolve().parents[2] / "build"
 _lib = None
 
 # blocks the kernels' grids aim for: two resident blocks on each of the
@@ -137,47 +131,10 @@ _lib = None
 _TARGET_BLOCKS = 264
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    raise RuntimeError("nvcc not found: the CUDA kernels of "
-                       "sessionrec_tpu_torch need the CUDA toolkit")
-
-
-def build_library():
-    """Compile ``csrc/xent.cu`` for sm_90a (once per source version) and
-    return the path of the shared library."""
-    src = _SRC.read_bytes()
-    out = _BUILD / f"libsrt_xent-{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, str(_SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
+        lib = cuda_build.library()
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.srt_xent_fwd.argtypes = [vp, vp, vp, i, i, i, i, i, f, i, i, i,
                                      i, vp, vp, vp, vp]

@@ -18,7 +18,7 @@ import time
 import torch
 
 from sessionrec_tpu_torch.models.layers import l2norm
-from sessionrec_tpu_torch.ops import scoring, xent
+from sessionrec_tpu_torch.ops import scoring, xent, xent_multi
 from sessionrec_tpu_torch.train.optim import make_optimizer
 from sessionrec_tpu_torch.utils.logging import get_logger
 
@@ -44,12 +44,21 @@ def resolve_device(name: str) -> torch.device:
 
 
 def make_loss(model, batch, gen):
-    """Training loss of one batch: the fused catalog cross-entropy of the
-    model's plain head (ops/xent.py; the table l2norm folds into it)."""
-    sr, table = model.head(batch, training=True, gen=gen)
-    return xent.fused_nll_loss(sr, table, batch.labels, batch.valid,
-                               scale=model.scale, num_items=model.num_items,
-                               normalize_table=model.table_norm)
+    """Training loss of one batch (runner.py:55-111 of the JAX package,
+    one device): the fused catalog cross-entropy of the plain head
+    (ops/xent.py, K1/K2), else the fused multi-order REnorm/fusion loss
+    of the multi head (ops/xent_multi.py, K3/K4); the table l2norm folds
+    into either."""
+    kw = dict(scale=model.scale, num_items=model.num_items,
+              normalize_table=model.table_norm)
+    if model.has_plain_head:
+        sr, table = model.head(batch, training=True, gen=gen)
+        return xent.fused_nll_loss(sr, table, batch.labels, batch.valid, **kw)
+    sr, table, phi, alpha, iids = model.head_multi(batch, training=True,
+                                                   gen=gen)
+    return xent_multi.multi_nll_loss(sr, table, batch.labels, batch.valid,
+                                     iids, phi, alpha, extra=model.extra,
+                                     fusion=model.fusion, **kw)
 
 
 # Eval materialises the [B, P] float32 scores plus about as many bytes of
@@ -60,29 +69,37 @@ def make_loss(model, batch, gen):
 _STREAM_EVAL_ELEMS = 2 ** 31
 
 
-def _auto_stream(batch_size: int, padded_items: int) -> bool:
-    return batch_size * padded_items >= _STREAM_EVAL_ELEMS
+def _auto_stream(batch_size: int, padded_items: int,
+                 score_rows: int = 1) -> bool:
+    """``score_rows`` is the score tensor's rows per example: K for the
+    multi head's ``[B, K, P]`` scores."""
+    return batch_size * score_rows * padded_items >= _STREAM_EVAL_ELEMS
 
 
 @torch.no_grad()
 def eval_ranks(model, batch, cutoff):
-    """Label ranks for one eval batch on materialised logits: positive
-    scaling and log_softmax preserve each row's order and ties, so ranks
-    come from the raw masked logits (runner.py:407-429 of the JAX
-    package).  Padded catalog columns score -inf."""
+    """Label ranks for one eval batch on materialised scores
+    (runner.py:407-430 of the JAX package).  The plain head ranks the raw
+    masked logits: positive scaling and log_softmax preserve each row's
+    order and ties.  The multi head ranks ``model.apply``'s
+    log-probabilities.  Padded catalog columns score below every item."""
     B = batch.labels.shape[0]
-    if _auto_stream(B, model.padded_items):
+    rows = 1 if model.has_plain_head else model.order
+    if _auto_stream(B, model.padded_items, rows):
         raise NotImplementedError(
-            f"eval of {B} x {model.padded_items} scores exceeds "
+            f"eval of {B} x {rows} x {model.padded_items} scores exceeds "
             f"{_STREAM_EVAL_ELEMS} elements and needs streamed eval, which "
             "is not ported yet (ROADMAP.md, queue 1 item 9)")
-    sr, table = model.head(batch, training=False)
-    if model.table_norm:
-        table = l2norm(table)
-    logits = scoring.catalog_logits(sr, table)
-    imask = scoring.item_mask(model.num_items, model.padded_items,
-                              logits.device)
-    scores = torch.where(imask, logits, -math.inf)
+    if model.has_plain_head:
+        sr, table = model.head(batch, training=False)
+        if model.table_norm:
+            table = l2norm(table)
+        logits = scoring.catalog_logits(sr, table)
+        imask = scoring.item_mask(model.num_items, model.padded_items,
+                                  logits.device)
+        scores = torch.where(imask, logits, -math.inf)
+    else:
+        scores = model.apply(batch, training=False)
     return scoring.label_ranks_by_count(scores, batch.labels, cutoff)
 
 
@@ -146,9 +163,10 @@ class TrainRunner:
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         for p in self.params:
-            # parameters no relation reaches (the 'inter' GATs at order 1)
-            # still take the weight-decay step, as in the JAX package,
-            # whose gradient of them is zero rather than absent
+            # parameters the loss does not reach (the 'inter' GATs at
+            # order 1, sc_sr[k > 0], beta) still take the weight-decay
+            # step, as in the JAX package, whose gradient of them is zero
+            # rather than absent
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.opt.step()

@@ -40,6 +40,7 @@ class ModelConfig:
     embedding_dim: int = 256
     num_layers: int = 1
     feat_drop: float = 0.1
+    reducer: str = "mean"         # SemanticExpander reducer: mean|max|concat
     norm: bool = True             # l2-normalised table and session repr
     order: int = 1
     extra: bool = False           # REnorm (store_true flag, default off)

@@ -1,9 +1,12 @@
 """Where the time of a training step goes, on the card.
 
     python -m sessionrec_tpu_torch.utils.profiling [--steps 20] [--warmup 8]
+        [--order 3 --extra --fusion]
 
 Runs the main path's configuration (MSGIFSR order 1, d=256, 1 layer, batch
-512, tiers (4, 8), feat_drop 0.1, datasets/sample) and prints JSON lines:
+512, tiers (4, 8), feat_drop 0.1, datasets/sample), or with ``--order 3
+--extra --fusion`` the WSDM'22 paper head at the same widths, and prints
+JSON lines:
 
 * ``host``    — milliseconds per batch to build it on the host (the
   loader's builder alone, no prefetch thread), to wait for it in the
@@ -33,15 +36,16 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 
 
-def _setup(dataset_dir, seed):
+def _setup(dataset_dir, seed, order=1, extra=False, fusion=False):
     from sessionrec_tpu_torch.models import build_model
     from sessionrec_tpu_torch.train.runner import TrainRunner
     from sessionrec_tpu_torch.train.session import make_loaders
     from sessionrec_tpu_torch.utils.config import preset
-    cfg = preset("msgifsr", order=1, embedding_dim=256, num_layers=1,
-                 feat_drop=0.1, batch_size=512, split_len=(4, 8),
+    cfg = preset("msgifsr", order=order, extra=extra, fusion=fusion,
+                 embedding_dim=256, num_layers=1, feat_drop=0.1,
+                 batch_size=512, split_len=(4, 8),
                  dataset_dir=str(dataset_dir), seed=seed)
-    train, test, num_items, _ = make_loaders(cfg.data, "msgifsr", 1,
+    train, test, num_items, _ = make_loaders(cfg.data, "msgifsr", order,
                                              device="cuda")
     model = build_model(cfg.model, num_items)
     runner = TrainRunner(model, train, test, seed=seed, device="cuda",
@@ -139,12 +143,18 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dataset-dir", default=str(REPO / "datasets" / "sample"))
+    ap.add_argument("--order", type=int, default=1)
+    ap.add_argument("--extra", action="store_true", help="MSGIFSR REnorm")
+    ap.add_argument("--fusion", action="store_true", help="MSGIFSR IFR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    train, runner = _setup(args.dataset_dir, args.seed)
+    train, runner = _setup(args.dataset_dir, args.seed, args.order,
+                           args.extra, args.fusion)
     print(json.dumps({"phase": "device",
-                      "name": torch.cuda.get_device_name(0)}), flush=True)
+                      "name": torch.cuda.get_device_name(0),
+                      "order": args.order, "extra": args.extra,
+                      "fusion": args.fusion}), flush=True)
     print(json.dumps(host_breakdown(train, runner, args.warmup,
                                     args.steps)), flush=True)
     print(json.dumps(device_breakdown(train, runner, args.warmup, args.steps,

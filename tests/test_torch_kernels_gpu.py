@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (csrc/xent.cu) against their plain PyTorch
-versions, on the card.  CUDA kernels have no interpret mode, so without a
+"""The port's CUDA kernels (csrc/xent.cu, csrc/xent_multi.cu) against
+their plain PyTorch versions, on the card.  CUDA kernels have no interpret mode, so without a
 card every test here skips.  This file imports nothing of JAX, so it also
 runs on a machine without it:
 
@@ -8,7 +8,8 @@ runs on a machine without it:
 Tolerances: K1 rtol 1e-5 / atol 1e-4 (the same float32 products summed
 in another order); K2 1e-3 (float32) or 1e-2 (bfloat16) of the largest
 reference magnitude, for d_table in each group of rows, since dz and a
-bfloat16 d_table are rounded.
+bfloat16 d_table are rounded.  K3 and K4 likewise: the five stats to
+1e-5 * max(1, |ref|) element by element, d_sr and d_table as K2.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from sessionrec_tpu_torch.ops import xent as tx
+from sessionrec_tpu_torch.ops import xent_multi as txm
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +102,96 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         tx._fwd_cuda(wide, torch.zeros(512, 512, device=cuda), lbl, 500, 0,
                      **kw)
+
+
+def _multi_case(cuda, K, B, D, P, n, N, dtype, seed=11):
+    rng = np.random.default_rng(seed)
+    sr3 = rng.normal(size=(K, B, D)).astype(np.float32)
+    sr3 /= np.linalg.norm(sr3, axis=-1, keepdims=True)
+    tab = torch.from_numpy(rng.normal(size=(P, D)).astype(np.float32)) / 16
+    tab[2] = 0.0                                    # a zero-norm row
+    iids = rng.integers(0, n, size=(B, N)).astype(np.int32)
+    lens = rng.integers(1, N + 1, size=B)
+    iids[np.arange(N)[None, :] >= lens[:, None]] = -1
+    iids[1] = -1                                    # no session item
+    labels = rng.integers(0, n, size=B).astype(np.int32)
+    labels[::2] = np.maximum(iids[::2, 0], 0)       # in-session labels
+    labels[3] = -1                                  # an off-shard label
+    g = torch.from_numpy(rng.normal(size=(3, K, B)).astype(np.float32)) / B
+    return (torch.from_numpy(sr3).to(cuda, dtype), tab.to(cuda, dtype),
+            torch.from_numpy(labels).to(cuda),
+            torch.from_numpy(iids).to(cuda), g.to(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+def test_multi_kernels_match_plain(cuda, dtype, norm):
+    K, B, D, P, n, N = 3, 96, 256, 1536, 1400, 19
+    s, t, lbl, iids, g = _multi_case(cuda, K, B, D, P, n, N, dtype)
+    kw = dict(scale=12.0, normalize_table=norm)
+    got = txm._fwd_cuda(s, t, lbl, iids, n, 0, **kw)
+    want = txm._fwd_plain(s, t, lbl, iids, n, 0, **kw)
+    for a, b in zip(got, want):
+        assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) <= 1e-5
+    lse = (txm._finish(want[0], want[1]), txm._finish(want[2], want[3]))
+    dsr, dtab = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, n, 0, **kw)
+    dsr_p, dtab_p = txm._bwd_plain(*g, s, t, lbl, iids, *lse, n, 0, **kw)
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    assert float((dsr - dsr_p).abs().max()) <= tol * float(dsr_p.abs().max())
+    rows = torch.arange(P, device=cuda)
+    hit = torch.zeros(P, dtype=torch.bool, device=cuda)
+    hit[lbl[lbl >= 0].long()] = True
+    sess = torch.zeros(P, dtype=torch.bool, device=cuda)
+    sess[iids[iids >= 0].long()] = True
+    for group in (hit & (rows != 2), sess & ~hit & (rows != 2),
+                  ~hit & ~sess & (rows != 2) & (rows < n), rows == 2):
+        err = (dtab[group].float() - dtab_p[group].float()).abs().max()
+        assert float(err) <= tol * float(dtab_p[group].float().abs().max())
+    assert float(dtab[n:].float().abs().max()) == 0.0   # padding rows
+
+
+def test_multi_autograd_runs_the_kernels_once_each(cuda):
+    K, B, D, P, n, N = 3, 40, 128, 1024, 1000, 7
+    s, t, lbl, iids, _ = _multi_case(cuda, K, B, D, P, n, N, torch.float32,
+                                     seed=5)
+    lbl[3] = 5
+    rng = np.random.default_rng(2)
+    phi = torch.softmax(torch.from_numpy(
+        rng.normal(size=(B, K, 2)).astype(np.float32)), -1).to(cuda)
+    alpha = torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    valid = torch.ones(B, device=cuda)
+    kw = dict(scale=12.0, num_items=n, normalize_table=True, extra=True,
+              fusion=True)
+    sr = s.transpose(0, 1).contiguous()
+    s1, t1 = sr.clone().requires_grad_(True), t.clone().requires_grad_(True)
+    txm.reset_launches()
+    txm.multi_nll_loss(s1, t1, lbl, valid, iids, phi, alpha, **kw).backward()
+    assert (txm.fwd_launches, txm.bwd_launches) == (1, 1)
+    s2, t2 = sr.clone().requires_grad_(True), t.clone().requires_grad_(True)
+    zl, lin, lex = txm.reference_multi_stats(
+        s2.transpose(0, 1), t2, lbl, iids, scale=12.0, num_items=n,
+        normalize_table=True)
+    per_row = txm.combine_stats(zl, lin, lex, phi, alpha,
+                                torch.any(iids == lbl[:, None], dim=1),
+                                extra=True, fusion=True)
+    per_row.mean().backward()
+    torch.testing.assert_close(s1.grad, s2.grad, rtol=1e-3, atol=1e-6)
+    keep = torch.arange(P, device=cuda) != 2
+    torch.testing.assert_close(t1.grad[keep], t2.grad[keep], rtol=1e-3,
+                               atol=1e-6)
+
+
+def test_multi_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    s, t, lbl, iids, _ = _multi_case(cuda, 3, 8, 64, 512, 500, 5,
+                                     torch.float32)
+    kw = dict(scale=12.0, normalize_table=True)
+    with pytest.raises(TypeError):
+        txm._fwd_cuda(s, t, lbl, iids.long(), 500, 0, **kw)
+    with pytest.raises(ValueError):
+        txm._fwd_cuda(s[0], t, lbl, iids, 500, 0, **kw)
+    with pytest.raises(ValueError):
+        txm._fwd_cuda(s.transpose(1, 2).contiguous().transpose(1, 2), t,
+                      lbl, iids, 500, 0, **kw)
+    long_list = torch.zeros(8, 300, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        txm._fwd_cuda(s, t, lbl, long_list, 500, 0, **kw)

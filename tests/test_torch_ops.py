@@ -108,3 +108,26 @@ def test_renorm_rows_and_l2norm():
     np.testing.assert_allclose(
         tl.l2norm(torch.from_numpy(t)).numpy(),
         np.asarray(jl.l2norm(jnp.asarray(t))), rtol=1e-6, atol=1e-7)
+
+
+def test_masked_catalog_softmax_and_nll_loss():
+    """REnorm's restricted softmax (an empty mask gives zeros) and the mean
+    NLL over valid rows; rtol 1e-6 / atol 1e-7."""
+    rng = np.random.default_rng(7)
+    logits = (12 * rng.normal(size=(5, 3, 40))).astype(np.float32)
+    mask = (rng.random((5, 1, 40)) < 0.3).astype(np.float32)
+    mask[2] = 0.0                                       # an empty partition
+    want = np.asarray(js.masked_catalog_softmax(jnp.asarray(logits),
+                                                jnp.asarray(mask)))
+    got = ts.masked_catalog_softmax(torch.from_numpy(logits),
+                                    torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    assert np.all(got[2] == 0.0)
+    lp = np.log(np.maximum(got[:, 0], 1e-30))
+    labels = rng.integers(0, 40, size=5).astype(np.int32)
+    valid = np.array([1, 1, 0, 1, 1], np.float32)
+    want = float(js.nll_loss(jnp.asarray(lp), jnp.asarray(labels),
+                             jnp.asarray(valid)))
+    got = float(ts.nll_loss(torch.from_numpy(lp), torch.from_numpy(labels),
+                            torch.from_numpy(valid)))
+    np.testing.assert_allclose(got, want, rtol=1e-6)

@@ -53,3 +53,94 @@ def test_padding_rows_must_be_exactly_zero():
     bad[-1, 0] = 1e-30
     errs = cs.dtable_errors(torch, bad, dtab, labels, N_ITEMS, TOL)
     assert errs["padding"][0] > errs["padding"][1] == 0.0
+
+
+# K4 (xent_multi_bwd): rows hit only by session items carry p_in terms and
+# the rows no label or session item hits carry only p_ex terms; each group
+# is held to its own scale, so a K4 that drops either term fails.  The
+# catalog is the path's: with 512 rows of up to 19 session items, a
+# smaller one has no row that nothing hits.
+M_ITEMS = cs.PATH_ITEMS
+
+def _multi_dtable(P, norm, **drop):
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    sr3, tab, labels, iids, cot, lse = cs.make_multi_inputs(
+        torch, xm, M_ITEMS, P, torch.float32, seed=2, norm=norm, dev="cpu")
+    kw = dict(scale=cs.SCALE, normalize_table=norm)
+    gz, gin, gex = cot
+    gin = torch.zeros_like(gin) if drop.get("p_in") else gin
+    gex = torch.zeros_like(gex) if drop.get("p_ex") else gex
+    _, dtab = xm._bwd_plain(gz, gin, gex, sr3, tab, labels, iids, *lse,
+                            M_ITEMS, 0, **kw)
+    return dtab, labels, iids
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_multi_grouped_check_passes_the_plain_result(norm):
+    P = pad_catalog(M_ITEMS)
+    dtab, labels, iids = _multi_dtable(P, norm)
+    errs = cs.dtable_errors(torch, dtab.clone(), dtab, labels, M_ITEMS, TOL,
+                            iids)
+    assert set(errs) == {"labelled", "session", "unlabelled", "padding",
+                         "zero_row", "large_row"}
+    assert all(e == 0.0 for e, _ in errs.values())
+    assert all(t > 0.0 for name, (_, t) in errs.items() if name != "padding")
+
+
+@pytest.mark.parametrize("P", [M_ITEMS, pad_catalog(M_ITEMS)])
+@pytest.mark.parametrize("norm", [True, False])
+def test_multi_grouped_check_fails_a_k4_without_p_ex_on_other_rows(P, norm):
+    dtab, labels, iids = _multi_dtable(P, norm)
+    bad, _, _ = _multi_dtable(P, norm, p_ex=True)
+    groups = cs.dtable_groups(torch, labels, M_ITEMS, P, iids)
+    mutant = dtab.clone()
+    mutant[groups["unlabelled"]] = bad[groups["unlabelled"]]
+    assert float(bad[groups["unlabelled"]].abs().max()) == 0.0
+    errs = cs.dtable_errors(torch, mutant, dtab, labels, M_ITEMS, TOL, iids)
+    assert errs["unlabelled"][0] > errs["unlabelled"][1]
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_multi_grouped_check_fails_a_k4_without_p_in_on_session_rows(norm):
+    P = pad_catalog(M_ITEMS)
+    dtab, labels, iids = _multi_dtable(P, norm)
+    bad, _, _ = _multi_dtable(P, norm, p_in=True)
+    groups = cs.dtable_groups(torch, labels, M_ITEMS, P, iids)
+    mutant = dtab.clone()
+    mutant[groups["session"]] = bad[groups["session"]]
+    errs = cs.dtable_errors(torch, mutant, dtab, labels, M_ITEMS, TOL, iids)
+    assert errs["session"][0] > errs["session"][1]
+
+
+# K3's stats check: logits and their maxima held to their own scale, the
+# sum-exps relatively, an empty partition's 0 exactly
+
+def _stats():
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    sr3, tab, labels, iids, _, _ = cs.make_multi_inputs(
+        torch, xm, M_ITEMS, pad_catalog(M_ITEMS), torch.float32, seed=3,
+        dev="cpu")
+    return xm._fwd_plain(sr3, tab, labels, iids, M_ITEMS, 0,
+                         scale=cs.SCALE, normalize_table=True)
+
+
+def test_stats_check_passes_the_plain_result():
+    want = _stats()
+    errs = cs.stats_errors(torch, [t.clone() for t in want], want, 1e-5)
+    assert set(errs) == set(cs.STATS)
+    assert all(e == 0.0 and t > 0.0 for e, t in errs.values())
+    assert bool((want[1][:, 1] == 0.0).all())   # row 1: no session item
+
+
+@pytest.mark.parametrize("stat,change", [
+    ("s_in", lambda s: s * (1 + 1e-3)),      # a sum-exp 0.1% off
+    ("s_in", lambda s: s + 1e-20),           # an empty partition not 0
+    ("zl", lambda z: z - 1e-2),              # a label logit off
+    ("m_ex", lambda m: m + 1e-2)])
+def test_stats_check_fails_a_wrong_stat(stat, change):
+    want = _stats()
+    got = [t.clone() for t in want]
+    i = cs.STATS.index(stat)
+    got[i] = change(got[i])
+    errs = cs.stats_errors(torch, got, want, 1e-5)
+    assert errs[stat][0] > errs[stat][1]
