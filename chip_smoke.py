@@ -10,13 +10,18 @@ Phases, one JSON line each on stdout:
 3. kernels — hold K1 (xent_fwd) and K2 (xent_bwd) against their plain
    PyTorch versions on the card at B=512, D=256, catalogs of 3,429 and
    37,484 items, float32 and bfloat16, with the table normalised and not,
-   including a masked row, a zero-norm and a large-norm table row; then
+   including a masked row, a zero-norm and a large-norm table row, plus
+   one ragged case of B=509 rows on the unpadded 37,484-row catalog; K2
+   runs twice on every case and must give the same bits both times; then
    K3 (xent_multi_fwd) and K4 (xent_multi_bwd) at K=3 orders of those
    rows, with session item lists of up to 19 ids (-1 padded), a row with
    none, labels inside and outside the session, and the cotangents of the
    paper head's loss.  Then time each kernel, its plain version and the
    PyTorch expression of the same function (``library_ms``, a yardstick
-   the port never calls).
+   the port never calls), with K2's launch shape at each timed shape:
+   blocks, splits, resident blocks per SM, its product kernels' registers
+   and local memory, and each of its kernels' device time under
+   ``torch.profiler``.
 4. path    — train MSGIFSR order 1 at d=256, 1 layer, batch 512, tiers
    (4, 8), feat_drop 0.1 on datasets/sample through ``run_training``: an
    initial eval, ``--steps`` optimizer steps, a final eval.  Every
@@ -51,6 +56,7 @@ B, D, SCALE = 512, 256, 12.0
 K = 3                         # orders of the paper head
 NS = 19                       # longest session item list on datasets/sample
 CATALOGS = (3429, 37484)      # datasets/sample; yoochoose-1/4 (bench.py:47)
+RAGGED_B = 509                # rows of the ragged K1/K2 check
 PATH_ITEMS = 3429
 ZERO_ROW = 5                  # the table row set to zero in the checks
 LARGE_ROW = 7                 # the table row of norm ~50 in the checks
@@ -110,20 +116,20 @@ def phase_device(torch):
 # phase 3: kernels against their plain versions, and timings
 # ---------------------------------------------------------------------------
 
-def make_inputs(torch, n_items, P, dtype, seed, dev="cuda"):
-    """sr rows unit-norm (as the model emits them), table rows inside the
-    max-norm ball except one zero row and one of norm ~50; row 3 is a
-    masked row (g = 0, label -1)."""
+def make_inputs(torch, n_items, P, dtype, seed, dev="cuda", rows=B):
+    """``rows`` sr rows unit-norm (as the model emits them), table rows
+    inside the max-norm ball except one zero row and one of norm ~50; row
+    3 is a masked row (g = 0, label -1)."""
     gen = torch.Generator().manual_seed(seed)
-    sr = torch.randn(B, D, generator=gen)
+    sr = torch.randn(rows, D, generator=gen)
     sr = sr / sr.norm(dim=1, keepdim=True)
     tab = (torch.rand(P, D, generator=gen) * 2 - 1) / math.sqrt(D)
     tab[ZERO_ROW] = 0.0
     tab[LARGE_ROW] *= 50.0
-    labels = torch.randint(0, n_items, (B,), generator=gen,
+    labels = torch.randint(0, n_items, (rows,), generator=gen,
                            dtype=torch.int32)
     labels[3] = -1
-    valid = torch.ones(B)
+    valid = torch.ones(rows)
     valid[3] = 0.0
     g = valid / valid.sum()
     return (sr.to(dev, dtype), tab.to(dev, dtype), labels.to(dev),
@@ -132,6 +138,12 @@ def make_inputs(torch, n_items, P, dtype, seed, dev="cuda"):
 
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def dsr_errors(got, want, tol):
+    """[max abs err, tolerance] of d_sr, held to tol times the reference's
+    largest magnitude."""
+    return [max_err(got, want), tol * float(want.abs().max())]
 
 
 def dtable_groups(torch, labels, n_items, P, iids=None):
@@ -175,11 +187,21 @@ def check_cases(torch):
             for norm in (True, False)]
 
 
+def xent_check_cases(torch):
+    """(items, table rows, type, normalised, batch rows) of the K1/K2
+    checks: ``check_cases`` at B rows, and a ragged batch on the unpadded
+    north-star catalog, whose row and catalog edges fall inside tiles."""
+    return ([case + (B,) for case in check_cases(torch)]
+            + [(CATALOGS[1], CATALOGS[1], torch.float32, True, RAGGED_B)])
+
+
 def phase_kernel_checks(torch, xent, seed):
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
     worst = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    for i, (n_items, P, dtype, norm) in enumerate(check_cases(torch)):
-        sr, tab, labels, g = make_inputs(torch, n_items, P, dtype, seed + i)
+    for i, (n_items, P, dtype, norm, rows) in enumerate(
+            xent_check_cases(torch)):
+        sr, tab, labels, g = make_inputs(torch, n_items, P, dtype, seed + i,
+                                         rows=rows)
         kw = dict(scale=SCALE, normalize_table=norm)
         loss_k, lse_k = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
         m, s, zl = xent._fwd_plain(sr, tab, labels, n_items, 0, **kw)
@@ -187,6 +209,8 @@ def phase_kernel_checks(torch, xent, seed):
         loss_p = lse_p - zl
         dsr_k, dtab_k = xent._bwd_cuda(g, sr, tab, labels, lse_p, n_items,
                                        0, **kw)
+        dsr_k2, dtab_k2 = xent._bwd_cuda(g, sr, tab, labels, lse_p,
+                                         n_items, 0, **kw)
         dsr_p, dtab_p = xent._bwd_plain(g, sr, tab, labels, lse_p, n_items,
                                         0, **kw)
         torch.cuda.synchronize()
@@ -194,24 +218,26 @@ def phase_kernel_checks(torch, xent, seed):
         e_fwd = max(max_err(loss_k, loss_p), max_err(lse_k, lse_p))
         ref_fwd = max(1.0, float(lse_p.abs().max()))
         tol = TOL[("bwd", dname)]
-        e_dsr = max_err(dsr_k, dsr_p)
+        e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
         # the zero-norm row's gradient is G / eps, about 1e12 times the
         # others, and rows with no label carry only the softmax term
         dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol)
+        same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
         row = {"phase": "kernel_check", "items": n_items, "P": P,
-               "dtype": dname, "normalize_table": norm,
+               "B": rows, "dtype": dname, "normalize_table": norm,
                "fwd_max_abs_err": e_fwd, "dsr_max_abs_err": e_dsr,
                "fwd_tol": TOL[("fwd", dname)] * ref_fwd,
-               "dsr_tol": tol * float(dsr_p.abs().max()),
-               "dtable_err_tol": dtab}
+               "dsr_tol": dsr_tol, "dtable_err_tol": dtab,
+               "k2_repeat_bit_identical": same}
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (loss_k, lse_k, dsr_k, dtab_k))
-        row["ok"] = (finite and e_fwd <= row["fwd_tol"]
+        row["ok"] = (finite and same and e_fwd <= row["fwd_tol"]
                      and e_dsr <= row["dsr_tol"]
                      and all(e <= t for e, t in dtab.values()))
         emit(row)
         check(row["ok"], f"kernel disagrees with its plain version: {row}")
-        if P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm:
+        if (P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm
+                and rows == B):
             worst["xent_fwd"] = e_fwd
             worst["xent_bwd"] = max(
                 [e_dsr] + [e for name, (e, _) in dtab.items()
@@ -297,14 +323,13 @@ def phase_multi_checks(torch, xm, seed):
         stats = stats_errors(torch, got, want, TOL[("fwd", dname)])
         e_fwd = max(max_err(a, b) for a, b in zip(got, want))
         tol = TOL[("bwd", dname)]
-        e_dsr = max_err(dsr_k, dsr_p)
+        e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
         dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol,
                              iids)
         row = {"phase": "multi_kernel_check", "items": n_items, "P": P,
                "K": K, "dtype": dname, "normalize_table": norm,
                "stats_err_tol": stats, "stats_max_abs_err": e_fwd,
-               "dsr_max_abs_err": e_dsr,
-               "dsr_tol": tol * float(dsr_p.abs().max()),
+               "dsr_max_abs_err": e_dsr, "dsr_tol": dsr_tol,
                "dtable_err_tol": dtab}
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (*got[1::2], dsr_k, dtab_k))
@@ -334,6 +359,24 @@ def time_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(torch, fn, calls):
+    """{kernel name: device ms per call} of the kernels ``fn`` launches,
+    from a ``torch.profiler`` trace of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from sessionrec_tpu_torch.utils.profiling import profiled_device_events
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, _, dur in profiled_device_events(prof):
+        name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+        name = name.split("(")[0]
+        out[name] = out.get(name, 0.0) + dur / 1e3 / calls
+    return out
 
 
 def bounds(n_bytes, n_ops, dname):
@@ -388,6 +431,11 @@ def phase_kernel_times(torch, xent, seed, smi):
             bytes_b = (B * D + 2 * P * D) * esz + 3 * B * 4 + B * D * 4
             bf, byf = bounds(bytes_f, ops_f, dname)
             bb, byb = bounds(bytes_b, ops_b, dname)
+
+            def k2():
+                return xent._bwd_cuda(g, sr, tab, labels, lse, n_items, 0,
+                                      **kw)
+
             res = {
                 "xent_fwd": {
                     "ms": time_ms(torch, lambda: xent._fwd_cuda(
@@ -396,8 +444,7 @@ def phase_kernel_times(torch, xent, seed, smi):
                     "library_ms": time_ms(torch, lib_fwd, iters),
                     "bound_ms": bf, "bound_by": byf},
                 "xent_bwd": {
-                    "ms": time_ms(torch, lambda: xent._bwd_cuda(
-                        g, sr, tab, labels, lse, n_items, 0, **kw), iters),
+                    "ms": time_ms(torch, k2, iters),
                     "plain_ms": time_ms(torch, lambda: xent._bwd_plain(
                         g, sr, tab, labels, lse, n_items, 0, **kw), iters),
                     "library_ms": time_ms(torch, lib_bwd, iters),
@@ -408,6 +455,9 @@ def phase_kernel_times(torch, xent, seed, smi):
                       "items": n_items, "P": P, "B": B, "D": D,
                       "dtype": dname, "normalize_table": True, **r,
                       "card": smi})
+            emit({"phase": "k2_launch", "P": P, "B": B, "D": D,
+                  "dtype": dname, **xent.bwd_launch_shape(sr, P),
+                  "kernels_ms": kernel_ms(torch, k2, iters), "card": smi})
             rows[(n_items, dname)] = res
     return rows
 
@@ -582,7 +632,8 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     csrc = HERE / "sessionrec_tpu_torch" / "csrc"
-    if not all((csrc / f).is_file() for f in ("xent.cu", "xent_multi.cu")):
+    if not all((csrc / f).is_file()
+               for f in ("xent.cu", "xent_bwd.cu", "xent_multi.cu")):
         print("chip_smoke: sessionrec_tpu_torch not found beside this file",
               file=sys.stderr)
         return 2
@@ -616,7 +667,7 @@ def main(argv=None):
                 **multi_times[(PATH_ITEMS, "float32")])
     kernels = {
         "xent_fwd": ("xent.cu", "sessionrec_tpu/ops/xent.py:71"),
-        "xent_bwd": ("xent.cu", "sessionrec_tpu/ops/xent.py:164"),
+        "xent_bwd": ("xent_bwd.cu", "sessionrec_tpu/ops/xent.py:164"),
         "xent_multi_fwd": ("xent_multi.cu",
                            "sessionrec_tpu/ops/xent_multi.py:57"),
         "xent_multi_bwd": ("xent_multi.cu",

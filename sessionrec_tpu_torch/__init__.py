@@ -9,8 +9,8 @@ Implemented so far: MSGIFSR training on one device, at order 1 and as
 the WSDM'22 paper head (order 3, REnorm, fusion).  The fused catalog
 cross-entropy (``ops/xent.py``) and the fused multi-order REnorm/fusion
 loss (``ops/xent_multi.py``) run hand-written CUDA kernels
-(``csrc/xent.cu``, ``csrc/xent_multi.cu``) on CUDA tensors and their
-plain PyTorch versions on CPU tensors.
+(``csrc/xent.cu``, ``csrc/xent_bwd.cu``, ``csrc/xent_multi.cu``) on CUDA
+tensors and their plain PyTorch versions on CPU tensors.
 """
 
 __version__ = "0.1.0"

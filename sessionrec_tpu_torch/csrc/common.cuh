@@ -1,7 +1,7 @@
-// Helpers shared by the catalog-loss kernels (xent.cu, xent_multi.cu):
-// constants, type conversions and the shared-memory staging of operand
-// rows and catalog tiles.  Everything here has internal linkage, so each
-// source that includes it gets its own copy.
+// Helpers shared by the catalog-loss kernels (xent.cu, xent_bwd.cu,
+// xent_multi.cu): constants, type conversions and the shared-memory
+// staging of operand rows and catalog tiles.  Everything here has internal
+// linkage, so each source that includes it gets its own copy.
 
 #pragma once
 

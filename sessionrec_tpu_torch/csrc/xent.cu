@@ -1,9 +1,8 @@
-// Fused full-catalog softmax cross-entropy for Hopper (sm_90a).
+// Fused full-catalog softmax cross-entropy for Hopper (sm_90a): K1.
 //
-// Replaces the two Pallas TPU kernels of sessionrec_tpu/ops/xent.py:
+// Replaces the Pallas TPU kernel of sessionrec_tpu/ops/xent.py:
 //   K1  _fwd_kernel (xent.py:71)  -> xent_fwd_partial + xent_fwd_merge
-//   K2  _bwd_kernel (xent.py:164) -> xent_bwd_dtable + xent_bwd_dsr
-//                                    (+ xent_bwd_dsr_reduce)
+// Its backward pass, K2 (_bwd_kernel, xent.py:164), is xent_bwd.cu.
 //
 // The loss of every training step is  -log softmax(scale * sr @ t^T)[label]
 // over the whole catalog, with t = table / max(||table_row||, 1e-12) when
@@ -32,16 +31,10 @@
 //     fills the card; each split writes a partial (max, sum-exp, label
 //     logit) per row, and xent_fwd_merge combines them the way the
 //     catalog-sharded JAX path combines shards (xent.py:339-345).
-//   * The backward pass is two kernels with no atomics, so its result is
-//     deterministic: xent_bwd_dtable is parallel over catalog tiles and
-//     loops over all rows; xent_bwd_dsr is parallel over row tiles and
-//     catalog splits, and xent_bwd_dsr_reduce sums the splits in a fixed
-//     order.  Each recomputes the logits: four products where three bound
-//     the function.
 //   * bfloat16 inputs: operands are rounded to bfloat16 where the JAX
-//     kernel feeds bfloat16 to its matrix unit (the normalised table and
-//     dz in the backward pass) and products accumulate in float32, so the
-//     numerics are those of a bfloat16 MMA with float32 accumulation.
+//     kernel feeds bfloat16 to its matrix unit and products accumulate in
+//     float32, so the numerics are those of a bfloat16 MMA with float32
+//     accumulation.
 //     The products themselves still run on the FMA pipes; mma / wgmma
 //     tiles are later work.
 //
@@ -178,142 +171,7 @@ __global__ void xent_fwd_merge(const float* __restrict__ m_p,
   loss[r] = l - zg;
 }
 
-// dz = (p - onehot) * scale * g for one logits value (0 for padding rows)
-template <typename T>
-__device__ __forceinline__ float dlogit(float z, int col, int p_end,
-                                        int col_offset, int n_valid, int lbl,
-                                        float lse_r, float g_r, bool row_ok,
-                                        float scale) {
-  const int gcol = col_offset + col;
-  const bool in_table = col < p_end;
-  if (!row_ok || !in_table) return 0.f;
-  const float p = gcol < n_valid ? expf(z - lse_r) : 0.f;
-  const float oh = gcol == lbl ? 1.f : 0.f;
-  return round_op<T>((p - oh) * (scale * g_r));
-}
-
-// ---------------------------------------------------------------------------
-// K2, d_table: grid = ceil(P / T_BN).  A block owns 32 catalog rows, loops
-// over the batch in 64-row chunks, recomputes the 64 x 32 dz tile and
-// accumulates G = dz^T @ sr in registers (warp w owns catalog rows
-// 4w .. 4w + 3, lane l owns features l + 32 q), then applies the l2norm
-// VJP (G - (G . t) t [n > eps]) / max(n, eps) and writes d_table.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT) xent_bwd_dtable(
-    const float* __restrict__ g, const T* __restrict__ sr,
-    const T* __restrict__ tab, const int* __restrict__ labels,
-    const float* __restrict__ lse, int B, int P, int D, int n_valid,
-    int col_offset, float scale, int normalize, T* __restrict__ dtab) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  constexpr int LDZ = T_BN + 1;
-  float* B_s = smem;              // [T_BN][ld] operand table rows
-  float* A_s = B_s + T_BN * ld;   // [T_BM][ld] sr rows
-  float* dz_s = A_s + T_BM * ld;  // [T_BM][LDZ]
-  float* n_s = dz_s + T_BM * LDZ; // [T_BN]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int p0 = blockIdx.x * T_BN;
-
-  stage_operand_tile(B_s, ld, n_s, tab, p0, P, T_BN, D, normalize);
-
-  float G[4][MAX_D / 32] = {};
-  for (int b0 = 0; b0 < B; b0 += T_BM) {
-    __syncthreads();  // the previous chunk is consumed
-    stage_rows(A_s, ld, sr, b0, B, T_BM, D);
-    __syncthreads();
-    float acc[4][2] = {};
-    product_64x32(acc, A_s, B_s, ld, D);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty + 16 * i, r = b0 + rl;
-      const bool row_ok = r < B;
-      const int lbl = row_ok ? labels[r] : -1;
-      const float lse_r = row_ok ? lse[r] : 0.f;
-      const float g_r = row_ok ? g[r] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = tx + 16 * j;
-        dz_s[rl * LDZ + c] =
-            dlogit<T>(scale * acc[i][j], p0 + c, P, col_offset, n_valid, lbl,
-                      lse_r, g_r, row_ok, scale);
-      }
-    }
-    __syncthreads();
-    accumulate_dtable(G, dz_s, LDZ, A_s, ld, D);
-  }
-
-  store_dtable(G, n_s, tab, p0, P, D, normalize, dtab);
-}
-
-// ---------------------------------------------------------------------------
-// K2, d_sr: grid = (ceil(B / F_BM), n_split).  A block owns 32 batch rows
-// and one catalog split, recomputes each 32 x 64 dz tile and accumulates
-// dz @ t in registers (warp w owns rows 4w .. 4w + 3, lane l features
-// l + 32 q); each split writes its partial sum, reduced in a fixed order by
-// xent_bwd_dsr_reduce.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT) xent_bwd_dsr(
-    const float* __restrict__ g, const T* __restrict__ sr,
-    const T* __restrict__ tab, const int* __restrict__ labels,
-    const float* __restrict__ lse, int B, int P, int D, int n_valid,
-    int col_offset, float scale, int normalize, int cols_per_split,
-    float* __restrict__ dsr_part) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  constexpr int LDZ = F_BN + 1;
-  float* A_s = smem;              // [F_BM][ld] sr rows
-  float* B_s = A_s + F_BM * ld;   // [F_BN][ld] operand table rows
-  float* dz_s = B_s + F_BN * ld;  // [F_BM][LDZ]
-  float* n_s = dz_s + F_BM * LDZ; // [F_BN]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.x * F_BM;
-  const int split = blockIdx.y;
-  const int p_begin = split * cols_per_split;
-  const int p_end = min(P, p_begin + cols_per_split);
-
-  stage_rows(A_s, ld, sr, row0, B, F_BM, D);
-  int lbl[2];
-  float lse_r[2], g_r[2];
-  bool row_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + ty + 16 * i;
-    row_ok[i] = r < B;
-    lbl[i] = row_ok[i] ? labels[r] : -1;
-    lse_r[i] = row_ok[i] ? lse[r] : 0.f;
-    g_r[i] = row_ok[i] ? g[r] : 0.f;
-  }
-
-  float acc_d[4][MAX_D / 32] = {};
-  for (int p0 = p_begin; p0 < p_end; p0 += F_BN) {
-    __syncthreads();  // the previous tile is consumed
-    stage_operand_tile(B_s, ld, n_s, tab, p0, p_end, F_BN, D, normalize);
-    float acc[2][4] = {};
-    product_32x64(acc, A_s, B_s, ld, D);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        dz_s[(ty + 16 * i) * LDZ + c] =
-            dlogit<T>(scale * acc[i][j], p0 + c, p_end, col_offset, n_valid,
-                      lbl[i], lse_r[i], g_r[i], row_ok[i], scale);
-      }
-    __syncthreads();
-    accumulate_dsr(acc_d, dz_s, LDZ, B_s, ld, min(F_BN, p_end - p0), D);
-  }
-  store_dsr_part(acc_d, dsr_part + (size_t)split * B * D, row0, B, D);
-}
-
 size_t fwd_smem(int D) { return ((size_t)(F_BM + F_BN) * (D + 1) + F_BN) * 4; }
-size_t dtable_smem(int D) {
-  return ((size_t)(T_BN + T_BM) * (D + 1) + T_BM * (T_BN + 1) + T_BN) * 4;
-}
-size_t dsr_smem(int D) {
-  return ((size_t)(F_BM + F_BN) * (D + 1) + F_BM * (F_BN + 1) + F_BN) * 4;
-}
 
 template <typename T>
 int fwd(const void* sr, const void* tab, const int* labels, int B, int P,
@@ -338,35 +196,6 @@ int fwd(const void* sr, const void* tab, const int* labels, int B, int P,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int bwd(const float* g, const void* sr, const void* tab, const int* labels,
-        const float* lse, int B, int P, int D, int n_valid, int col_offset,
-        float scale, int normalize, int n_split, int cols_per_split,
-        float* dsr_part, float* dsr, void* dtab, cudaStream_t stream) {
-  const size_t smem_t = dtable_smem(D), smem_s = dsr_smem(D);
-  cudaFuncSetAttribute(xent_bwd_dtable<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_t);
-  cudaFuncSetAttribute(xent_bwd_dsr<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_s);
-  xent_bwd_dtable<T><<<(P + T_BN - 1) / T_BN, NT, smem_t, stream>>>(
-      g, (const T*)sr, (const T*)tab, labels, lse, B, P, D, n_valid,
-      col_offset, scale, normalize, (T*)dtab);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + F_BM - 1) / F_BM, n_split);
-  xent_bwd_dsr<T><<<grid, NT, smem_s, stream>>>(
-      g, (const T*)sr, (const T*)tab, labels, lse, B, P, D, n_valid,
-      col_offset, scale, normalize, cols_per_split, dsr_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = B * D;
-  xent_bwd_dsr_reduce<<<(n + 255) / 256, 256, 0, stream>>>(dsr_part, n_split,
-                                                           n, dsr);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -385,20 +214,6 @@ int srt_xent_fwd(const void* sr, const void* tab, const void* labels, int B,
   return f(sr, tab, (const int*)labels, B, P, D, n_valid, col_offset, scale,
            normalize, n_split, cols_per_split, (float*)part, (float*)loss,
            (float*)lse, (cudaStream_t)stream);
-}
-
-// K2: d_sr (float32) and d_table (table's type); dsr_part is scratch of
-// n_split * B * D floats
-int srt_xent_bwd(const void* g, const void* sr, const void* tab,
-                 const void* labels, const void* lse, int B, int P, int D,
-                 int n_valid, int col_offset, float scale, int normalize,
-                 int is_bf16, int n_split, int cols_per_split, void* dsr_part,
-                 void* dsr, void* dtab, void* stream) {
-  auto f = is_bf16 ? bwd<__nv_bfloat16> : bwd<float>;
-  return f((const float*)g, sr, tab, (const int*)labels, (const float*)lse, B,
-           P, D, n_valid, col_offset, scale, normalize, n_split,
-           cols_per_split, (float*)dsr_part, (float*)dsr, dtab,
-           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,450 @@
+// K2: the backward pass of the fused full-catalog softmax cross-entropy,
+// for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel sessionrec_tpu/ops/xent.py:164
+// _bwd_kernel (pallas_call at :221).  For the per-row loss cotangent g it
+// computes
+//   dz      = round_op((softmax(scale * sr t^T) - onehot) * scale * g)
+//   d_sr    = dz @ t                             [B, D] float32
+//   d_table = l2norm-VJP(dz^T @ sr)              [P, D] the table's type
+// with t = round_op(table / max(||table_row||, 1e-12)) when the table is
+// normalised (the table itself otherwise), columns at or past n_valid
+// masked, labels localised to the table (-1 matches nothing) and padding
+// rows exactly 0.  round_op rounds to the operand type (identity in
+// float32), where the JAX kernel feeds its matrix unit.
+//
+// What bounds it.  3 * 2*B*P*D operations are counted (the logits, d_sr,
+// d_table) on (B + 2 P) * D elements: at B = 512, D = 256 about 770
+// operations a float32 byte, far above the card's 20 (67 TFLOP/s over
+// 3.35 TB/s), so it is bound by operations, on the FP32 FMA pipes (TF32
+// would change the numerics).  Four products are performed: the logits are
+// recomputed once for each output.  One pass for both outputs would need
+// either a cross-block sum of a [B, D] partial per catalog tile (310 MB at
+// the north-star catalog of 37,888 rows) or atomics, which give up
+// determinism; so the kernel's ceiling is 75% of its bound.
+//
+// What the design does about it:
+//   * The table is normalised once.  xent_bwd_normalize writes t and the
+//     clamped norms n to scratch; the product kernels stream t and never
+//     normalise a tile again (the first design re-normalised every tile in
+//     every block that staged it).
+//   * Register-tiled products (tiles.cuh).  A 64 x 64 logits tile is 4 x 4
+//     outputs a thread, 8 shared loads of four elements per 64 FMAs; the
+//     accumulations d_table += dz^T sr and d_sr += dz t are 8 x 8 outputs
+//     a thread (a warp's 8 rows, a lane's 8 features), 4 loads per 64
+//     FMAs.  Tiles stay row-major with a padded stride, so every read is
+//     four consecutive elements and the lanes of a phase hit distinct
+//     banks; dz goes to shared memory as [row][col] for d_table and as
+//     [col][row] for d_sr, so each accumulation reads it along its own
+//     reduction axis.
+//   * Asynchronous, double-buffered staging.  Tiles arrive by cp.async,
+//     four elements a copy (16 bytes in float32, 8 in bfloat16), and the
+//     next tile of the streamed operand loads while the current one is
+//     used.  bfloat16 is staged as bfloat16 and widened in registers.
+//   * A grid that fills the card.  xent_bwd_dtable is parallel over
+//     64-row catalog tiles and over row splits, with tiles x splits at
+//     most the resident block slots (the wrapper reads them from
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor); with several splits
+//     each writes a float32 partial of dz^T sr and xent_bwd_dtable_reduce
+//     sums them in a fixed order and applies the l2norm VJP
+//     (G - (G . t) t [n > eps]) / n once, after the sum (the VJP is linear
+//     in G); with one split the product kernel writes d_table itself.
+//     xent_bwd_dsr is parallel over 64-row batch tiles and catalog splits,
+//     and xent_bwd_dsr_reduce sums its partials in a fixed order.
+//   * Deterministic: no atomics; two calls on the same inputs give the
+//     same bits.
+//
+// Interface.  srt_xent_bwd takes the grid the wrapper chose
+// (ops/xent.py:_bwd_grid) and its scratch; srt_xent_bwd_slots reports the
+// resident block slots of the two product kernels, their registers and
+// their local memory (spills).  Any B >= 1, P >= 1,
+// 0 < D <= 256: with D % 4 == 0 and aligned arrays the tiles are staged by
+// cp.async, otherwise by plain loads.  Each entry point launches on the
+// given stream, does not synchronise and returns cudaGetLastError().
+
+#include "tiles.cuh"
+
+namespace {
+
+// dz = (p - onehot) * scale * g for one logits value (0 for padding rows)
+template <typename T>
+__device__ __forceinline__ float dlogit(float z, int col, int p_end,
+                                        int col_offset, int n_valid, int lbl,
+                                        float lse_r, float g_r, bool row_ok,
+                                        float scale) {
+  const int gcol = col_offset + col;
+  const bool in_table = col < p_end;
+  if (!row_ok || !in_table) return 0.f;
+  const float p = gcol < n_valid ? expf(z - lse_r) : 0.f;
+  const float oh = gcol == lbl ? 1.f : 0.f;
+  return round_op<T>((p - oh) * (scale * g_r));
+}
+
+// t = round_op(row / max(||row||, eps)) and n = max(||row||, eps), one warp
+// per table row
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_bwd_normalize(
+    const T* __restrict__ tab, int P, int D, T* __restrict__ that,
+    float* __restrict__ nrm) {
+  const int row = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= P) return;  // warp-uniform
+  const T* src = tab + (size_t)row * D;
+  float acc = 0.f;
+  for (int k = lane; k < D; k += 32) {
+    const float v = to_f(src[k]);
+    acc = fmaf(v, v, acc);
+  }
+  const float n = fmaxf(sqrtf(warp_sum(acc)), NORM_EPS);
+  for (int k = lane; k < D; k += 32)
+    that[(size_t)row * D + k] = from_f<T>(to_f(src[k]) / n);
+  if (lane == 0) nrm[row] = n;
+}
+
+// d_table row col from its sum g = (dz^T sr)[col] (lane_feature(j) of
+// each lane), with the l2norm VJP (G - (G . t) t [n > eps]) / n, t the
+// unrounded table row / n, when the table is normalised
+template <typename T>
+__device__ __forceinline__ void finish_dtable_row(const float (&g)[8],
+                                                  int col, const T* tab,
+                                                  const float* nrm, int D,
+                                                  int normalize, T* dtab) {
+  const size_t base = (size_t)col * D;
+  if (!normalize) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = lane_feature(j);
+      if (d < D) dtab[base + d] = from_f<T>(g[j]);
+    }
+    return;
+  }
+  const float n = nrm[col];
+  const float live = n > NORM_EPS ? 1.f : 0.f;
+  float t[8];
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // features at or past D hold whatever the tile's padding held
+    const int d = lane_feature(j);
+    t[j] = d < D ? to_f(tab[base + d]) / n : 0.f;
+    if (d < D) dot = fmaf(g[j], t[j], dot);
+  }
+  dot = warp_sum(dot);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = lane_feature(j);
+    if (d < D) dtab[base + d] = from_f<T>((g[j] - dot * t[j] * live) / n);
+  }
+}
+
+// the three 64-row tiles and the dz tile of one block
+template <typename T>
+size_t bwd_smem(int D) {
+  return (size_t)3 * TILE * tile_ld(D) * sizeof(T) +
+         (size_t)TILE * LDZ * sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// d_table: grid = (catalog tiles, row splits).  A block stages its 64-row
+// tile of t once and streams the batch rows of its split in 64-row chunks
+// (double-buffered), recomputes each 64 x 64 dz tile and accumulates
+// G = dz^T sr in registers (warp w owns catalog rows 8 w .. 8 w + 7).  With
+// part, it writes G as the split's float32 partial; otherwise d_table.
+// ---------------------------------------------------------------------------
+template <typename T, bool HI>
+__global__ void __launch_bounds__(NT, 1) xent_bwd_dtable(
+    const float* __restrict__ g, const T* __restrict__ sr,
+    const T* __restrict__ op, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const float* __restrict__ lse, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int normalize, int vec,
+    int chunks_per_split, float* __restrict__ part, T* __restrict__ dtab) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tile_ld(D), D4 = (D + 3) & ~3;
+  T* C_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] t rows
+  T* A_s = C_s + TILE * ld;                            // [2][TILE][ld] sr
+  float* dz_s = reinterpret_cast<float*>(A_s + 2 * TILE * ld);  // [row][col]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int p0 = blockIdx.x * TILE;
+  const int n_chunks = (B + TILE - 1) / TILE;
+  const int c_begin = blockIdx.y * chunks_per_split;
+  const int c_end = min(n_chunks, c_begin + chunks_per_split);
+
+  stage_tile(C_s, ld, op, p0, P, D, vec);
+  stage_tile(A_s, ld, sr, c_begin * TILE, B, D, vec);
+  cp_async_commit();
+
+  float G[8][8] = {};
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = (c - c_begin) & 1;
+    const T* A = A_s + buf * TILE * ld;
+    if (c + 1 < c_end)
+      stage_tile(A_s + (buf ^ 1) * TILE * ld, ld, sr, (c + 1) * TILE, B, D,
+                 vec);
+    cp_async_commit();
+    cp_async_wait_prev();  // this chunk (and the tile) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits(S, A, C_s, ld, D4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = ty + 16 * i, r = c * TILE + rl;
+      const bool row_ok = r < B;
+      const int lbl = row_ok ? labels[r] : -1;
+      const float lse_r = row_ok ? lse[r] : 0.f;
+      const float g_r = row_ok ? g[r] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = tx + 16 * j;
+        dz_s[rl * LDZ + cl] =
+            dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid, lbl,
+                      lse_r, g_r, row_ok, scale);
+      }
+    }
+    __syncthreads();
+    rank_update<T, HI>(G, dz_s, A, ld);
+    __syncthreads();  // A and dz_s are consumed
+  }
+
+  const int w = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = p0 + 8 * w + i;
+    if (col >= P) continue;  // warp-uniform
+    if (part)
+      store_row8(part + ((size_t)blockIdx.y * P + col) * D, G[i], D);
+    else
+      finish_dtable_row<T>(G[i], col, tab, nrm, D, normalize, dtab);
+  }
+}
+
+// d_table from the row splits' partials, summed in split order, one warp
+// per catalog row
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_bwd_dtable_reduce(
+    const float* __restrict__ part, int n_split, const T* __restrict__ tab,
+    const float* __restrict__ nrm, int P, int D, int normalize,
+    T* __restrict__ dtab) {
+  const int col = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  if (col >= P) return;  // warp-uniform
+  float gs[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = lane_feature(j);
+    float acc = 0.f;
+    if (d < D)
+      for (int sp = 0; sp < n_split; ++sp)
+        acc += part[((size_t)sp * P + col) * D + d];
+    gs[j] = acc;
+  }
+  finish_dtable_row<T>(gs, col, tab, nrm, D, normalize, dtab);
+}
+
+// ---------------------------------------------------------------------------
+// d_sr: grid = (batch tiles, catalog splits).  A block stages its 64 batch
+// rows once and streams the catalog tiles of its split (double-buffered),
+// recomputes each 64 x 64 dz tile and accumulates dz t in registers (warp
+// w owns batch rows 8 w .. 8 w + 7); it writes its split's partial to out
+// (d_sr itself when there is one split).
+// ---------------------------------------------------------------------------
+template <typename T, bool HI>
+__global__ void __launch_bounds__(NT, 1) xent_bwd_dsr(
+    const float* __restrict__ g, const T* __restrict__ sr,
+    const T* __restrict__ op, const int* __restrict__ labels,
+    const float* __restrict__ lse, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int vec, int tiles_per_split,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tile_ld(D), D4 = (D + 3) & ~3;
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr rows
+  T* C_s = A_s + TILE * ld;                            // [2][TILE][ld] t
+  float* dz_s = reinterpret_cast<float*>(C_s + 2 * TILE * ld);  // [col][row]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  stage_tile(A_s, ld, sr, row0, B, D, vec);
+  stage_tile(C_s, ld, op, t_begin * TILE, P, D, vec);
+  cp_async_commit();
+
+  int lbl[4];
+  float lse_r[4], g_r[4];
+  bool row_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    row_ok[i] = r < B;
+    lbl[i] = row_ok[i] ? labels[r] : -1;
+    lse_r[i] = row_ok[i] ? lse[r] : 0.f;
+    g_r[i] = row_ok[i] ? g[r] : 0.f;
+  }
+
+  float acc[8][8] = {};
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const T* C = C_s + buf * TILE * ld;
+    if (t + 1 < t_end)
+      stage_tile(C_s + (buf ^ 1) * TILE * ld, ld, op, (t + 1) * TILE, P, D,
+                 vec);
+    cp_async_commit();
+    cp_async_wait_prev();  // this tile (and the rows) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits(S, A_s, C, ld, D4);
+    const int p0 = t * TILE;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = tx + 16 * j;
+        dz_s[cl * LDZ + ty + 16 * i] =
+            dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid,
+                      lbl[i], lse_r[i], g_r[i], row_ok[i], scale);
+      }
+    __syncthreads();
+    rank_update<T, HI>(acc, dz_s, C, ld);
+    __syncthreads();  // C and dz_s are consumed
+  }
+
+  const int w = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + 8 * w + i;
+    if (r < B) store_row8(out + ((size_t)blockIdx.y * B + r) * D, acc[i], D);
+  }
+}
+
+template <typename T, bool HI>
+int set_smem(int D) {
+  const int smem = (int)bwd_smem<T>(D);
+  cudaFuncSetAttribute(xent_bwd_dtable<T, HI>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(xent_bwd_dsr<T, HI>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return smem;
+}
+
+// resident blocks per SM of the two product kernels (out[0], out[1]), their
+// registers per thread (out[3], out[4]) and local memory per thread, where
+// spills go (out[5], out[6])
+template <typename T, bool HI>
+int slots(int D, int* out) {
+  const int smem = set_smem<T, HI>(D);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], xent_bwd_dtable<T, HI>, NT, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1],
+                                                xent_bwd_dsr<T, HI>, NT, smem);
+  cudaFuncAttributes a;
+  cudaFuncGetAttributes(&a, xent_bwd_dtable<T, HI>);
+  out[3] = a.numRegs;
+  out[5] = (int)a.localSizeBytes;
+  cudaFuncGetAttributes(&a, xent_bwd_dsr<T, HI>);
+  out[4] = a.numRegs;
+  out[6] = (int)a.localSizeBytes;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool HI>
+int bwd(const float* g, const T* sr, const T* tab, const int* labels,
+        const float* lse, int B, int P, int D, int n_valid, int col_offset,
+        float scale, int normalize, int vec, int t_split,
+        int chunks_per_split, int s_split, int tiles_per_split, T* that,
+        float* nrm, float* dtab_part, float* dsr_part, float* dsr, T* dtab,
+        cudaStream_t stream) {
+  const int smem = set_smem<T, HI>(D);
+  const T* op = tab;
+  cudaError_t err;
+  if (normalize) {
+    xent_bwd_normalize<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+        tab, P, D, that, nrm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    op = that;
+  }
+  const int n_tiles = (P + TILE - 1) / TILE, n_rows = (B + TILE - 1) / TILE;
+  float* part = t_split > 1 ? dtab_part : nullptr;
+  xent_bwd_dtable<T, HI><<<dim3(n_tiles, t_split), NT, smem, stream>>>(
+      g, sr, op, tab, nrm, labels, lse, B, P, D, n_valid, col_offset, scale,
+      normalize, vec, chunks_per_split, part, dtab);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (part) {
+    xent_bwd_dtable_reduce<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+        part, t_split, tab, nrm, P, D, normalize, dtab);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  float* out = s_split > 1 ? dsr_part : dsr;
+  xent_bwd_dsr<T, HI><<<dim3(n_rows, s_split), NT, smem, stream>>>(
+      g, sr, op, labels, lse, B, P, D, n_valid, col_offset, scale, vec,
+      tiles_per_split, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (s_split > 1) {
+    const int n = B * D;
+    xent_bwd_dsr_reduce<<<(n + NT - 1) / NT, NT, 0, stream>>>(dsr_part,
+                                                              s_split, n, dsr);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_typed(const void* g, const void* sr, const void* tab,
+              const void* labels, const void* lse, int B, int P, int D,
+              int n_valid, int col_offset, float scale, int normalize,
+              int vec, int t_split, int chunks_per_split, int s_split,
+              int tiles_per_split, void* that, void* nrm, void* dtab_part,
+              void* dsr_part, void* dsr, void* dtab, void* stream) {
+  auto f = ((D + 3) & ~3) > 128 ? bwd<T, true> : bwd<T, false>;
+  return f((const float*)g, (const T*)sr, (const T*)tab, (const int*)labels,
+           (const float*)lse, B, P, D, n_valid, col_offset, scale, normalize,
+           vec, t_split, chunks_per_split, s_split, tiles_per_split, (T*)that,
+           (float*)nrm, (float*)dtab_part, (float*)dsr_part, (float*)dsr,
+           (T*)dtab, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// rows of a K2 tile (catalog rows of d_table's blocks, batch rows of
+// d_sr's), for the wrapper's grid
+int srt_xent_bwd_tile() { return TILE; }
+
+// out[0], out[1]: resident blocks per SM of the d_table and d_sr product
+// kernels at width D on the current device; out[2]: its SM count; out[3],
+// out[4]: the two kernels' registers per thread; out[5], out[6]: their
+// local memory bytes per thread
+int srt_xent_bwd_slots(int D, int is_bf16, int* out) {
+  const bool hi = ((D + 3) & ~3) > 128;
+  const int err = is_bf16 ? (hi ? slots<__nv_bfloat16, true>(D, out)
+                                : slots<__nv_bfloat16, false>(D, out))
+                          : (hi ? slots<float, true>(D, out)
+                                : slots<float, false>(D, out));
+  if (err) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount, dev);
+  return (int)cudaGetLastError();
+}
+
+// K2: d_sr [B, D] float32 and d_table [P, D] in the table's type.  Grid:
+// d_table over t_split row splits of chunks_per_split 64-row chunks, d_sr
+// over s_split catalog splits of tiles_per_split 64-row tiles.  Scratch:
+// that [P, D] (table's type) and nrm [P] float32 when normalize; dtab_part
+// [t_split, P, D] float32 when t_split > 1; dsr_part [s_split, B, D]
+// float32 when s_split > 1.  vec: D % 4 == 0 and every array aligned to
+// four elements.
+int srt_xent_bwd(const void* g, const void* sr, const void* tab,
+                 const void* labels, const void* lse, int B, int P, int D,
+                 int n_valid, int col_offset, float scale, int normalize,
+                 int is_bf16, int vec, int t_split, int chunks_per_split,
+                 int s_split, int tiles_per_split, void* that, void* nrm,
+                 void* dtab_part, void* dsr_part, void* dsr, void* dtab,
+                 void* stream) {
+  auto f = is_bf16 ? bwd_typed<__nv_bfloat16> : bwd_typed<float>;
+  return f(g, sr, tab, labels, lse, B, P, D, n_valid, col_offset, scale,
+           normalize, vec, t_split, chunks_per_split, s_split,
+           tiles_per_split, that, nrm, dtab_part, dsr_part, dsr, dtab,
+           stream);
+}
+
+}  // extern "C"

@@ -3,16 +3,17 @@
 Counterpart of ``sessionrec_tpu/ops/xent.py``.  Every training step's loss
 is ``nll(log_softmax(scale * sr @ table^T))`` over the whole item catalog,
 optionally against ``l2norm(table)``.  On CUDA tensors the loss runs the
-hand-written kernels of ``csrc/xent.cu``; the ``[B, P]`` logits never
-exist in device memory:
+hand-written kernels of ``csrc/xent.cu`` (K1) and ``csrc/xent_bwd.cu``
+(K2); the ``[B, P]`` logits never exist in device memory:
 
 * K1 (``xent_fwd``, replaces the Pallas ``_fwd_kernel``) streams the
   catalog and keeps a running row max, sum-exp and label logit; it returns
   the per-row loss and the log-partition ``lse``, the only residual the
   backward pass needs.
-* K2 (``xent_bwd``, replaces the Pallas ``_bwd_kernel``) recomputes the
-  logits tile by tile and writes ``d_sr`` and ``d_table`` with the l2norm
-  VJP folded in.
+* K2 (``xent_bwd``, replaces the Pallas ``_bwd_kernel``) normalises the
+  table once, recomputes the logits tile by tile and writes ``d_sr`` and
+  ``d_table`` with the l2norm VJP folded in, on a grid that ``_bwd_grid``
+  sizes to the card's resident block slots.
 
 Beside each kernel sits its plain PyTorch version (``_fwd_plain``,
 ``_bwd_plain``), the oracle: a wrapper takes it only for tensors on the
@@ -121,7 +122,7 @@ def _bwd_plain(g, sr, table, labels, lse, n_valid, col_offset=0, *, scale,
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/xent.cu)
+# CUDA kernels (csrc/xent.cu, csrc/xent_bwd.cu)
 # ---------------------------------------------------------------------------
 
 _lib = None
@@ -140,10 +141,13 @@ def _library():
                                      i, vp, vp, vp, vp]
         lib.srt_xent_fwd.restype = i
         lib.srt_xent_bwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, f, i,
-                                     i, i, i, vp, vp, vp, vp]
+                                     i, i, i, i, i, i, vp, vp, vp, vp, vp,
+                                     vp, vp]
         lib.srt_xent_bwd.restype = i
+        lib.srt_xent_bwd_slots.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.srt_xent_bwd_slots.restype = i
         for name in ("srt_xent_tile_cols", "srt_xent_tile_rows",
-                     "srt_xent_max_d"):
+                     "srt_xent_max_d", "srt_xent_bwd_tile"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         _lib = lib
@@ -192,6 +196,68 @@ def _splits(B, P):
     return -(-tiles // per), per * bn
 
 
+def _split(n, want):
+    """(groups, per): ``n`` items cut into at most ``want`` contiguous
+    groups of ``per`` items, none empty."""
+    per = -(-n // max(1, min(want, n)))
+    return -(-n // per), per
+
+
+def _bwd_grid(B, P, slots, tile):
+    """K2's grid.  d_table: ``tiles`` catalog tiles of ``tile`` rows times
+    ``t_split`` row splits of ``t_per`` ``tile``-row chunks; d_sr: ``rows``
+    batch tiles times ``s_split`` catalog splits of ``s_per`` tiles.  Each
+    kernel's blocks fill at most ``slots`` (resident blocks per SM times
+    SMs), with one split when its tiles alone reach that."""
+    tiles, rows = -(-P // tile), -(-B // tile)
+    t_split, t_per = _split(rows, slots // tiles)
+    s_split, s_per = _split(tiles, slots // rows)
+    return dict(tiles=tiles, t_split=t_split, t_per=t_per, rows=rows,
+                s_split=s_split, s_per=s_per)
+
+
+_slots = {}
+
+
+def _bwd_attrs(device, D, dtype):
+    """``srt_xent_bwd_slots``'s seven numbers for ``device``: resident
+    blocks per SM of the d_table and d_sr product kernels at width ``D``,
+    the SM count, the two kernels' registers and local memory bytes per
+    thread."""
+    key = (device.index, D, dtype)
+    if key not in _slots:
+        out = (ctypes.c_int * 7)()
+        with torch.cuda.device(device):
+            _raise_on(_library().srt_xent_bwd_slots(
+                D, int(dtype == torch.bfloat16), out), "xent_bwd occupancy")
+        _slots[key] = tuple(out)
+    return _slots[key]
+
+
+def _bwd_slots(device, D, dtype):
+    """(resident K2 product blocks per SM, SMs) on ``device`` at width
+    ``D``, the fewer of the d_table and d_sr kernels'."""
+    a = _bwd_attrs(device, D, dtype)
+    return min(a[0], a[1]), a[2]
+
+
+def bwd_launch_shape(sr, P):
+    """K2's launch for ``sr`` against a ``P``-row table: blocks of each
+    product kernel, row and catalog splits, resident blocks per SM, and
+    each product kernel's registers and local memory (spill) bytes per
+    thread."""
+    (B, D), dev = sr.shape, sr.device
+    per_sm, sms = _bwd_slots(dev, D, sr.dtype)
+    grid = _bwd_grid(B, P, per_sm * sms, _library().srt_xent_bwd_tile())
+    a = _bwd_attrs(dev, D, sr.dtype)
+    return dict(dtable_blocks=grid["tiles"] * grid["t_split"],
+                dsr_blocks=grid["rows"] * grid["s_split"],
+                row_splits=grid["t_split"], catalog_splits=grid["s_split"],
+                resident_per_sm=per_sm, sms=sms,
+                registers={"dtable": a[3], "dsr": a[4]},
+                local_bytes={"dtable": a[5], "dsr": a[6]})
+
+
 def _raise_on(err, what):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
@@ -227,18 +293,34 @@ def _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset, *, scale,
     lib = _library()
     B, D = sr.shape
     P = table.shape[0]
-    n_split, per = _splits(B, P)
-    dsr_part = torch.empty(n_split * B * D, dtype=torch.float32,
-                           device=sr.device)
-    dsr = torch.empty(B, D, dtype=torch.float32, device=sr.device)
+    per_sm, sms = _bwd_slots(sr.device, D, sr.dtype)
+    grid = _bwd_grid(B, P, per_sm * sms, lib.srt_xent_bwd_tile())
+    f32 = dict(dtype=torch.float32, device=sr.device)
+    that = nrm = dtab_part = dsr_part = None
+    if normalize_table:
+        that = torch.empty_like(table)
+        nrm = torch.empty(P, **f32)
+    if grid["t_split"] > 1:
+        dtab_part = torch.empty(grid["t_split"], P, D, **f32)
+    if grid["s_split"] > 1:
+        dsr_part = torch.empty(grid["s_split"], B, D, **f32)
+    dsr = torch.empty(B, D, **f32)
     dtab = torch.empty_like(table)
+    # four-element cp.async copies need D % 4 == 0 and aligned rows
+    align = 4 * sr.element_size()
+    vec = D % 4 == 0 and all(t.data_ptr() % align == 0 for t in (sr, table))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     stream = torch.cuda.current_stream(sr.device).cuda_stream
     err = lib.srt_xent_bwd(
         g.data_ptr(), sr.data_ptr(), table.data_ptr(), labels.data_ptr(),
         lse.data_ptr(), B, P, D, int(n_valid), int(col_offset),
         float(scale), int(normalize_table), int(sr.dtype == torch.bfloat16),
-        n_split, per, dsr_part.data_ptr(), dsr.data_ptr(), dtab.data_ptr(),
-        stream)
+        int(vec), grid["t_split"], grid["t_per"], grid["s_split"],
+        grid["s_per"], ptr(that), ptr(nrm), ptr(dtab_part), ptr(dsr_part),
+        dsr.data_ptr(), dtab.data_ptr(), stream)
     _raise_on(err, "xent_bwd launch")
     bwd_launches += 1
     return dsr, dtab

@@ -93,6 +93,14 @@ def device_events(trace):
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
 
 
+def profiled_device_events(prof):
+    """``device_events`` of a finished ``torch.profiler.profile``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return device_events(json.loads(path.read_text()))
+
+
 def busy_us(events):
     """Length of the union of the events' intervals."""
     total, end = 0.0, float("-inf")
@@ -118,10 +126,7 @@ def device_breakdown(train, runner, warmup, steps, top):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     it.close()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = device_events(json.loads(path.read_text()))
+    events = profiled_device_events(prof)
     kernels = {}
     for name, _, dur in events:
         kernels[name] = kernels.get(name, 0.0) + dur

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (csrc/xent.cu, csrc/xent_multi.cu) against
-their plain PyTorch versions, on the card.  CUDA kernels have no interpret mode, so without a
-card every test here skips.  This file imports nothing of JAX, so it also
+"""The port's CUDA kernels (csrc/xent.cu, csrc/xent_bwd.cu,
+csrc/xent_multi.cu) against their plain PyTorch versions, on the card.
+CUDA kernels have no interpret mode, so without a card every test here
+skips.  This file imports nothing of JAX, so it also
 runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu
@@ -69,6 +70,65 @@ def test_kernels_match_plain(cuda, dtype, norm):
                   rows >= n, rows == 2):
         err = (dtab[group].float() - dtab_p[group].float()).abs().max()
         assert float(err) <= tol * float(dtab_p[group].float().abs().max())
+
+
+def _k2_case(cuda, B, D, P, n, dtype, norm, seed=13):
+    """K2's inputs with the plain lse, and a per-row cotangent that is 0 on
+    one masked row (label -1) when there is more than one row."""
+    s, t, lbl = _case(cuda, B, D, P, n, dtype, seed)
+    if B == 1:
+        lbl[0] = n // 2
+    rng = np.random.default_rng(seed + 1)
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, size=B).astype(np.float32))
+    g = (g / B).to(cuda)
+    if B > 1:
+        g[0] = 0.0
+    m, st, _ = tx._fwd_plain(s, t, lbl, n, scale=12.0, normalize_table=norm)
+    return s, t, lbl, g, tx._finish_lse(m, st)
+
+
+def _assert_k2_close(dsr, dtab, dsr_p, dtab_p, lbl, P, n, tol):
+    assert float((dsr - dsr_p).abs().max()) <= tol * float(dsr_p.abs().max())
+    rows = torch.arange(P, device=lbl.device)
+    hit = torch.zeros(P, dtype=torch.bool, device=lbl.device)
+    hit[lbl[lbl >= 0].long()] = True
+    for group in (hit & (rows != 2), ~hit & (rows != 2) & (rows < n),
+                  rows == 2):
+        err = (dtab[group].float() - dtab_p[group].float()).abs().max()
+        assert float(err) <= tol * float(dtab_p[group].float().abs().max())
+    assert float(dtab[n:].float().abs().max()) == 0.0   # padding rows
+
+
+# K2's tiles are 64 rows of the batch and of the catalog: one row, a
+# ragged batch, a width that is not a multiple of 32 and one that is not a
+# multiple of 4 (staged by plain loads, not cp.async), catalogs that end
+# inside a tile and inside a split
+@pytest.mark.parametrize("B,D,P,n", [(1, 256, 3584, 3429),
+                                     (100, 100, 1000, 999),
+                                     (509, 256, 4096, 4000),
+                                     (37, 30, 300, 290)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+def test_k2_matches_plain_at_edge_shapes(cuda, B, D, P, n, dtype, norm):
+    s, t, lbl, g, lse = _k2_case(cuda, B, D, P, n, dtype, norm)
+    kw = dict(scale=12.0, normalize_table=norm)
+    dsr, dtab = tx._bwd_cuda(g, s, t, lbl, lse, n, 0, **kw)
+    dsr_p, dtab_p = tx._bwd_plain(g, s, t, lbl, lse, n, **kw)
+    assert dsr.dtype == torch.float32 and dtab.dtype == dtype
+    _assert_k2_close(dsr, dtab, dsr_p, dtab_p, lbl, P, n,
+                     1e-3 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [3584, 37888])
+def test_k2_is_deterministic(cuda, dtype, P):
+    """No atomics: two calls on the same inputs give the same bits, with
+    several row splits (P = 3,584) and with one (P = 37,888)."""
+    s, t, lbl, g, lse = _k2_case(cuda, 512, 256, P, P - 100, dtype, True)
+    kw = dict(scale=12.0, normalize_table=True)
+    first = tx._bwd_cuda(g, s, t, lbl, lse, P - 100, 0, **kw)
+    second = tx._bwd_cuda(g, s, t, lbl, lse, P - 100, 0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_autograd_runs_the_kernels_once_each(cuda):

@@ -144,3 +144,51 @@ def test_stats_check_fails_a_wrong_stat(stat, change):
     got[i] = change(got[i])
     errs = cs.stats_errors(torch, got, want, 1e-5)
     assert errs[stat][0] > errs[stat][1]
+
+
+# K2's split partials: d_table sums the row splits' partials of dz^T sr,
+# d_sr the catalog splits' partials of dz t (ops/xent.py:_bwd_grid on one
+# wave of 132 blocks).  A K2 that loses one split's partial must fail the
+# d_table check or the d_sr check.
+
+def _k2(P, norm):
+    sr, tab, labels, g = cs.make_inputs(torch, N_ITEMS, P, torch.float32,
+                                        seed=4, dev="cpu")
+    kw = dict(scale=cs.SCALE, normalize_table=norm)
+    m, s, zl = xent._fwd_plain(sr, tab, labels, N_ITEMS, 0, **kw)
+    lse = xent._finish_lse(m, s)
+    grid = xent._bwd_grid(cs.B, P, 132, 64)
+    return (sr, tab, labels, g, lse, kw, grid,
+            xent._bwd_plain(g, sr, tab, labels, lse, N_ITEMS, 0, **kw))
+
+
+@pytest.mark.parametrize("P", [N_ITEMS, pad_catalog(N_ITEMS)])
+@pytest.mark.parametrize("norm", [True, False])
+def test_dtable_check_fails_a_k2_without_one_row_split(P, norm):
+    sr, tab, labels, g, lse, kw, grid, (_, dtab) = _k2(P, norm)
+    assert grid["t_split"] > 1
+    rows = slice(64 * grid["t_per"], 64 * 2 * grid["t_per"])   # split 1
+    g_rest = g.clone()
+    g_rest[rows] = 0.0
+    _, bad = xent._bwd_plain(g_rest, sr, tab, labels, lse, N_ITEMS, 0, **kw)
+    errs = cs.dtable_errors(torch, bad, dtab, labels, N_ITEMS, TOL)
+    assert any(e > t for e, t in errs.values())
+    ok = cs.dtable_errors(torch, dtab.clone(), dtab, labels, N_ITEMS, TOL)
+    assert all(e <= t for e, t in ok.values())
+
+
+@pytest.mark.parametrize("P", [N_ITEMS, pad_catalog(N_ITEMS)])
+@pytest.mark.parametrize("norm", [True, False])
+def test_dsr_check_fails_a_k2_without_one_catalog_split(P, norm):
+    sr, tab, labels, g, lse, kw, grid, (dsr, _) = _k2(P, norm)
+    assert grid["s_split"] > 1
+    a = 64 * grid["s_per"]                                        # split 1
+    b = min(P, a + 64 * grid["s_per"])
+    # the split's partial: the same function over its columns alone, as the
+    # catalog-sharded path computes a shard's share
+    part, _ = xent._bwd_plain(g, sr, tab[a:b], labels, lse, N_ITEMS, a,
+                              **kw)
+    assert float(part.abs().max()) > 0.0
+    err, tol = cs.dsr_errors(dsr - part, dsr, TOL)
+    assert err > tol
+    assert cs.dsr_errors(dsr.clone(), dsr, TOL) == [0.0, tol]

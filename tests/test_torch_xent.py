@@ -191,3 +191,47 @@ def test_cpu_launches_no_kernel():
     tx.catalog_xent(s, _t(table), _t(labels, torch.int32), scale=12.0,
                     num_items=512).sum().backward()
     assert tx.fwd_launches == 0 and tx.bwd_launches == 0
+
+
+# K2's grid (ops/xent.py:_bwd_grid): pure arithmetic, so it is checked here
+# for the shapes the card sees and for ragged and degenerate ones
+@pytest.mark.parametrize("B,P", [(512, 3584), (512, 37888), (509, 37484),
+                                 (1, 3584), (100, 1000), (1, 1), (4096, 64),
+                                 (20000, 70)])
+@pytest.mark.parametrize("slots", [132, 264, 1])
+def test_bwd_grid_covers_every_tile_and_row_once(B, P, slots):
+    tile = 64
+    grid = tx._bwd_grid(B, P, slots, tile)
+    tiles, rows = -(-P // tile), -(-B // tile)
+    assert (grid["tiles"], grid["rows"]) == (tiles, rows)
+    # d_table: row split s takes chunks [s * t_per, (s + 1) * t_per)
+    chunks = [c for s in range(grid["t_split"])
+              for c in range(s * grid["t_per"],
+                             min(rows, (s + 1) * grid["t_per"]))]
+    assert chunks == list(range(rows))
+    assert all(s * grid["t_per"] < rows for s in range(grid["t_split"]))
+    # d_sr: catalog split s takes tiles [s * s_per, (s + 1) * s_per)
+    cat = [t for s in range(grid["s_split"])
+           for t in range(s * grid["s_per"],
+                          min(tiles, (s + 1) * grid["s_per"]))]
+    assert cat == list(range(tiles))
+    assert all(s * grid["s_per"] < tiles for s in range(grid["s_split"]))
+    # at most one wave of blocks unless one split alone passes it
+    if grid["t_split"] > 1:
+        assert tiles * grid["t_split"] <= slots
+    if grid["s_split"] > 1:
+        assert rows * grid["s_split"] <= slots
+    if tiles >= slots:
+        assert grid["t_split"] == 1
+    if rows >= slots:
+        assert grid["s_split"] == 1
+
+
+def test_bwd_grid_on_the_path_and_north_star_catalogs():
+    # 132 SMs, one resident block each: the path catalog's 56 tiles take 2
+    # row splits, the north star's 592 tiles one; d_sr's 8 row tiles take
+    # 14 and 16 catalog splits
+    assert tx._bwd_grid(512, 3584, 132, 64) == dict(
+        tiles=56, t_split=2, t_per=4, rows=8, s_split=14, s_per=4)
+    assert tx._bwd_grid(512, 37888, 132, 64) == dict(
+        tiles=592, t_split=1, t_per=8, rows=8, s_split=16, s_per=37)
