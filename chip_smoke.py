@@ -16,12 +16,14 @@ Phases, one JSON line each on stdout:
    K3 (xent_multi_fwd) and K4 (xent_multi_bwd) at K=3 orders of those
    rows, with session item lists of up to 19 ids (-1 padded), a row with
    none, labels inside and outside the session, and the cotangents of the
-   paper head's loss.  Then time each kernel, its plain version and the
-   PyTorch expression of the same function (``library_ms``, a yardstick
-   the port never calls), with K2's launch shape at each timed shape:
-   blocks, splits, resident blocks per SM, its product kernels' registers
-   and local memory, and each of its kernels' device time under
-   ``torch.profiler``.
+   paper head's loss, plus the ragged batch on the unpadded north-star
+   catalog; K4 too runs twice on every case and must repeat its bits.
+   Then time each kernel, its plain version and the PyTorch expression of
+   the same function (``library_ms``, a yardstick the port never calls),
+   with K2's launch shape (``k2_launch``) and K3's and K4's
+   (``multi_launch``) at each timed shape: blocks, splits, resident
+   blocks per SM, the product kernels' registers and local memory, and
+   each kernel's device time under ``torch.profiler``.
 4. path    — train MSGIFSR order 1 at d=256, 1 layer, batch 512, tiers
    (4, 8), feat_drop 0.1 on datasets/sample through ``run_training``: an
    initial eval, ``--steps`` optimizer steps, a final eval.  Every
@@ -56,7 +58,7 @@ B, D, SCALE = 512, 256, 12.0
 K = 3                         # orders of the paper head
 NS = 19                       # longest session item list on datasets/sample
 CATALOGS = (3429, 37484)      # datasets/sample; yoochoose-1/4 (bench.py:47)
-RAGGED_B = 509                # rows of the ragged K1/K2 check
+RAGGED_B = 509                # rows of the ragged K1-K4 checks
 PATH_ITEMS = 3429
 ZERO_ROW = 5                  # the table row set to zero in the checks
 LARGE_ROW = 7                 # the table row of norm ~50 in the checks
@@ -188,7 +190,7 @@ def check_cases(torch):
 
 
 def xent_check_cases(torch):
-    """(items, table rows, type, normalised, batch rows) of the K1/K2
+    """(items, table rows, type, normalised, batch rows) of the K1-K4
     checks: ``check_cases`` at B rows, and a ragged batch on the unpadded
     north-star catalog, whose row and catalog edges fall inside tiles."""
     return ([case + (B,) for case in check_cases(torch)]
@@ -246,24 +248,25 @@ def phase_kernel_checks(torch, xent, seed):
 
 
 def make_multi_inputs(torch, xm, n_items, P, dtype, seed, norm=True,
-                      dev="cuda"):
-    """K3/K4 inputs: sr3 [K, B, D] of unit rows, the K1 checks' table and
-    labels (row 3 masked), session item lists iids [B, NS] of 1 to NS ids
+                      dev="cuda", rows=B):
+    """K3/K4 inputs: sr3 [K, rows, D] of unit rows, the K1 checks' table and
+    labels (row 3 masked), session item lists iids [rows, NS] of 1 to NS ids
     (-1 padded; none on row 1; the label inside the session on the other
     even rows), and the cotangents (gz, gin, gex) that the paper head's
     loss (REnorm and fusion, random phi and alpha, masked mean) gives the
     plain stats, with those stats' (lse_in, lse_ex)."""
     gen = torch.Generator().manual_seed(seed + 1000)
-    _, tab, labels, _ = make_inputs(torch, n_items, P, dtype, seed, dev)
-    sr3 = torch.randn(K, B, D, generator=gen)
+    _, tab, labels, _ = make_inputs(torch, n_items, P, dtype, seed, dev,
+                                    rows)
+    sr3 = torch.randn(K, rows, D, generator=gen)
     sr3 = (sr3 / sr3.norm(dim=-1, keepdim=True)).to(dev, dtype)
-    iids = torch.randint(0, n_items, (B, NS), generator=gen,
+    iids = torch.randint(0, n_items, (rows, NS), generator=gen,
                          dtype=torch.int32)
-    lens = torch.randint(1, NS + 1, (B,), generator=gen)
+    lens = torch.randint(1, NS + 1, (rows,), generator=gen)
     iids[torch.arange(NS)[None, :] >= lens[:, None]] = -1
     iids[1] = -1
     iids = iids.to(dev)
-    even = torch.arange(B, device=dev) % 2 == 0
+    even = torch.arange(rows, device=dev) % 2 == 0
     labels = torch.where(even & (labels >= 0), iids[:, 0], labels)
     valid = (labels >= 0).float()
     m_in, s_in, m_ex, s_ex, zl = xm._fwd_plain(
@@ -271,7 +274,7 @@ def make_multi_inputs(torch, xm, n_items, P, dtype, seed, norm=True,
         normalize_table=norm)
     stats = [t.detach().requires_grad_(True)
              for t in (zl, xm._finish(m_in, s_in), xm._finish(m_ex, s_ex))]
-    phi = torch.softmax(torch.randn(B, K, 2, generator=gen), -1).to(dev)
+    phi = torch.softmax(torch.randn(rows, K, 2, generator=gen), -1).to(dev)
     alpha = torch.randn(K, generator=gen).to(dev)
     lbl_in = torch.any(iids == labels[:, None], dim=1)
     per_row = xm.combine_stats(*stats, phi, alpha, lbl_in, extra=True,
@@ -304,18 +307,22 @@ def stats_errors(torch, got, want, tol):
 
 
 def phase_multi_checks(torch, xm, seed):
-    """K3 and K4 against their plain versions; returns the largest errors
-    of the main path's case (padded path catalog, float32, normalised)."""
+    """K3 and K4 against their plain versions, on the K1/K2 checks' cases
+    (``xent_check_cases``); returns the largest errors of the main path's
+    case (padded path catalog, float32, normalised)."""
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
     worst = {}
-    for i, (n_items, P, dtype, norm) in enumerate(check_cases(torch)):
+    for i, (n_items, P, dtype, norm, rows) in enumerate(
+            xent_check_cases(torch)):
         sr3, tab, labels, iids, cot, lse = make_multi_inputs(
-            torch, xm, n_items, P, dtype, seed + i, norm)
+            torch, xm, n_items, P, dtype, seed + i, norm, rows=rows)
         kw = dict(scale=SCALE, normalize_table=norm)
         got = xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
         want = xm._fwd_plain(sr3, tab, labels, iids, n_items, 0, **kw)
         dsr_k, dtab_k = xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
                                      n_items, 0, **kw)
+        dsr_k2, dtab_k2 = xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
+                                       n_items, 0, **kw)
         dsr_p, dtab_p = xm._bwd_plain(*cot, sr3, tab, labels, iids, *lse,
                                       n_items, 0, **kw)
         torch.cuda.synchronize()
@@ -326,20 +333,23 @@ def phase_multi_checks(torch, xm, seed):
         e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
         dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol,
                              iids)
+        same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
         row = {"phase": "multi_kernel_check", "items": n_items, "P": P,
-               "K": K, "dtype": dname, "normalize_table": norm,
+               "K": K, "B": rows, "dtype": dname, "normalize_table": norm,
                "stats_err_tol": stats, "stats_max_abs_err": e_fwd,
                "dsr_max_abs_err": e_dsr, "dsr_tol": dsr_tol,
-               "dtable_err_tol": dtab}
+               "dtable_err_tol": dtab, "k4_repeat_bit_identical": same}
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (*got[1::2], dsr_k, dtab_k))
-        row["ok"] = (finite and all(e <= t for e, t in stats.values())
+        row["ok"] = (finite and same
+                     and all(e <= t for e, t in stats.values())
                      and e_dsr <= row["dsr_tol"]
                      and all(e <= t for e, t in dtab.values()))
         emit(row)
         check(row["ok"], f"multi kernel disagrees with its plain version: "
               f"{row}")
-        if P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm:
+        if (P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm
+                and rows == B):
             worst["xent_multi_fwd"] = e_fwd
             worst["xent_multi_bwd"] = max(
                 [e_dsr] + [e for name, (e, _) in dtab.items()
@@ -377,6 +387,15 @@ def kernel_ms(torch, fn, calls):
         name = name.split("(")[0]
         out[name] = out.get(name, 0.0) + dur / 1e3 / calls
     return out
+
+
+def emit_launch(torch, phase, shape, fn, calls, smi, **dims):
+    """A launch line at ``dims``: the launch ``shape`` (blocks, splits,
+    resident blocks per SM, registers and local memory of the product
+    kernels) and the device ms per call of each kernel that ``fn``
+    launches."""
+    emit({"phase": phase, **dims, **shape,
+          "kernel_ms": kernel_ms(torch, fn, calls), "card": smi})
 
 
 def bounds(n_bytes, n_ops, dname):
@@ -455,9 +474,8 @@ def phase_kernel_times(torch, xent, seed, smi):
                       "items": n_items, "P": P, "B": B, "D": D,
                       "dtype": dname, "normalize_table": True, **r,
                       "card": smi})
-            emit({"phase": "k2_launch", "P": P, "B": B, "D": D,
-                  "dtype": dname, **xent.bwd_launch_shape(sr, P),
-                  "kernels_ms": kernel_ms(torch, k2, iters), "card": smi})
+            emit_launch(torch, "k2_launch", xent.bwd_launch_shape(sr, P), k2,
+                        iters, smi, P=P, B=B, D=D, dtype=dname)
             rows[(n_items, dname)] = res
     return rows
 
@@ -508,18 +526,23 @@ def phase_multi_times(torch, xm, seed, smi):
                        + K * B * D * 4)
             bf, byf = bounds(bytes_f, ops_f, dname)
             bb, byb = bounds(bytes_b, ops_b, dname)
+
+            def k3():
+                return xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
+
+            def k4():
+                return xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
+                                    n_items, 0, **kw)
+
             res = {
                 "xent_multi_fwd": {
-                    "ms": time_ms(torch, lambda: xm._fwd_cuda(
-                        sr3, tab, labels, iids, n_items, 0, **kw), iters),
+                    "ms": time_ms(torch, k3, iters),
                     "plain_ms": time_ms(torch, lambda: xm._fwd_plain(
                         sr3, tab, labels, iids, n_items, 0, **kw), iters),
                     "library_ms": time_ms(torch, lib_fwd, iters),
                     "bound_ms": bf, "bound_by": byf},
                 "xent_multi_bwd": {
-                    "ms": time_ms(torch, lambda: xm._bwd_cuda(
-                        *cot, sr3, tab, labels, iids, *lse, n_items, 0,
-                        **kw), iters),
+                    "ms": time_ms(torch, k4, iters),
                     "plain_ms": time_ms(torch, lambda: xm._bwd_plain(
                         *cot, sr3, tab, labels, iids, *lse, n_items, 0,
                         **kw), iters),
@@ -531,6 +554,9 @@ def phase_multi_times(torch, xm, seed, smi):
                       "items": n_items, "P": P, "K": K, "B": B, "D": D,
                       "dtype": dname, "normalize_table": True, **r,
                       "card": smi})
+            emit_launch(torch, "multi_launch", xm.multi_launch_shape(sr3, P),
+                        lambda: (k3(), k4()), iters, smi, P=P, K=K, B=B, D=D,
+                        dtype=dname)
             rows[(n_items, dname)] = res
     return rows
 

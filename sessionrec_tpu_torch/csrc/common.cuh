@@ -1,7 +1,7 @@
 // Helpers shared by the catalog-loss kernels (xent.cu, xent_bwd.cu,
-// xent_multi.cu): constants, type conversions and the shared-memory
-// staging of operand rows and catalog tiles.  Everything here has internal
-// linkage, so each source that includes it gets its own copy.
+// xent_multi.cu): constants, type conversions, K1's shared-memory staging
+// and product, and the fixed-order d_sr reduce.  Everything here has
+// internal linkage, so each source that includes it gets its own copy.
 
 #pragma once
 
@@ -16,15 +16,12 @@ constexpr float NEG_INF = -1e30f;   // ops/masked.py:NEG_INF
 constexpr float NORM_EPS = 1e-12f;  // layers.l2norm eps
 constexpr int NT = 256;             // threads per block
 constexpr int NWARPS = NT / 32;
-constexpr int MAX_D = 256;          // D <= MAX_D (register tiles below)
+constexpr int MAX_D = 256;          // D <= MAX_D (8 features a lane, tiles.cuh)
 constexpr unsigned FULL = 0xffffffffu;
 
-// forward / dsr tiles: 32 rows x 64 catalog columns
+// K1's tiles: 32 rows x 64 catalog columns
 constexpr int F_BM = 32;
 constexpr int F_BN = 64;
-// dtable tiles: 32 catalog rows x 64 batch rows
-constexpr int T_BN = 32;
-constexpr int T_BM = 64;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -79,25 +76,6 @@ __device__ __forceinline__ void tile_norms(const float* tile, int ld,
   }
 }
 
-// stage a catalog tile as the backward pass's product operand: the
-// (normalised) rows rounded to the operand type; nrm gets the norms
-template <typename T>
-__device__ __forceinline__ void stage_operand_tile(float* tile, int ld,
-                                                   float* nrm, const T* tab,
-                                                   int p0, int p_end, int rows,
-                                                   int D, int normalize) {
-  stage_rows(tile, ld, tab, p0, p_end, rows, D);
-  __syncthreads();
-  if (normalize) {
-    tile_norms(tile, ld, nrm, rows, D);
-    __syncthreads();
-    for (int r = 0; r < rows; ++r)
-      for (int k = threadIdx.x; k < D; k += NT)
-        tile[r * ld + k] = round_op<T>(tile[r * ld + k] / nrm[r]);
-  }
-  __syncthreads();
-}
-
 // acc[i][j] += sum_k A_s[ty + 16 i][k] * B_s[tx + 16 j][k] for thread
 // (ty, tx) = (tid / 16, tid % 16): a 32-row x 64-column tile of products,
 // each thread owning rows ty, ty + 16 and columns tx + 16 j (j < 4)
@@ -116,132 +94,6 @@ __device__ __forceinline__ void product_32x64(float (&acc)[2][4],
       const float y = B_s[(tx + 16 * j) * ld + k];
       acc[0][j] = fmaf(x0, y, acc[0][j]);
       acc[1][j] = fmaf(x1, y, acc[1][j]);
-    }
-  }
-}
-
-// acc[i][j] += sum_k A_s[ty + 16 i][k] * B_s[tx + 16 j][k]: a 64-row x
-// 32-column tile, each thread owning rows ty + 16 i (i < 4) and columns
-// tx, tx + 16
-__device__ __forceinline__ void product_64x32(float (&acc)[4][2],
-                                              const float* A_s,
-                                              const float* B_s, int ld,
-                                              int D) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    const float y0 = B_s[tx * ld + k], y1 = B_s[(tx + 16) * ld + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = A_s[(ty + 16 * i) * ld + k];
-      acc[i][0] = fmaf(x, y0, acc[i][0]);
-      acc[i][1] = fmaf(x, y1, acc[i][1]);
-    }
-  }
-}
-
-// G[i][q] += sum_b dz_s[b][4 w + i] * A_s[b][l + 32 q] over the T_BM
-// batch rows of a chunk (warp w, lane l): d_table's dz^T @ sr
-__device__ __forceinline__ void accumulate_dtable(float (&G)[4][MAX_D / 32],
-                                                  const float* dz_s, int ldz,
-                                                  const float* A_s, int ld,
-                                                  int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int b = 0; b < T_BM; ++b) {
-    float w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = dz_s[b * ldz + warp * 4 + i];
-#pragma unroll
-    for (int q = 0; q < MAX_D / 32; ++q) {
-      const int d = lane + 32 * q;
-      if (d < D) {
-        const float x = A_s[b * ld + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) G[i][q] = fmaf(w[i], x, G[i][q]);
-      }
-    }
-  }
-}
-
-// acc[i][q] += sum_c dz_s[4 w + i][c] * B_s[c][l + 32 q] over the first
-// cols columns of a tile (warp w, lane l): d_sr's dz @ t
-__device__ __forceinline__ void accumulate_dsr(float (&acc)[4][MAX_D / 32],
-                                               const float* dz_s, int ldz,
-                                               const float* B_s, int ld,
-                                               int cols, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int c = 0; c < cols; ++c) {
-    float w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = dz_s[(warp * 4 + i) * ldz + c];
-#pragma unroll
-    for (int q = 0; q < MAX_D / 32; ++q) {
-      const int d = lane + 32 * q;
-      if (d < D) {
-        const float y = B_s[c * ld + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][q] = fmaf(w[i], y, acc[i][q]);
-      }
-    }
-  }
-}
-
-// rows row0 + 4 w + i (i < 4, below n_rows) of one split's partial d_sr
-__device__ __forceinline__ void store_dsr_part(
-    const float (&acc)[4][MAX_D / 32], float* part, int row0, int n_rows,
-    int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + warp * 4 + i;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int q = 0; q < MAX_D / 32; ++q) {
-      const int d = lane + 32 * q;
-      if (d < D) part[(size_t)r * D + d] = acc[i][q];
-    }
-  }
-}
-
-// d_table rows p0 + 4 w + i (i < 4) of warp w from the register sums G of
-// dz^T @ sr (lane l owns features l + 32 q), with the l2norm VJP
-// (G - (G . t) t [n > eps]) / max(n, eps) folded in when the table is
-// normalised; n_s holds the tile's clamped row norms
-template <typename T>
-__device__ __forceinline__ void store_dtable(const float (&G)[4][MAX_D / 32],
-                                             const float* n_s, const T* tab,
-                                             int p0, int P, int D,
-                                             int normalize, T* dtab) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = warp * 4 + i, col = p0 + c;
-    if (col >= P) continue;  // warp-uniform
-    if (normalize) {
-      const float n = n_s[c];
-      const float live = n > NORM_EPS ? 1.f : 0.f;
-      float t[MAX_D / 32];
-      float dot = 0.f;
-#pragma unroll
-      for (int q = 0; q < MAX_D / 32; ++q) {
-        const int d = lane + 32 * q;
-        t[q] = d < D ? to_f(tab[(size_t)col * D + d]) / n : 0.f;
-        dot += G[i][q] * t[q];
-      }
-      dot = warp_sum(dot);
-#pragma unroll
-      for (int q = 0; q < MAX_D / 32; ++q) {
-        const int d = lane + 32 * q;
-        if (d < D)
-          dtab[(size_t)col * D + d] =
-              from_f<T>((G[i][q] - dot * t[q] * live) / n);
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < MAX_D / 32; ++q) {
-        const int d = lane + 32 * q;
-        if (d < D) dtab[(size_t)col * D + d] = from_f<T>(G[i][q]);
-      }
     }
   }
 }

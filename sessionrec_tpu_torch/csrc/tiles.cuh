@@ -1,5 +1,8 @@
-// Tile helpers of K2 (xent_bwd.cu): asynchronous staging of 64-row tiles
-// into shared memory and register-tiled float32 products over them.
+// Tile helpers of K2 (xent_bwd.cu), K3 and K4 (xent_multi.cu):
+// asynchronous staging of 64-row tiles into shared memory, register-tiled
+// float32 products over them, and the kernels they share: the table
+// normalised (or its norms taken) once, and the row splits' d_table
+// partials reduced in a fixed order.
 //
 // A staged tile keeps the operand's own type (float32 or bfloat16) and its
 // row-major layout, with a row stride of ld = round_up(D, 32) + 4
@@ -186,6 +189,109 @@ __device__ __forceinline__ void store_row8(float* row, const float (&v)[8],
         if (d + q < D) row[d + q] = v[4 * h + q];
     }
   }
+}
+
+// the three 64-row tiles and the dz tile of one block
+template <typename T>
+size_t bwd_smem(int D) {
+  return (size_t)3 * TILE * tile_ld(D) * sizeof(T) +
+         (size_t)TILE * LDZ * sizeof(float);
+}
+
+// max(||row||, eps) of a row of D elements, on every lane of a warp
+template <typename T>
+__device__ __forceinline__ float warp_row_norm(const T* src, int D) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int k = lane; k < D; k += 32) {
+    const float v = to_f(src[k]);
+    acc = fmaf(v, v, acc);
+  }
+  return fmaxf(sqrtf(warp_sum(acc)), NORM_EPS);
+}
+
+// t = round_op(row / max(||row||, eps)) and n = max(||row||, eps), one warp
+// per table row
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_bwd_normalize(
+    const T* __restrict__ tab, int P, int D, T* __restrict__ that,
+    float* __restrict__ nrm) {
+  const int row = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= P) return;  // warp-uniform
+  const T* src = tab + (size_t)row * D;
+  const float n = warp_row_norm(src, D);
+  for (int k = lane; k < D; k += 32)
+    that[(size_t)row * D + k] = from_f<T>(to_f(src[k]) / n);
+  if (lane == 0) nrm[row] = n;
+}
+
+// n = max(||row||, eps) alone, one warp per table row
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_table_norms(
+    const T* __restrict__ tab, int P, int D, float* __restrict__ nrm) {
+  const int row = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  if (row >= P) return;  // warp-uniform
+  const float n = warp_row_norm(tab + (size_t)row * D, D);
+  if ((threadIdx.x & 31) == 0) nrm[row] = n;
+}
+
+// d_table row col from its sum g = (dz^T sr)[col] (lane_feature(j) of
+// each lane), with the l2norm VJP (G - (G . t) t [n > eps]) / n, t the
+// unrounded table row / n, when the table is normalised
+template <typename T>
+__device__ __forceinline__ void finish_dtable_row(const float (&g)[8],
+                                                  int col, const T* tab,
+                                                  const float* nrm, int D,
+                                                  int normalize, T* dtab) {
+  const size_t base = (size_t)col * D;
+  if (!normalize) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = lane_feature(j);
+      if (d < D) dtab[base + d] = from_f<T>(g[j]);
+    }
+    return;
+  }
+  const float n = nrm[col];
+  const float live = n > NORM_EPS ? 1.f : 0.f;
+  float t[8];
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // features at or past D hold whatever the tile's padding held
+    const int d = lane_feature(j);
+    t[j] = d < D ? to_f(tab[base + d]) / n : 0.f;
+    if (d < D) dot = fmaf(g[j], t[j], dot);
+  }
+  dot = warp_sum(dot);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = lane_feature(j);
+    if (d < D) dtab[base + d] = from_f<T>((g[j] - dot * t[j] * live) / n);
+  }
+}
+
+// d_table from the row splits' partials, summed in split order, one warp
+// per catalog row
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_bwd_dtable_reduce(
+    const float* __restrict__ part, int n_split, const T* __restrict__ tab,
+    const float* __restrict__ nrm, int P, int D, int normalize,
+    T* __restrict__ dtab) {
+  const int col = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  if (col >= P) return;  // warp-uniform
+  float gs[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = lane_feature(j);
+    float acc = 0.f;
+    if (d < D)
+      for (int sp = 0; sp < n_split; ++sp)
+        acc += part[((size_t)sp * P + col) * D + d];
+    gs[j] = acc;
+  }
+  finish_dtable_row<T>(gs, col, tab, nrm, D, normalize, dtab);
 }
 
 }  // namespace

@@ -27,7 +27,8 @@
 //   * The table is normalised once.  xent_bwd_normalize writes t and the
 //     clamped norms n to scratch; the product kernels stream t and never
 //     normalise a tile again (the first design re-normalised every tile in
-//     every block that staged it).
+//     every block that staged it).  It, finish_dtable_row and
+//     xent_bwd_dtable_reduce live in tiles.cuh, shared with K4.
 //   * Register-tiled products (tiles.cuh).  A 64 x 64 logits tile is 4 x 4
 //     outputs a thread, 8 shared loads of four elements per 64 FMAs; the
 //     accumulations d_table += dz^T sr and d_sr += dz t are 8 x 8 outputs
@@ -78,70 +79,6 @@ __device__ __forceinline__ float dlogit(float z, int col, int p_end,
   const float p = gcol < n_valid ? expf(z - lse_r) : 0.f;
   const float oh = gcol == lbl ? 1.f : 0.f;
   return round_op<T>((p - oh) * (scale * g_r));
-}
-
-// t = round_op(row / max(||row||, eps)) and n = max(||row||, eps), one warp
-// per table row
-template <typename T>
-__global__ void __launch_bounds__(NT) xent_bwd_normalize(
-    const T* __restrict__ tab, int P, int D, T* __restrict__ that,
-    float* __restrict__ nrm) {
-  const int row = blockIdx.x * NWARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= P) return;  // warp-uniform
-  const T* src = tab + (size_t)row * D;
-  float acc = 0.f;
-  for (int k = lane; k < D; k += 32) {
-    const float v = to_f(src[k]);
-    acc = fmaf(v, v, acc);
-  }
-  const float n = fmaxf(sqrtf(warp_sum(acc)), NORM_EPS);
-  for (int k = lane; k < D; k += 32)
-    that[(size_t)row * D + k] = from_f<T>(to_f(src[k]) / n);
-  if (lane == 0) nrm[row] = n;
-}
-
-// d_table row col from its sum g = (dz^T sr)[col] (lane_feature(j) of
-// each lane), with the l2norm VJP (G - (G . t) t [n > eps]) / n, t the
-// unrounded table row / n, when the table is normalised
-template <typename T>
-__device__ __forceinline__ void finish_dtable_row(const float (&g)[8],
-                                                  int col, const T* tab,
-                                                  const float* nrm, int D,
-                                                  int normalize, T* dtab) {
-  const size_t base = (size_t)col * D;
-  if (!normalize) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = lane_feature(j);
-      if (d < D) dtab[base + d] = from_f<T>(g[j]);
-    }
-    return;
-  }
-  const float n = nrm[col];
-  const float live = n > NORM_EPS ? 1.f : 0.f;
-  float t[8];
-  float dot = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    // features at or past D hold whatever the tile's padding held
-    const int d = lane_feature(j);
-    t[j] = d < D ? to_f(tab[base + d]) / n : 0.f;
-    if (d < D) dot = fmaf(g[j], t[j], dot);
-  }
-  dot = warp_sum(dot);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int d = lane_feature(j);
-    if (d < D) dtab[base + d] = from_f<T>((g[j] - dot * t[j] * live) / n);
-  }
-}
-
-// the three 64-row tiles and the dz tile of one block
-template <typename T>
-size_t bwd_smem(int D) {
-  return (size_t)3 * TILE * tile_ld(D) * sizeof(T) +
-         (size_t)TILE * LDZ * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
@@ -216,28 +153,6 @@ __global__ void __launch_bounds__(NT, 1) xent_bwd_dtable(
     else
       finish_dtable_row<T>(G[i], col, tab, nrm, D, normalize, dtab);
   }
-}
-
-// d_table from the row splits' partials, summed in split order, one warp
-// per catalog row
-template <typename T>
-__global__ void __launch_bounds__(NT) xent_bwd_dtable_reduce(
-    const float* __restrict__ part, int n_split, const T* __restrict__ tab,
-    const float* __restrict__ nrm, int P, int D, int normalize,
-    T* __restrict__ dtab) {
-  const int col = blockIdx.x * NWARPS + (threadIdx.x >> 5);
-  if (col >= P) return;  // warp-uniform
-  float gs[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int d = lane_feature(j);
-    float acc = 0.f;
-    if (d < D)
-      for (int sp = 0; sp < n_split; ++sp)
-        acc += part[((size_t)sp * P + col) * D + d];
-    gs[j] = acc;
-  }
-  finish_dtable_row<T>(gs, col, tab, nrm, D, normalize, dtab);
 }
 
 // ---------------------------------------------------------------------------

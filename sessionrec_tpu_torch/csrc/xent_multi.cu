@@ -1,9 +1,13 @@
-// Fused multi-order REnorm / fusion catalog loss for Hopper (sm_90a).
+// K3 and K4: the fused multi-order REnorm / fusion catalog loss, for Hopper
+// (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of sessionrec_tpu/ops/xent_multi.py:
-//   K3  _fwd_kernel (xent_multi.py:57)  -> xent_multi_fwd_partial
+//   K3  _fwd_kernel (xent_multi.py:57)  -> xent_table_norms
+//                                          + xent_multi_fwd_partial
 //                                          + xent_multi_fwd_merge
-//   K4  _bwd_kernel (xent_multi.py:157) -> xent_multi_bwd_dtable
+//   K4  _bwd_kernel (xent_multi.py:157) -> xent_bwd_normalize
+//                                          + xent_multi_bwd_dtable
+//                                          (+ xent_bwd_dtable_reduce)
 //                                          + xent_multi_bwd_dsr
 //                                          (+ xent_bwd_dsr_reduce)
 //
@@ -14,100 +18,91 @@
 // sum-exp of z = scale * sr_k . t over the in-session and the other
 // columns, and zl, the label's logit.  The backward pass turns their
 // cotangents into
-//   dz = (gin * p_in + gex * p_ex + gz * onehot(label)) * scale,
+//   dz = round_op((gin * p_in + gex * p_ex + gz * onehot(label)) * scale),
 // p_in = exp(z - lse_in) on in-session live columns, p_ex = exp(z - lse_ex)
-// on the other live columns, and then d_sr_k = dz_k @ t and
-// d_table = sum_k dz_k^T @ sr_k with the l2norm VJP folded in.  None of the
-// kernels stores the [K, B, P] logits or the [B, P] session mask.
+// on the other live columns, and then d_sr_k = dz_k @ t (float32) and
+// d_table = l2norm-VJP(sum_k dz_k^T @ sr_k) (the table's type).  As the JAX
+// kernels do, K3 divides the raw table's logits by the clamped row norms n,
+// and K4 scores against t = round_op(table / n), the operand K2 streams.
+// None of the kernels stores the [K, B, P] logits or the [B, P] session
+// mask.
 //
-// What bounds it.  K3 performs 2*K*B*P*D operations and K4 three times as
-// many on (K*B + P)*D elements.  At the paper path's shapes (K = 3,
-// B = 512, D = 256, P = 3,584 to 37,888) that is some 2*K*B/(bytes per
-// element) operations per byte, about 770 in float32: far above the card's
-// ratio of float32 operations to bytes (67 TFLOP/s over 3.35 TB/s = 20),
-// so every kernel is bound by operations, and the products run on the
-// FP32 FMA pipes (TF32 would change the numerics), as K1 and K2 do.
+// What bounds it.  K3 performs 2*R*P*D operations and K4 three times as
+// many (R = K*B rows) on (R + P)*D elements: at the paper path's shapes
+// (K = 3, B = 512, D = 256, P = 3,584 to 37,888) about 770 operations a
+// float32 byte, far above the card's 20 (67 TFLOP/s over 3.35 TB/s), so
+// both are bound by operations, on the FP32 FMA pipes (TF32 would change
+// the numerics).  K4 performs four products where its bound counts three
+// (the logits are recomputed for each output, as in K2, xent_bwd.cu), so
+// its ceiling is 75% of its bound.
 //
-// What the design does about it (a first, simple design; K1/K2's tiles):
-//   * K folds into the row axis.  The TPU kernel loops over k inside each
-//     table tile so that the tile is read once for all orders.  Here sr3
-//     [K, B, D] is read as K*B rows, row r = k*B + b taking label b and
-//     iid list b, and a block computes a 32-row x 64-column tile of logits
-//     from its staged rows and one staged catalog tile, as
-//     xent_fwd_partial does.  Each operand element read from memory feeds
-//     32 to 64 FMAs.
-//   * Membership is a bit mask per row and tile.  While a catalog tile is
-//     staged, the block turns each of its rows' iid lists (global item ids,
-//     -1 padded, at most MAX_NS) into a mask over the tile's columns, eight
-//     threads a row merged by shuffles, so testing a column costs a shift.
-//   * K3 splits the catalog over blockIdx.y; each split writes the five
-//     partial stats per row, and xent_multi_fwd_merge combines each
-//     (m, s) pair as a log-sum-exp and sums zl (only the split that holds
-//     the label adds to it).
+// What the design does about it (K2's tiles, tiles.cuh):
+//   * K folds into the row axis.  sr3 [K, B, D] is read as R = K*B rows,
+//     row r = k*B + b taking label b and iid list b, so every order shares
+//     each staged catalog tile.
+//   * The table is normalised once per call.  K3 takes the clamped norms
+//     (xent_table_norms) and divides each logit by its column's; K4 streams
+//     t from xent_bwd_normalize, as K2 does.  The first design normalised
+//     every catalog tile again in every block that staged it.
+//   * Register-tiled products: a 64 x 64 logits tile is 4 x 4 outputs a
+//     thread (product_logits); K4's accumulations d_table += dz^T sr and
+//     d_sr += dz t are 8 x 8 a thread (rank_update), with dz in shared
+//     memory as [row][col] for d_table and as [col][row] for d_sr.
+//   * Asynchronous, double-buffered staging: the streamed operand's next
+//     64-row tile arrives by cp.async while the current one is used;
+//     bfloat16 is staged as bfloat16 and widened in registers.
+//   * Membership as bits.  While a tile stages, four threads per row scan
+//     the row's iid list (global ids, -1 padded, at most MAX_NS) and OR a
+//     64-bit mask over the tile's 64 columns, so a column's test is a
+//     shift.  K4's six per-row inputs (gz, gin, gex, lse_in, lse_ex,
+//     label) sit in shared memory beside the masks, not in registers.
+//   * A grid from the card's resident slots (ops/xent.py:_bwd_grid, at R
+//     rows).  K3 and K4's d_sr run over 64-row tiles of the R rows and
+//     catalog splits; K4's d_table over catalog tiles and row splits.  K3's
+//     splits merge their five stats in xent_multi_fwd_merge (each (m, s)
+//     pair as a log-sum-exp, zl summed), K4's in fixed-order reduces
+//     (xent_bwd_dtable_reduce applies the l2norm VJP once, after the sum).
+//     No atomics: two calls on the same inputs give the same bits.
 //   * Empty partitions stay finite: a row with no session item, or a tile
 //     with no in-session column, carries m = NEG_INF and s = 0; every
 //     rescale uses m_safe = max(m, NEG_INF / 2), so exp(NEG_INF - m_safe)
 //     is 0, never NaN.  K4 takes p_in only on member & live columns and
 //     p_ex only on the others, each against max(lse, NEG_INF / 2).
-//   * K4 is K2's pair of kernels, without atomics and so deterministic:
-//     xent_multi_bwd_dtable is parallel over catalog tiles and loops over
-//     all K*B rows; xent_multi_bwd_dsr is parallel over row tiles and
-//     catalog splits, and xent_bwd_dsr_reduce sums the splits in a fixed
-//     order.
-//   * bfloat16 inputs: as K2, the normalised table and dz are rounded to
-//     bfloat16 where the JAX kernel feeds its matrix unit, and every
-//     product accumulates in float32.
 //
 // Interface.  As the JAX kernels take them for the catalog-sharded path:
 // n_valid (local columns at or past it are masked), col_offset (the global
 // id of the table's first row: membership compares col_offset + j with the
 // global iids), and labels localised to the table (-1 matches no column).
-// Each C entry point launches on the given stream, does not synchronise
-// and returns cudaGetLastError().
+// The wrapper chooses the grids (ops/xent_multi.py) from
+// srt_xent_multi_slots.  Any K, B >= 1, P >= 1, 0 < D <= 256: with
+// D % 4 == 0 and aligned arrays the tiles are staged by cp.async,
+// otherwise by plain loads.  Each entry point launches on the given
+// stream, does not synchronise and returns cudaGetLastError().
 
-#include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
 
 constexpr int MAX_NS = 256;  // longest iid list (session items) per row
 
-// mask[i] bit c, for the F_BM rows row0 + i of the block: global column
-// gc0 + c (c < 64) is one of the row's session items.  Eight threads per
-// row (tid = 8 i + part) scan the list and merge by shuffles.
-__device__ __forceinline__ void row_masks64(unsigned long long* mask,
-                                            const int* __restrict__ iids,
-                                            int row0, int R, int B, int Ns,
-                                            int gc0) {
-  const int i = threadIdx.x >> 3, part = threadIdx.x & 7;
+static_assert(NT == 4 * TILE, "row_masks: four threads per tile row");
+
+// mask[i] bit c, for the TILE rows row0 + i: global column gc0 + c (c <
+// 64) is one of the row's session items (row r takes iid list r % B).
+// Four threads per row (tid = 4 i + part) scan the list and merge by
+// shuffles.
+__device__ __forceinline__ void row_masks(unsigned long long* mask,
+                                          const int* __restrict__ iids,
+                                          int row0, int R, int B, int Ns,
+                                          int gc0) {
+  const int i = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int r = row0 + i;
   unsigned long long m = 0ull;
   if (r < R) {
     const int* ids = iids + (size_t)(r % B) * Ns;
-    for (int j = part; j < Ns; j += 8) {
-      const unsigned c = (unsigned)(ids[j] - gc0);
-      if (c < 64u) m |= 1ull << c;
-    }
-  }
-  m |= __shfl_xor_sync(FULL, m, 1);
-  m |= __shfl_xor_sync(FULL, m, 2);
-  m |= __shfl_xor_sync(FULL, m, 4);
-  if (part == 0) mask[i] = m;
-}
-
-// the same for the T_BM rows of a d_table chunk and 32 columns; four
-// threads per row (tid = 4 i + part)
-__device__ __forceinline__ void row_masks32(unsigned* mask,
-                                            const int* __restrict__ iids,
-                                            int row0, int R, int B, int Ns,
-                                            int gc0) {
-  const int i = threadIdx.x >> 2, part = threadIdx.x & 3;
-  const int r = row0 + i;
-  unsigned m = 0u;
-  if (r < R) {
-    const int* ids = iids + (size_t)(r % B) * Ns;
     for (int j = part; j < Ns; j += 4) {
       const unsigned c = (unsigned)(ids[j] - gc0);
-      if (c < 32u) m |= 1u << c;
+      if (c < 64u) m |= 1ull << c;
     }
   }
   m |= __shfl_xor_sync(FULL, m, 1);
@@ -124,55 +119,76 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
   m = mn;
 }
 
+// shared memory of K3's block: the rows, two catalog tiles, the masks
+template <typename T>
+size_t fwd_smem(int D) {
+  return (size_t)3 * TILE * tile_ld(D) * sizeof(T) +
+         TILE * sizeof(unsigned long long);
+}
+
 // ---------------------------------------------------------------------------
 // K3, forward: partial two-partition online log-sum-exp over one catalog
-// split.  grid = (ceil(K*B / F_BM), n_split); thread (ty, tx) owns rows
-// ty, ty + 16 and columns tx + 16 j (j < 4) of each 32 x 64 logits tile.
-// part holds [5][n_split][K*B] floats: m_in, s_in, m_ex, s_ex, zl.
+// split.  grid = (row tiles, catalog splits).  A block stages its 64 rows
+// once and streams the raw table tiles of its split (double-buffered);
+// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of
+// each 64 x 64 logits tile and keeps its own running stats per row, merged
+// over the row's 16 threads by shuffles at the end.  part holds
+// [5][n_split][R] floats: m_in, s_in, m_ex, s_ex, zl.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(NT) xent_multi_fwd_partial(
+__global__ void __launch_bounds__(NT, 1) xent_multi_fwd_partial(
     const T* __restrict__ sr, const T* __restrict__ tab,
-    const int* __restrict__ labels, const int* __restrict__ iids, int R,
-    int B, int P, int D, int Ns, int n_valid, int col_offset, float scale,
-    int normalize, int cols_per_split, float* __restrict__ part) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int normalize, int vec,
+    int tiles_per_split, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tile_ld(D), D4 = (D + 3) & ~3;
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr rows
+  T* C_s = A_s + TILE * ld;                            // [2][TILE][ld] table
   unsigned long long* mask_s =
-      reinterpret_cast<unsigned long long*>(smem);  // [F_BM]
-  float* A_s = smem + 2 * F_BM;     // [F_BM][ld] sr rows
-  float* B_s = A_s + F_BM * ld;     // [F_BN][ld] table rows
-  float* n_s = B_s + F_BN * ld;     // [F_BN] row norms
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.x * F_BM;
-  const int split = blockIdx.y;
-  const int p_begin = split * cols_per_split;
-  const int p_end = min(P, p_begin + cols_per_split);
+      reinterpret_cast<unsigned long long*>(C_s + 2 * TILE * ld);  // [TILE]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  stage_rows(A_s, ld, sr, row0, R, F_BM, D);
-  int lbl[2];
-  float m_in[2], s_in[2], m_ex[2], s_ex[2], zl[2];
+  stage_tile(A_s, ld, sr, row0, R, D, vec);
+  stage_tile(C_s, ld, tab, t_begin * TILE, P, D, vec);
+  cp_async_commit();
+
+  int lbl[4];
+  float m_in[4], s_in[4], m_ex[4], s_ex[4], zl[4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty + 16 * i;
     lbl[i] = r < R ? labels[r % B] : -1;
     m_in[i] = m_ex[i] = NEG_INF;
     s_in[i] = s_ex[i] = zl[i] = 0.f;
   }
 
-  for (int p0 = p_begin; p0 < p_end; p0 += F_BN) {
-    __syncthreads();  // the previous tile and its masks are consumed
-    stage_rows(B_s, ld, tab, p0, p_end, F_BN, D);
-    row_masks64(mask_s, iids, row0, R, B, Ns, col_offset + p0);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const T* C = C_s + buf * TILE * ld;
+    const int p0 = t * TILE;
+    if (t + 1 < t_end)
+      stage_tile(C_s + (buf ^ 1) * TILE * ld, ld, tab, (t + 1) * TILE, P, D,
+                 vec);
+    cp_async_commit();
+    row_masks(mask_s, iids, row0, R, B, Ns, col_offset + p0);
+    cp_async_wait_prev();  // this tile (and the rows) have landed
     __syncthreads();
-    if (normalize) {
-      tile_norms(B_s, ld, n_s, F_BN, D);
-      __syncthreads();
-    }
-    float acc[2][4] = {};
-    product_32x64(acc, A_s, B_s, ld, D);
+    float S[4][4] = {};
+    product_logits(S, A_s, C, ld, D4);
+    float n[4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int j = 0; j < 4; ++j) {
+      const int col = p0 + tx + 16 * j;
+      n[j] = normalize && col < P ? nrm[col] : 1.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
       const unsigned long long bits = mask_s[ty + 16 * i];
       float z[4];
       bool mem[4];
@@ -181,9 +197,9 @@ __global__ void __launch_bounds__(NT) xent_multi_fwd_partial(
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const int col = p0 + c;
-        float v = scale * acc[i][j];
-        if (normalize) v = v / n_s[c];
-        const bool in_table = col < p_end;
+        float v = scale * S[i][j];
+        if (normalize) v = v / n[j];
+        const bool in_table = col < P;
         if (!in_table || col >= n_valid) v = NEG_INF;
         if (in_table && col == lbl[i]) zl[i] += v;
         mem[j] = (bits >> c) & 1ull;
@@ -207,12 +223,13 @@ __global__ void __launch_bounds__(NT) xent_multi_fwd_partial(
       m_in[i] = mi;
       m_ex[i] = me;
     }
+    __syncthreads();  // C and the masks are consumed
   }
 
   // merge the 16 per-thread partials of each row (lanes of one half-warp)
   const size_t plane = (size_t)gridDim.y * R;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int off = 8; off; off >>= 1) {
       const float mio = __shfl_xor_sync(FULL, m_in[i], off);
@@ -225,7 +242,7 @@ __global__ void __launch_bounds__(NT) xent_multi_fwd_partial(
     }
     const int r = row0 + ty + 16 * i;
     if (tx == 0 && r < R) {
-      const size_t o = (size_t)split * R + r;
+      const size_t o = (size_t)blockIdx.y * R + r;
       part[o] = m_in[i];
       part[plane + o] = s_in[i];
       part[2 * plane + o] = m_ex[i];
@@ -235,7 +252,7 @@ __global__ void __launch_bounds__(NT) xent_multi_fwd_partial(
   }
 }
 
-// K3, merge: out [5][K*B] = (m_in, s_in, m_ex, s_ex, zl) over the whole
+// K3, merge: out [5][R] = (m_in, s_in, m_ex, s_ex, zl) over the whole
 // catalog from the splits' partials
 __global__ void xent_multi_fwd_merge(const float* __restrict__ part,
                                      int n_split, int R,
@@ -257,218 +274,325 @@ __global__ void xent_multi_fwd_merge(const float* __restrict__ part,
   out[4 * R + r] = zg;
 }
 
-// K4's per-row inputs: the cotangents of zl, lse_in and lse_ex, the
-// guarded log-partitions and the label; g5 is [5][K*B] = (gz, gin, gex,
-// lse_in, lse_ex)
-struct RowCoef {
-  float gz, gin, gex, lin, lex;
-  int lbl;
-  bool ok;
+// K4's per-row inputs of a block's TILE rows, in shared memory beside the
+// masks: coef[q][i] = (gz, gin, gex, lse_in, lse_ex)[q] of row row0 + i,
+// the log-partitions guarded by max(., NEG_INF / 2), and its label; g5 is
+// [5][R] = (gz, gin, gex, lse_in, lse_ex)
+struct RowShared {
+  unsigned long long mask[TILE];
+  float coef[5][TILE];
+  int lbl[TILE];
 };
 
-__device__ __forceinline__ RowCoef row_coef(const float* __restrict__ g5,
-                                            const int* __restrict__ labels,
-                                            int r, int R, int B) {
-  RowCoef c{0.f, 0.f, 0.f, 0.f, 0.f, -1, r < R};
-  if (c.ok) {
-    c.gz = g5[r];
-    c.gin = g5[R + r];
-    c.gex = g5[2 * R + r];
-    c.lin = fmaxf(g5[3 * R + r], NEG_INF * 0.5f);
-    c.lex = fmaxf(g5[4 * R + r], NEG_INF * 0.5f);
-    c.lbl = labels[r % B];
+__device__ __forceinline__ void row_coefs(RowShared* rs,
+                                          const float* __restrict__ g5,
+                                          const int* __restrict__ labels,
+                                          int row0, int R, int B) {
+  const int i = threadIdx.x;
+  if (i >= TILE) return;
+  const int r = row0 + i;
+  const bool ok = r < R;
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    const float v = ok ? g5[(size_t)q * R + r] : 0.f;
+    rs->coef[q][i] = q >= 3 ? fmaxf(v, NEG_INF * 0.5f) : v;
   }
-  return c;
+  rs->lbl[i] = ok ? labels[r % B] : -1;
 }
 
-// dz = (gin p_in + gex p_ex + gz onehot) * scale for one logits value,
-// rounded to the operand type; 0 for padding rows and columns
+// dz of tile row i at its four columns tx + 16 j (j < 4) of a tile that
+// starts at local column p0, from the logits S[j] of that row; 0 on rows
+// past R and columns past P
 template <typename T>
-__device__ __forceinline__ float dlogit_multi(float z, int col, int p_end,
-                                              int n_valid, bool member,
-                                              const RowCoef& c, float scale) {
-  if (!c.ok || col >= p_end) return 0.f;
-  float acc = 0.f;
-  if (col < n_valid)
-    acc = member ? c.gin * expf(z - c.lin) : c.gex * expf(z - c.lex);
-  if (col == c.lbl) acc += c.gz;
-  return round_op<T>(acc * scale);
+__device__ __forceinline__ void dlogits_multi(float (&dz)[4],
+                                              const float (&S)[4],
+                                              const RowShared* rs, int i,
+                                              bool row_ok, int p0, int P,
+                                              int n_valid, float scale) {
+  const int tx = threadIdx.x & 15;
+  const float gz = rs->coef[0][i], gin = rs->coef[1][i];
+  const float gex = rs->coef[2][i], lin = rs->coef[3][i];
+  const float lex = rs->coef[4][i];
+  const int lbl = rs->lbl[i];
+  const unsigned long long bits = rs->mask[i];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = tx + 16 * j, col = p0 + c;
+    float acc = 0.f;
+    if (col < n_valid) {
+      const bool member = (bits >> c) & 1ull;
+      acc = (member ? gin : gex) * expf(scale * S[j] - (member ? lin : lex));
+    }
+    if (col == lbl) acc += gz;
+    dz[j] = row_ok && col < P ? round_op<T>(acc * scale) : 0.f;
+  }
+}
+
+// shared memory of a K4 block: K2's three tiles and dz tile, and the rows'
+// masks and inputs
+template <typename T>
+size_t bwd_multi_smem(int D) {
+  return bwd_smem<T>(D) + sizeof(RowShared);
 }
 
 // ---------------------------------------------------------------------------
-// K4, d_table: grid = ceil(P / T_BN).  A block owns 32 catalog rows, loops
-// over the K*B rows in chunks of 64, recomputes the 64 x 32 dz tile and
-// accumulates G = dz^T @ sr in registers, then writes d_table with the
-// l2norm VJP (store_dtable).
+// K4, d_table: grid = (catalog tiles, row splits).  A block stages its
+// 64-row tile of t once and streams the R rows of its split in 64-row
+// chunks (double-buffered), building each chunk's masks and inputs while
+// it stages; it recomputes each 64 x 64 dz tile and accumulates
+// G = dz^T sr in registers (warp w owns catalog rows 8 w .. 8 w + 7).  With
+// part, it writes G as the split's float32 partial; otherwise d_table.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT) xent_multi_bwd_dtable(
+template <typename T, bool HI>
+__global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dtable(
     const float* __restrict__ g5, const T* __restrict__ sr,
-    const T* __restrict__ tab, const int* __restrict__ labels,
+    const T* __restrict__ op, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
     const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
-    int n_valid, int col_offset, float scale, int normalize,
-    T* __restrict__ dtab) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
-  constexpr int LDZ = T_BN + 1;
-  unsigned* mask_s = reinterpret_cast<unsigned*>(smem);  // [T_BM]
-  float* B_s = smem + T_BM;       // [T_BN][ld] operand table rows
-  float* A_s = B_s + T_BN * ld;   // [T_BM][ld] sr rows
-  float* dz_s = A_s + T_BM * ld;  // [T_BM][LDZ]
-  float* n_s = dz_s + T_BM * LDZ; // [T_BN]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int p0 = blockIdx.x * T_BN;
+    int n_valid, int col_offset, float scale, int normalize, int vec,
+    int chunks_per_split, float* __restrict__ part, T* __restrict__ dtab) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tile_ld(D), D4 = (D + 3) & ~3;
+  T* C_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] t rows
+  T* A_s = C_s + TILE * ld;                            // [2][TILE][ld] sr
+  float* dz_s = reinterpret_cast<float*>(A_s + 2 * TILE * ld);  // [row][col]
+  RowShared* rs = reinterpret_cast<RowShared*>(dz_s + TILE * LDZ);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int p0 = blockIdx.x * TILE;
+  const int n_chunks = (R + TILE - 1) / TILE;
+  const int c_begin = blockIdx.y * chunks_per_split;
+  const int c_end = min(n_chunks, c_begin + chunks_per_split);
 
-  stage_operand_tile(B_s, ld, n_s, tab, p0, P, T_BN, D, normalize);
+  stage_tile(C_s, ld, op, p0, P, D, vec);
+  stage_tile(A_s, ld, sr, c_begin * TILE, R, D, vec);
+  cp_async_commit();
 
-  float G[4][MAX_D / 32] = {};
-  for (int b0 = 0; b0 < R; b0 += T_BM) {
-    __syncthreads();  // the previous chunk is consumed
-    stage_rows(A_s, ld, sr, b0, R, T_BM, D);
-    row_masks32(mask_s, iids, b0, R, B, Ns, col_offset + p0);
+  float G[8][8] = {};
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = (c - c_begin) & 1;
+    const T* A = A_s + buf * TILE * ld;
+    const int row0 = c * TILE;
+    if (c + 1 < c_end)
+      stage_tile(A_s + (buf ^ 1) * TILE * ld, ld, sr, (c + 1) * TILE, R, D,
+                 vec);
+    cp_async_commit();
+    row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
+    row_coefs(rs, g5, labels, row0, R, B);
+    cp_async_wait_prev();  // this chunk (and the tile) have landed
     __syncthreads();
-    float acc[4][2] = {};
-    product_64x32(acc, A_s, B_s, ld, D);
+    float S[4][4] = {};
+    product_logits(S, A, C_s, ld, D4);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int rl = ty + 16 * i;
-      const RowCoef c = row_coef(g5, labels, b0 + rl, R, B);
-      const unsigned bits = mask_s[rl];
+      float dz[4];
+      dlogits_multi<T>(dz, S[i], rs, rl, row0 + rl < R, p0, P, n_valid,
+                       scale);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int cc = tx + 16 * j;
-        dz_s[rl * LDZ + cc] = dlogit_multi<T>(
-            scale * acc[i][j], p0 + cc, P, n_valid, (bits >> cc) & 1u, c,
-            scale);
-      }
+      for (int j = 0; j < 4; ++j) dz_s[rl * LDZ + tx + 16 * j] = dz[j];
     }
     __syncthreads();
-    accumulate_dtable(G, dz_s, LDZ, A_s, ld, D);
+    rank_update<T, HI>(G, dz_s, A, ld);
+    __syncthreads();  // A, dz_s and the rows' inputs are consumed
   }
 
-  store_dtable(G, n_s, tab, p0, P, D, normalize, dtab);
+  const int w = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = p0 + 8 * w + i;
+    if (col >= P) continue;  // warp-uniform
+    if (part)
+      store_row8(part + ((size_t)blockIdx.y * P + col) * D, G[i], D);
+    else
+      finish_dtable_row<T>(G[i], col, tab, nrm, D, normalize, dtab);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// K4, d_sr: grid = (ceil(K*B / F_BM), n_split).  A block owns 32 rows and
-// one catalog split, recomputes each 32 x 64 dz tile and accumulates
-// dz @ t in registers; each split writes its partial sum, reduced in a
-// fixed order by xent_bwd_dsr_reduce.
+// K4, d_sr: grid = (row tiles, catalog splits).  A block stages its 64
+// rows and their inputs once and streams the catalog tiles of its split
+// (double-buffered), building each tile's masks while it stages; it
+// recomputes each 64 x 64 dz tile and accumulates dz t in registers (warp
+// w owns rows 8 w .. 8 w + 7), and writes its split's partial to out
+// (d_sr itself when there is one split).
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT) xent_multi_bwd_dsr(
+template <typename T, bool HI>
+__global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dsr(
     const float* __restrict__ g5, const T* __restrict__ sr,
-    const T* __restrict__ tab, const int* __restrict__ labels,
+    const T* __restrict__ op, const int* __restrict__ labels,
     const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
-    int n_valid, int col_offset, float scale, int normalize,
-    int cols_per_split, float* __restrict__ dsr_part) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
-  constexpr int LDZ = F_BN + 1;
-  unsigned long long* mask_s =
-      reinterpret_cast<unsigned long long*>(smem);  // [F_BM]
-  float* A_s = smem + 2 * F_BM;   // [F_BM][ld] sr rows
-  float* B_s = A_s + F_BM * ld;   // [F_BN][ld] operand table rows
-  float* dz_s = B_s + F_BN * ld;  // [F_BM][LDZ]
-  float* n_s = dz_s + F_BM * LDZ; // [F_BN]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.x * F_BM;
-  const int split = blockIdx.y;
-  const int p_begin = split * cols_per_split;
-  const int p_end = min(P, p_begin + cols_per_split);
+    int n_valid, int col_offset, float scale, int vec, int tiles_per_split,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tile_ld(D), D4 = (D + 3) & ~3;
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr rows
+  T* C_s = A_s + TILE * ld;                            // [2][TILE][ld] t
+  float* dz_s = reinterpret_cast<float*>(C_s + 2 * TILE * ld);  // [col][row]
+  RowShared* rs = reinterpret_cast<RowShared*>(dz_s + TILE * LDZ);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  stage_rows(A_s, ld, sr, row0, R, F_BM, D);
-  RowCoef coef[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    coef[i] = row_coef(g5, labels, row0 + ty + 16 * i, R, B);
+  stage_tile(A_s, ld, sr, row0, R, D, vec);
+  stage_tile(C_s, ld, op, t_begin * TILE, P, D, vec);
+  cp_async_commit();
+  row_coefs(rs, g5, labels, row0, R, B);
 
-  float acc_d[4][MAX_D / 32] = {};
-  for (int p0 = p_begin; p0 < p_end; p0 += F_BN) {
-    __syncthreads();  // the previous tile and its masks are consumed
-    row_masks64(mask_s, iids, row0, R, B, Ns, col_offset + p0);
-    stage_operand_tile(B_s, ld, n_s, tab, p0, p_end, F_BN, D, normalize);
-    float acc[2][4] = {};
-    product_32x64(acc, A_s, B_s, ld, D);
+  float acc[8][8] = {};
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const T* C = C_s + buf * TILE * ld;
+    const int p0 = t * TILE;
+    if (t + 1 < t_end)
+      stage_tile(C_s + (buf ^ 1) * TILE * ld, ld, op, (t + 1) * TILE, P, D,
+                 vec);
+    cp_async_commit();
+    row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
+    cp_async_wait_prev();  // this tile (and the rows) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits(S, A_s, C, ld, D4);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const unsigned long long bits = mask_s[ty + 16 * i];
+    for (int i = 0; i < 4; ++i) {
+      const int rl = ty + 16 * i;
+      float dz[4];
+      dlogits_multi<T>(dz, S[i], rs, rl, row0 + rl < R, p0, P, n_valid,
+                       scale);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        dz_s[(ty + 16 * i) * LDZ + c] = dlogit_multi<T>(
-            scale * acc[i][j], p0 + c, p_end, n_valid, (bits >> c) & 1ull,
-            coef[i], scale);
-      }
+      for (int j = 0; j < 4; ++j) dz_s[(tx + 16 * j) * LDZ + rl] = dz[j];
     }
     __syncthreads();
-    accumulate_dsr(acc_d, dz_s, LDZ, B_s, ld, min(F_BN, p_end - p0), D);
+    rank_update<T, HI>(acc, dz_s, C, ld);
+    __syncthreads();  // C, dz_s and the masks are consumed
   }
-  store_dsr_part(acc_d, dsr_part + (size_t)split * R * D, row0, R, D);
-}
 
-size_t fwd_smem(int D) {
-  return (2 * F_BM + (size_t)(F_BM + F_BN) * (D + 1) + F_BN) * 4;
-}
-size_t dtable_smem(int D) {
-  return (T_BM + (size_t)(T_BN + T_BM) * (D + 1) + T_BM * (T_BN + 1) + T_BN) *
-         4;
-}
-size_t dsr_smem(int D) {
-  return (2 * F_BM + (size_t)(F_BM + F_BN) * (D + 1) + F_BM * (F_BN + 1) +
-          F_BN) * 4;
+  const int w = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + 8 * w + i;
+    if (r < R) store_row8(out + ((size_t)blockIdx.y * R + r) * D, acc[i], D);
+  }
 }
 
 template <typename T>
-int fwd(const void* sr, const void* tab, const int* labels, const int* iids,
-        int K, int B, int P, int D, int Ns, int n_valid, int col_offset,
-        float scale, int normalize, int n_split, int cols_per_split,
+int set_fwd_smem(int D) {
+  const int smem = (int)fwd_smem<T>(D);
+  cudaFuncSetAttribute(xent_multi_fwd_partial<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return smem;
+}
+
+template <typename T, bool HI>
+int set_bwd_smem(int D) {
+  const int smem = (int)bwd_multi_smem<T>(D);
+  cudaFuncSetAttribute(xent_multi_bwd_dtable<T, HI>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(xent_multi_bwd_dsr<T, HI>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return smem;
+}
+
+// resident blocks per SM of the three product kernels (K3's partial, K4's
+// d_table and d_sr: out[0..2]), their registers per thread (out[4..6]) and
+// their local memory bytes per thread, where spills go (out[7..9])
+template <typename T, bool HI>
+int slots(int D, int* out) {
+  const int fwd = set_fwd_smem<T>(D), bwd = set_bwd_smem<T, HI>(D);
+  const void* fns[3] = {(const void*)xent_multi_fwd_partial<T>,
+                        (const void*)xent_multi_bwd_dtable<T, HI>,
+                        (const void*)xent_multi_bwd_dsr<T, HI>};
+  const int smem[3] = {fwd, bwd, bwd};
+  for (int k = 0; k < 3; ++k) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[k], fns[k], NT,
+                                                  smem[k]);
+    cudaFuncAttributes a;
+    cudaFuncGetAttributes(&a, fns[k]);
+    out[4 + k] = a.numRegs;
+    out[7 + k] = (int)a.localSizeBytes;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd(const T* sr, const T* tab, const int* labels, const int* iids, int K,
+        int B, int P, int D, int Ns, int n_valid, int col_offset, float scale,
+        int normalize, int vec, int n_split, int tiles_per_split, float* nrm,
         float* part, float* out, cudaStream_t stream) {
   const int R = K * B;
-  const size_t smem = fwd_smem(D);
-  cudaFuncSetAttribute(xent_multi_fwd_partial<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((R + F_BM - 1) / F_BM, n_split);
+  const int smem = set_fwd_smem<T>(D);
+  cudaError_t err;
+  if (normalize) {
+    xent_table_norms<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+        tab, P, D, nrm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  dim3 grid((R + TILE - 1) / TILE, n_split);
   xent_multi_fwd_partial<T><<<grid, NT, smem, stream>>>(
-      (const T*)sr, (const T*)tab, labels, iids, R, B, P, D, Ns, n_valid,
-      col_offset, scale, normalize, cols_per_split, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  xent_multi_fwd_merge<<<(R + 255) / 256, 256, 0, stream>>>(part, n_split, R,
-                                                             out);
+      sr, tab, nrm, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
+      normalize, vec, tiles_per_split, part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  xent_multi_fwd_merge<<<(R + NT - 1) / NT, NT, 0, stream>>>(part, n_split,
+                                                             R, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool HI>
+int bwd(const float* g5, const T* sr, const T* tab, const int* labels,
+        const int* iids, int K, int B, int P, int D, int Ns, int n_valid,
+        int col_offset, float scale, int normalize, int vec, int t_split,
+        int chunks_per_split, int s_split, int tiles_per_split, T* that,
+        float* nrm, float* dtab_part, float* dsr_part, float* dsr, T* dtab,
+        cudaStream_t stream) {
+  const int R = K * B;
+  const int smem = set_bwd_smem<T, HI>(D);
+  const T* op = tab;
+  cudaError_t err;
+  if (normalize) {
+    xent_bwd_normalize<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+        tab, P, D, that, nrm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    op = that;
+  }
+  const int n_tiles = (P + TILE - 1) / TILE, n_rows = (R + TILE - 1) / TILE;
+  float* part = t_split > 1 ? dtab_part : nullptr;
+  xent_multi_bwd_dtable<T, HI><<<dim3(n_tiles, t_split), NT, smem, stream>>>(
+      g5, sr, op, tab, nrm, labels, iids, R, B, P, D, Ns, n_valid,
+      col_offset, scale, normalize, vec, chunks_per_split, part, dtab);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (part) {
+    xent_bwd_dtable_reduce<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+        part, t_split, tab, nrm, P, D, normalize, dtab);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  float* out = s_split > 1 ? dsr_part : dsr;
+  xent_multi_bwd_dsr<T, HI><<<dim3(n_rows, s_split), NT, smem, stream>>>(
+      g5, sr, op, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
+      vec, tiles_per_split, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (s_split > 1) {
+    const int n = R * D;
+    xent_bwd_dsr_reduce<<<(n + NT - 1) / NT, NT, 0, stream>>>(dsr_part,
+                                                              s_split, n, dsr);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int bwd(const float* g5, const void* sr, const void* tab, const int* labels,
-        const int* iids, int K, int B, int P, int D, int Ns, int n_valid,
-        int col_offset, float scale, int normalize, int n_split,
-        int cols_per_split, float* dsr_part, float* dsr, void* dtab,
-        cudaStream_t stream) {
-  const int R = K * B;
-  const size_t smem_t = dtable_smem(D), smem_s = dsr_smem(D);
-  cudaFuncSetAttribute(xent_multi_bwd_dtable<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_t);
-  cudaFuncSetAttribute(xent_multi_bwd_dsr<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_s);
-  xent_multi_bwd_dtable<T><<<(P + T_BN - 1) / T_BN, NT, smem_t, stream>>>(
-      g5, (const T*)sr, (const T*)tab, labels, iids, R, B, P, D, Ns, n_valid,
-      col_offset, scale, normalize, (T*)dtab);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((R + F_BM - 1) / F_BM, n_split);
-  xent_multi_bwd_dsr<T><<<grid, NT, smem_s, stream>>>(
-      g5, (const T*)sr, (const T*)tab, labels, iids, R, B, P, D, Ns, n_valid,
-      col_offset, scale, normalize, cols_per_split, dsr_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = R * D;
-  xent_bwd_dsr_reduce<<<(n + 255) / 256, 256, 0, stream>>>(dsr_part, n_split,
-                                                           n, dsr);
-  return (int)cudaGetLastError();
+int bwd_typed(const void* g5, const void* sr, const void* tab,
+              const void* labels, const void* iids, int K, int B, int P,
+              int D, int Ns, int n_valid, int col_offset, float scale,
+              int normalize, int vec, int t_split, int chunks_per_split,
+              int s_split, int tiles_per_split, void* that, void* nrm,
+              void* dtab_part, void* dsr_part, void* dsr, void* dtab,
+              void* stream) {
+  auto f = ((D + 3) & ~3) > 128 ? bwd<T, true> : bwd<T, false>;
+  return f((const float*)g5, (const T*)sr, (const T*)tab, (const int*)labels,
+           (const int*)iids, K, B, P, D, Ns, n_valid, col_offset, scale,
+           normalize, vec, t_split, chunks_per_split, s_split,
+           tiles_per_split, (T*)that, (float*)nrm, (float*)dtab_part,
+           (float*)dsr_part, (float*)dsr, (T*)dtab, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -477,34 +601,65 @@ extern "C" {
 
 int srt_xent_multi_max_ns() { return MAX_NS; }
 
-// K3: out [5][K*B] floats = (m_in, s_in, m_ex, s_ex, zl); part is scratch
-// of 5 * n_split * K * B floats
+// out[0..2]: resident blocks per SM of K3's partial kernel and K4's d_table
+// and d_sr kernels at width D on the current device; out[3]: its SM count;
+// out[4..6]: the three kernels' registers per thread; out[7..9]: their
+// local memory bytes per thread
+int srt_xent_multi_slots(int D, int is_bf16, int* out) {
+  const bool hi = ((D + 3) & ~3) > 128;
+  const int err = is_bf16 ? (hi ? slots<__nv_bfloat16, true>(D, out)
+                                : slots<__nv_bfloat16, false>(D, out))
+                          : (hi ? slots<float, true>(D, out)
+                                : slots<float, false>(D, out));
+  if (err) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, dev);
+  return (int)cudaGetLastError();
+}
+
+// K3: out [5][K*B] floats = (m_in, s_in, m_ex, s_ex, zl).  Grid: 64-row
+// tiles of the K*B rows times n_split catalog splits of tiles_per_split
+// 64-row tiles.  Scratch: nrm [P] float32 when normalize; part
+// [5][n_split][K*B] float32.  vec: D % 4 == 0 and every array aligned to
+// four elements.
 int srt_xent_multi_fwd(const void* sr, const void* tab, const void* labels,
                        const void* iids, int K, int B, int P, int D, int Ns,
                        int n_valid, int col_offset, float scale,
-                       int normalize, int is_bf16, int n_split,
-                       int cols_per_split, void* part, void* out,
+                       int normalize, int is_bf16, int vec, int n_split,
+                       int tiles_per_split, void* nrm, void* part, void* out,
                        void* stream) {
-  auto f = is_bf16 ? fwd<__nv_bfloat16> : fwd<float>;
-  return f(sr, tab, (const int*)labels, (const int*)iids, K, B, P, D, Ns,
-           n_valid, col_offset, scale, normalize, n_split, cols_per_split,
-           (float*)part, (float*)out, (cudaStream_t)stream);
+  if (is_bf16)
+    return fwd((const __nv_bfloat16*)sr, (const __nv_bfloat16*)tab,
+               (const int*)labels, (const int*)iids, K, B, P, D, Ns, n_valid,
+               col_offset, scale, normalize, vec, n_split, tiles_per_split,
+               (float*)nrm, (float*)part, (float*)out, (cudaStream_t)stream);
+  return fwd((const float*)sr, (const float*)tab, (const int*)labels,
+             (const int*)iids, K, B, P, D, Ns, n_valid, col_offset, scale,
+             normalize, vec, n_split, tiles_per_split, (float*)nrm,
+             (float*)part, (float*)out, (cudaStream_t)stream);
 }
 
 // K4: d_sr [K*B, D] float32 and d_table [P, D] in the table's type from
-// g5 [5][K*B] = (gz, gin, gex, lse_in, lse_ex); dsr_part is scratch of
-// n_split * K * B * D floats
+// g5 [5][K*B] = (gz, gin, gex, lse_in, lse_ex).  Grid: d_table over
+// t_split row splits of chunks_per_split 64-row chunks, d_sr over s_split
+// catalog splits of tiles_per_split 64-row tiles.  Scratch: that [P, D]
+// (table's type) and nrm [P] float32 when normalize; dtab_part
+// [t_split, P, D] float32 when t_split > 1; dsr_part [s_split, K*B, D]
+// float32 when s_split > 1.
 int srt_xent_multi_bwd(const void* g5, const void* sr, const void* tab,
                        const void* labels, const void* iids, int K, int B,
                        int P, int D, int Ns, int n_valid, int col_offset,
-                       float scale, int normalize, int is_bf16, int n_split,
-                       int cols_per_split, void* dsr_part, void* dsr,
+                       float scale, int normalize, int is_bf16, int vec,
+                       int t_split, int chunks_per_split, int s_split,
+                       int tiles_per_split, void* that, void* nrm,
+                       void* dtab_part, void* dsr_part, void* dsr,
                        void* dtab, void* stream) {
-  auto f = is_bf16 ? bwd<__nv_bfloat16> : bwd<float>;
-  return f((const float*)g5, sr, tab, (const int*)labels, (const int*)iids,
-           K, B, P, D, Ns, n_valid, col_offset, scale, normalize, n_split,
-           cols_per_split, (float*)dsr_part, (float*)dsr, dtab,
-           (cudaStream_t)stream);
+  auto f = is_bf16 ? bwd_typed<__nv_bfloat16> : bwd_typed<float>;
+  return f(g5, sr, tab, labels, iids, K, B, P, D, Ns, n_valid, col_offset,
+           scale, normalize, vec, t_split, chunks_per_split, s_split,
+           tiles_per_split, that, nrm, dtab_part, dsr_part, dsr, dtab,
+           stream);
 }
 
 }  // extern "C"

@@ -219,19 +219,27 @@ def _bwd_grid(B, P, slots, tile):
 _slots = {}
 
 
+def slots_query(fn, n, device, D, dtype):
+    """The ``n`` numbers that the library's occupancy query ``fn`` (resident
+    blocks per SM of a kernel family's product kernels at width ``D``, the
+    SM count, their registers and local memory bytes per thread) gives for
+    ``device``, cached per device."""
+    key = (fn.__name__, device.index, D, dtype)
+    if key not in _slots:
+        out = (ctypes.c_int * n)()
+        with torch.cuda.device(device):
+            _raise_on(fn(D, int(dtype == torch.bfloat16), out),
+                      f"{fn.__name__} occupancy")
+        _slots[key] = tuple(out)
+    return _slots[key]
+
+
 def _bwd_attrs(device, D, dtype):
     """``srt_xent_bwd_slots``'s seven numbers for ``device``: resident
     blocks per SM of the d_table and d_sr product kernels at width ``D``,
     the SM count, the two kernels' registers and local memory bytes per
     thread."""
-    key = (device.index, D, dtype)
-    if key not in _slots:
-        out = (ctypes.c_int * 7)()
-        with torch.cuda.device(device):
-            _raise_on(_library().srt_xent_bwd_slots(
-                D, int(dtype == torch.bfloat16), out), "xent_bwd occupancy")
-        _slots[key] = tuple(out)
-    return _slots[key]
+    return slots_query(_library().srt_xent_bwd_slots, 7, device, D, dtype)
 
 
 def _bwd_slots(device, D, dtype):
@@ -241,6 +249,18 @@ def _bwd_slots(device, D, dtype):
     return min(a[0], a[1]), a[2]
 
 
+def grid_shape(rows, P, per_sm, sms):
+    """The blocks and splits of ``_bwd_grid`` over ``rows`` rows and a
+    ``P``-row table with ``per_sm`` resident blocks on each of ``sms`` SMs:
+    the d_table-like kernel's (catalog tiles x row splits) and the d_sr-like
+    kernel's (row tiles x catalog splits)."""
+    grid = _bwd_grid(rows, P, per_sm * sms, _library().srt_xent_bwd_tile())
+    return dict(dtable_blocks=grid["tiles"] * grid["t_split"],
+                dsr_blocks=grid["rows"] * grid["s_split"],
+                row_splits=grid["t_split"], catalog_splits=grid["s_split"],
+                resident_per_sm=per_sm)
+
+
 def bwd_launch_shape(sr, P):
     """K2's launch for ``sr`` against a ``P``-row table: blocks of each
     product kernel, row and catalog splits, resident blocks per SM, and
@@ -248,14 +268,39 @@ def bwd_launch_shape(sr, P):
     thread."""
     (B, D), dev = sr.shape, sr.device
     per_sm, sms = _bwd_slots(dev, D, sr.dtype)
-    grid = _bwd_grid(B, P, per_sm * sms, _library().srt_xent_bwd_tile())
     a = _bwd_attrs(dev, D, sr.dtype)
-    return dict(dtable_blocks=grid["tiles"] * grid["t_split"],
-                dsr_blocks=grid["rows"] * grid["s_split"],
-                row_splits=grid["t_split"], catalog_splits=grid["s_split"],
-                resident_per_sm=per_sm, sms=sms,
+    return dict(grid_shape(B, P, per_sm, sms), sms=sms,
                 registers={"dtable": a[3], "dsr": a[4]},
                 local_bytes={"dtable": a[5], "dsr": a[6]})
+
+
+def _vec(sr, table):
+    """1 when four-element cp.async copies may stage ``sr`` and ``table``:
+    D % 4 == 0 and both aligned to four elements."""
+    align = 4 * sr.element_size()
+    return int(sr.shape[-1] % 4 == 0
+               and all(t.data_ptr() % align == 0 for t in (sr, table)))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_scratch(table, rows, grid, normalize_table):
+    """The float32 scratch of K2's and K4's backward over ``rows`` rows on
+    ``grid``, None where unused: t (the table's type) and its norms when
+    the table is normalised, the row splits' d_table partials and the
+    catalog splits' d_sr partials when there are several."""
+    (P, D), f32 = table.shape, dict(dtype=torch.float32, device=table.device)
+    that = nrm = dtab_part = dsr_part = None
+    if normalize_table:
+        that = torch.empty_like(table)
+        nrm = torch.empty(P, **f32)
+    if grid["t_split"] > 1:
+        dtab_part = torch.empty(grid["t_split"], P, D, **f32)
+    if grid["s_split"] > 1:
+        dsr_part = torch.empty(grid["s_split"], rows, D, **f32)
+    return that, nrm, dtab_part, dsr_part
 
 
 def _raise_on(err, what):
@@ -295,32 +340,17 @@ def _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset, *, scale,
     P = table.shape[0]
     per_sm, sms = _bwd_slots(sr.device, D, sr.dtype)
     grid = _bwd_grid(B, P, per_sm * sms, lib.srt_xent_bwd_tile())
-    f32 = dict(dtype=torch.float32, device=sr.device)
-    that = nrm = dtab_part = dsr_part = None
-    if normalize_table:
-        that = torch.empty_like(table)
-        nrm = torch.empty(P, **f32)
-    if grid["t_split"] > 1:
-        dtab_part = torch.empty(grid["t_split"], P, D, **f32)
-    if grid["s_split"] > 1:
-        dsr_part = torch.empty(grid["s_split"], B, D, **f32)
-    dsr = torch.empty(B, D, **f32)
+    scratch = _bwd_scratch(table, B, grid, normalize_table)
+    dsr = torch.empty(B, D, dtype=torch.float32, device=sr.device)
     dtab = torch.empty_like(table)
-    # four-element cp.async copies need D % 4 == 0 and aligned rows
-    align = 4 * sr.element_size()
-    vec = D % 4 == 0 and all(t.data_ptr() % align == 0 for t in (sr, table))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     stream = torch.cuda.current_stream(sr.device).cuda_stream
     err = lib.srt_xent_bwd(
         g.data_ptr(), sr.data_ptr(), table.data_ptr(), labels.data_ptr(),
         lse.data_ptr(), B, P, D, int(n_valid), int(col_offset),
         float(scale), int(normalize_table), int(sr.dtype == torch.bfloat16),
-        int(vec), grid["t_split"], grid["t_per"], grid["s_split"],
-        grid["s_per"], ptr(that), ptr(nrm), ptr(dtab_part), ptr(dsr_part),
-        dsr.data_ptr(), dtab.data_ptr(), stream)
+        _vec(sr, table), grid["t_split"], grid["t_per"], grid["s_split"],
+        grid["s_per"], *map(_ptr, scratch), dsr.data_ptr(), dtab.data_ptr(),
+        stream)
     _raise_on(err, "xent_bwd launch")
     bwd_launches += 1
     return dsr, dtab

@@ -19,6 +19,10 @@ logits nor the ``[B, P]`` session mask exist in device memory:
   stats' cotangents ``(gz, gin, gex)`` into ``d_sr`` and ``d_table`` with
   the l2norm VJP folded in.
 
+Both run on K2's tiles (``csrc/tiles.cuh``) over the ``K * B`` rows, on
+grids that ``ops/xent.py:_bwd_grid`` sizes to the card's resident block
+slots of their own kernels.
+
 The small ``[K, B]`` stats feed the plain-torch combiner
 (``combine_stats``: phi, alpha, fusion), whose gradients come from
 autograd.  Beside each kernel sits its plain PyTorch version
@@ -144,15 +148,18 @@ _lib = None
 def _library():
     global _lib
     if _lib is None:
-        lib = xent._library()          # the tile sizes' entry points too
+        lib = xent._library()          # the tile size's entry point too
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.srt_xent_multi_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i,
-                                           i, f, i, i, i, i, vp, vp, vp]
+                                           i, f, i, i, i, i, i, vp, vp, vp,
+                                           vp]
         lib.srt_xent_multi_fwd.restype = i
         lib.srt_xent_multi_bwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i,
-                                           i, i, f, i, i, i, i, vp, vp, vp,
-                                           vp]
+                                           i, i, f, i, i, i, i, i, i, i, vp,
+                                           vp, vp, vp, vp, vp, vp]
         lib.srt_xent_multi_bwd.restype = i
+        lib.srt_xent_multi_slots.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.srt_xent_multi_slots.restype = i
         lib.srt_xent_multi_max_ns.argtypes = []
         lib.srt_xent_multi_max_ns.restype = i
         _lib = lib
@@ -184,6 +191,41 @@ def _check(sr3, table, labels, iids, *stats):
                             f"{v.dtype} {tuple(v.shape)}")
 
 
+def _attrs(device, D, dtype):
+    """``srt_xent_multi_slots``'s ten numbers for ``device``: resident
+    blocks per SM of K3's partial kernel and K4's d_table and d_sr kernels
+    at width ``D``, the SM count, the three kernels' registers and local
+    memory bytes per thread."""
+    return xent.slots_query(_library().srt_xent_multi_slots, 10, device, D,
+                            dtype)
+
+
+def _grid(device, R, P, D, dtype, k4):
+    """``xent._bwd_grid`` over the ``R = K * B`` rows for K4 (``k4``; the
+    fewer resident blocks of its two product kernels) or K3."""
+    a = _attrs(device, D, dtype)
+    per_sm = min(a[1], a[2]) if k4 else a[0]
+    return xent._bwd_grid(R, P, per_sm * a[3],
+                          _library().srt_xent_bwd_tile())
+
+
+def multi_launch_shape(sr3, P):
+    """K3's and K4's launches for ``sr3 [K, B, D]`` against a ``P``-row
+    table: blocks, splits and resident blocks per SM of each, and each
+    product kernel's registers and local memory (spill) bytes per
+    thread."""
+    (K, B, D), dev = sr3.shape, sr3.device
+    a = _attrs(dev, D, sr3.dtype)
+    k3 = xent.grid_shape(K * B, P, a[0], a[3])
+    return dict(k3=dict(blocks=k3["dsr_blocks"],
+                        catalog_splits=k3["catalog_splits"],
+                        resident_per_sm=a[0]),
+                k4=xent.grid_shape(K * B, P, min(a[1], a[2]), a[3]),
+                sms=a[3],
+                registers={"fwd": a[4], "dtable": a[5], "dsr": a[6]},
+                local_bytes={"fwd": a[7], "dtable": a[8], "dsr": a[9]})
+
+
 def _fwd_cuda(sr3, table, labels, iids, n_valid, col_offset, *, scale,
               normalize_table):
     global fwd_launches
@@ -191,16 +233,18 @@ def _fwd_cuda(sr3, table, labels, iids, n_valid, col_offset, *, scale,
     lib = _library()
     K, B, D = sr3.shape
     P = table.shape[0]
-    n_split, per = xent._splits(K * B, P)
-    part = torch.empty(5 * n_split * K * B, dtype=torch.float32,
-                       device=sr3.device)
-    out = torch.empty(5, K, B, dtype=torch.float32, device=sr3.device)
+    grid = _grid(sr3.device, K * B, P, D, sr3.dtype, k4=False)
+    f32 = dict(dtype=torch.float32, device=sr3.device)
+    nrm = torch.empty(P, **f32) if normalize_table else None
+    part = torch.empty(5, grid["s_split"], K * B, **f32)
+    out = torch.empty(5, K, B, **f32)
     stream = torch.cuda.current_stream(sr3.device).cuda_stream
     err = lib.srt_xent_multi_fwd(
         sr3.data_ptr(), table.data_ptr(), labels.data_ptr(), iids.data_ptr(),
         K, B, P, D, iids.shape[1], int(n_valid), int(col_offset),
         float(scale), int(normalize_table), int(sr3.dtype == torch.bfloat16),
-        n_split, per, part.data_ptr(), out.data_ptr(), stream)
+        xent._vec(sr3, table), grid["s_split"], grid["s_per"], xent._ptr(nrm),
+        part.data_ptr(), out.data_ptr(), stream)
     xent._raise_on(err, "xent_multi_fwd launch")
     fwd_launches += 1
     return tuple(out)
@@ -215,9 +259,8 @@ def _bwd_cuda(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
     lib = _library()
     K, B, D = sr3.shape
     P = table.shape[0]
-    n_split, per = xent._splits(K * B, P)
-    dsr_part = torch.empty(n_split * K * B * D, dtype=torch.float32,
-                           device=sr3.device)
+    grid = _grid(sr3.device, K * B, P, D, sr3.dtype, k4=True)
+    scratch = xent._bwd_scratch(table, K * B, grid, normalize_table)
     dsr = torch.empty(K, B, D, dtype=torch.float32, device=sr3.device)
     dtab = torch.empty_like(table)
     stream = torch.cuda.current_stream(sr3.device).cuda_stream
@@ -225,8 +268,9 @@ def _bwd_cuda(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
         g5.data_ptr(), sr3.data_ptr(), table.data_ptr(), labels.data_ptr(),
         iids.data_ptr(), K, B, P, D, iids.shape[1], int(n_valid),
         int(col_offset), float(scale), int(normalize_table),
-        int(sr3.dtype == torch.bfloat16), n_split, per, dsr_part.data_ptr(),
-        dsr.data_ptr(), dtab.data_ptr(), stream)
+        int(sr3.dtype == torch.bfloat16), xent._vec(sr3, table),
+        grid["t_split"], grid["t_per"], grid["s_split"], grid["s_per"],
+        *map(xent._ptr, scratch), dsr.data_ptr(), dtab.data_ptr(), stream)
     xent._raise_on(err, "xent_multi_bwd launch")
     bwd_launches += 1
     return dsr, dtab

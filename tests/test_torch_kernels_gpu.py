@@ -10,7 +10,8 @@ Tolerances: K1 rtol 1e-5 / atol 1e-4 (the same float32 products summed
 in another order); K2 1e-3 (float32) or 1e-2 (bfloat16) of the largest
 reference magnitude, for d_table in each group of rows, since dz and a
 bfloat16 d_table are rounded.  K3 and K4 likewise: the five stats to
-1e-5 * max(1, |ref|) element by element, d_sr and d_table as K2.
+1e-5 * max(1, |ref|) element by element, d_sr and d_table as K2, with
+d_table's rows hit only by session items a group of their own.
 """
 
 import numpy as np
@@ -191,23 +192,104 @@ def test_multi_kernels_match_plain(cuda, dtype, norm):
     kw = dict(scale=12.0, normalize_table=norm)
     got = txm._fwd_cuda(s, t, lbl, iids, n, 0, **kw)
     want = txm._fwd_plain(s, t, lbl, iids, n, 0, **kw)
-    for a, b in zip(got, want):
-        assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) <= 1e-5
+    _assert_k3_close(got, want)
     lse = (txm._finish(want[0], want[1]), txm._finish(want[2], want[3]))
     dsr, dtab = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, n, 0, **kw)
     dsr_p, dtab_p = txm._bwd_plain(*g, s, t, lbl, iids, *lse, n, 0, **kw)
-    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    _assert_k4_close(dsr, dtab, dsr_p, dtab_p, lbl, iids, P, n,
+                     1e-3 if dtype == torch.float32 else 1e-2)
+
+
+def _assert_k3_close(got, want):
+    for a, b in zip(got, want):
+        assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) <= 1e-5
+
+
+def _assert_k4_close(dsr, dtab, dsr_p, dtab_p, lbl, iids, P, n, tol):
+    """d_sr to tol of its largest magnitude; d_table by groups of rows,
+    each to its own: rows hit by a label, rows hit only by session items,
+    the other live rows, the zero-norm row; padding rows exactly 0."""
     assert float((dsr - dsr_p).abs().max()) <= tol * float(dsr_p.abs().max())
-    rows = torch.arange(P, device=cuda)
-    hit = torch.zeros(P, dtype=torch.bool, device=cuda)
+    rows = torch.arange(P, device=lbl.device)
+    hit = torch.zeros(P, dtype=torch.bool, device=lbl.device)
     hit[lbl[lbl >= 0].long()] = True
-    sess = torch.zeros(P, dtype=torch.bool, device=cuda)
+    sess = torch.zeros(P, dtype=torch.bool, device=lbl.device)
     sess[iids[iids >= 0].long()] = True
     for group in (hit & (rows != 2), sess & ~hit & (rows != 2),
                   ~hit & ~sess & (rows != 2) & (rows < n), rows == 2):
+        if not bool(group.any()):
+            continue
         err = (dtab[group].float() - dtab_p[group].float()).abs().max()
         assert float(err) <= tol * float(dtab_p[group].float().abs().max())
-    assert float(dtab[n:].float().abs().max()) == 0.0   # padding rows
+    if P > n:
+        assert float(dtab[n:].float().abs().max()) == 0.0   # padding rows
+
+
+def _multi_edge_case(cuda, B, D, P, n, dtype, norm, K=3, N=19, seed=17):
+    """K3/K4 inputs at any B >= 1 and P >= 1 (the edge rows of
+    ``_multi_case`` where they exist), and K4's cotangents and the plain
+    stats' log-partitions."""
+    rng = np.random.default_rng(seed)
+    sr3 = rng.normal(size=(K, B, D)).astype(np.float32)
+    sr3 /= np.linalg.norm(sr3, axis=-1, keepdims=True)
+    tab = torch.from_numpy(rng.normal(size=(P, D)).astype(np.float32)) / 16
+    if P > 2:
+        tab[2] = 0.0                                # a zero-norm row
+    iids = rng.integers(0, n, size=(B, N)).astype(np.int32)
+    lens = rng.integers(1, N + 1, size=B)
+    iids[np.arange(N)[None, :] >= lens[:, None]] = -1
+    labels = rng.integers(0, n, size=B).astype(np.int32)
+    labels[::2] = np.maximum(iids[::2, 0], 0)       # in-session labels
+    if B > 3:
+        iids[1] = -1                                # no session item
+        labels[3] = -1                              # an off-shard label
+    g = torch.from_numpy(rng.normal(size=(3, K, B)).astype(np.float32)) / B
+    s = torch.from_numpy(sr3).to(cuda, dtype)
+    t = tab.to(cuda, dtype)
+    lbl = torch.from_numpy(labels).to(cuda)
+    ids = torch.from_numpy(iids).to(cuda)
+    st = txm._fwd_plain(s, t, lbl, ids, n, 0, scale=12.0,
+                        normalize_table=norm)
+    lse = (txm._finish(st[0], st[1]), txm._finish(st[2], st[3]))
+    return s, t, lbl, ids, g.to(cuda), st, lse
+
+
+# K3/K4's tiles are 64 of the K * B rows and 64 catalog rows: one batch row
+# (3 rows), a ragged batch (1,527 rows), widths that are not multiples of
+# 4 (plain loads, not cp.async) or of 32, at most 128 (one half of the
+# accumulators), catalogs of one row, one tile, one tile and a few rows
+@pytest.mark.parametrize("B,D,P,n", [(1, 256, 3584, 3429),
+                                     (509, 256, 3584, 3429),
+                                     (96, 16, 70, 64),
+                                     (37, 30, 64, 60),
+                                     (509, 132, 1, 1),
+                                     (8, 132, 70, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+def test_multi_kernels_match_plain_at_edge_shapes(cuda, B, D, P, n, dtype,
+                                                  norm):
+    s, t, lbl, iids, g, want, lse = _multi_edge_case(cuda, B, D, P, n, dtype,
+                                                     norm)
+    kw = dict(scale=12.0, normalize_table=norm)
+    _assert_k3_close(txm._fwd_cuda(s, t, lbl, iids, n, 0, **kw), want)
+    dsr, dtab = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, n, 0, **kw)
+    dsr_p, dtab_p = txm._bwd_plain(*g, s, t, lbl, iids, *lse, n, 0, **kw)
+    assert dsr.dtype == torch.float32 and dtab.dtype == dtype
+    _assert_k4_close(dsr, dtab, dsr_p, dtab_p, lbl, iids, P, n,
+                     1e-3 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [3584, 37888])
+def test_k4_is_deterministic(cuda, dtype, P):
+    """No atomics: two calls on the same inputs give the same bits, with
+    several row splits (P = 3,584) and with one (P = 37,888)."""
+    s, t, lbl, iids, g, _, lse = _multi_edge_case(cuda, 512, 256, P, P - 100,
+                                                  dtype, True)
+    kw = dict(scale=12.0, normalize_table=True)
+    first = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, P - 100, 0, **kw)
+    second = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, P - 100, 0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_multi_autograd_runs_the_kernels_once_each(cuda):

@@ -192,3 +192,99 @@ def test_dsr_check_fails_a_k2_without_one_catalog_split(P, norm):
     err, tol = cs.dsr_errors(dsr - part, dsr, TOL)
     assert err > tol
     assert cs.dsr_errors(dsr.clone(), dsr, TOL) == [0.0, tol]
+
+
+# K3's and K4's split partials: the same grids over the K * B rows (one
+# wave of 132 blocks).  K4's d_table sums the row splits' partials, its
+# d_sr and K3's stats the catalog splits'.  A K4 that loses one split's
+# partial must fail the d_table or the d_sr check, a K3 that loses one
+# catalog split's stats the stats check.
+
+def _local_labels(labels, a, b):
+    """Labels localised to the table rows [a, b), -1 outside, as the
+    catalog-sharded path hands a shard its labels."""
+    lab = labels.long() - a
+    return torch.where((lab >= 0) & (lab < b - a), lab, -1).to(torch.int32)
+
+
+def _k4(P, norm):
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    sr3, tab, labels, iids, cot, lse = cs.make_multi_inputs(
+        torch, xm, M_ITEMS, P, torch.float32, seed=5, norm=norm, dev="cpu")
+    kw = dict(scale=cs.SCALE, normalize_table=norm)
+    grid = xent._bwd_grid(cs.K * cs.B, P, 132, 64)
+    args = (sr3, tab, labels, iids, cot, lse, kw)
+    return xm, args, grid, xm._bwd_plain(*cot, sr3, tab, labels, iids, *lse,
+                                         M_ITEMS, 0, **kw)
+
+
+@pytest.mark.parametrize("P", [M_ITEMS, pad_catalog(M_ITEMS)])
+@pytest.mark.parametrize("norm", [True, False])
+def test_dtable_check_fails_a_k4_without_one_row_split(P, norm):
+    xm, (sr3, tab, labels, iids, cot, lse, kw), grid, (_, dtab) = _k4(P, norm)
+    assert grid["t_split"] > 1
+    rows = slice(64 * grid["t_per"], 64 * 2 * grid["t_per"])   # split 1
+    cot_rest = []
+    for c in cot:
+        c = c.clone().reshape(-1)             # row k * B + b of the K * B
+        c[rows] = 0.0
+        cot_rest.append(c.reshape(cs.K, cs.B))
+    _, bad = xm._bwd_plain(*cot_rest, sr3, tab, labels, iids, *lse, M_ITEMS,
+                           0, **kw)
+    errs = cs.dtable_errors(torch, bad, dtab, labels, M_ITEMS, TOL, iids)
+    assert any(e > t for e, t in errs.values())
+    ok = cs.dtable_errors(torch, dtab.clone(), dtab, labels, M_ITEMS, TOL,
+                          iids)
+    assert all(e <= t for e, t in ok.values())
+
+
+@pytest.mark.parametrize("P", [M_ITEMS, pad_catalog(M_ITEMS)])
+@pytest.mark.parametrize("norm", [True, False])
+def test_dsr_check_fails_a_k4_without_one_catalog_split(P, norm):
+    xm, (sr3, tab, labels, iids, cot, lse, kw), grid, (dsr, _) = _k4(P, norm)
+    assert grid["s_split"] > 1
+    a = 64 * grid["s_per"]                                        # split 1
+    b = min(P, a + 64 * grid["s_per"])
+    # the split's partial: the same function over its columns alone, as the
+    # catalog-sharded path computes a shard's share
+    part, _ = xm._bwd_plain(*cot, sr3, tab[a:b], _local_labels(labels, a, b),
+                            iids, *lse, M_ITEMS - a, a, **kw)
+    assert float(part.abs().max()) > 0.0
+    err, tol = cs.dsr_errors(dsr - part, dsr, TOL)
+    assert err > tol
+    assert cs.dsr_errors(dsr.clone(), dsr, TOL) == [0.0, tol]
+
+
+def _merge_stats(parts):
+    """(m_in, s_in, m_ex, s_ex, zl) over the union of the parts' columns,
+    as xent_multi_fwd_merge combines the catalog splits."""
+    out = []
+    for q in (0, 2):
+        m = torch.stack([p[q] for p in parts])
+        s = torch.stack([p[q + 1] for p in parts])
+        mg = m.amax(0)
+        ms = torch.clamp(mg, min=-1e30 * 0.5)
+        out += [mg, torch.sum(s * torch.exp(m - ms), 0)]
+    return out + [torch.stack([p[4] for p in parts]).sum(0)]
+
+
+@pytest.mark.parametrize("P", [M_ITEMS, pad_catalog(M_ITEMS)])
+def test_stats_check_fails_a_k3_without_one_catalog_split(P):
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    sr3, tab, labels, iids, _, _ = cs.make_multi_inputs(
+        torch, xm, M_ITEMS, P, torch.float32, seed=6, dev="cpu")
+    kw = dict(scale=cs.SCALE, normalize_table=True)
+    want = xm._fwd_plain(sr3, tab, labels, iids, M_ITEMS, 0, **kw)
+    grid = xent._bwd_grid(cs.K * cs.B, P, 132, 64)
+    assert grid["s_split"] > 1
+    parts = []
+    for sp in range(grid["s_split"]):
+        a = 64 * grid["s_per"] * sp
+        b = min(P, a + 64 * grid["s_per"])
+        parts.append(xm._fwd_plain(sr3, tab[a:b], _local_labels(labels, a, b),
+                                   iids, M_ITEMS - a, a, **kw))
+    merged = cs.stats_errors(torch, _merge_stats(parts), want, 1e-5)
+    assert all(e <= t for e, t in merged.values())
+    lost = cs.stats_errors(torch, _merge_stats(parts[:1] + parts[2:]), want,
+                           1e-5)
+    assert any(e > t for e, t in lost.values())

@@ -200,7 +200,13 @@ def test_cpu_launches_no_kernel():
                                  (20000, 70)])
 @pytest.mark.parametrize("slots", [132, 264, 1])
 def test_bwd_grid_covers_every_tile_and_row_once(B, P, slots):
-    tile = 64
+    assert_grid_covers(B, P, slots)
+
+
+def assert_grid_covers(B, P, slots, tile=64):
+    """``_bwd_grid`` over ``B`` rows: every catalog tile and row chunk in
+    exactly one split, no split empty, one wave of blocks at most unless
+    one split alone passes it."""
     grid = tx._bwd_grid(B, P, slots, tile)
     tiles, rows = -(-P // tile), -(-B // tile)
     assert (grid["tiles"], grid["rows"]) == (tiles, rows)

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from sessionrec_tpu.ops import xent_multi as jxm
+from sessionrec_tpu_torch.ops import xent as tx
 from sessionrec_tpu_torch.ops import xent_multi as txm
+from test_torch_xent import assert_grid_covers
 
 VAL = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-3, atol=2e-4)
@@ -209,3 +211,22 @@ def test_cpu_launches_no_kernel():
                 dict(scale=12.0, num_items=470, normalize_table=True,
                      extra=True, fusion=True))
     assert txm.fwd_launches == 0 and txm.bwd_launches == 0
+
+
+# K3's and K4's grids: ops/xent.py:_bwd_grid over the K * B rows (K = 3),
+# with the slots of their own kernels
+@pytest.mark.parametrize("R,P", [(1536, 3584), (1536, 37888), (1527, 37484),
+                                 (3, 1), (3, 70)])
+@pytest.mark.parametrize("slots", [132, 264, 1])
+def test_kb_grid_covers_every_tile_and_row_once(R, P, slots):
+    assert_grid_covers(R, P, slots)
+
+
+def test_kb_grid_on_the_path_and_north_star_catalogs():
+    # 132 SMs, one resident block each, 1,536 rows in 24 tiles: the path
+    # catalog's 56 tiles take 2 row splits of 12 chunks, the north star's
+    # 592 tiles one; d_sr (and K3) 5 catalog splits, of 12 and 119 tiles
+    assert tx._bwd_grid(3 * 512, 3584, 132, 64) == dict(
+        tiles=56, t_split=2, t_per=12, rows=24, s_split=5, s_per=12)
+    assert tx._bwd_grid(3 * 512, 37888, 132, 64) == dict(
+        tiles=592, t_split=1, t_per=24, rows=24, s_split=5, s_per=119)
