@@ -19,8 +19,10 @@ Phases, one JSON line each on stdout:
    paper head's loss, plus the ragged batch on the unpadded north-star
    catalog; K4 too runs twice on every case and must repeat its bits.
    Then time each kernel, its plain version and the PyTorch expression of
-   the same function (``library_ms``, a yardstick the port never calls),
-   with K2's launch shape (``k2_launch``) and K3's and K4's
+   the same function (``library_ms``, a yardstick the port never calls,
+   timed by CUDA events; ``library_kernel_ms``, its device time under
+   ``torch.profiler``, summed over its kernels), with K1's launch shape
+   (``k1_launch``), K2's (``k2_launch``) and K3's and K4's
    (``multi_launch``) at each timed shape: blocks, splits, resident
    blocks per SM, the product kernels' registers and local memory, and
    each kernel's device time under ``torch.profiler``.
@@ -142,6 +144,13 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def fwd_errors(got, want, tol):
+    """[max abs err, tolerance] of K1's (loss, lse), held to tol times the
+    reference's largest log-partition magnitude (at least 1)."""
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    return [err, tol * max(1.0, float(want[1].abs().max()))]
+
+
 def dsr_errors(got, want, tol):
     """[max abs err, tolerance] of d_sr, held to tol times the reference's
     largest magnitude."""
@@ -217,8 +226,8 @@ def phase_kernel_checks(torch, xent, seed):
                                         0, **kw)
         torch.cuda.synchronize()
         dname = str(dtype).split(".")[-1]
-        e_fwd = max(max_err(loss_k, loss_p), max_err(lse_k, lse_p))
-        ref_fwd = max(1.0, float(lse_p.abs().max()))
+        e_fwd, fwd_tol = fwd_errors((loss_k, lse_k), (loss_p, lse_p),
+                                    TOL[("fwd", dname)])
         tol = TOL[("bwd", dname)]
         e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
         # the zero-norm row's gradient is G / eps, about 1e12 times the
@@ -228,7 +237,7 @@ def phase_kernel_checks(torch, xent, seed):
         row = {"phase": "kernel_check", "items": n_items, "P": P,
                "B": rows, "dtype": dname, "normalize_table": norm,
                "fwd_max_abs_err": e_fwd, "dsr_max_abs_err": e_dsr,
-               "fwd_tol": TOL[("fwd", dname)] * ref_fwd,
+               "fwd_tol": fwd_tol,
                "dsr_tol": dsr_tol, "dtable_err_tol": dtab,
                "k2_repeat_bit_identical": same}
         finite = all(bool(torch.isfinite(t.float()).all())
@@ -398,6 +407,12 @@ def emit_launch(torch, phase, shape, fn, calls, smi, **dims):
           "kernel_ms": kernel_ms(torch, fn, calls), "card": smi})
 
 
+def library_kernel_ms(torch, fn, calls):
+    """Device ms per call of the library yardstick ``fn``: the sum over the
+    kernels it launches, from a ``torch.profiler`` trace."""
+    return sum(kernel_ms(torch, fn, calls).values())
+
+
 def bounds(n_bytes, n_ops, dname):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / PEAK_OPS[dname] * 1e3
@@ -451,22 +466,28 @@ def phase_kernel_times(torch, xent, seed, smi):
             bf, byf = bounds(bytes_f, ops_f, dname)
             bb, byb = bounds(bytes_b, ops_b, dname)
 
+            def k1():
+                return xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
+
             def k2():
                 return xent._bwd_cuda(g, sr, tab, labels, lse, n_items, 0,
                                       **kw)
 
             res = {
                 "xent_fwd": {
-                    "ms": time_ms(torch, lambda: xent._fwd_cuda(
-                        sr, tab, labels, n_items, 0, **kw), iters),
+                    "ms": time_ms(torch, k1, iters),
                     "plain_ms": time_ms(torch, plain_fwd, iters),
                     "library_ms": time_ms(torch, lib_fwd, iters),
+                    "library_kernel_ms": library_kernel_ms(torch, lib_fwd,
+                                                           iters),
                     "bound_ms": bf, "bound_by": byf},
                 "xent_bwd": {
                     "ms": time_ms(torch, k2, iters),
                     "plain_ms": time_ms(torch, lambda: xent._bwd_plain(
                         g, sr, tab, labels, lse, n_items, 0, **kw), iters),
                     "library_ms": time_ms(torch, lib_bwd, iters),
+                    "library_kernel_ms": library_kernel_ms(torch, lib_bwd,
+                                                           iters),
                     "bound_ms": bb, "bound_by": byb},
             }
             for name, r in res.items():
@@ -474,6 +495,8 @@ def phase_kernel_times(torch, xent, seed, smi):
                       "items": n_items, "P": P, "B": B, "D": D,
                       "dtype": dname, "normalize_table": True, **r,
                       "card": smi})
+            emit_launch(torch, "k1_launch", xent.fwd_launch_shape(sr, P), k1,
+                        iters, smi, P=P, B=B, D=D, dtype=dname)
             emit_launch(torch, "k2_launch", xent.bwd_launch_shape(sr, P), k2,
                         iters, smi, P=P, B=B, D=D, dtype=dname)
             rows[(n_items, dname)] = res
@@ -540,6 +563,8 @@ def phase_multi_times(torch, xm, seed, smi):
                     "plain_ms": time_ms(torch, lambda: xm._fwd_plain(
                         sr3, tab, labels, iids, n_items, 0, **kw), iters),
                     "library_ms": time_ms(torch, lib_fwd, iters),
+                    "library_kernel_ms": library_kernel_ms(torch, lib_fwd,
+                                                           iters),
                     "bound_ms": bf, "bound_by": byf},
                 "xent_multi_bwd": {
                     "ms": time_ms(torch, k4, iters),
@@ -547,6 +572,8 @@ def phase_multi_times(torch, xm, seed, smi):
                         *cot, sr3, tab, labels, iids, *lse, n_items, 0,
                         **kw), iters),
                     "library_ms": time_ms(torch, lib_bwd, iters),
+                    "library_kernel_ms": library_kernel_ms(torch, lib_bwd,
+                                                           iters),
                     "bound_ms": bb, "bound_by": byb},
             }
             for name, r in res.items():

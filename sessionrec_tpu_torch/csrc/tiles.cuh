@@ -1,8 +1,9 @@
-// Tile helpers of K2 (xent_bwd.cu), K3 and K4 (xent_multi.cu):
-// asynchronous staging of 64-row tiles into shared memory, register-tiled
-// float32 products over them, and the kernels they share: the table
-// normalised (or its norms taken) once, and the row splits' d_table
-// partials reduced in a fixed order.
+// Tile helpers of K1 (xent.cu), K2 (xent_bwd.cu), K3 and K4
+// (xent_multi.cu): asynchronous staging of 64-row tiles into shared
+// memory, register-tiled float32 products over them, the forward tile loop
+// that K1 and K3 share, and the kernels they share: the table normalised
+// (or its norms taken) once, and the row splits' d_table partials reduced
+// in a fixed order.
 //
 // A staged tile keeps the operand's own type (float32 or bfloat16) and its
 // row-major layout, with a row stride of ld = round_up(D, 32) + 4
@@ -187,6 +188,194 @@ __device__ __forceinline__ void store_row8(float* row, const float (&v)[8],
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         if (d + q < D) row[d + q] = v[4 * h + q];
+    }
+  }
+}
+
+static_assert(NT == 4 * TILE, "row_masks: four threads per tile row");
+
+// mask[i] bit c, for the TILE rows row0 + i: global column gc0 + c (c <
+// 64) is one of the row's session items (row r takes iid list r % B).
+// Four threads per row (tid = 4 i + part) scan the list and merge by
+// shuffles.
+__device__ __forceinline__ void row_masks(unsigned long long* mask,
+                                          const int* __restrict__ iids,
+                                          int row0, int R, int B, int Ns,
+                                          int gc0) {
+  const int i = threadIdx.x >> 2, part = threadIdx.x & 3;
+  const int r = row0 + i;
+  unsigned long long m = 0ull;
+  if (r < R) {
+    const int* ids = iids + (size_t)(r % B) * Ns;
+    for (int j = part; j < Ns; j += 4) {
+      const unsigned c = (unsigned)(ids[j] - gc0);
+      if (c < 64u) m |= 1ull << c;
+    }
+  }
+  m |= __shfl_xor_sync(FULL, m, 1);
+  m |= __shfl_xor_sync(FULL, m, 2);
+  if (part == 0) mask[i] = m;
+}
+
+// (m, s) <- the log-sum-exp merge of (m, s) and (mo, so)
+__device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
+                                          float so) {
+  const float mn = fmaxf(m, mo);
+  const float ms = fmaxf(mn, NEG_INF * 0.5f);
+  s = s * expf(m - ms) + so * expf(mo - ms);
+  m = mn;
+}
+
+// shared memory of a forward block: the rows, two catalog tiles and, with
+// MEMBERS, the rows' masks
+template <typename T, bool MEMBERS>
+size_t fwd_smem(int D) {
+  return (size_t)3 * TILE * tile_ld(D) * sizeof(T) +
+         (MEMBERS ? TILE * sizeof(unsigned long long) : 0);
+}
+
+// ---------------------------------------------------------------------------
+// The forward tile loop of K1 (MEMBERS = false) and K3 (MEMBERS = true): a
+// partial online log-sum-exp over one catalog split.  grid = (row tiles,
+// catalog splits) over the R rows of sr, row r taking label r % B (and,
+// with MEMBERS, iid list r % B).  A block stages its 64 rows once and
+// streams the raw table tiles of its split (double-buffered); thread (ty,
+// tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of each 64 x 64
+// logits tile, scales each logit by scale / n[col] in registers when the
+// table is normalised, and keeps its own running stats per row, merged
+// over the row's 16 threads by shuffles at the end.
+//   MEMBERS: a row's session columns go to (m_in, s_in), the others to
+//     (m_ex, s_ex); part holds [5][n_split][R] floats: m_in, s_in, m_ex,
+//     s_ex, zl.  Columns are compared locally with n_valid and the labels.
+//   otherwise: every column goes to (m_ex, s_ex), the "in" partition stays
+//     empty and compiles away; part holds [3][n_split][R] floats: m, s, zl.
+//     Columns are compared globally (col_offset + c, as K1's JAX kernel
+//     does), so n_valid and the labels are shifted by col_offset.
+// ---------------------------------------------------------------------------
+template <typename T, bool MEMBERS>
+__device__ __forceinline__ void fwd_tile_loop(
+    unsigned char* smem, const T* __restrict__ sr, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int normalize, int vec,
+    int tiles_per_split, float* __restrict__ part) {
+  const int ld = tile_ld(D), D4 = (D + 3) & ~3;
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr rows
+  T* C_s = A_s + TILE * ld;                            // [2][TILE][ld] table
+  unsigned long long* mask_s =
+      reinterpret_cast<unsigned long long*>(C_s + 2 * TILE * ld);  // [TILE]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int shift = MEMBERS ? 0 : col_offset;
+  n_valid -= shift;
+
+  stage_tile(A_s, ld, sr, row0, R, D, vec);
+  stage_tile(C_s, ld, tab, t_begin * TILE, P, D, vec);
+  cp_async_commit();
+
+  int lbl[4];
+  float m_in[4], s_in[4], m_ex[4], s_ex[4], zl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    lbl[i] = r < R ? labels[r % B] - shift : -1;
+    m_in[i] = m_ex[i] = NEG_INF;
+    s_in[i] = s_ex[i] = zl[i] = 0.f;
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const T* C = C_s + buf * TILE * ld;
+    const int p0 = t * TILE;
+    if (t + 1 < t_end)
+      stage_tile(C_s + (buf ^ 1) * TILE * ld, ld, tab, (t + 1) * TILE, P, D,
+                 vec);
+    cp_async_commit();
+    if constexpr (MEMBERS)
+      row_masks(mask_s, iids, row0, R, B, Ns, col_offset + p0);
+    cp_async_wait_prev();  // this tile (and the rows) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits(S, A_s, C, ld, D4);
+    float n[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = p0 + tx + 16 * j;
+      n[j] = normalize && col < P ? nrm[col] : 1.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned long long bits = MEMBERS ? mask_s[ty + 16 * i] : 0ull;
+      float z[4];
+      bool mem[4];
+      float t_in = NEG_INF, t_ex = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const int col = p0 + c;
+        float v = scale * S[i][j];
+        if (normalize) v = v / n[j];
+        const bool in_table = col < P;
+        if (!in_table || col >= n_valid) v = NEG_INF;
+        if (in_table && col == lbl[i]) zl[i] += v;
+        mem[j] = MEMBERS && ((bits >> c) & 1ull);
+        z[j] = v;
+        if (mem[j]) t_in = fmaxf(t_in, v);
+        else t_ex = fmaxf(t_ex, v);
+      }
+      const float mi = fmaxf(m_in[i], t_in), me = fmaxf(m_ex[i], t_ex);
+      // guards: exp(NEG_INF - NEG_INF) on a partition still empty
+      const float si = fmaxf(mi, NEG_INF * 0.5f);
+      const float se = fmaxf(me, NEG_INF * 0.5f);
+      float acc_in = s_in[i] * expf(m_in[i] - si);
+      float acc_ex = s_ex[i] * expf(m_ex[i] - se);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (mem[j]) acc_in += expf(z[j] - si);
+        else acc_ex += expf(z[j] - se);
+      }
+      s_in[i] = acc_in;
+      s_ex[i] = acc_ex;
+      m_in[i] = mi;
+      m_ex[i] = me;
+    }
+    __syncthreads();  // C and the masks are consumed
+  }
+
+  // merge the 16 per-thread partials of each row (lanes of one half-warp)
+  const size_t plane = (size_t)gridDim.y * R;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off; off >>= 1) {
+      float mio = 0.f, sio = 0.f;
+      if constexpr (MEMBERS) {
+        mio = __shfl_xor_sync(FULL, m_in[i], off);
+        sio = __shfl_xor_sync(FULL, s_in[i], off);
+      }
+      const float meo = __shfl_xor_sync(FULL, m_ex[i], off);
+      const float seo = __shfl_xor_sync(FULL, s_ex[i], off);
+      zl[i] += __shfl_xor_sync(FULL, zl[i], off);
+      if constexpr (MEMBERS) lse_merge(m_in[i], s_in[i], mio, sio);
+      lse_merge(m_ex[i], s_ex[i], meo, seo);
+    }
+    const int r = row0 + ty + 16 * i;
+    if (tx == 0 && r < R) {
+      const size_t o = (size_t)blockIdx.y * R + r;
+      if constexpr (MEMBERS) {
+        part[o] = m_in[i];
+        part[plane + o] = s_in[i];
+        part[2 * plane + o] = m_ex[i];
+        part[3 * plane + o] = s_ex[i];
+        part[4 * plane + o] = zl[i];
+      } else {
+        part[o] = m_ex[i];
+        part[plane + o] = s_ex[i];
+        part[2 * plane + o] = zl[i];
+      }
     }
   }
 }

@@ -1,151 +1,68 @@
-// Fused full-catalog softmax cross-entropy for Hopper (sm_90a): K1.
+// K1: the forward pass of the fused full-catalog softmax cross-entropy, for
+// Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel of sessionrec_tpu/ops/xent.py:
-//   K1  _fwd_kernel (xent.py:71)  -> xent_fwd_partial + xent_fwd_merge
+// Replaces the Pallas TPU kernel sessionrec_tpu/ops/xent.py:71 _fwd_kernel
+// (pallas_call at :130), one catalog tile of the online log-sum-exp over
+// z = scale * sr t^T (divided by the clamped row norms n when the table is
+// normalised):
+//   K1  _fwd_kernel  -> xent_table_norms + xent_fwd_partial + xent_fwd_merge
 // Its backward pass, K2 (_bwd_kernel, xent.py:164), is xent_bwd.cu.
 //
-// The loss of every training step is  -log softmax(scale * sr @ t^T)[label]
-// over the whole catalog, with t = table / max(||table_row||, 1e-12) when
-// the table is normalised.  None of the kernels stores the [B, P] logits:
-// each recomputes its tile of them from sr and the table.
+// The loss of every training step is  lse - z[label]  per row over the whole
+// catalog.  K1 returns it with lse, the only residual K2 needs; the [B, P]
+// logits never reach device memory.  As the JAX kernel does, K1 scores the
+// raw table and divides each logit by its column's unrounded norm.
 //
-// What bounds it.  At the main path's shapes (B = 512, D = 256, P = 3,584
-// to 37,888) a pass performs 2*B*P*D operations on B*D + P*D elements, some
-// 2*B/(bytes per element) operations per byte: about 256 in float32 and 512
-// in bfloat16.  Both are above the card's ratio of float32 operations to
-// bytes (67 TFLOP/s over 3.35 TB/s = 20), so every kernel is bound by
-// operations, not by bytes.  In float32 the tensor cores are out of reach
-// (TF32 would change the numerics), so the products run on the FP32 FMA
-// pipes.
+// What bounds it.  2*B*P*D operations on (B + P)*D elements: at the main
+// path's shapes (B = 512, D = 256, P = 3,584 to 37,888) about 256
+// operations a float32 byte (512 a bfloat16 byte), far above the card's 20
+// (67 TFLOP/s over 3.35 TB/s), so it is bound by operations, on the FP32
+// FMA pipes (TF32 would change the numerics; bfloat16 is widened and
+// multiplied in float32 too).
 //
-// What the design does about it (a first, simple design):
-//   * The TPU kernels hold all B rows and walk the catalog in order, so
-//     they need one pass per row chunk and a row cap.  Hopper runs blocks
-//     in parallel and in no order, so every kernel tiles over both B and
-//     P, and no block depends on another.
-//   * Each block stages its operand rows in shared memory once, in float32
-//     (a row stride of D + 1 floats keeps the column reads free of bank
-//     conflicts), and every thread computes a register tile of outputs, so
-//     each operand element read from device memory feeds 32 to 64 FMAs.
-//   * The forward pass splits the catalog over blockIdx.y so that the grid
-//     fills the card; each split writes a partial (max, sum-exp, label
-//     logit) per row, and xent_fwd_merge combines them the way the
-//     catalog-sharded JAX path combines shards (xent.py:339-345).
-//   * bfloat16 inputs: operands are rounded to bfloat16 where the JAX
-//     kernel feeds bfloat16 to its matrix unit and products accumulate in
-//     float32, so the numerics are those of a bfloat16 MMA with float32
-//     accumulation.
-//     The products themselves still run on the FMA pipes; mma / wgmma
-//     tiles are later work.
+// What the design does about it (K3's tiles, tiles.cuh):
+//   * One tile loop for K1 and K3: fwd_tile_loop without membership, so
+//     every live column goes to the one (m, s) pair.
+//   * The norms are taken once per call (xent_table_norms), not in every
+//     block that stages a table tile (B / 64 times per table row).
+//   * Register-tiled products: a 64 x 64 logits tile is 4 x 4 outputs a
+//     thread, 8 vector shared loads per 64 FMAs (product_logits).
+//   * Asynchronous, double-buffered staging: the block's 64 rows once, the
+//     next table tile by cp.async while the current one is used, bfloat16
+//     staged as bfloat16 and widened in registers.
+//   * A grid from K1's own resident slots (srt_xent_fwd_slots;
+//     ops/xent.py:_fwd_grid): 64-row batch tiles times catalog splits,
+//     each split writing a partial (m, s, zl) per row; xent_fwd_merge
+//     combines them as the catalog-sharded JAX path combines shards
+//     (xent.py:339-345).  No atomics: two calls give the same bits.
 //
-// Interface.  Every kernel takes n_valid (columns at or past it are
-// masked), a column offset (the global id of the table's first row; local
-// column j is compared as col_offset + j) and labels already localised to
-// the table (-1 matches no column), as the catalog-sharded JAX path does
-// (xent.py:293-309).  Each C entry point launches on the given stream,
-// does not synchronise and returns cudaGetLastError().
+// Interface.  n_valid (columns at or past it are masked), col_offset (the
+// global id of the table's first row: K1 compares col_offset + j with
+// n_valid and the labels) and labels (-1 matches no column), as the
+// catalog-sharded JAX path passes them (xent.py:293-309).  Any B >= 1,
+// P >= 1, 0 < D <= 256: with D % 4 == 0 and aligned arrays the tiles are
+// staged by cp.async, otherwise by plain loads.  Each entry point launches
+// on the given stream, does not synchronise and returns cudaGetLastError().
 
-#include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// K1, forward: partial online log-sum-exp over one catalog split.
-// grid = (ceil(B / F_BM), n_split); thread (ty, tx) owns rows ty, ty + 16
-// and columns tx + 16 j (j < 4) of each 32 x 64 logits tile, keeps its own
-// running (max, sum-exp, label logit) per row over the columns it sees, and
-// the 16 threads of a row merge them by shuffles at the end.
+// K1, forward: partial online log-sum-exp over one catalog split
+// (fwd_tile_loop without membership).  grid = (row tiles, catalog splits);
+// part holds [3][n_split][B] floats: m, s, zl.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(NT) xent_fwd_partial(
+__global__ void __launch_bounds__(NT, 1) xent_fwd_partial(
     const T* __restrict__ sr, const T* __restrict__ tab,
-    const int* __restrict__ labels, int B, int P, int D, int n_valid,
-    int col_offset, float scale, int normalize, int cols_per_split,
-    float* __restrict__ m_out, float* __restrict__ s_out,
-    float* __restrict__ zl_out) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* A_s = smem;               // [F_BM][ld] sr rows
-  float* B_s = A_s + F_BM * ld;    // [F_BN][ld] table rows
-  float* n_s = B_s + F_BN * ld;    // [F_BN] row norms
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.x * F_BM;
-  const int split = blockIdx.y;
-  const int p_begin = split * cols_per_split;
-  const int p_end = min(P, p_begin + cols_per_split);
-
-  stage_rows(A_s, ld, sr, row0, B, F_BM, D);
-  int lbl[2];
-  float m[2], s[2], zl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + ty + 16 * i;
-    lbl[i] = r < B ? labels[r] : -1;
-    m[i] = NEG_INF;
-    s[i] = 0.f;
-    zl[i] = 0.f;
-  }
-
-  for (int p0 = p_begin; p0 < p_end; p0 += F_BN) {
-    __syncthreads();  // the previous tile is consumed
-    stage_rows(B_s, ld, tab, p0, p_end, F_BN, D);
-    __syncthreads();
-    if (normalize) {
-      tile_norms(B_s, ld, n_s, F_BN, D);
-      __syncthreads();
-    }
-    float acc[2][4] = {};
-    product_32x64(acc, A_s, B_s, ld, D);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float z[4];
-      float tmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int col = p0 + c;
-        const int gcol = col_offset + col;
-        float v = scale * acc[i][j];
-        if (normalize) v = v / n_s[c];
-        const bool in_table = col < p_end;
-        if (!in_table || gcol >= n_valid) v = NEG_INF;
-        if (in_table && gcol == lbl[i]) zl[i] += v;
-        z[j] = v;
-        tmax = fmaxf(tmax, v);
-      }
-      const float m_new = fmaxf(m[i], tmax);
-      // guard: exp(NEG_INF - NEG_INF) on an all-masked first tile
-      const float m_safe = fmaxf(m_new, NEG_INF * 0.5f);
-      float acc_s = s[i] * expf(m[i] - m_safe);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc_s += expf(z[j] - m_safe);
-      s[i] = acc_s;
-      m[i] = m_new;
-    }
-  }
-
-  // merge the 16 per-thread partials of each row (lanes of one half-warp)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int off = 8; off; off >>= 1) {
-      const float mo = __shfl_xor_sync(FULL, m[i], off);
-      const float so = __shfl_xor_sync(FULL, s[i], off);
-      const float zo = __shfl_xor_sync(FULL, zl[i], off);
-      const float mn = fmaxf(m[i], mo);
-      const float ms = fmaxf(mn, NEG_INF * 0.5f);
-      s[i] = s[i] * expf(m[i] - ms) + so * expf(mo - ms);
-      zl[i] += zo;
-      m[i] = mn;
-    }
-    const int r = row0 + ty + 16 * i;
-    if (tx == 0 && r < B) {
-      const size_t o = (size_t)split * B + r;
-      m_out[o] = m[i];
-      s_out[o] = s[i];
-      zl_out[o] = zl[i];
-    }
-  }
+    const float* __restrict__ nrm, const int* __restrict__ labels, int B,
+    int P, int D, int n_valid, int col_offset, float scale, int normalize,
+    int vec, int tiles_per_split, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fwd_tile_loop<T, false>(smem, sr, tab, nrm, labels, nullptr, B, B, P, D,
+                          0, n_valid, col_offset, scale, normalize, vec,
+                          tiles_per_split, part);
 }
 
 // K1, merge: lse and per-row loss from the splits' partials (the combine of
@@ -171,28 +88,49 @@ __global__ void xent_fwd_merge(const float* __restrict__ m_p,
   loss[r] = l - zg;
 }
 
-size_t fwd_smem(int D) { return ((size_t)(F_BM + F_BN) * (D + 1) + F_BN) * 4; }
+template <typename T>
+int set_fwd_smem(int D) {
+  const int smem = (int)fwd_smem<T, false>(D);
+  cudaFuncSetAttribute(xent_fwd_partial<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return smem;
+}
+
+// resident blocks per SM of the partial kernel (out[0]), its registers per
+// thread (out[2]) and its local memory bytes per thread, where spills go
+// (out[3])
+template <typename T>
+int slots(int D, int* out) {
+  const int smem = set_fwd_smem<T>(D);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], xent_fwd_partial<T>,
+                                                NT, smem);
+  cudaFuncAttributes a;
+  cudaFuncGetAttributes(&a, xent_fwd_partial<T>);
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  return (int)cudaGetLastError();
+}
 
 template <typename T>
-int fwd(const void* sr, const void* tab, const int* labels, int B, int P,
-        int D, int n_valid, int col_offset, float scale, int normalize,
-        int n_split, int cols_per_split, float* part, float* loss, float* lse,
-        cudaStream_t stream) {
-  const size_t smem = fwd_smem(D);
-  cudaFuncSetAttribute(xent_fwd_partial<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  float* m_p = part;
-  float* s_p = part + (size_t)n_split * B;
-  float* zl_p = part + (size_t)2 * n_split * B;
-  dim3 grid((B + F_BM - 1) / F_BM, n_split);
+int fwd(const T* sr, const T* tab, const int* labels, int B, int P, int D,
+        int n_valid, int col_offset, float scale, int normalize, int vec,
+        int n_split, int tiles_per_split, float* nrm, float* part,
+        float* loss, float* lse, cudaStream_t stream) {
+  const int smem = set_fwd_smem<T>(D);
+  cudaError_t err;
+  if (normalize) {
+    xent_table_norms<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+        tab, P, D, nrm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  dim3 grid((B + TILE - 1) / TILE, n_split);
   xent_fwd_partial<T><<<grid, NT, smem, stream>>>(
-      (const T*)sr, (const T*)tab, labels, B, P, D, n_valid, col_offset,
-      scale, normalize, cols_per_split, m_p, s_p, zl_p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  xent_fwd_merge<<<(B + 255) / 256, 256, 0, stream>>>(m_p, s_p, zl_p, n_split,
-                                                      B, loss, lse);
+      sr, tab, nrm, labels, B, P, D, n_valid, col_offset, scale, normalize,
+      vec, tiles_per_split, part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t plane = (size_t)n_split * B;
+  xent_fwd_merge<<<(B + NT - 1) / NT, NT, 0, stream>>>(
+      part, part + plane, part + 2 * plane, n_split, B, loss, lse);
   return (int)cudaGetLastError();
 }
 
@@ -200,20 +138,38 @@ int fwd(const void* sr, const void* tab, const int* labels, int B, int P,
 
 extern "C" {
 
-// tile sizes the wrapper needs to size the catalog splits and the checks
-int srt_xent_tile_cols() { return F_BN; }
-int srt_xent_tile_rows() { return F_BM; }
 int srt_xent_max_d() { return MAX_D; }
 
-// K1: per-row loss and lse; part is scratch of 3 * n_split * B floats
+// out[0]: resident blocks per SM of K1's partial kernel at width D on the
+// current device; out[1]: its SM count; out[2]: the kernel's registers per
+// thread; out[3]: its local memory bytes per thread
+int srt_xent_fwd_slots(int D, int is_bf16, int* out) {
+  const int err = is_bf16 ? slots<__nv_bfloat16>(D, out) : slots<float>(D, out);
+  if (err) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
+  return (int)cudaGetLastError();
+}
+
+// K1: per-row loss and lse [B] float32.  Grid: 64-row tiles of the B rows
+// times n_split catalog splits of tiles_per_split 64-row tiles.  Scratch:
+// nrm [P] float32 when normalize; part [3][n_split][B] float32.  vec:
+// D % 4 == 0 and sr and the table aligned to four elements.
 int srt_xent_fwd(const void* sr, const void* tab, const void* labels, int B,
                  int P, int D, int n_valid, int col_offset, float scale,
-                 int normalize, int is_bf16, int n_split, int cols_per_split,
-                 void* part, void* loss, void* lse, void* stream) {
-  auto f = is_bf16 ? fwd<__nv_bfloat16> : fwd<float>;
-  return f(sr, tab, (const int*)labels, B, P, D, n_valid, col_offset, scale,
-           normalize, n_split, cols_per_split, (float*)part, (float*)loss,
-           (float*)lse, (cudaStream_t)stream);
+                 int normalize, int is_bf16, int vec, int n_split,
+                 int tiles_per_split, void* nrm, void* part, void* loss,
+                 void* lse, void* stream) {
+  if (is_bf16)
+    return fwd((const __nv_bfloat16*)sr, (const __nv_bfloat16*)tab,
+               (const int*)labels, B, P, D, n_valid, col_offset, scale,
+               normalize, vec, n_split, tiles_per_split, (float*)nrm,
+               (float*)part, (float*)loss, (float*)lse, (cudaStream_t)stream);
+  return fwd((const float*)sr, (const float*)tab, (const int*)labels, B, P, D,
+             n_valid, col_offset, scale, normalize, vec, n_split,
+             tiles_per_split, (float*)nrm, (float*)part, (float*)loss,
+             (float*)lse, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -6,10 +6,11 @@ optionally against ``l2norm(table)``.  On CUDA tensors the loss runs the
 hand-written kernels of ``csrc/xent.cu`` (K1) and ``csrc/xent_bwd.cu``
 (K2); the ``[B, P]`` logits never exist in device memory:
 
-* K1 (``xent_fwd``, replaces the Pallas ``_fwd_kernel``) streams the
-  catalog and keeps a running row max, sum-exp and label logit; it returns
-  the per-row loss and the log-partition ``lse``, the only residual the
-  backward pass needs.
+* K1 (``xent_fwd``, replaces the Pallas ``_fwd_kernel``) takes the table's
+  norms once, streams the catalog and keeps a running row max, sum-exp
+  and label logit, on a grid that ``_fwd_grid`` sizes to the card's
+  resident block slots; it returns the per-row loss and the log-partition
+  ``lse``, the only residual the backward pass needs.
 * K2 (``xent_bwd``, replaces the Pallas ``_bwd_kernel``) normalises the
   table once, recomputes the logits tile by tile and writes ``d_sr`` and
   ``d_table`` with the l2norm VJP folded in, on a grid that ``_bwd_grid``
@@ -127,10 +128,6 @@ def _bwd_plain(g, sr, table, labels, lse, n_valid, col_offset=0, *, scale,
 
 _lib = None
 
-# blocks the kernels' grids aim for: two resident blocks on each of the
-# H100's 132 SMs
-_TARGET_BLOCKS = 264
-
 
 def _library():
     global _lib
@@ -138,16 +135,16 @@ def _library():
         lib = cuda_build.library()
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.srt_xent_fwd.argtypes = [vp, vp, vp, i, i, i, i, i, f, i, i, i,
-                                     i, vp, vp, vp, vp]
+                                     i, i, vp, vp, vp, vp, vp]
         lib.srt_xent_fwd.restype = i
         lib.srt_xent_bwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, f, i,
                                      i, i, i, i, i, i, vp, vp, vp, vp, vp,
                                      vp, vp]
         lib.srt_xent_bwd.restype = i
-        lib.srt_xent_bwd_slots.argtypes = [i, i, ctypes.POINTER(i)]
-        lib.srt_xent_bwd_slots.restype = i
-        for name in ("srt_xent_tile_cols", "srt_xent_tile_rows",
-                     "srt_xent_max_d", "srt_xent_bwd_tile"):
+        for name in ("srt_xent_fwd_slots", "srt_xent_bwd_slots"):
+            getattr(lib, name).argtypes = [i, i, ctypes.POINTER(i)]
+            getattr(lib, name).restype = i
+        for name in ("srt_xent_max_d", "srt_xent_bwd_tile"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         _lib = lib
@@ -184,18 +181,6 @@ def _check(sr, table, labels, *vectors):
                          f"{_library().srt_xent_max_d()}]")
 
 
-def _splits(B, P):
-    """(n_split, cols_per_split): catalog splits so that row tiles times
-    splits fill but do not pass ``_TARGET_BLOCKS`` (a block past it would
-    run in a second wave), each split a whole number of tiles."""
-    lib = _library()
-    bn, bm = lib.srt_xent_tile_cols(), lib.srt_xent_tile_rows()
-    tiles = -(-P // bn)
-    want = max(1, _TARGET_BLOCKS // -(-B // bm))
-    per = -(-tiles // min(want, tiles))
-    return -(-tiles // per), per * bn
-
-
 def _split(n, want):
     """(groups, per): ``n`` items cut into at most ``want`` contiguous
     groups of ``per`` items, none empty."""
@@ -203,17 +188,26 @@ def _split(n, want):
     return -(-n // per), per
 
 
+def _fwd_grid(B, P, slots, tile):
+    """K1's grid, and K2's d_sr's: ``rows`` batch tiles of ``tile`` rows
+    times ``s_split`` catalog splits of ``s_per`` ``tile``-row catalog
+    tiles (``tiles`` in all).  The blocks fill at most ``slots`` (resident
+    blocks per SM times SMs), with one split when the row tiles alone
+    reach that."""
+    tiles, rows = -(-P // tile), -(-B // tile)
+    s_split, s_per = _split(tiles, slots // rows)
+    return dict(tiles=tiles, rows=rows, s_split=s_split, s_per=s_per)
+
+
 def _bwd_grid(B, P, slots, tile):
     """K2's grid.  d_table: ``tiles`` catalog tiles of ``tile`` rows times
-    ``t_split`` row splits of ``t_per`` ``tile``-row chunks; d_sr: ``rows``
-    batch tiles times ``s_split`` catalog splits of ``s_per`` tiles.  Each
-    kernel's blocks fill at most ``slots`` (resident blocks per SM times
-    SMs), with one split when its tiles alone reach that."""
-    tiles, rows = -(-P // tile), -(-B // tile)
-    t_split, t_per = _split(rows, slots // tiles)
-    s_split, s_per = _split(tiles, slots // rows)
-    return dict(tiles=tiles, t_split=t_split, t_per=t_per, rows=rows,
-                s_split=s_split, s_per=s_per)
+    ``t_split`` row splits of ``t_per`` ``tile``-row chunks; d_sr:
+    ``_fwd_grid``'s ``rows`` batch tiles times ``s_split`` catalog splits
+    of ``s_per`` tiles.  Each kernel's blocks fill at most ``slots``, with
+    one split when its tiles alone reach that."""
+    grid = _fwd_grid(B, P, slots, tile)
+    t_split, t_per = _split(grid["rows"], slots // grid["tiles"])
+    return dict(grid, t_split=t_split, t_per=t_per)
 
 
 _slots = {}
@@ -232,6 +226,34 @@ def slots_query(fn, n, device, D, dtype):
                       f"{fn.__name__} occupancy")
         _slots[key] = tuple(out)
     return _slots[key]
+
+
+def _fwd_attrs(device, D, dtype):
+    """``srt_xent_fwd_slots``'s four numbers for ``device``: resident blocks
+    per SM of K1's partial kernel at width ``D``, the SM count, its
+    registers and local memory bytes per thread."""
+    return slots_query(_library().srt_xent_fwd_slots, 4, device, D, dtype)
+
+
+def _fwd_launch_grid(device, B, P, D, dtype):
+    """K1's grid for ``B`` rows against a ``P``-row table on ``device``,
+    from the partial kernel's own resident slots."""
+    per_sm, sms = _fwd_attrs(device, D, dtype)[:2]
+    return _fwd_grid(B, P, per_sm * sms, _library().srt_xent_bwd_tile())
+
+
+def fwd_launch_shape(sr, P):
+    """K1's launch for ``sr`` against a ``P``-row table: blocks, row tiles,
+    catalog splits and tiles per split, resident blocks per SM, SMs, and
+    the partial kernel's registers and local memory (spill) bytes per
+    thread."""
+    (B, D), dev = sr.shape, sr.device
+    per_sm, sms, regs, local = _fwd_attrs(dev, D, sr.dtype)
+    grid = _fwd_launch_grid(dev, B, P, D, sr.dtype)
+    return dict(blocks=grid["rows"] * grid["s_split"], row_tiles=grid["rows"],
+                catalog_splits=grid["s_split"], tiles_per_split=grid["s_per"],
+                resident_per_sm=per_sm, sms=sms, registers=regs,
+                local_bytes=local)
 
 
 def _bwd_attrs(device, D, dtype):
@@ -315,17 +337,19 @@ def _fwd_cuda(sr, table, labels, n_valid, col_offset, *, scale,
     lib = _library()
     B, D = sr.shape
     P = table.shape[0]
-    n_split, per = _splits(B, P)
-    part = torch.empty(3 * n_split * B, dtype=torch.float32,
-                       device=sr.device)
-    loss = torch.empty(B, dtype=torch.float32, device=sr.device)
-    lse = torch.empty(B, dtype=torch.float32, device=sr.device)
+    grid = _fwd_launch_grid(sr.device, B, P, D, sr.dtype)
+    f32 = dict(dtype=torch.float32, device=sr.device)
+    nrm = torch.empty(P, **f32) if normalize_table else None
+    part = torch.empty(3, grid["s_split"], B, **f32)
+    loss = torch.empty(B, **f32)
+    lse = torch.empty(B, **f32)
     stream = torch.cuda.current_stream(sr.device).cuda_stream
     err = lib.srt_xent_fwd(
         sr.data_ptr(), table.data_ptr(), labels.data_ptr(), B, P, D,
         int(n_valid), int(col_offset), float(scale), int(normalize_table),
-        int(sr.dtype == torch.bfloat16), n_split, per, part.data_ptr(),
-        loss.data_ptr(), lse.data_ptr(), stream)
+        int(sr.dtype == torch.bfloat16), _vec(sr, table), grid["s_split"],
+        grid["s_per"], _ptr(nrm), part.data_ptr(), loss.data_ptr(),
+        lse.data_ptr(), stream)
     _raise_on(err, "xent_fwd launch")
     fwd_launches += 1
     return loss, lse

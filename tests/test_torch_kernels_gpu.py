@@ -6,8 +6,8 @@ runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu
 
-Tolerances: K1 rtol 1e-5 / atol 1e-4 (the same float32 products summed
-in another order); K2 1e-3 (float32) or 1e-2 (bfloat16) of the largest
+Tolerances: K1 rtol 1e-5 / atol 1e-4 on loss and lse (the same float32
+products summed in another order); K2 1e-3 (float32) or 1e-2 (bfloat16) of the largest
 reference magnitude, for d_table in each group of rows, since dz and a
 bfloat16 d_table are rounded.  K3 and K4 likewise: the five stats to
 1e-5 * max(1, |ref|) element by element, d_sr and d_table as K2, with
@@ -71,6 +71,85 @@ def test_kernels_match_plain(cuda, dtype, norm):
                   rows >= n, rows == 2):
         err = (dtab[group].float() - dtab_p[group].float()).abs().max()
         assert float(err) <= tol * float(dtab_p[group].float().abs().max())
+
+
+def _k1_case(cuda, B, D, P, n, dtype, seed=19):
+    """K1's inputs at any B >= 1 and P >= 1: unit rows, a zero-norm table
+    row where the table has three, an off-shard label (-1) on row 0 where
+    there are two rows."""
+    rng = np.random.default_rng(seed)
+    sr = rng.normal(size=(B, D)).astype(np.float32)
+    sr /= np.linalg.norm(sr, axis=-1, keepdims=True)
+    tab = torch.from_numpy(rng.normal(size=(P, D)).astype(np.float32)) / 16
+    if P > 2:
+        tab[2] = 0.0                                # a zero-norm row
+    labels = rng.integers(0, n, size=B).astype(np.int32)
+    if B > 1:
+        labels[0] = -1
+    return (torch.from_numpy(sr).to(cuda, dtype), tab.to(cuda, dtype),
+            torch.from_numpy(labels).to(cuda))
+
+
+def _assert_k1_close(got, s, t, lbl, n, col_offset, norm):
+    m, st, zl = tx._fwd_plain(s, t, lbl, n, col_offset, scale=12.0,
+                              normalize_table=norm)
+    lse_p = tx._finish_lse(m, st)
+    loss, lse = got
+    assert loss.dtype == lse.dtype == torch.float32
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(loss, lse_p - zl, rtol=1e-5, atol=1e-4)
+
+
+# K1's tiles are 64 batch rows and 64 catalog rows: one row, a ragged
+# batch, widths that are not multiples of 4 (plain loads, not cp.async) or
+# of 32, catalogs of one row, one tile, one tile and a few rows
+@pytest.mark.parametrize("B,D,P,n", [(1, 256, 3584, 3429),
+                                     (509, 256, 3584, 3429),
+                                     (96, 16, 70, 64),
+                                     (37, 30, 64, 60),
+                                     (509, 132, 1, 1),
+                                     (8, 132, 70, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+def test_k1_matches_plain_at_edge_shapes(cuda, B, D, P, n, dtype, norm):
+    s, t, lbl = _k1_case(cuda, B, D, P, n, dtype)
+    got = tx._fwd_cuda(s, t, lbl, n, 0, scale=12.0, normalize_table=norm)
+    _assert_k1_close(got, s, t, lbl, n, 0, norm)
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_k1_matches_plain_on_a_catalog_shard(cuda, norm):
+    """A shard of the table at a column offset: K1 compares the global
+    columns with n_valid and the (global) labels."""
+    s, t, lbl = _k1_case(cuda, 300, 256, 3584, 3429, torch.float32)
+    shard = t[1000:2600].contiguous()
+    got = tx._fwd_cuda(s, shard, lbl, 2500, 1000, scale=12.0,
+                       normalize_table=norm)
+    _assert_k1_close(got, s, shard, lbl, 2500, 1000, norm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [3584, 37888])
+def test_k1_is_deterministic(cuda, dtype, P):
+    """No atomics: two calls on the same inputs give the same bits."""
+    s, t, lbl = _k1_case(cuda, 512, 256, P, P - 100, dtype)
+    kw = dict(scale=12.0, normalize_table=True)
+    first = tx._fwd_cuda(s, t, lbl, P - 100, 0, **kw)
+    second = tx._fwd_cuda(s, t, lbl, P - 100, 0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernels_spill_nothing(cuda, dtype):
+    """K1's and K3's partial kernels keep everything in registers at the
+    path's width: no local memory, and the grid of K1's own slots."""
+    s = torch.zeros(512, 256, device=cuda, dtype=dtype)
+    k1 = tx.fwd_launch_shape(s, 3584)
+    assert k1["local_bytes"] == 0 and k1["resident_per_sm"] >= 1
+    assert k1["blocks"] == k1["row_tiles"] * k1["catalog_splits"] <= \
+        k1["resident_per_sm"] * k1["sms"]
+    k3 = txm.multi_launch_shape(s.expand(3, 512, 256), 3584)
+    assert k3["local_bytes"]["fwd"] == 0
 
 
 def _k2_case(cuda, B, D, P, n, dtype, norm, seed=13):

@@ -194,6 +194,61 @@ def test_dsr_check_fails_a_k2_without_one_catalog_split(P, norm):
     assert cs.dsr_errors(dsr.clone(), dsr, TOL) == [0.0, tol]
 
 
+# K1's split partials: each catalog split of its grid (ops/xent.py:
+# _fwd_grid on one wave of 132 blocks) writes (m, s, zl) per row over its
+# columns, and xent_fwd_merge combines them.  A K1 that loses one split's
+# partial, or scores the table without dividing by its norms, must fail
+# the forward check.
+
+def _k1_merge(parts):
+    """(loss, lse) from the splits' (m, s, zl), as xent_fwd_merge does."""
+    m, s, zl = (torch.stack([p[q] for p in parts]) for q in range(3))
+    ms = torch.clamp(m.amax(0), min=-1e30 * 0.5)
+    sg = torch.sum(s * torch.exp(torch.clamp(m, min=-1e30) - ms), 0)
+    lse = ms + torch.log(torch.clamp(sg, min=torch.finfo(torch.float32).tiny))
+    return lse - zl.sum(0), lse
+
+
+def _k1(P, seed=7):
+    sr, tab, labels, _ = cs.make_inputs(torch, N_ITEMS, P, torch.float32,
+                                        seed=seed, dev="cpu")
+    kw = dict(scale=cs.SCALE, normalize_table=True)
+    return sr, tab, labels, kw, xent.xent_fwd(sr, tab, labels, N_ITEMS, **kw)
+
+
+@pytest.mark.parametrize("P", [N_ITEMS, pad_catalog(N_ITEMS)])
+def test_fwd_check_fails_a_k1_without_one_catalog_split(P):
+    sr, tab, labels, kw, want = _k1(P)
+    grid = xent._fwd_grid(cs.B, P, 132, 64)
+    assert grid["s_split"] > 1
+    parts = []
+    for sp in range(grid["s_split"]):
+        a = 64 * grid["s_per"] * sp
+        b = min(P, a + 64 * grid["s_per"])
+        # K1 compares global columns: the split's table rows at offset a
+        parts.append(xent._fwd_plain(sr, tab[a:b], labels, N_ITEMS, a, **kw))
+    tol = cs.TOL[("fwd", "float32")]
+    err, bound = cs.fwd_errors(_k1_merge(parts), want, tol)
+    assert err <= bound
+    # a split of padding rows alone carries no mass: drop live ones
+    live = [sp for sp in range(grid["s_split"])
+            if 64 * grid["s_per"] * sp < N_ITEMS]
+    for lost in (live[0], live[1], live[-1]):
+        err, bound = cs.fwd_errors(
+            _k1_merge(parts[:lost] + parts[lost + 1:]), want, tol)
+        assert err > bound
+
+
+@pytest.mark.parametrize("P", [N_ITEMS, pad_catalog(N_ITEMS)])
+def test_fwd_check_fails_a_k1_that_skips_the_norms(P):
+    sr, tab, labels, kw, want = _k1(P, seed=8)
+    raw = xent.xent_fwd(sr, tab, labels, N_ITEMS, scale=cs.SCALE,
+                        normalize_table=False)
+    err, bound = cs.fwd_errors(raw, want, cs.TOL[("fwd", "float32")])
+    assert err > bound
+    assert cs.fwd_errors(want, want, 1e-5) == [0.0, bound]
+
+
 # K3's and K4's split partials: the same grids over the K * B rows (one
 # wave of 132 blocks).  K4's d_table sums the row splits' partials, its
 # d_sr and K3's stats the catalog splits'.  A K4 that loses one split's

@@ -233,6 +233,42 @@ def assert_grid_covers(B, P, slots, tile=64):
         assert grid["s_split"] == 1
 
 
+@pytest.mark.parametrize("B,P", [(512, 3584), (512, 37888), (509, 37484)])
+@pytest.mark.parametrize("slots", [132, 264, 1])
+def test_fwd_grid_covers_every_row_tile_and_catalog_tile_once(B, P, slots):
+    """K1's grid (ops/xent.py:_fwd_grid): block (row tile, catalog split s)
+    takes tiles [s * s_per, (s + 1) * s_per); every (row tile, catalog
+    tile) pair in exactly one block, no split empty, one wave of blocks at
+    most unless the row tiles alone pass it."""
+    grid = tx._fwd_grid(B, P, slots, 64)
+    tiles, rows = -(-P // 64), -(-B // 64)
+    assert (grid["tiles"], grid["rows"]) == (tiles, rows)
+    blocks = [(r, t) for r in range(grid["rows"])
+              for s in range(grid["s_split"])
+              for t in range(s * grid["s_per"],
+                             min(tiles, (s + 1) * grid["s_per"]))]
+    assert blocks == [(r, t) for r in range(rows) for t in range(tiles)]
+    assert all(s * grid["s_per"] < tiles for s in range(grid["s_split"]))
+    if grid["s_split"] > 1:
+        assert rows * grid["s_split"] <= slots
+    if rows >= slots:
+        assert grid["s_split"] == 1
+
+
+def test_fwd_grid_on_the_path_and_north_star_catalogs():
+    # 132 SMs, one resident block each: 8 row tiles times 14 catalog splits
+    # of 4 tiles on the path, 16 of 37 at the north star; two a SM halve
+    # the tiles per split
+    assert tx._fwd_grid(512, 3584, 132, 64) == dict(
+        tiles=56, rows=8, s_split=14, s_per=4)
+    assert tx._fwd_grid(512, 37888, 132, 64) == dict(
+        tiles=592, rows=8, s_split=16, s_per=37)
+    assert tx._fwd_grid(512, 3584, 264, 64) == dict(
+        tiles=56, rows=8, s_split=28, s_per=2)
+    assert tx._fwd_grid(512, 37888, 264, 64) == dict(
+        tiles=592, rows=8, s_split=33, s_per=18)
+
+
 def test_bwd_grid_on_the_path_and_north_star_catalogs():
     # 132 SMs, one resident block each: the path catalog's 56 tiles take 2
     # row splits, the north star's 592 tiles one; d_sr's 8 row tiles take
