@@ -27,13 +27,28 @@ Phases, one JSON line each on stdout:
    blocks per SM, the product kernels' registers and local memory, and
    each kernel's device time under ``torch.profiler``.
 4. path    — train MSGIFSR order 1 at d=256, 1 layer, batch 512, tiers
-   (4, 8), feat_drop 0.1 on datasets/sample through ``run_training``: an
-   initial eval, ``--steps`` optimizer steps, a final eval.  Every
-   kernel's launch count is set to 0 just before and read just after: K1
-   and K2 must equal the step count, K3 and K4 be 0.  The loss must be
-   finite and fall, HR@20 and MRR@20 finite, and one batch's loss and
-   gradients must agree with the plain-PyTorch path on the CPU from the
-   same parameters.
+   (4, 8), feat_drop 0.1 on datasets/sample through ``run_training`` at
+   the defaults (the native batch builder, ``unroll`` 8): an initial
+   eval, ``--steps`` optimizer steps (the first 8 eager, the rest as
+   replays of one captured 8-step CUDA graph), a final eval.  Every
+   kernel's launch count is set to 0 just before and read just after:
+   K1 and K2 must have launched, K3 and K4 not.  The wrappers count the
+   eager launches and the captured ones (a capture records a launch, a
+   replay runs it without calling the wrapper), so the device's launches
+   are counted two ways: the run's eager launches plus each graph's
+   captured launches times its replays, which must give K1 and K2 once
+   per step and K3 and K4 never; and by kernel name in a
+   ``torch.profiler`` trace of one more chunk of replays
+   (``launch_count_method`` says which held; the second where the trace
+   sees no kernels inside replays).  The loss must be finite and fall,
+   HR@20 and MRR@20 finite, and one batch's loss and gradients must
+   agree with the plain-PyTorch path on the CPU from the same parameters.
+   Then ``path_graph_vs_plain``: from one copy of the parameters, Adam's
+   state, the schedule and the dropout counter, 8 batches through the
+   graph and the same 8 through the plain ``train_step`` on the card
+   give the same losses (rtol 1e-4) and parameters (atol 1e-5), and a
+   ``host`` line: ms per step building, waiting for and running the
+   batches, and examples/s, of the graph loop.
 5. paper   — the same for the WSDM'22 paper head (order 3, REnorm,
    fusion) at the same widths: K3 and K4 launch once per step, K1 and K2
    never.
@@ -49,6 +64,7 @@ import argparse
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -605,14 +621,62 @@ PATHS = {
                          "expander.grus.0.w_ih")),
 }
 
-def read_launches(xent, xm):
-    return {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
-            "xent_multi_fwd": xm.fwd_launches,
-            "xent_multi_bwd": xm.bwd_launches}
+# the kernel by which a trace counts each wrapper's launches: its main
+# product, launched once per wrapper call
+TRACE_KERNEL = {"xent_fwd": "xent_fwd_partial",
+                "xent_bwd": "xent_bwd_dtable",
+                "xent_multi_fwd": "xent_multi_fwd_partial",
+                "xent_multi_bwd": "xent_multi_bwd_dtable"}
+
+
+def kernel_base_name(name):
+    """``void ns::xent_fwd_partial<float>(...)`` -> ``xent_fwd_partial``."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
+
+
+def trace_launches(torch, fn):
+    """({wrapper: launches counted by kernel name}, kernel events) in a
+    ``torch.profiler`` trace of ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+    from sessionrec_tpu_torch.utils.profiling import profiled_device_events
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [kernel_base_name(n) for n, _, _ in profiled_device_events(prof)
+             if not n.startswith("Mem")]
+    return {k: names.count(v) for k, v in TRACE_KERNEL.items()}, len(names)
+
+
+def device_launches(launches, graphs):
+    """The device's launches of a run from its wrapper counts: each
+    graph's capture counted its launches once and ran none; each replay
+    ran them all."""
+    return {k: n + sum(g.captured[k] * (g.replays - 1)
+                       for g in graphs.values())
+            for k, n in launches.items()}
+
+
+def launch_errors(counts, steps, kernels):
+    """{kernel: [counted, expected]} where a path's device launches break
+    the rule: each of ``kernels`` once per real step, the others never."""
+    want = {k: (steps if k in kernels else 0) for k in counts}
+    return {k: [counts[k], want[k]] for k in counts if counts[k] != want[k]}
+
+
+def first_batches(loader, n):
+    it = iter(loader)
+    try:
+        return [next(it) for _ in range(n)]
+    finally:
+        it.close()
 
 
 def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
-    from sessionrec_tpu_torch.train.runner import make_loss
+    from sessionrec_tpu_torch.train.runner import launch_counts, make_loss
     from sessionrec_tpu_torch.train.session import run_training
     from sessionrec_tpu_torch.utils.config import preset
 
@@ -628,14 +692,29 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
     mrr, hit = runner.max_mrr, runner.max_hit
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(xent, xm)
+    launches = launch_counts()
+    on_device = device_launches(launches, runner.graphs)
+    graphs = {s: {"captured": g.captured, "replays": g.replays}
+              for s, g in runner.graphs.items()}
 
     losses = runner.losses
     n = runner.steps
     head, tail = losses[:5], losses[-5:]
+    G = runner.unroll
+    # one more chunk of replays, traced: the kernels by name
+    chunk = first_batches(runner.train_loader, G)
+    traced, kernel_events = trace_launches(torch,
+                                           lambda: runner.run_chunk(chunk))
+    method = "trace" if kernel_events else "captured_x_replays"
     row = {"phase": name, "model": "msgifsr", **spec["model"], "dim": 256,
            "layers": 1, "batch": 512, "tiers": [4, 8], "steps": n,
-           "launches": launches, "first_losses": head, "last_losses": tail,
+           "unroll": G, "native_collate": cfg.data.use_native_collate,
+           "launches": launches, "device_launches": on_device,
+           "graphs": graphs,
+           "traced_chunk_launches": traced,
+           "traced_kernel_events": kernel_events,
+           "launch_count_method": method,
+           "first_losses": head, "last_losses": tail,
            "mrr20": mrr, "hr20": hit,
            "train_examples": runner.train_examples,
            "train_seconds": runner.train_seconds,
@@ -644,8 +723,18 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
            "wall_seconds": wall, "card": smi}
     emit(row)
     check(n == steps, f"ran {n} steps, expected {steps}")
-    want = {k: (n if k in spec["kernels"] else 0) for k in launches}
-    check(launches == want, f"kernel launches {launches}, expected {want}")
+    check(graphs.get(G, {}).get("replays") == steps // G - 1,
+          f"expected {steps // G - 1} replays of the {G}-step graph: "
+          f"{graphs}")
+    check(all((launches[k] > 0) == (k in spec["kernels"]) for k in launches),
+          f"wrapper launches {launches}: the path's kernels must launch, "
+          "the others not")
+    bad = launch_errors(on_device, n, spec["kernels"])
+    check(not bad, f"device launches {bad} [counted, expected]")
+    if method == "trace":
+        bad = launch_errors(traced, G, spec["kernels"])
+        check(not bad, f"traced launches {bad} [counted, expected] in "
+              f"{G} steps")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     check(sum(tail) / len(tail) < sum(head) / len(head),
           f"loss did not fall: {head} -> {tail}")
@@ -670,7 +759,50 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
         ok = ok and errs[pname] <= 1e-3 * float(pc.abs().max())
     emit({"phase": f"{name}_vs_cpu", "max_abs_err": errs, "ok": ok})
     check(ok, f"GPU {name} disagrees with the CPU plain path: {errs}")
-    return {k: launches[k] for k in spec["kernels"]}
+    return {k: launches[k] for k in spec["kernels"]}, \
+        {k: on_device[k] for k in spec["kernels"]}
+
+
+def graph_vs_plain(torch, runner, batches):
+    """(graph losses, plain losses, {parameter: max abs gap}): ``batches``
+    through the runner's captured graph and then, from the same state,
+    through the plain ``train_step``."""
+    start = [t.clone() for t in runner.state_tensors()]
+    got = runner.run_chunk(batches)
+    after = {n: p.detach().clone()
+             for n, p in runner.model.named_parameters()}
+    for t, v in zip(runner.state_tensors(), start):
+        t.copy_(v)
+    want = torch.stack([runner.train_step(b.to(runner.device))
+                        for b in batches])
+    torch.cuda.synchronize()
+    gaps = {n: max_err(after[n], p.detach()) for n, p in
+            runner.model.named_parameters()}
+    return got, want, gaps
+
+
+def phase_graph_vs_plain(torch, name, seed, dataset_dir, smi):
+    """From one state, 8 steps through the graph and 8 plain steps on the
+    card: losses to rtol 1e-4, every parameter to atol 1e-5 (the bars of
+    tests/test_torch_train.py); then the graph loop's host line."""
+    from sessionrec_tpu_torch.utils.profiling import (host_breakdown,
+                                                      setup_runner)
+    train, runner = setup_runner(dataset_dir, seed, **PATHS[name]["model"])
+    G = runner.unroll
+    batches = first_batches(train, 2 * G)
+    runner.run_chunk(batches[:G])            # eager: Adam's state exists
+    got, want, gaps = graph_vs_plain(torch, runner, batches[G:])
+    rel = float(((got - want).abs() / want.abs()).max())
+    worst = max(gaps, key=gaps.get)
+    row = {"phase": f"{name}_graph_vs_plain", "steps": G,
+           "graph_losses": got.tolist(), "plain_losses": want.tolist(),
+           "loss_max_rel_gap": rel, "param_max_abs_gap": gaps[worst],
+           "param_worst": worst,
+           "ok": rel <= 1e-4 and gaps[worst] <= 1e-5}
+    emit(row)
+    check(row["ok"], f"graph and plain steps disagree: {row}")
+    emit(dict(host_breakdown(train, runner, 2 * G, 3 * G), path=name,
+              card=smi))
 
 
 def main(argv=None):
@@ -708,10 +840,14 @@ def main(argv=None):
         errs.update(phase_multi_checks(torch, xm, args.seed))
         times = phase_kernel_times(torch, xent, args.seed, smi)
         multi_times = phase_multi_times(torch, xm, args.seed, smi)
-        launches = {}
+        launches, on_device = {}, {}
         for name in PATHS:
-            launches.update(phase_path(torch, xent, xm, name, args.steps,
-                                       args.seed, args.dataset_dir, smi))
+            wrapped, dev = phase_path(torch, xent, xm, name, args.steps,
+                                      args.seed, args.dataset_dir, smi)
+            launches.update(wrapped)
+            on_device.update(dev)
+            phase_graph_vs_plain(torch, name, args.seed, args.dataset_dir,
+                                 smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -730,6 +866,7 @@ def main(argv=None):
         {"name": name, "route": "cuda",
          "source": f"sessionrec_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name],
+         "device_launches": on_device[name],
          "max_abs_err": errs[name], "ms": path[name]["ms"],
          "plain_ms": path[name]["plain_ms"],
          "bound_ms": path[name]["bound_ms"],

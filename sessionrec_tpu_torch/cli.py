@@ -44,6 +44,9 @@ def _add_train_flags(p):
     p.add_argument("--no-shuffle", dest="shuffle", action="store_false")
     p.add_argument("--max-epoch-batches", type=int, default=None,
                    help="cap batches per epoch (smoke runs)")
+    p.add_argument("--unroll", type=int, default=8,
+                   help="optimizer steps per dispatch: on CUDA one captured "
+                        "CUDA graph replays this many steps")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
@@ -86,6 +89,7 @@ def build_config(args):
     t.log_interval = args.log_interval
     t.seed = args.seed
     t.device = args.device
+    t.unroll = args.unroll
     return cfg
 
 

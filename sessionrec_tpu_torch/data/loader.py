@@ -9,9 +9,11 @@ so the prefetch thread never touches CUDA.  Train order is *sequential*
 by default to reproduce the reference's ordered-training semantics
 (README.md:37).
 
-Only the MSGIFSR batch kind ("ccs") and the pure-Python builders are
-ported; the ctypes binding to ``native/libsrt_collate.so`` and
-multi-host batch slicing wait for later work (ROADMAP.md).
+Only the MSGIFSR batch kind ("ccs") is ported.  Its batches come from
+the C++ builder (``data/native_collate.py``) by default, as in the JAX
+package; ``use_native=False`` runs the pure-Python builder.  A native
+builder that does not build or load raises: nothing falls back to
+Python.  Multi-host batch slicing waits for later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,14 +23,17 @@ import threading
 
 import numpy as np
 
+from sessionrec_tpu_torch.data import native_collate
 from sessionrec_tpu_torch.data.augment import AugmentedIndex
 from sessionrec_tpu_torch.graph import batch as B
 from sessionrec_tpu_torch.graph import builders
 
 
-def _make_batch(kind, seqs, labels, max_len, batch_size, order):
+def _make_batch(kind, seqs, labels, max_len, batch_size, order,
+                use_native=True):
     if kind == "ccs":
-        d = builders.build_ccs_batch(seqs, labels, order, max_len, batch_size)
+        bl = native_collate if use_native else builders
+        d = bl.build_ccs_batch(seqs, labels, order, max_len, batch_size)
         levels = tuple(B.CcsLevel(**lv) for lv in d["levels"])
         return B.CcsBatch(levels=levels, inter_in=tuple(d["inter_in"]),
                           inter_out=tuple(d["inter_out"]),
@@ -58,11 +63,14 @@ class BatchLoader:
         example set as the unsplit batch.  Tier row caps are exact maxima
         over the deterministic epoch orders (``_split_caps``).
       device: where yielded batches live; None keeps numpy arrays.
+      use_native: build batches with the C++ builder
+        (``data/native_collate.py``; built here, at construction, so a
+        missing compiler raises at once), else the pure-Python one.
     """
 
     def __init__(self, sessions, kind, batch_size, max_len, shuffle=False,
                  order=1, seed=0, prefetch=2, drop_last=False,
-                 split_len=None, device=None):
+                 split_len=None, device=None, use_native=True):
         self.index = AugmentedIndex(sessions)
         self.kind = kind
         self.batch_size = batch_size
@@ -74,6 +82,9 @@ class BatchLoader:
         self.seed = seed
         self.epoch = 0
         self.device = device
+        self.use_native = use_native
+        if use_native:
+            native_collate.library()
         self.split = None
         if split_len is not None:
             ts = (split_len,) if np.isscalar(split_len) else tuple(split_len)
@@ -153,7 +164,7 @@ class BatchLoader:
         if self.split is not None:
             return self._build_split(seqs, labels)
         return _make_batch(self.kind, seqs, labels, self.max_len,
-                           self.batch_size, self.order)
+                           self.batch_size, self.order, self.use_native)
 
     def _build_split(self, seqs, labels):
         """Partition one batch's examples by prefix length into the
@@ -176,7 +187,8 @@ class BatchLoader:
                     f"exceeded the {self._SPLIT_CAP_EPOCHS} epochs the "
                     f"caps were sized for")
         return B.nest_blocks([
-            _make_batch(self.kind, gs, gl, hi, cap, self.order)
+            _make_batch(self.kind, gs, gl, hi, cap, self.order,
+                        self.use_native)
             for (gs, gl), cap, hi in zip(groups, caps, bounds)])
 
     def _host_batches(self):

@@ -13,8 +13,10 @@ conventions are the same:
 
 The containers are plain dataclasses.  The loader's prefetch thread fills
 them with numpy arrays; ``to(device)`` turns every array into a tensor on
-``device`` (through pinned host memory when the device is a GPU), and is
-called on the consuming thread only.
+``device`` (through pinned host memory when the device is a GPU), and
+``copy_(src)`` copies a batch of the same nested shape into this one's
+tensors in place, as the CUDA-graph trainer fills its static batch slots.
+Both are called on the consuming thread only.
 """
 
 from __future__ import annotations
@@ -26,13 +28,26 @@ import numpy as np
 import torch
 
 
-def _move(x, device):
+def _staged(x, device):
+    """``x`` as a tensor ready to copy to ``device``: pinned host memory
+    for a host array bound to a GPU, so that the copy does not block."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
-    device = torch.device(device)
     if device.type == "cuda" and not x.is_cuda:
-        return x.pin_memory().to(device, non_blocking=True)
-    return x.to(device)
+        return x.pin_memory()
+    return x
+
+
+def _move(x, device):
+    device = torch.device(device)
+    return _staged(x, device).to(device, non_blocking=True)
+
+
+def _copy_leaf(dst, src):
+    if tuple(dst.shape) != tuple(src.shape):
+        raise ValueError(f"batch slot of shape {tuple(dst.shape)} cannot "
+                         f"take an array of shape {tuple(src.shape)}")
+    dst.copy_(_staged(src, dst.device), non_blocking=True)
 
 
 class _Container:
@@ -49,6 +64,31 @@ class _Container:
             else:
                 out[f.name] = _move(v, device)
         return type(self)(**out)
+
+    def copy_(self, src):
+        """Copy ``src``, a batch of the same nested shape (numpy arrays or
+        tensors), into this batch's tensors in place, leaf by leaf, on the
+        current stream; host arrays go through pinned memory and do not
+        block."""
+        if type(src) is not type(self):
+            raise TypeError(f"cannot copy a {type(src).__name__} into a "
+                            f"{type(self).__name__}")
+        for f in dataclasses.fields(self):
+            d, s = getattr(self, f.name), getattr(src, f.name)
+            if isinstance(d, tuple):
+                if len(d) != len(s):
+                    raise ValueError(f"{f.name}: {len(s)} entries for a "
+                                     f"slot of {len(d)}")
+                for de, se in zip(d, s):
+                    if isinstance(de, _Container):
+                        de.copy_(se)
+                    else:
+                        _copy_leaf(de, se)
+            elif isinstance(d, _Container):
+                d.copy_(s)
+            else:
+                _copy_leaf(d, s)
+        return self
 
 
 @dataclass

@@ -2,8 +2,8 @@
 
 Counterpart of ``sessionrec_tpu/models/layers.py``.  Parameters live in
 ``nn.Module``s whose attribute names follow the JAX parameter tree, and
-the layer math is plain tensor functions over them.  Dropout takes an
-``RngGen`` (None disables).
+the layer math is plain tensor functions over them.  Dropout takes a
+``SeedSource`` (None disables).
 """
 
 from __future__ import annotations
@@ -17,15 +17,40 @@ from sessionrec_tpu_torch.ops.gru import gru_scan
 from sessionrec_tpu_torch.ops.masked import masked_mean, masked_softmax
 
 
-class RngGen:
-    """Per-site integer dropout seeds drawn from a ``torch.Generator``
-    (the role of the JAX package's ``RngGen`` of PRNG keys)."""
+class SeedSource:
+    """Per-site dropout seeds computed on the device (the role of the JAX
+    package's ``RngGen`` of PRNG keys).
 
-    def __init__(self, gen: torch.Generator):
-        self.gen = gen
+    ``count`` is an int64 step counter on ``device``; ``begin_step``
+    advances it in place and hashes it with the run's key into the step's
+    base seed, and the i-th ``next`` of a step returns ``base ^ site_i``
+    (``site_i`` a hash of i).  Every step has the same sites in the same
+    order, so a CUDA graph captured over steps replays fresh masks from
+    the counter, and an eager step from the same counter draws the same
+    masks as the graph."""
 
-    def next(self) -> int:
-        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.gen))
+    def __init__(self, seed: int, device=None):
+        self.key = self._hash(seed)
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+        self._base()
+
+    @staticmethod
+    def _hash(x: int) -> int:
+        return int(_dropout.fmix32(torch.tensor(x & _dropout._M32)))
+
+    def _base(self):
+        self.base = _dropout.fmix32((self.count ^ self.key) & _dropout._M32)
+        self.site = 0
+
+    def begin_step(self):
+        """Advance to the next step's seeds (in place on the device)."""
+        self.count.add_(1)
+        self._base()
+
+    def next(self):
+        """The next site's seed: a 0-d int64 tensor on the device."""
+        self.site += 1
+        return self.base ^ self._hash(self.site)
 
 
 def embedding_lookup(table, ids):

@@ -235,32 +235,30 @@ class MSGIFSR(nn.Module):
         return torch.softmax(sc.l2(torch.relu(sc.l1(sr))).to(torch.float32),
                              dim=-1)
 
-    def head(self, batch, *, training=False, gen=None):
+    def head(self, batch, *, training=False, seeds=None):
         """``(sr [B, d], raw table)`` for the fused softmax-CE path (logit
         scale 12; the loss folds in l2norm(table) when ``table_norm``).
-        ``gen`` drives dropout; None disables it."""
-        rng = L.RngGen(gen) if gen is not None else None
-        sr = self._session_repr(batch, rng, training)
+        ``seeds`` (a ``layers.SeedSource``) drives dropout; None disables
+        it."""
+        sr = self._session_repr(batch, seeds, training)
         return sr[:, 0], self.embedding
 
-    def head_multi(self, batch, *, training=False, gen=None):
+    def head_multi(self, batch, *, training=False, seeds=None):
         """Inputs of the fused REnorm/fusion loss (ops/xent_multi.py):
         ``(sr [B, K, d], raw table, phi [B, K, 2] | None, alpha [K],
         iids [B, N1])``.  ``iids`` are the level-1 session item ids, -1 on
         padding; the [B, P] session mask never exists."""
-        rng = L.RngGen(gen) if gen is not None else None
-        sr = self._session_repr(batch, rng, training)
+        sr = self._session_repr(batch, seeds, training)
         phi = self._phi(sr) if self.extra else None
         return sr, self.embedding, phi, self.alpha, self._session_iids(batch)
 
-    def apply(self, batch, *, training=False, gen=None):
+    def apply(self, batch, *, training=False, seeds=None):
         """``[B, P]`` log-probabilities over the catalog (padded columns
         NEG_INF), materialising the per-order scores: REnorm splits each
         order's softmax into in-session and other items, blended by
         ``phi``; fusion weights the orders by ``softmax(alpha)``, else
         order 1 is taken (msgifsr.py:276-321)."""
-        rng = L.RngGen(gen) if gen is not None else None
-        sr = self._session_repr(batch, rng, training)
+        sr = self._session_repr(batch, seeds, training)
         table = L.l2norm(self.embedding) if self.norm else self.embedding
         imask = scoring.item_mask(self.num_items, self.padded_items,
                                   sr.device).to(torch.float32)

@@ -3,7 +3,11 @@
 Counterpart of ``sessionrec_tpu/ops/dropout.py``: each element's keep bit
 is a murmur3-finalizer hash of ``(seed, flat element index)``, so the
 mask is a pure function of one integer seed and is bit-identical to the
-JAX package's for the same seed.  The JAX package switches to
+JAX package's for the same seed.  The seed is a Python integer or an
+int64 tensor on the data's device; the two give the same bits for the
+same value, and a device seed costs no host-to-device copy, so a
+captured CUDA graph reads a new seed on every replay
+(``models/layers.py:SeedSource``).  The JAX package switches to
 ``jax.random.bernoulli`` for tensors under 4096 elements or 32 features;
 the port uses the hash everywhere, which changes only the random stream.
 
@@ -26,20 +30,28 @@ def _mul32(a, c: int):
     return (hi + a * (c & 0xFFFF)) & _M32
 
 
-def _hash_bits(seed: int, shape, device=None):
-    """murmur3 finalizer of (seed, flat element index) -> [R, C] int64
-    holding uint32 values (``sessionrec_tpu/ops/dropout.py:_hash_bits``)."""
-    R, C = shape
-    idx = torch.arange(R * C, dtype=torch.int64, device=device) \
-        .reshape(R, C) & _M32
-    h = idx ^ _mul32(torch.tensor(int(seed) & _M32, dtype=torch.int64,
-                                  device=device), 0x9E3779B9)
+def fmix32(h):
+    """murmur3's 32-bit finalizer of int64 ``h`` in [0, 2**32): a
+    bijection on 32-bit values."""
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = _mul32(h, 0xC2B2AE35)
-    h = h ^ (h >> 16)
-    return h
+    return h ^ (h >> 16)
+
+
+def _hash_bits(seed, shape, device=None):
+    """murmur3 finalizer of (seed, flat element index) -> [R, C] int64
+    holding uint32 values (``sessionrec_tpu/ops/dropout.py:_hash_bits``).
+    ``seed`` is an int or a 0-d int64 tensor on ``device``; its low 32
+    bits count."""
+    R, C = shape
+    if not torch.is_tensor(seed):
+        seed = torch.tensor(int(seed) & _M32, dtype=torch.int64,
+                            device=device)
+    idx = torch.arange(R * C, dtype=torch.int64, device=device) \
+        .reshape(R, C) & _M32
+    return fmix32(idx ^ _mul32(seed & _M32, 0x9E3779B9))
 
 
 def _keep_threshold(rate: float) -> int:
@@ -47,14 +59,16 @@ def _keep_threshold(rate: float) -> int:
     return min(int((1.0 - rate) * 4294967296.0), 4294967295)
 
 
-def dropout(x, rate: float, seed: int):
+def dropout(x, rate: float, seed):
     """Inverted dropout on ``x`` (any rank; last axis = features):
-    ``y = x / keep * [hash < keep * 2^32]``, torch nn.Dropout semantics."""
+    ``y = x / keep * [hash < keep * 2^32]``, torch nn.Dropout semantics.
+    ``seed``: an int or a 0-d int64 tensor on ``x``'s device."""
     if rate == 0.0:
         return x
     C = x.shape[-1]
     keep = _hash_bits(seed, (x.numel() // C, C), x.device) \
         < _keep_threshold(rate)
+    # a host tensor's value: no device work, so legal inside a capture
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32) \
         .to(x.dtype).item()
     y = torch.where(keep, x.reshape(-1, C) * scale, 0.0)

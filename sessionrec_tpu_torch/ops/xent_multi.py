@@ -396,7 +396,7 @@ def combine_stats(zl, lse_in, lse_ex, phi, alpha, lbl_in, *, extra, fusion):
         score = torch.sum(p_lbl * w, dim=1)
     else:
         score = p_lbl[:, 0]                                    # msgifsr.py:317
-    return -torch.log(torch.maximum(score, zl.new_tensor(_TINY)))
+    return -torch.log(torch.maximum(score, zl.new_full((), _TINY)))
 
 
 def multi_nll_loss(sr, table, labels, valid, iids, phi, alpha, *,

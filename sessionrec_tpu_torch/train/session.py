@@ -3,7 +3,9 @@
 Counterpart of ``sessionrec_tpu/train/session.py`` (reference wiring
 main_msgifsr.py:128-188): read the dataset, optional tail valid split,
 prefix-augmented loaders (ordered train stream unless the preset
-shuffles), model, TrainRunner, on one device.
+shuffles), model, TrainRunner, on one device.  The train loader yields
+host batches, which the runner copies into its device slots; the test
+loader yields device batches.
 """
 
 from __future__ import annotations
@@ -36,11 +38,11 @@ def make_loaders(cfg, model_name=None, order=1, device=None):
     train_loader = BatchLoader(
         train_sessions, kind, cfg.batch_size, max_len,
         shuffle=cfg.shuffle_train, order=order, prefetch=cfg.num_prefetch,
-        split_len=split_len, device=device)
+        split_len=split_len, use_native=cfg.use_native_collate)
     test_loader = BatchLoader(
         test_sessions, kind, cfg.batch_size, max_len, shuffle=False,
         order=order, prefetch=cfg.num_prefetch, split_len=split_len,
-        device=device)
+        device=device, use_native=cfg.use_native_collate)
     if train_loader.split is not None:
         log.info("length-bucketed batches: split_len=%s, tier caps "
                  "train=%s test=%s", train_loader.split[0],
@@ -69,7 +71,8 @@ def run_training(cfg, max_epoch_batches=None):
         patience=cfg.train.patience, seed=cfg.train.seed,
         cutoff=cfg.train.cutoff, lr_step_size=cfg.train.lr_step_size,
         lr_gamma=cfg.train.lr_gamma,
-        eval_before_train=cfg.train.eval_before_train, device=device)
+        eval_before_train=cfg.train.eval_before_train,
+        unroll=cfg.train.unroll, device=device)
     runner.train(cfg.train.epochs, cfg.train.log_interval)
     return runner
 

@@ -32,6 +32,9 @@ class DataConfig:
     # length drop out automatically.
     split_len: int | tuple | None = (4, 8)
     num_prefetch: int = 2
+    # build batches with the C++ builder (data/native_collate.py); False
+    # runs the pure-Python builders (graph/builders.py)
+    use_native_collate: bool = True
 
 
 @dataclass
@@ -61,6 +64,9 @@ class TrainConfig:
     eval_before_train: bool = True  # reference evaluates once pre-training (train.py:91)
     # PyTorch device of the trainer; "cpu" must be asked for explicitly
     device: str = "cuda"
+    # optimizer steps per dispatch: on CUDA one captured CUDA graph replays
+    # this many steps (train/runner.py); the CPU runs them one by one
+    unroll: int = 8
 
 
 @dataclass

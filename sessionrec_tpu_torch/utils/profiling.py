@@ -1,26 +1,34 @@
 """Where the time of a training step goes, on the card.
 
-    python -m sessionrec_tpu_torch.utils.profiling [--steps 20] [--warmup 8]
-        [--order 3 --extra --fusion]
+    python -m sessionrec_tpu_torch.utils.profiling [--steps 24] [--warmup 16]
+        [--order 3 --extra --fusion] [--unroll 8]
 
 Runs the main path's configuration (MSGIFSR order 1, d=256, 1 layer, batch
 512, tiers (4, 8), feat_drop 0.1, datasets/sample), or with ``--order 3
---extra --fusion`` the WSDM'22 paper head at the same widths, and prints
-JSON lines:
+--extra --fusion`` the WSDM'22 paper head at the same widths, through the
+runner's default loop (``run_chunk``: the native batch builder, ``unroll``
+steps per CUDA-graph replay), and prints JSON lines:
 
-* ``host``    — milliseconds per batch to build it on the host (the
-  loader's builder alone, no prefetch thread), to wait for it in the
-  training loop, and to run one step synchronised (forward, backward,
-  Adam, projection), with the examples/s of that loop;
+* ``host``    — which loop ran (``loop``: graph or plain, ``unroll``,
+  ``native`` builder or not); milliseconds per batch to build it on the
+  host (the loader's builder alone, no prefetch thread), per step to wait
+  for the batches in the training loop, and per step to run them
+  synchronised (chunks of ``unroll`` steps: staging, replay), with the
+  examples/s of that loop;
 * ``profile`` — a ``torch.profiler`` window over the same loop without
-  per-step synchronisation: the wall time, the device's busy time and
-  idle share, and device time by kernel name, the largest first.  Busy
-  time is the union of the intervals of the trace's kernel, memcpy and
-  memset events; annotated ranges (``Optimizer.step#Adam.step``,
-  ``ProfilerStep``), which span kernels that are counted on their own,
-  are left out.
+  per-chunk synchronisation: the wall time, the device's busy time and
+  idle share, its events a step, and device time by kernel name, the
+  largest first.  Busy time is the union of the intervals of the trace's
+  kernel, memcpy and memset events; annotated ranges
+  (``Optimizer.step#Adam.step``, ``ProfilerStep``), which span kernels
+  that are counted on their own, are left out.  ``kernels_a_step`` is the
+  number of kernel events a step: near the eager step's count when the
+  trace sees the kernels inside graph replays, near 0 when it does not.
 
-It needs a CUDA device; there is no CPU fallback.
+Warm-up and timed windows are whole chunks (``--steps`` and ``--warmup``
+round down to multiples of ``unroll``); the first warm-up chunk runs
+eagerly and the next captures the graph.  It needs a CUDA device; there
+is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -36,7 +44,10 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 
 
-def _setup(dataset_dir, seed, order=1, extra=False, fusion=False):
+def setup_runner(dataset_dir, seed, order=1, extra=False, fusion=False,
+                 unroll=8):
+    """(train loader, TrainRunner) of the profiled configuration on the
+    card; the loader yields host batches."""
     from sessionrec_tpu_torch.models import build_model
     from sessionrec_tpu_torch.train.runner import TrainRunner
     from sessionrec_tpu_torch.train.session import make_loaders
@@ -49,35 +60,46 @@ def _setup(dataset_dir, seed, order=1, extra=False, fusion=False):
                                              device="cuda")
     model = build_model(cfg.model, num_items)
     runner = TrainRunner(model, train, test, seed=seed, device="cuda",
-                         eval_before_train=False)
+                         eval_before_train=False, unroll=unroll)
     return train, runner
+
+
+def _chunk_stream(train, runner):
+    """Endless chunks of ``runner.unroll`` host batches over the epochs."""
+    from sessionrec_tpu_torch.train.runner import chunks
+    while True:
+        yield from chunks(train, runner.unroll)
 
 
 def host_breakdown(train, runner, warmup, steps):
     bs = train.batch_size
+    G = runner.unroll
     t0 = time.perf_counter()
     for k in range(steps):
         train._build(range(k * bs, (k + 1) * bs))
     build_ms = (time.perf_counter() - t0) / steps * 1e3
 
-    it = iter(train)
-    for _ in range(warmup):
-        runner.train_step(next(it))
+    stream = _chunk_stream(train, runner)
+    for _ in range(max(warmup // G, 2)):
+        runner.run_chunk(next(stream))
     torch.cuda.synchronize()
+    n = max(steps // G, 1)
     wait = step = 0.0
-    for _ in range(steps):
+    for _ in range(n):
         t0 = time.perf_counter()
-        b = next(it)
+        chunk = next(stream)
         t1 = time.perf_counter()
-        runner.train_step(b)
+        runner.run_chunk(chunk)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         wait += t1 - t0
         step += t2 - t1
-    it.close()
-    return {"phase": "host", "steps": steps, "build_ms": build_ms,
-            "wait_ms": wait / steps * 1e3, "step_ms": step / steps * 1e3,
-            "examples_per_s": steps * bs / (wait + step)}
+    stream.close()
+    return {"phase": "host", "loop": "graph" if runner.uses_graph
+            else "plain", "unroll": G, "native": train.use_native,
+            "steps": n * G, "build_ms": build_ms,
+            "wait_ms": wait / (n * G) * 1e3, "step_ms": step / (n * G) * 1e3,
+            "examples_per_s": n * G * bs / (wait + step)}
 
 
 # trace categories of work the device does; "gpu_user_annotation" ranges
@@ -114,18 +136,21 @@ def busy_us(events):
 
 def device_breakdown(train, runner, warmup, steps, top):
     from torch.profiler import ProfilerActivity, profile
-    it = iter(train)
-    for _ in range(warmup):
-        runner.train_step(next(it))
+    G = runner.unroll
+    stream = _chunk_stream(train, runner)
+    for _ in range(max(warmup // G, 2)):
+        runner.run_chunk(next(stream))
     torch.cuda.synchronize()
+    n = max(steps // G, 1)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            runner.train_step(next(it))
+        for _ in range(n):
+            runner.run_chunk(next(stream))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    it.close()
+    stream.close()
+    steps = n * G
     events = profiled_device_events(prof)
     kernels = {}
     for name, _, dur in events:
@@ -134,6 +159,9 @@ def device_breakdown(train, runner, warmup, steps, top):
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     return {"phase": "profile", "steps": steps, "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms, "device_events": len(events),
+            "events_a_step": len(events) / steps,
+            "kernels_a_step": sum(1 for e in events if not
+                                  e[0].startswith("Mem")) / steps,
             "idle_share": 1.0 - busy_ms / (wall * 1e3),
             "per_step_ms": {"wall": wall * 1e3 / steps,
                             "device": busy_ms / steps},
@@ -143,8 +171,9 @@ def device_breakdown(train, runner, warmup, steps, top):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--warmup", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=24)
+    ap.add_argument("--warmup", type=int, default=16)
+    ap.add_argument("--unroll", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dataset-dir", default=str(REPO / "datasets" / "sample"))
@@ -154,8 +183,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    train, runner = _setup(args.dataset_dir, args.seed, args.order,
-                           args.extra, args.fusion)
+    train, runner = setup_runner(args.dataset_dir, args.seed, args.order,
+                                 args.extra, args.fusion, args.unroll)
     print(json.dumps({"phase": "device",
                       "name": torch.cuda.get_device_name(0),
                       "order": args.order, "extra": args.extra,

@@ -19,6 +19,7 @@ from sessionrec_tpu.ops import xent_multi as jxm
 from sessionrec_tpu_torch.convert import params_from_jax
 from sessionrec_tpu_torch.data.loader import BatchLoader as TLoader
 from sessionrec_tpu_torch.models import MSGIFSR
+from sessionrec_tpu_torch.models.layers import SeedSource
 from sessionrec_tpu_torch.ops import xent as tx
 from sessionrec_tpu_torch.ops import xent_multi as txm
 
@@ -92,7 +93,7 @@ def test_head_loss_and_grads_match_jax(split_len):
 
     (lj, srj), gj = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
 
-    sr, table = tm.head(tb, training=True, gen=None)
+    sr, table = tm.head(tb, training=True, seeds=None)
     lt = tx.fused_nll_loss(sr, table, tb.labels, tb.valid, scale=12.0,
                            num_items=NUM_ITEMS, normalize_table=True)
     lt.backward()
@@ -108,15 +109,21 @@ def test_head_loss_and_grads_match_jax(split_len):
 
 
 def test_dropout_is_seeded_and_active():
+    """The same seed source gives the same output, another seed or the
+    next step's counter another one."""
     _, _, tm = make_pair(seed=4)
     tm.feat_drop = 0.5
     _, tb = _batches((4, 8))
-    a, _ = tm.head(tb, training=True, gen=torch.Generator().manual_seed(1))
-    b, _ = tm.head(tb, training=True, gen=torch.Generator().manual_seed(1))
-    c, _ = tm.head(tb, training=True, gen=torch.Generator().manual_seed(2))
+    a, _ = tm.head(tb, training=True, seeds=SeedSource(1))
+    b, _ = tm.head(tb, training=True, seeds=SeedSource(1))
+    c, _ = tm.head(tb, training=True, seeds=SeedSource(2))
     d, _ = tm.head(tb, training=False)
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert not torch.equal(a, d)
+    step = SeedSource(1)
+    step.begin_step()
+    e, _ = tm.head(tb, training=True, seeds=step)
+    assert not torch.equal(a, e)
 
 
 def _grads_match(tm, gj):

@@ -29,6 +29,17 @@ def test_hash_bits_bit_identical(seed, shape):
     np.testing.assert_array_equal(got.astype(np.uint32), want)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 123, 2 ** 31 - 1, -1, -987654321])
+def test_tensor_seed_gives_the_same_bits(seed):
+    """A seed held as an int64 tensor (the device counter's form) hashes
+    as the same integer does, and as the JAX package's seed."""
+    shape = (7, 33)
+    want = np.asarray(jd._hash_bits(jnp.asarray(seed, jnp.int32), shape))
+    got = td._hash_bits(torch.tensor(seed, dtype=torch.int64), shape)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    assert torch.equal(got, td._hash_bits(seed, shape))
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_dropout_matches_jax_apply(rate):
     """Same seed -> the same kept elements and values (exact)."""

@@ -343,3 +343,59 @@ def test_stats_check_fails_a_k3_without_one_catalog_split(P):
     lost = cs.stats_errors(torch, _merge_stats(parts[:1] + parts[2:]), want,
                            1e-5)
     assert any(e > t for e, t in lost.values())
+
+
+# The paths' launch check: each of the path's kernels once per real step
+# and the other pair never, counted on the device (the eager launches plus
+# each graph's captured launches times its replays, or by kernel name in
+# a trace).  A path that runs a kernel twice in a step, skips it, or runs
+# the other pair must fail.
+
+O1 = cs.PATHS["path"]["kernels"]
+
+
+def _counts(**kw):
+    return dict(dict(xent_fwd=40, xent_bwd=40, xent_multi_fwd=0,
+                     xent_multi_bwd=0), **kw)
+
+
+def test_launch_check_passes_once_per_step():
+    assert cs.launch_errors(_counts(), 40, O1) == {}
+    paper = cs.PATHS["paper"]["kernels"]
+    assert cs.launch_errors(_counts(xent_fwd=0, xent_bwd=0,
+                                    xent_multi_fwd=40, xent_multi_bwd=40),
+                            40, paper) == {}
+
+
+@pytest.mark.parametrize("wrong,want", [
+    (dict(xent_fwd=80), {"xent_fwd": [80, 40]}),            # twice a step
+    (dict(xent_bwd=39), {"xent_bwd": [39, 40]}),            # one skipped
+    (dict(xent_fwd=0), {"xent_fwd": [0, 40]}),              # never
+    (dict(xent_multi_fwd=40), {"xent_multi_fwd": [40, 0]})])  # other pair
+def test_launch_check_fails_a_wrong_count(wrong, want):
+    assert cs.launch_errors(_counts(**wrong), 40, O1) == want
+
+
+def test_device_launches_count_each_replay():
+    """40 steps: 8 eager and 8 captured wrapper launches, then 4 replays
+    of the 8-step graph; a graph whose step launched K1 twice shows."""
+    from types import SimpleNamespace
+    wrapped = _counts(xent_fwd=16, xent_bwd=16)
+    graph = SimpleNamespace(captured=_counts(xent_fwd=8, xent_bwd=8),
+                            replays=4)
+    assert cs.device_launches(wrapped, {8: graph}) == _counts()
+    double = SimpleNamespace(captured=_counts(xent_fwd=16, xent_bwd=8),
+                             replays=4)
+    got = cs.device_launches(_counts(xent_fwd=24, xent_bwd=16), {8: double})
+    assert cs.launch_errors(got, 40, O1) == {"xent_fwd": [72, 40]}
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void xent_fwd_partial<float>(float const*, int)", "xent_fwd_partial"),
+    ("void (anonymous namespace)::xent_bwd_dtable<__nv_bfloat16, true>(int)",
+     "xent_bwd_dtable"),
+    ("xent_bwd_dtable_reduce<float>", "xent_bwd_dtable_reduce"),
+    ("void at::native::vectorized_elementwise_kernel<4, F>(int, F)",
+     "vectorized_elementwise_kernel")])
+def test_trace_names_reduce_to_the_kernel(name, want):
+    assert cs.kernel_base_name(name) == want

@@ -68,7 +68,7 @@ def _three_steps_match_jax(kw, lr):
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
                                    atol=1e-5, err_msg=name)
-    assert runner.sched.get_last_lr()[0] == pytest.approx(lr * 0.5 ** STEPS)
+    assert float(runner.sched.lr) == pytest.approx(lr * 0.5 ** STEPS)
 
 
 def test_three_steps_match_jax():
@@ -117,7 +117,7 @@ def test_cuda_device_is_not_silently_replaced():
 @pytest.mark.parametrize("option", [
     dict(table_dtype="bfloat16"), dict(compute_dtype="bfloat16"),
     dict(data_parallel=4), dict(checkpoint_dir="ckpt"),
-    dict(use_native_collate=True)])
+    dict(metrics_file="metrics.jsonl")])
 def test_preset_refuses_options_the_port_does_not_run(option):
     from sessionrec_tpu_torch.utils.config import preset
     with pytest.raises(KeyError, match="unknown config field"):
