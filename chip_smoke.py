@@ -28,9 +28,12 @@ Phases, one JSON line each on stdout:
    each kernel's device time under ``torch.profiler``.
 4. path    — train MSGIFSR order 1 at d=256, 1 layer, batch 512, tiers
    (4, 8), feat_drop 0.1 on datasets/sample through ``run_training`` at
-   the defaults (the native batch builder, ``unroll`` 8): an initial
-   eval, ``--steps`` optimizer steps (the first 8 eager, the rest as
-   replays of one captured 8-step CUDA graph), a final eval.  Every
+   the defaults (the native batch builder, ``unroll`` 8), with a
+   checkpoint directory and a metrics file: an initial eval, ``--steps``
+   optimizer steps (the first 8 eager, the rest as replays of one
+   captured 8-step CUDA graph), a final eval and a checkpoint, whose
+   ``epoch_0000/params.pt``, ``train.pt`` and sidecar must exist, as
+   must ``train`` and ``eval`` events with the JAX package's keys.  Every
    kernel's launch count is set to 0 just before and read just after:
    K1 and K2 must have launched, K3 and K4 not.  The wrappers count the
    eager launches and the captured ones (a capture records a launch, a
@@ -43,6 +46,15 @@ Phases, one JSON line each on stdout:
    sees no kernels inside replays).  The loss must be finite and fall,
    HR@20 and MRR@20 finite, and one batch's loss and gradients must
    agree with the plain-PyTorch path on the CPU from the same parameters.
+   Then ``o1_serve``: ``train.pt`` is deleted and the parameters alone
+   restore into a fresh model, bit for bit; ``recommend`` over the test
+   split's full sessions at batch 512 and k 20 gives the CPU's ids at
+   every position whose CPU score is more than 1e-5 from its
+   neighbours', and its scores to 1e-4; one recommend step is timed
+   (sessions/s, median and p99 ms a batch, whether its CUDA graph ran).
+   ``o1_eval``: the test split through an eager sweep and through the
+   runner's eval graphs gives (hit, mrr, n) sums equal to 1e-6, with ms
+   a batch of each.
    Then ``path_graph_vs_plain``: from one copy of the parameters, Adam's
    state, the schedule and the dropout counter, 8 batches through the
    graph and the same 8 through the plain ``train_step`` on the card
@@ -51,7 +63,12 @@ Phases, one JSON line each on stdout:
    batches, and examples/s, of the graph loop.
 5. paper   — the same for the WSDM'22 paper head (order 3, REnorm,
    fusion) at the same widths: K3 and K4 launch once per step, K1 and K2
-   never.
+   never; ``paper_serve``, ``paper_eval``.
+6. o1_resume — order 1: 2 epochs of 16 batches uninterrupted, against 1
+   epoch and then a fresh runner that resumes from its checkpoint for
+   the second: losses to rtol 1e-4, parameters to atol 1e-5, max_mrr /
+   max_hit to 1e-5, bad_counter equal; ``bit_identical`` says whether
+   every loss and state tensor came out equal.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before the last line.  Without a CUDA
@@ -67,6 +84,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -98,6 +116,17 @@ TOL = {("fwd", "float32"): 1e-5, ("fwd", "bfloat16"): 1e-5,
 # scale (stats_errors), K4 as K2, with d_table's rows hit only by session
 # items (p_in terms) a group of their own
 STATS = ("m_in", "s_in", "m_ex", "s_ex", "zl")
+# the metrics events' keys, in order: the JAX package's schema
+# (sessionrec_tpu/train/runner.py:668-689, tests/test_torch_metrics.py)
+EVENT_KEYS = {"train": ["ts", "kind", "step", "epoch", "loss",
+                        "examples_per_s"],
+              "eval": ["ts", "kind", "step", "epoch", "mrr", "hit",
+                       "examples_per_s"]}
+SHORT = {"path": "o1", "paper": "paper"}   # phase-name prefix of each path
+TOPK = 20                                  # serving's k
+SCORE_TIE = 1e-5     # adjacent CPU scores closer than this may swap ids
+SCORE_ATOL = 1e-4    # card against CPU serving scores
+SUMS_ATOL = 1e-6     # eval graph against the eager sweep, (hit, mrr, n)
 
 
 def emit(obj):
@@ -637,6 +666,14 @@ def kernel_base_name(name):
     return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
 
 
+# seconds the profiler stays open around the traced work: on an H100,
+# traces closed right after the device finished an 8-step paper-head
+# replay (82,833 kernels) lost runs of its kernel records, 2 and 7
+# steps' worth in 2 of 5 traces, where 4 traces that waited 0.2 s lost
+# none
+TRACE_SETTLE_S = 0.5
+
+
 def trace_launches(torch, fn):
     """({wrapper: launches counted by kernel name}, kernel events) in a
     ``torch.profiler`` trace of ``fn()``."""
@@ -644,8 +681,10 @@ def trace_launches(torch, fn):
     from sessionrec_tpu_torch.utils.profiling import profiled_device_events
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_SETTLE_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
     names = [kernel_base_name(n) for n, _, _ in profiled_device_events(prof)
              if not n.startswith("Mem")]
     return {k: names.count(v) for k, v in TRACE_KERNEL.items()}, len(names)
@@ -675,16 +714,45 @@ def first_batches(loader, n):
         it.close()
 
 
-def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
+def path_config(name, seed, dataset_dir, dev="cuda", dim=256, **train):
+    """The path's configuration at the reference's widths (d=256, 1
+    layer, batch 512, tiers (4, 8), feat_drop 0.1) on ``dataset_dir``;
+    ``train`` sets TrainConfig fields (epochs 1 unless given)."""
+    from sessionrec_tpu_torch.utils.config import preset
+    train = dict(dict(epochs=1, log_interval=10), **train)
+    return preset("msgifsr", embedding_dim=dim, num_layers=1,
+                  feat_drop=0.1, batch_size=512, split_len=(4, 8),
+                  dataset_dir=str(dataset_dir), seed=seed, device=dev,
+                  **PATHS[name]["model"], **train)
+
+
+def check_run_files(ckpt_dir, metrics_file):
+    """{what: found} of a path run's checkpoint and metrics: epoch 0's
+    ``params.pt``, ``train.pt`` and sidecar, and the metrics file's
+    events by kind, each with the JAX package's keys."""
+    ep = Path(ckpt_dir) / "epoch_0000"
+    files = {f: (ep / f).is_file() for f in ("params.pt", "train.pt")}
+    files["epoch_0000.json"] = (Path(ckpt_dir) / "epoch_0000.json").is_file()
+    events = [json.loads(line) for line in
+              Path(metrics_file).read_text().splitlines()]
+    kinds = {k: sum(e["kind"] == k for e in events) for k in EVENT_KEYS}
+    keys_ok = all(list(e) == EVENT_KEYS[e["kind"]] for e in events)
+    return {"checkpoint_files": files, "metrics_events": kinds,
+            "metrics_keys_ok": keys_ok}
+
+
+def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
+    """The path's run (see the module docstring), with a checkpoint
+    directory and a metrics file under ``tmp``; returns (wrapper launches,
+    device launches, the runner, its config, the parameters it saved)."""
     from sessionrec_tpu_torch.train.runner import launch_counts, make_loss
     from sessionrec_tpu_torch.train.session import run_training
-    from sessionrec_tpu_torch.utils.config import preset
 
     spec = PATHS[name]
-    cfg = preset("msgifsr", embedding_dim=256, num_layers=1,
-                 feat_drop=0.1, batch_size=512, split_len=(4, 8),
-                 dataset_dir=str(dataset_dir), epochs=1, seed=seed,
-                 log_interval=10, device="cuda", **spec["model"])
+    cfg = path_config(name, seed, dataset_dir,
+                      checkpoint_dir=str(Path(tmp) / name / "ckpt"),
+                      metrics_file=str(Path(tmp) / name / "metrics.jsonl"))
+    Path(tmp, name).mkdir(parents=True, exist_ok=True)
     xent.reset_launches()
     xm.reset_launches()
     t0 = time.perf_counter()
@@ -692,6 +760,9 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
     mrr, hit = runner.max_mrr, runner.max_hit
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the parameters the run saved, before the traced chunk trains on
+    saved = {n: p.detach().clone()
+             for n, p in runner.model.named_parameters()}
     launches = launch_counts()
     on_device = device_launches(launches, runner.graphs)
     graphs = {s: {"captured": g.captured, "replays": g.replays}
@@ -720,8 +791,15 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
            "train_seconds": runner.train_seconds,
            "examples_per_s": runner.train_examples
            / max(runner.train_seconds, 1e-9),
-           "wall_seconds": wall, "card": smi}
+           "wall_seconds": wall, "card": smi,
+           **check_run_files(cfg.train.checkpoint_dir,
+                             cfg.train.metrics_file)}
     emit(row)
+    check(all(row["checkpoint_files"].values()),
+          f"checkpoint files missing: {row['checkpoint_files']}")
+    check(all(row["metrics_events"].values()) and row["metrics_keys_ok"],
+          f"metrics file lacks a train or eval event with the JAX keys: "
+          f"{row['metrics_events']}")
     check(n == steps, f"ran {n} steps, expected {steps}")
     check(graphs.get(G, {}).get("replays") == steps // G - 1,
           f"expected {steps // G - 1} replays of the {G}-step graph: "
@@ -742,7 +820,7 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
 
     # one batch through the kernels against the plain path on the CPU
     model = runner.model
-    batch = next(iter(runner.test_loader))
+    batch = next(iter(runner.test_loader)).to("cuda")
     model.zero_grad(set_to_none=True)
     loss_gpu = make_loss(model, batch, None)
     loss_gpu.backward()
@@ -760,7 +838,7 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi):
     emit({"phase": f"{name}_vs_cpu", "max_abs_err": errs, "ok": ok})
     check(ok, f"GPU {name} disagrees with the CPU plain path: {errs}")
     return {k: launches[k] for k in spec["kernels"]}, \
-        {k: on_device[k] for k in spec["kernels"]}
+        {k: on_device[k] for k in spec["kernels"]}, runner, cfg, saved
 
 
 def graph_vs_plain(torch, runner, batches):
@@ -805,6 +883,194 @@ def phase_graph_vs_plain(torch, name, seed, dataset_dir, smi):
               card=smi))
 
 
+def clear_positions(np, scores):
+    """[n, k] mask of the positions of descending [n, k + 1] score lists
+    that lie more than SCORE_TIE from both neighbours."""
+    gap = np.abs(np.diff(scores, axis=1))
+    left = np.concatenate([np.full((len(scores), 1), np.inf), gap[:, :-1]],
+                          axis=1)
+    return (gap > SCORE_TIE) & (left > SCORE_TIE)
+
+
+def compare_recommendations(np, got, want):
+    """{ok, ...}: card lists ``got`` (k ids) against CPU lists ``want``
+    (k + 1 ids, so the last position has a right neighbour): ids equal
+    at every clear position, scores to SCORE_ATOL."""
+    g_ids = np.array([ids for _, ids, _ in got])
+    g_sc = np.array([v for _, _, v in got], np.float64)
+    w_ids = np.array([ids for _, ids, _ in want])[:, :-1]
+    w_sc = np.array([v for _, _, v in want], np.float64)
+    clear = clear_positions(np, w_sc)
+    id_mismatch = int((g_ids != w_ids)[clear].sum())
+    score_err = float(np.abs(g_sc - w_sc[:, :-1]).max())
+    return {"sessions": len(got), "clear_positions": int(clear.sum()),
+            "tied_positions": int((~clear).sum()),
+            "id_mismatches": id_mismatch, "score_max_abs_err": score_err,
+            "ok": (len(got) == len(want) and id_mismatch == 0
+                   and score_err <= SCORE_ATOL)}
+
+
+def phase_serve(torch, name, trained, cfg, smi, dev="cuda"):
+    """Serving from the path run's checkpoint: with ``train.pt`` deleted,
+    the parameters alone restore into a fresh model, bit for bit equal to
+    ``trained``, the run's parameters when it saved;
+    ``recommend`` over the whole test split at batch 512 and k 20 on the
+    card agrees with ``recommend`` on the CPU from the same parameters;
+    then one recommend step is timed over the split (synchronised host
+    wall per batch, the ids and scores read back)."""
+    import numpy as np
+    from sessionrec_tpu_torch import serving
+    from sessionrec_tpu_torch.data.io import max_session_len, read_dataset
+    from sessionrec_tpu_torch.models import build_model
+
+    ckpt = Path(cfg.train.checkpoint_dir)
+    (ckpt / "epoch_0000" / "train.pt").unlink()
+    train, test, num_items = read_dataset(cfg.data.dataset_dir)
+    max_len = max(max_session_len(train), max_session_len(test))
+    model = serving.restore_params(build_model(cfg.model, num_items), ckpt,
+                                   dev)
+    same = all(torch.equal(p, trained[n]) for n, p in
+               model.named_parameters())
+    order = cfg.model.order
+    kw = dict(max_len=max_len, batch_size=cfg.data.batch_size, order=order)
+    got = list(serving.recommend(model, test, k=TOPK, **kw))
+    cpu_model = serving.restore_params(build_model(cfg.model, num_items),
+                                       ckpt, "cpu")
+    want = list(serving.recommend(cpu_model, test, k=TOPK + 1, **kw))
+    cmp = compare_recommendations(np, got, want)
+
+    t0 = time.perf_counter()
+    batches = list(serving.session_batches(test, "ccs", kw["batch_size"],
+                                           max_len, order))
+    build_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    step = serving.make_recommend_step(model, TOPK)
+    times = []
+    for rep in range(6):                 # the first pass warms up, captures
+        for batch, n in batches:
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals, ids = step(batch)
+            vals, ids = vals[:n].cpu(), ids[:n].cpu()
+            if rep:
+                times.append(time.perf_counter() - t0)
+    ms = np.array(times) * 1e3
+    g = step.graph
+    row = {"phase": f"{SHORT[name]}_serve", "sessions": len(test),
+           "batch": kw["batch_size"], "k": TOPK, "batches": len(batches),
+           "timed_batches": len(times), "restored_bit_identical": same,
+           **cmp, "graph": g is not None and g.replays > 0,
+           "graph_replays": g.replays if g is not None else 0,
+           "ms_per_batch_median": float(np.median(ms)),
+           "ms_per_batch_p99": float(np.percentile(ms, 99)),
+           "sessions_per_s": 5 * len(test) / (ms.sum() / 1e3),
+           "build_ms_per_batch": build_ms, "card": smi,
+           "ok": same and cmp["ok"]}
+    emit(row)
+    check(same, "parameters restored without train.pt differ from the "
+          "trained runner's")
+    check(cmp["ok"], f"card and CPU recommendations disagree: {cmp}")
+    check(dev != "cuda" or row["graph"], "the recommend step ran no graph")
+
+
+def phase_eval(torch, name, runner, smi, dev="cuda"):
+    """One eval sweep eager, batch by batch, and one through the runner's
+    eval graphs, over the same host batches of the test split: the
+    (hit, mrr, n) sums agree to SUMS_ATOL; ms per batch of each
+    (synchronised host wall over the sweep)."""
+    from sessionrec_tpu_torch.train.runner import eager_sums, sweep_metrics
+    loader = runner.test_loader
+    batches = list(loader)
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def eager():
+        return eager_sums(runner.model, batches, runner.cutoff, dev)
+
+    runner.test_loader = batches
+    try:
+        out = {}
+        for what, fn in (("eager", eager), ("graph", runner.eval_sweep)):
+            fn()                              # warm
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                sums = fn()
+            sync()
+            out[what] = (sums, (time.perf_counter() - t0) / 3
+                         / len(batches) * 1e3)
+    finally:
+        runner.test_loader = loader
+    (e_sums, e_ms), (g_sums, g_ms) = out["eager"], out["graph"]
+    gap = float((e_sums - g_sums).abs().max())
+    graphs = {n: g.replays for n, g in runner.eval_graphs.items()}
+    row = {"phase": f"{SHORT[name]}_eval", "batches": len(batches),
+           "unroll": runner.unroll, "eager_sums": e_sums.tolist(),
+           "graph_sums": g_sums.tolist(), "sums_max_abs_gap": gap,
+           "bit_identical": bool(torch.equal(e_sums, g_sums)),
+           "mrr20": sweep_metrics(g_sums)[0],
+           "hr20": sweep_metrics(g_sums)[1],
+           "eager_ms_per_batch": e_ms, "graph_ms_per_batch": g_ms,
+           "eval_graph_replays": graphs, "card": smi,
+           "ok": gap <= SUMS_ATOL}
+    emit(row)
+    check(row["ok"], f"eval graph and eager sweep disagree: {row}")
+    check(dev != "cuda" or graphs.get(runner.unroll),
+          f"no replay of the {runner.unroll}-batch eval graph: {graphs}")
+
+
+def phase_resume(torch, seed, dataset_dir, smi, tmp, dev="cuda", dim=256,
+                 batches=16):
+    """o1: 2 epochs of ``batches`` capped batches uninterrupted, against 1
+    epoch, then a fresh runner that resumes from its checkpoint for the
+    second: losses to rtol 1e-4, parameters to atol 1e-5 (the bars of
+    ``graph_vs_plain``), max_mrr / max_hit to atol 1e-5 and bad_counter
+    equal; ``bit_identical`` says whether every loss and every tensor of
+    ``named_state`` came out equal."""
+    from sessionrec_tpu_torch.train.session import run_training
+
+    def run(sub, epochs, resume=False):
+        cfg = path_config("path", seed, dataset_dir, dev=dev, dim=dim,
+                          epochs=epochs, resume=resume,
+                          log_interval=10 ** 9,
+                          checkpoint_dir=str(Path(tmp) / "resume" / sub))
+        return run_training(cfg, max_epoch_batches=batches)
+
+    t0 = time.perf_counter()
+    full = run("full", 2)
+    run("ab", 1)
+    b = run("ab", 2, resume=True)
+    wall = time.perf_counter() - t0
+    got = torch.tensor(b.losses)
+    want = torch.tensor(full.losses[batches:])
+    rel = float(((got - want).abs() / want.abs()).max())
+    mine, ref = b.named_state(), full.named_state()
+    params = dict(full.model.named_parameters())
+    gaps = {n: max_err(mine[n], p.detach()) for n, p in params.items()}
+    worst = max(gaps, key=gaps.get)
+    metric_gap = max(abs(b.max_mrr - full.max_mrr),
+                     abs(b.max_hit - full.max_hit))
+    bit = (torch.equal(got, want) and set(mine) == set(ref)
+           and all(torch.equal(mine[k], ref[k]) for k in ref))
+    row = {"phase": "o1_resume", "epochs": 2, "batches_per_epoch": batches,
+           "steps": [full.steps, b.steps], "resumed_losses": b.losses,
+           "loss_max_rel_gap": rel, "param_max_abs_gap": gaps[worst],
+           "param_worst": worst, "max_mrr": [full.max_mrr, b.max_mrr],
+           "max_hit": [full.max_hit, b.max_hit],
+           "bad_counter": [full.bad_counter, b.bad_counter],
+           "bit_identical": bit, "graphs": sorted(b.graphs),
+           "wall_seconds": wall, "card": smi,
+           "ok": (len(got) == len(want) == batches and rel <= 1e-4
+                  and gaps[worst] <= 1e-5 and metric_gap <= 1e-5
+                  and b.bad_counter == full.bad_counter
+                  and b.steps == full.steps)}
+    emit(row)
+    check(row["ok"], f"the resumed run differs from the uninterrupted one: "
+          f"{row}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -841,13 +1107,19 @@ def main(argv=None):
         times = phase_kernel_times(torch, xent, args.seed, smi)
         multi_times = phase_multi_times(torch, xm, args.seed, smi)
         launches, on_device = {}, {}
-        for name in PATHS:
-            wrapped, dev = phase_path(torch, xent, xm, name, args.steps,
-                                      args.seed, args.dataset_dir, smi)
-            launches.update(wrapped)
-            on_device.update(dev)
-            phase_graph_vs_plain(torch, name, args.seed, args.dataset_dir,
-                                 smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            for name in PATHS:
+                wrapped, dev, runner, cfg, saved = phase_path(
+                    torch, xent, xm, name, args.steps, args.seed,
+                    args.dataset_dir, smi, tmp)
+                launches.update(wrapped)
+                on_device.update(dev)
+                phase_serve(torch, name, saved, cfg, smi)
+                phase_eval(torch, name, runner, smi)
+                del runner
+                phase_graph_vs_plain(torch, name, args.seed,
+                                     args.dataset_dir, smi)
+            phase_resume(torch, args.seed, args.dataset_dir, smi, tmp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

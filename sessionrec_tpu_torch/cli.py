@@ -4,15 +4,22 @@
         --dataset-dir datasets/sample
     python -m sessionrec_tpu_torch.cli train --model msgifsr --order 3 \
         --extra --fusion                       # the WSDM'22 paper head
+    python -m sessionrec_tpu_torch.cli train --model msgifsr --order 1 \
+        --checkpoint-dir ckpt --metrics-file metrics.jsonl
+    python -m sessionrec_tpu_torch.cli predict --model msgifsr --order 1 \
+        --checkpoint-dir ckpt --sessions-file sessions.txt --k 20
 
-Flag names and defaults follow ``sessionrec_tpu/cli.py train`` (the
-reference scripts' surface, see utils/config.py) for the flags this slice
-runs, plus ``--device`` (default ``cuda``; the CPU must be asked for).
+Flag names and defaults follow ``sessionrec_tpu/cli.py`` ``train`` and
+``predict`` (the reference scripts' surface, see utils/config.py) for the
+flags the port runs, plus ``--device`` (default ``cuda``; the CPU must be
+asked for).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import sys
 
 
 def _add_train_flags(p):
@@ -50,6 +57,16 @@ def _add_train_flags(p):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save a checkpoint every epoch here (train), or "
+                        "serve the latest one (predict)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume training from the latest checkpoint in "
+                        "--checkpoint-dir")
+    p.add_argument("--metrics-file", default=None,
+                   help="append train/eval events here as JSONL")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of training here")
 
 
 def build_config(args):
@@ -90,6 +107,10 @@ def build_config(args):
     t.seed = args.seed
     t.device = args.device
     t.unroll = args.unroll
+    t.checkpoint_dir = args.checkpoint_dir
+    t.resume = args.resume
+    t.metrics_file = args.metrics_file
+    t.profile_dir = args.profile_dir
     return cfg
 
 
@@ -101,14 +122,64 @@ def cmd_train(args):
     print(f"{runner.max_mrr * 100:.3f}%\t{runner.max_hit * 100:.3f}%")
 
 
+def cmd_predict(args):
+    """Serve top-k recommendations from a checkpoint (serving.py)."""
+    from sessionrec_tpu_torch import serving
+    from sessionrec_tpu_torch.data.io import (max_session_len, read_dataset,
+                                              read_sessions)
+    from sessionrec_tpu_torch.models import build_model
+
+    if not args.checkpoint_dir:
+        sys.exit("predict requires --checkpoint-dir (a directory written "
+                 "by train --checkpoint-dir)")
+    cfg = build_config(args)
+    train_sessions, test_sessions, num_items = read_dataset(
+        args.dataset_dir)
+    sessions = (read_sessions(args.sessions_file) if args.sessions_file
+                else test_sessions)
+    max_len = cfg.data.max_len or max(max_session_len(train_sessions),
+                                      max_session_len(test_sessions))
+    model = serving.restore_params(build_model(cfg.model, num_items),
+                                   args.checkpoint_dir, cfg.train.device)
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        for sess, ids, scores in serving.recommend(
+                model, sessions, max_len=max_len, k=args.k,
+                batch_size=cfg.data.batch_size, method=args.topk_method,
+                order=cfg.model.order,
+                use_native=cfg.data.use_native_collate):
+            out.write(json.dumps({"session": sess, "items": ids,
+                                  "scores": [round(s, 4) for s in scores]})
+                      + "\n")
+    finally:
+        if out is not sys.stdout:
+            out.close()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="sessionrec_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     pt = sub.add_parser("train", help="train a model")
     _add_train_flags(pt)
+    pr = sub.add_parser(
+        "predict", help="serve top-k recommendations from a checkpoint")
+    _add_train_flags(pr)   # model geometry + --dataset-dir + --checkpoint-dir
+    pr.add_argument("--sessions-file", default=None,
+                    help="sessions to score, one comma-joined id list per "
+                         "line (default: the dataset's test split)")
+    pr.add_argument("--k", type=int, default=20)
+    pr.add_argument("--output", default=None,
+                    help="JSONL output path (default: stdout)")
+    pr.add_argument("--topk-method", default="exact",
+                    choices=["exact", "approx"],
+                    help="exact = torch.topk; approx (the TPU's "
+                         "lax.approx_max_k in the JAX package) is not "
+                         "ported and raises")
     args = parser.parse_args(argv)
     if args.cmd == "train":
         cmd_train(args)
+    elif args.cmd == "predict":
+        cmd_predict(args)
 
 
 if __name__ == "__main__":

@@ -39,8 +39,9 @@ def _make_batch(kind, seqs, labels, max_len, batch_size, order,
                           inter_out=tuple(d["inter_out"]),
                           labels=d["labels"], valid=d["valid"])
     raise NotImplementedError(
-        f"batch kind {kind!r} is not ported yet (ROADMAP.md, queue 1 "
-        "item 8); the port builds MSGIFSR ('ccs') batches only")
+        f"batch kind {kind!r} is not ported yet (ROADMAP.md, 'The other "
+        "three model families'); the port builds MSGIFSR ('ccs') batches "
+        "only")
 
 
 class BatchLoader:

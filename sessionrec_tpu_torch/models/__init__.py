@@ -11,6 +11,6 @@ def build_model(cfg, num_items: int):
     name = cfg.name.lower()
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet (ROADMAP.md, queue 1 "
-            f"item 8); the port has {sorted(_REGISTRY)}")
+            f"model {cfg.name!r} is not ported yet (ROADMAP.md, 'The other "
+            f"three model families'); the port has {sorted(_REGISTRY)}")
     return _REGISTRY[name].from_config(cfg, num_items)

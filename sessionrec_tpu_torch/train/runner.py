@@ -23,7 +23,22 @@ rate and Adam's step counts live on the device).  Metrics and early
 stopping follow the reference: one evaluation before any training
 (train.py:91), early stop only when *both* MRR and HR worsened against
 the running maxima (train.py:118-123), and the running maximum of each
-metric returned (train.py:124-127).  Eval runs per batch.
+metric returned (train.py:124-127).
+
+Eval is the counterpart of ``make_unrolled_eval_step`` and ``evaluate``
+(runner.py:449-516 of the JAX package): a sweep adds each batch's
+``(hits, reciprocal-rank sum, valid rows)`` into one float64 device
+vector and reads the host once.  On CUDA the test batches go into their
+own static slots in chunks of ``unroll``: the first chunk ever runs
+eagerly, a full chunk replays one captured ``unroll``-batch eval graph,
+and a shorter tail replays a one-batch graph per batch, as the training
+tail does.  The eval graphs have a memory pool of their own, apart from
+the training graphs'.  On the CPU eval runs per batch.
+
+With a ``Checkpointer`` the runner saves after every
+``checkpoint_every``-th epoch and at an early stop (runner.py:701-704);
+with a metrics sink it logs ``train`` events at log intervals and an
+``eval`` event per epoch (runner.py:668-689).
 """
 
 from __future__ import annotations
@@ -95,19 +110,21 @@ def _auto_stream(batch_size: int, padded_items: int,
 
 
 @torch.no_grad()
-def eval_ranks(model, batch, cutoff):
-    """Label ranks for one eval batch on materialised scores
-    (runner.py:407-430 of the JAX package).  The plain head ranks the raw
+def eval_scores(model, batch):
+    """``[B, P]`` scores whose per-row order ranks the catalog, on
+    materialised scores (runner.py:407-430 of the JAX package); eval ranks
+    them and serving takes their top-k.  The plain head gives the raw
     masked logits: positive scaling and log_softmax preserve each row's
-    order and ties.  The multi head ranks ``model.apply``'s
-    log-probabilities.  Padded catalog columns score below every item."""
+    order and ties.  The multi head gives ``model.apply``'s
+    log-probabilities.  Padded catalog columns score -inf."""
     B = batch.labels.shape[0]
     rows = 1 if model.has_plain_head else model.order
     if _auto_stream(B, model.padded_items, rows):
         raise NotImplementedError(
-            f"eval of {B} x {rows} x {model.padded_items} scores exceeds "
-            f"{_STREAM_EVAL_ELEMS} elements and needs streamed eval, which "
-            "is not ported yet (ROADMAP.md, queue 1 item 9)")
+            f"scoring {B} x {rows} x {model.padded_items} elements exceeds "
+            f"{_STREAM_EVAL_ELEMS} and needs the streamed catalog, which is "
+            "not ported yet (ROADMAP.md, 'Large-catalog eval'); use a "
+            "smaller batch")
     if model.has_plain_head:
         sr, table = model.head(batch, training=False)
         if model.table_norm:
@@ -115,25 +132,53 @@ def eval_ranks(model, batch, cutoff):
         logits = scoring.catalog_logits(sr, table)
         imask = scoring.item_mask(model.num_items, model.padded_items,
                                   logits.device)
-        scores = torch.where(imask, logits, -math.inf)
-    else:
-        scores = model.apply(batch, training=False)
-    return scoring.label_ranks_by_count(scores, batch.labels, cutoff)
+        return torch.where(imask, logits, -math.inf)
+    return model.apply(batch, training=False)
 
 
 @torch.no_grad()
+def eval_ranks(model, batch, cutoff):
+    """Label ranks of one eval batch, counted on ``eval_scores``."""
+    return scoring.label_ranks_by_count(eval_scores(model, batch),
+                                        batch.labels, cutoff)
+
+
+@torch.no_grad()
+def eval_sums(model, batch, cutoff):
+    """``[hits@cutoff, sum of reciprocal ranks, valid rows]`` of one batch:
+    a float64 vector on the batch's device (float32 sums within the batch,
+    as the JAX eval step)."""
+    ranks = eval_ranks(model, batch, cutoff)
+    v = batch.valid
+    hit = torch.sum((ranks > 0) * v)
+    mrr = torch.sum(
+        torch.where(ranks > 0, 1.0 / torch.clamp(ranks, min=1), 0.0) * v)
+    return torch.stack([hit, mrr, torch.sum(v)]).to(torch.float64)
+
+
+def sweep_metrics(sums):
+    """(MRR@cutoff, HR@cutoff) from a sweep's summed ``eval_sums``; the one
+    host read of a sweep."""
+    hit, mrr, n = sums.tolist()
+    n = max(n, 1.0)
+    return mrr / n, hit / n
+
+
+@torch.no_grad()
+def eager_sums(model, batches, cutoff, device):
+    """Summed ``eval_sums`` of ``batches`` (host or device batches, moved
+    to ``device``), one eager batch at a time, added in order."""
+    total = torch.zeros(3, dtype=torch.float64, device=device)
+    for batch in batches:
+        total += eval_sums(model, batch.to(device), cutoff)
+    return total
+
+
 def evaluate(model, loader, cutoff=20):
-    """(MRR@cutoff, HR@cutoff) over a loader (reference train.py:36-55)."""
-    hit = mrr = n = 0.0
-    for batch in loader:
-        ranks = eval_ranks(model, batch, cutoff)
-        v = batch.valid
-        hit = hit + torch.sum((ranks > 0) * v)
-        mrr = mrr + torch.sum(
-            torch.where(ranks > 0, 1.0 / torch.clamp(ranks, min=1), 0.0) * v)
-        n = n + torch.sum(v)
-    n = max(float(n), 1.0)
-    return float(mrr) / n, float(hit) / n
+    """(MRR@cutoff, HR@cutoff) over a loader, one eager batch at a time on
+    the model's device (reference train.py:36-55)."""
+    device = next(model.parameters()).device
+    return sweep_metrics(eager_sums(model, loader, cutoff, device))
 
 
 def launch_counts():
@@ -157,15 +202,73 @@ def chunks(iterable, size: int):
 
 @dataclass
 class StepGraph:
-    """A captured run of ``steps`` optimizer steps over batch slots
-    ``0 .. steps - 1``: its graph, its static ``[steps]`` losses, the
-    kernel launches it recorded (the wrappers' counters during the
-    capture, which runs nothing) and how often it replayed."""
+    """A captured run over batch slots ``0 .. n - 1``: its graph, its
+    static output (a training chunk's ``[n]`` losses, or an eval chunk's
+    summed ``eval_sums``), the kernel launches it recorded (the wrappers'
+    counters during the capture, which runs nothing) and how often it
+    replayed."""
 
     graph: object
-    losses: torch.Tensor
+    out: torch.Tensor
     captured: dict
     replays: int = 0
+
+
+class _Slots:
+    """Static device batches that captured graphs read, made from the
+    first batch staged into each and then copied into in place."""
+
+    def __init__(self, device):
+        self.device = device
+        self.batches = []
+
+    def __bool__(self):
+        return bool(self.batches)
+
+    def __getitem__(self, i):
+        return self.batches[i]
+
+    def stage(self, i, batch):
+        """Copy ``batch`` into slot ``i``; returns the slot."""
+        if i == len(self.batches):
+            self.batches.append(batch.to(self.device))
+        else:
+            self.batches[i].copy_(batch)
+        return self.batches[i]
+
+
+def _capture(graphs, n, pool, body):
+    """The graph of ``n`` slots in ``graphs``, captured at first use from
+    ``body()`` (which returns its static output) into ``pool``; returns
+    (the StepGraph, the pool)."""
+    g = graphs.get(n)
+    if g is None:
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph, pool=pool):
+            out = body()
+        after = launch_counts()
+        g = graphs[n] = StepGraph(graph, out,
+                                  {k: after[k] - before[k] for k in after})
+    return g, g.graph.pool()
+
+
+def _replay(g):
+    g.graph.replay()
+    g.replays += 1
+    return g.out.clone()
+
+
+def _on_side_stream(device, fn):
+    """``fn()`` on a side stream, as ``torch.cuda.graphs`` asks of the
+    work before a capture; the current stream waits for it."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    return out
 
 
 class TrainRunner:
@@ -179,7 +282,8 @@ class TrainRunner:
     def __init__(self, model, train_loader, test_loader, *, lr=1e-3,
                  weight_decay=1e-4, patience=3, seed=123, cutoff=20,
                  lr_step_size=3, lr_gamma=0.1, eval_before_train=True,
-                 unroll=8, device="cuda"):
+                 checkpointer=None, checkpoint_every=1, unroll=8,
+                 metrics=None, device="cuda"):
         set_precision()
         self.device = resolve_device(str(device))
         self.model = model
@@ -188,7 +292,10 @@ class TrainRunner:
         self.patience = patience
         self.cutoff = cutoff
         self.eval_before_train = eval_before_train
+        self.checkpointer = checkpointer
+        self.checkpoint_every = max(int(checkpoint_every), 1)
         self.unroll = max(int(unroll), 1)
+        self.metrics = metrics
         model.reset_parameters(torch.Generator().manual_seed(seed))
         model.to(self.device)
         self.seeds = SeedSource(seed + 1, self.device)
@@ -207,8 +314,11 @@ class TrainRunner:
             model, lr, weight_decay, steps_per_epoch=len(train_loader),
             lr_step_size=lr_step_size, lr_gamma=lr_gamma)
         self.graphs = {}          # steps -> StepGraph, captured at first use
-        self._slots = []          # static device batches the graphs read
-        self._pool = None         # the graphs' shared memory pool
+        self._slots = _Slots(self.device)   # the training graphs' batches
+        self._pool = None         # the training graphs' shared memory pool
+        self.eval_graphs = {}     # batches -> StepGraph of eval sums
+        self._eval_slots = _Slots(self.device)
+        self._eval_pool = None    # the eval graphs' own memory pool
         self.epoch = 0
         self.steps = 0
         self.max_mrr = 0.0
@@ -220,7 +330,8 @@ class TrainRunner:
 
     @property
     def uses_graph(self):
-        """True where ``run_chunk`` replays CUDA graphs (on CUDA)."""
+        """True where ``run_chunk`` and eval replay CUDA graphs (on
+        CUDA)."""
         return self.device.type == "cuda"
 
     def _step(self, batch):
@@ -244,48 +355,53 @@ class TrainRunner:
         self.steps += 1
         return loss
 
-    def state_tensors(self):
-        """Every tensor a step reads and writes besides the batch and the
-        gradients: parameters (detached, so cloning them keeps no
-        autograd node alive), Adam's moments and step counts, the
-        schedule's counter and rate, the dropout counter.  Copying values
-        into them in place leaves the captured graphs valid."""
-        out = [p.detach() for p in self.params]
-        for p in self.params:
-            st = self.opt.state.get(p, {})
-            out += [st[k] for k in ("step", "exp_avg", "exp_avg_sq")
-                    if k in st]
-        return out + [self.sched.count, self.sched.lr, self.seeds.count]
+    def init_opt_state(self):
+        """Create Adam's state where its first step has not yet: zero
+        moments and a zero step count, a float32 tensor on the parameter's
+        device where Adam is capturable (as ``torch.optim.Adam`` makes
+        them).  A checkpoint restore copies into it."""
+        for group in self.opt.param_groups:
+            for p in group["params"]:
+                st = self.opt.state[p]
+                if st:
+                    continue
+                st["step"] = (torch.zeros((), dtype=torch.float32,
+                                          device=p.device)
+                              if group["capturable"] else torch.tensor(0.0))
+                st["exp_avg"] = torch.zeros_like(p)
+                st["exp_avg_sq"] = torch.zeros_like(p)
 
-    def _stage(self, i, batch):
-        """Copy ``batch`` into static device slot ``i`` (made from it at
-        first use); returns the slot."""
-        if i == len(self._slots):
-            self._slots.append(batch.to(self.device))
-        else:
-            self._slots[i].copy_(batch)
-        return self._slots[i]
+    def named_state(self):
+        """Every tensor a step reads and writes besides the batch and the
+        gradients, by name: the parameters under their own names
+        (detached, so cloning them keeps no autograd node alive), Adam's
+        moments and step counts as ``adam/<parameter>/<key>``, the
+        schedule's counter and rate and the dropout counter.  Copying
+        values into them in place leaves the captured graphs valid."""
+        named = dict(self.model.named_parameters())
+        out = {n: p.detach() for n, p in named.items()}
+        for n, p in named.items():
+            st = self.opt.state.get(p, {})
+            out.update({f"adam/{n}/{k}": st[k]
+                        for k in ("step", "exp_avg", "exp_avg_sq")
+                        if k in st})
+        out.update({"sched/count": self.sched.count,
+                    "sched/lr": self.sched.lr,
+                    "seeds/count": self.seeds.count})
+        return out
+
+    def state_tensors(self):
+        """``named_state``'s tensors."""
+        return list(self.named_state().values())
 
     def _graph(self, steps):
-        """The ``steps``-step graph over slots ``0 .. steps - 1``,
-        captured at first use into the shared pool."""
-        g = self.graphs.get(steps)
-        if g is None:
-            graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
-            with torch.cuda.graph(graph, pool=self._pool):
-                losses = torch.stack([self._step(self._slots[i])
-                                      for i in range(steps)])
-            after = launch_counts()
-            self._pool = graph.pool()
-            g = self.graphs[steps] = StepGraph(
-                graph, losses, {k: after[k] - before[k] for k in after})
+        """The ``steps``-step training graph over slots ``0 .. steps -
+        1``, captured at first use into the training pool."""
+        g, self._pool = _capture(
+            self.graphs, steps, self._pool,
+            lambda: torch.stack([self._step(self._slots[i])
+                                 for i in range(steps)]))
         return g
-
-    def _replay(self, g):
-        g.graph.replay()
-        g.replays += 1
-        return g.losses.clone()
 
     def run_chunk(self, chunk):
         """Train on ``chunk``, at most ``unroll`` batches of the loader
@@ -295,36 +411,71 @@ class TrainRunner:
             return torch.stack([self.train_step(b.to(self.device))
                                 for b in chunk])
         if not self._slots:
-            return self._warm_up(chunk)
+            # the first chunk's real steps, eager: Adam's state exists
+            # before any capture
+            return _on_side_stream(self.device, lambda: torch.stack(
+                [self.train_step(self._slots.stage(i, b))
+                 for i, b in enumerate(chunk)]))
         if len(chunk) == self.unroll:
             for i, b in enumerate(chunk):
-                self._stage(i, b)
-            out = self._replay(self._graph(self.unroll))
+                self._slots.stage(i, b)
+            out = _replay(self._graph(self.unroll))
         else:
             out = []
             for b in chunk:
-                self._stage(0, b)
-                out.append(self._replay(self._graph(1)))
+                self._slots.stage(0, b)
+                out.append(_replay(self._graph(1)))
             out = torch.cat(out)
         self.steps += len(chunk)
         return out
 
-    def _warm_up(self, chunk):
-        """The first chunk's real steps, eager, on a side stream (as
-        ``torch.cuda.graphs`` asks of the work before a capture)."""
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = torch.stack([self.train_step(self._stage(i, b))
-                               for i, b in enumerate(chunk)])
-        main.wait_stream(side)
-        return out
+    def _chunk_sums(self, batches):
+        """``eager_sums`` of ``batches`` on the runner's device."""
+        return eager_sums(self.model, batches, self.cutoff, self.device)
 
-    def evaluate(self):
+    def _eval_graph(self, n):
+        """The graph of ``n`` eval batches over the eval slots, summing
+        their ``eval_sums``; captured at first use into the eval pool."""
+        g, self._eval_pool = _capture(
+            self.eval_graphs, n, self._eval_pool,
+            lambda: self._chunk_sums(self._eval_slots[:n]))
+        return g
+
+    def _eval_chunk(self, chunk):
+        """Summed ``eval_sums`` of ``chunk``, at most ``unroll`` test
+        batches, through the eval graphs (the first chunk ever eager)."""
+        slots = self._eval_slots
+        if not slots:
+            return _on_side_stream(self.device, lambda: self._chunk_sums(
+                [slots.stage(i, b) for i, b in enumerate(chunk)]))
+        if len(chunk) == self.unroll:
+            for i, b in enumerate(chunk):
+                slots.stage(i, b)
+            return _replay(self._eval_graph(self.unroll))
+        total = 0
+        for b in chunk:
+            slots.stage(0, b)
+            total = total + _replay(self._eval_graph(1))
+        return total
+
+    def eval_sweep(self):
+        """Summed ``eval_sums`` over the test loader, a float64 device
+        vector: per chunk of eval graphs on CUDA, per batch on the CPU.
+        The table is max-norm-projected first (identity under the step
+        invariant; it covers parameters loaded from elsewhere)."""
         self.model.eval()
         self.model.project_params()
-        return evaluate(self.model, self.test_loader, self.cutoff)
+        if not self.uses_graph:
+            return self._chunk_sums(self.test_loader)
+        total = torch.zeros(3, dtype=torch.float64, device=self.device)
+        with torch.no_grad():
+            for chunk in chunks(self.test_loader, self.unroll):
+                total += self._eval_chunk(chunk)
+        return total
+
+    def evaluate(self):
+        """(MRR@cutoff, HR@cutoff) of the test loader."""
+        return sweep_metrics(self.eval_sweep())
 
     def _drain_losses(self, pending):
         """Pull pending losses to the host -> mean; abort on non-finite
@@ -361,21 +512,27 @@ class TrainRunner:
                     mean_loss = self._drain_losses(pending)
                     pending, since_log = [], 0
                     dt = time.perf_counter() - t
+                    rate = (examples - interval_examples) / max(dt, 1e-9)
                     log.info("step %d: loss = %.4f, %.1f examples/s, %.2fs",
-                             self.steps, mean_loss,
-                             (examples - interval_examples) / max(dt, 1e-9),
-                             dt)
+                             self.steps, mean_loss, rate, dt)
+                    if self.metrics is not None:
+                        self.metrics.log("train", step=self.steps,
+                                         epoch=self.epoch, loss=mean_loss,
+                                         examples_per_s=rate)
                     interval_examples = examples
                     t = time.perf_counter()
             self._drain_losses(pending)
             self.train_examples = int(examples)
             self.train_seconds = time.perf_counter() - epoch_t
+            rate = self.train_examples / max(self.train_seconds, 1e-9)
 
             mrr, hit = self.evaluate()
             log.info("epoch %d: MRR = %.3f%%, Hit = %.3f%% "
                      "(%.1f train examples/s)", self.epoch, mrr * 100,
-                     hit * 100,
-                     self.train_examples / max(self.train_seconds, 1e-9))
+                     hit * 100, rate)
+            if self.metrics is not None:
+                self.metrics.log("eval", step=self.steps, epoch=self.epoch,
+                                 mrr=mrr, hit=hit, examples_per_s=rate)
 
             # early stop only when BOTH metrics worsened (train.py:118-123)
             stop = False
@@ -386,6 +543,12 @@ class TrainRunner:
                 self.bad_counter = 0
             self.max_mrr = max(self.max_mrr, mrr)
             self.max_hit = max(self.max_hit, hit)
+
+            if self.checkpointer is not None and (
+                    stop or (self.epoch + 1) % self.checkpoint_every == 0):
+                self.checkpointer.save(self.epoch, self,
+                                       metrics={"mrr": mrr, "hit": hit})
+
             self.epoch += 1
             if stop:
                 break

@@ -3,9 +3,10 @@
 Counterpart of ``sessionrec_tpu/train/session.py`` (reference wiring
 main_msgifsr.py:128-188): read the dataset, optional tail valid split,
 prefix-augmented loaders (ordered train stream unless the preset
-shuffles), model, TrainRunner, on one device.  The train loader yields
-host batches, which the runner copies into its device slots; the test
-loader yields device batches.
+shuffles), model, TrainRunner, on one device, with the checkpointer, the
+metrics sink and the profiler trace that the config asks for.  Both
+loaders yield host batches, which the runner moves to the device (into
+its static slots on CUDA).
 """
 
 from __future__ import annotations
@@ -14,12 +15,15 @@ from sessionrec_tpu_torch.data.io import max_session_len, read_dataset
 from sessionrec_tpu_torch.data.loader import BatchLoader
 from sessionrec_tpu_torch.models import build_model
 from sessionrec_tpu_torch.train.runner import TrainRunner, resolve_device
+from sessionrec_tpu_torch.utils.checkpoint import Checkpointer
 from sessionrec_tpu_torch.utils.logging import get_logger
+from sessionrec_tpu_torch.utils.metrics import MetricsLogger
+from sessionrec_tpu_torch.utils.profiling import trace
 
 log = get_logger(__name__)
 
 
-def make_loaders(cfg, model_name=None, order=1, device=None):
+def make_loaders(cfg, model_name=None, order=1):
     train_sessions, test_sessions, num_items = read_dataset(cfg.dataset_dir)
     if cfg.valid_split is not None:
         # tail split: the last fraction of the time-ordered train stream
@@ -42,7 +46,7 @@ def make_loaders(cfg, model_name=None, order=1, device=None):
     test_loader = BatchLoader(
         test_sessions, kind, cfg.batch_size, max_len, shuffle=False,
         order=order, prefetch=cfg.num_prefetch, split_len=split_len,
-        device=device, use_native=cfg.use_native_collate)
+        use_native=cfg.use_native_collate)
     if train_loader.split is not None:
         log.info("length-bucketed batches: split_len=%s, tier caps "
                  "train=%s test=%s", train_loader.split[0],
@@ -53,11 +57,16 @@ def make_loaders(cfg, model_name=None, order=1, device=None):
 
 def run_training(cfg, max_epoch_batches=None):
     """Train as ``cfg`` says; returns the TrainRunner, whose ``max_mrr`` /
-    ``max_hit`` are the run's result."""
+    ``max_hit`` are the run's result.  With ``resume``, training goes on
+    from the latest checkpoint in ``checkpoint_dir``."""
     name = cfg.model.name.lower()
-    device = resolve_device(cfg.train.device)
+    t = cfg.train
+    if t.resume and not t.checkpoint_dir:
+        raise ValueError("resume needs a checkpoint directory "
+                         "(--checkpoint-dir)")
+    device = resolve_device(t.device)
     train_loader, test_loader, num_items, max_len = make_loaders(
-        cfg.data, model_name=name, order=cfg.model.order, device=device)
+        cfg.data, model_name=name, order=cfg.model.order)
     log.info("dataset %s: %d train / %d test examples, %d items, max_len %d",
              cfg.data.dataset_dir, train_loader.num_examples,
              test_loader.num_examples, num_items, max_len)
@@ -65,15 +74,25 @@ def run_training(cfg, max_epoch_batches=None):
     log.info("model %s on %s", name, device)
     if max_epoch_batches is not None:
         train_loader = _CappedLoader(train_loader, max_epoch_batches)
-    runner = TrainRunner(
-        model, train_loader, test_loader,
-        lr=cfg.train.lr, weight_decay=cfg.train.weight_decay,
-        patience=cfg.train.patience, seed=cfg.train.seed,
-        cutoff=cfg.train.cutoff, lr_step_size=cfg.train.lr_step_size,
-        lr_gamma=cfg.train.lr_gamma,
-        eval_before_train=cfg.train.eval_before_train,
-        unroll=cfg.train.unroll, device=device)
-    runner.train(cfg.train.epochs, cfg.train.log_interval)
+    checkpointer = Checkpointer(t.checkpoint_dir) if t.checkpoint_dir \
+        else None
+    metrics = MetricsLogger(t.metrics_file) if t.metrics_file else None
+    try:
+        runner = TrainRunner(
+            model, train_loader, test_loader,
+            lr=t.lr, weight_decay=t.weight_decay, patience=t.patience,
+            seed=t.seed, cutoff=t.cutoff, lr_step_size=t.lr_step_size,
+            lr_gamma=t.lr_gamma, eval_before_train=t.eval_before_train,
+            checkpointer=checkpointer,
+            checkpoint_every=t.checkpoint_every_epochs, unroll=t.unroll,
+            metrics=metrics, device=device)
+        if checkpointer is not None and t.resume:
+            checkpointer.restore_latest(runner)
+        with trace(t.profile_dir):
+            runner.train(t.epochs, t.log_interval)
+    finally:
+        if metrics is not None:
+            metrics.close()
     return runner
 
 

@@ -7,8 +7,8 @@ train.py:74-75.
 Cut down from ``sessionrec_tpu/utils/config.py`` (the port imports
 nothing of the JAX package) to the fields the PyTorch trainer reads, so
 ``preset`` raises ``KeyError`` on an option the port does not implement
-(the bf16 table, checkpoints, parallelism, the other models' knobs)
-instead of ignoring it.  A later slice adds a field with the code that
+(the bf16 table, parallelism, the other models' knobs) instead of
+ignoring it.  A later slice adds a field with the code that
 reads it.
 """
 
@@ -67,6 +67,13 @@ class TrainConfig:
     # optimizer steps per dispatch: on CUDA one captured CUDA graph replays
     # this many steps (train/runner.py); the CPU runs them one by one
     unroll: int = 8
+    # checkpoint/resume (utils/checkpoint.py; absent in the reference)
+    checkpoint_dir: str | None = None
+    checkpoint_every_epochs: int = 1
+    resume: bool = False
+    # observability (absent in the reference, SURVEY.md §5)
+    metrics_file: str | None = None   # JSONL sink (utils/metrics.py)
+    profile_dir: str | None = None    # torch.profiler trace dir
 
 
 @dataclass

@@ -1,4 +1,10 @@
-"""Where the time of a training step goes, on the card.
+"""Profiling hooks, and where the time of a training step goes on the card.
+
+The hooks are the counterparts of ``sessionrec_tpu/utils/profiling.py``
+(the reference has none, SURVEY.md §5): ``trace(log_dir)`` records a
+``torch.profiler`` trace of a block (the CLI's ``--profile-dir``),
+``annotate(name)`` names a range in it, and ``StepTimer`` records host
+wall times.  Run as a module, this file is the step-breakdown tool:
 
     python -m sessionrec_tpu_torch.utils.profiling [--steps 24] [--warmup 16]
         [--order 3 --extra --fusion] [--unroll 8]
@@ -34,6 +40,7 @@ is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import tempfile
 import time
@@ -41,7 +48,58 @@ from pathlib import Path
 
 import torch
 
+from sessionrec_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
 REPO = Path(__file__).resolve().parents[2]
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """Record a ``torch.profiler`` trace of everything inside the block
+    (the host, and the card where there is one) and write it to
+    ``log_dir`` as a Chrome trace (TensorBoard / Perfetto).  No-op when
+    ``log_dir`` is falsy."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    log.info("profiling to %s", log_dir)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield
+    log.info("wrote profiler trace to %s", log_dir)
+
+
+def annotate(name: str):
+    """Named range in the profiler trace."""
+    return torch.profiler.record_function(name)
+
+
+class StepTimer:
+    """Cheap wall-clock step timer; records (name, dt) pairs."""
+
+    def __init__(self):
+        self.records = []
+
+    @contextlib.contextmanager
+    def time(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        self.records.append((name, time.perf_counter() - t0))
+
+    def summary(self):
+        out = {}
+        for name, dt in self.records:
+            tot, n = out.get(name, (0.0, 0))
+            out[name] = (tot + dt, n + 1)
+        return {k: {"total_s": t, "count": n, "mean_s": t / n}
+                for k, (t, n) in out.items()}
 
 
 def setup_runner(dataset_dir, seed, order=1, extra=False, fusion=False,
@@ -56,8 +114,7 @@ def setup_runner(dataset_dir, seed, order=1, extra=False, fusion=False,
                  embedding_dim=256, num_layers=1, feat_drop=0.1,
                  batch_size=512, split_len=(4, 8),
                  dataset_dir=str(dataset_dir), seed=seed)
-    train, test, num_items, _ = make_loaders(cfg.data, "msgifsr", order,
-                                             device="cuda")
+    train, test, num_items, _ = make_loaders(cfg.data, "msgifsr", order)
     model = build_model(cfg.model, num_items)
     runner = TrainRunner(model, train, test, seed=seed, device="cuda",
                          eval_before_train=False, unroll=unroll)

@@ -8,7 +8,11 @@ Ranks must be equal on every row whose label score is more than 1e-5
 from every other item's score (the JAX scores: the order-1 head's masked
 logits, the paper head's log-probabilities); closer rows could swap
 places under float32 rounding, so they are counted and left out.  MRR@20
-and HR@20 over all batches must agree to 1e-6.
+and HR@20 over all batches must agree to 1e-6, for the port's per-batch
+``evaluate`` against ``make_eval_step``, and for the runner's sweep
+against the JAX package's unrolled eval (``make_unrolled_eval_step`` and
+``evaluate``, runner.py:449-516) in chunks of 5 batches with a shorter
+tail, which the JAX package pads with all-invalid batches.
 """
 
 import functools
@@ -17,13 +21,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sessionrec_tpu.data.loader import BatchLoader as JLoader
 from sessionrec_tpu.models.layers import l2norm as jl2norm
 from sessionrec_tpu.ops import scoring as jscoring
 from sessionrec_tpu.train.runner import _eval_ranks, make_eval_step
+from sessionrec_tpu.train.runner import evaluate as jevaluate
+from sessionrec_tpu.train.runner import make_unrolled_eval_step
+from sessionrec_tpu_torch.convert import params_from_jax
 from sessionrec_tpu_torch.data.loader import BatchLoader as TLoader
-from sessionrec_tpu_torch.train.runner import eval_ranks, evaluate
+from sessionrec_tpu_torch.train.runner import (TrainRunner, eval_ranks,
+                                               evaluate)
 from test_torch_model import NUM_ITEMS, PAPER, make_pair
 
 CUTOFF = 20
@@ -122,3 +131,22 @@ def test_eval_metrics_match_jax(head, split_len):
     assert n > 100
     np.testing.assert_allclose(mrr_t, mrr / n, rtol=0, atol=METRIC_ATOL)
     np.testing.assert_allclose(hit_t, hit / n, rtol=0, atol=METRIC_ATOL)
+
+
+UNROLL = 5
+
+
+@pytest.mark.parametrize("head,split_len", CASES)
+def test_runner_sweep_matches_jax_unrolled_eval(head, split_len):
+    jm, jp, tm, jbs, tbs = _case(head, split_len)
+    assert len(jbs) % UNROLL                 # a tail shorter than UNROLL
+    want = jevaluate(make_unrolled_eval_step(jm, CUTOFF), jp, {}, jbs,
+                     unroll=UNROLL)
+    start = params_from_jax(jax.device_get(jp))
+    runner = TrainRunner(tm, [None], tbs, cutoff=CUTOFF, unroll=UNROLL,
+                         device="cpu")
+    tm.load_state_dict(start)        # the runner drew its own init
+    sums = runner.eval_sweep()
+    assert sums.dtype == torch.float64 and float(sums[2]) > 100
+    np.testing.assert_allclose(runner.evaluate(), want, rtol=0,
+                               atol=METRIC_ATOL)

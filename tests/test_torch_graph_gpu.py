@@ -4,20 +4,28 @@ dropout counter), 8 steps through the captured 8-step graph and the same
 8 batches through the plain ``train_step`` give the same losses (rtol
 1e-4) and parameters (atol 1e-5), the bars of tests/test_torch_train.py;
 so does a tail chunk shorter than ``unroll`` through the one-step graph.
-The graphs replay the kernels, which have no interpret mode, so without a
-card every test here skips.  No JAX is imported:
+The eval graphs give the eager sweep's (hit, mrr, n) sums, a tail
+shorter than ``unroll`` included; a run resumed from a checkpoint on the
+card matches the uninterrupted one within the same bars; and the
+recommend step's graph gives the CPU's top-k.  The graphs replay the
+kernels, which have no interpret mode, so without a card every test here
+skips.  No JAX is imported:
 
     python -m pytest --noconftest tests/test_torch_graph_gpu.py -m gpu
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
+from sessionrec_tpu_torch import serving
 from sessionrec_tpu_torch.data.loader import BatchLoader
 from sessionrec_tpu_torch.models import MSGIFSR
-from sessionrec_tpu_torch.train.runner import TrainRunner
+from sessionrec_tpu_torch.train.runner import TrainRunner, eager_sums
+from sessionrec_tpu_torch.utils.checkpoint import Checkpointer
 
 pytestmark = pytest.mark.gpu
 
@@ -33,16 +41,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def _runner(cuda, kw, unroll):
-    rng = np.random.default_rng(0)
-    sess = [list(map(int, rng.integers(0, 300, size=int(rng.integers(2, 16)))))
-            for _ in range(300)]
-    loader = BatchLoader(sess, "ccs", 64, 15, split_len=(4, 8),
+def _sessions(seed, n):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(0, 300, size=int(rng.integers(2, 16)))))
+            for _ in range(n)]
+
+
+def _fresh_runner(cuda, kw, unroll, ckpt=None, test=()):
+    loader = BatchLoader(_sessions(0, 300), "ccs", 64, 15, split_len=(4, 8),
                          order=kw["order"])
     model = MSGIFSR(300, 64, 1, feat_drop=0.1, **kw)
-    runner = TrainRunner(model, loader, [], seed=3, unroll=unroll,
-                         lr_step_size=1, device=cuda,
-                         eval_before_train=False)
+    return TrainRunner(model, loader, test, seed=3, unroll=unroll,
+                       lr_step_size=1, device=cuda, eval_before_train=False,
+                       checkpointer=Checkpointer(ckpt) if ckpt else None)
+
+
+def _runner(cuda, kw, unroll):
+    runner = _fresh_runner(cuda, kw, unroll)
+    loader = runner.train_loader
     batches = cs.first_batches(loader, 2 * unroll)
     runner.run_chunk(batches[:unroll])          # eager: Adam's state exists
     return runner, batches[unroll:]
@@ -75,3 +91,67 @@ def test_tail_chunk_runs_its_real_steps_only(cuda, path):
     assert set(runner.graphs) == {1} and runner.graphs[1].replays == 3
     assert int(runner.sched.count) == int(runner.seeds.count) == count + 3
     assert runner.steps == 4 + 3 + 3
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_eval_graph_matches_the_eager_sweep(cuda, path):
+    """Two sweeps of 11 test batches under unroll 4: the first runs its
+    first chunk eagerly and captures the 4-batch and the 1-batch graphs,
+    the second only replays; both give the eager sums."""
+    kw = PATHS[path]
+    test = BatchLoader(_sessions(1, 90), "ccs", 64, 15, split_len=(4, 8),
+                       order=kw["order"])
+    runner = _fresh_runner(cuda, kw, 4, test=test)
+    batches = list(test)
+    assert len(batches) % 4
+    want = eager_sums(runner.model, batches, 20, cuda)
+    for _ in range(2):
+        torch.testing.assert_close(runner.eval_sweep(), want, rtol=0,
+                                   atol=1e-6)
+    assert set(runner.eval_graphs) == {4, 1}
+    assert runner.eval_graphs[4].replays == 2 * (len(batches) // 4) - 1
+    assert runner.eval_graphs[1].replays == 2 * (len(batches) % 4)
+    assert not any(runner.eval_graphs[4].captured.values())
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_resume_on_the_card_matches_the_uninterrupted_run(cuda, path,
+                                                         tmp_path):
+    kw = PATHS[path]
+    full = _fresh_runner(cuda, kw, 8, tmp_path / "full")
+    full.train(2, log_interval=10 ** 9)
+    _fresh_runner(cuda, kw, 8, tmp_path / "ab").train(1,
+                                                      log_interval=10 ** 9)
+    b = _fresh_runner(cuda, kw, 8, tmp_path / "ab")
+    assert b.checkpointer.restore_latest(b)
+    assert b.opt.state[b.params[0]]["step"].device.type == "cuda"
+    b.train(2, log_interval=10 ** 9)
+    half = len(full.losses) // 2
+    torch.testing.assert_close(torch.tensor(b.losses),
+                               torch.tensor(full.losses[half:]),
+                               rtol=1e-4, atol=0)
+    mine = dict(b.model.named_parameters())
+    gaps = {n: cs.max_err(mine[n].detach(), p.detach()) for n, p in
+            full.model.named_parameters()}
+    assert max(gaps.values()) <= 1e-5, gaps
+    assert b.bad_counter == full.bad_counter and b.steps == full.steps
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_recommend_step_matches_the_cpu(cuda, path):
+    kw = PATHS[path]
+    model = MSGIFSR(300, 64, 1, **kw)
+    model.reset_parameters(torch.Generator().manual_seed(5))
+    cpu_model = copy.deepcopy(model)
+    model.to(cuda)
+    sess = _sessions(2, 70)
+    opts = dict(max_len=15, batch_size=16, order=kw["order"])
+    got = list(serving.recommend(model, sess, k=10, **opts))
+    want = list(serving.recommend(cpu_model, sess, k=11, **opts))
+    cmp = cs.compare_recommendations(np, got, want)
+    assert cmp["ok"], cmp
+    step = serving.make_recommend_step(model, 10)
+    for batch, _ in serving.session_batches(sess, "ccs", 16, 15,
+                                            kw["order"]):
+        step(batch)
+    assert step.graph is not None and step.graph.replays == 4

@@ -116,8 +116,8 @@ def test_cuda_device_is_not_silently_replaced():
 
 @pytest.mark.parametrize("option", [
     dict(table_dtype="bfloat16"), dict(compute_dtype="bfloat16"),
-    dict(data_parallel=4), dict(checkpoint_dir="ckpt"),
-    dict(metrics_file="metrics.jsonl")])
+    dict(data_parallel=4), dict(model_parallel=2),
+    dict(readout_on_embedding=False)])
 def test_preset_refuses_options_the_port_does_not_run(option):
     from sessionrec_tpu_torch.utils.config import preset
     with pytest.raises(KeyError, match="unknown config field"):
