@@ -11,9 +11,11 @@ Phases, one JSON line each on stdout:
    PyTorch versions on the card at B=512, D=256, catalogs of 3,429 and
    37,484 items, float32 and bfloat16, with the table normalised and not,
    including a masked row, a zero-norm and a large-norm table row, plus
-   one ragged case of B=509 rows on the unpadded 37,484-row catalog; K2
-   runs twice on every case and must give the same bits both times; then
-   K3 (xent_multi_fwd) and K4 (xent_multi_bwd) at K=3 orders of those
+   one ragged case of B=509 rows on the unpadded 37,484-row catalog, and
+   the SRGNN/NISER and LESSR paths' shapes (B=128, D=64 and B=512, D=32)
+   on both catalogs, padded and not, float32, normalised and not; K2 runs
+   twice on every case and must give the same bits both times; then K3
+   (xent_multi_fwd) and K4 (xent_multi_bwd) at K=3 orders of the D=256
    rows, with session item lists of up to 19 ids (-1 padded), a row with
    none, labels inside and outside the session, and the cotangents of the
    paper head's loss, plus the ragged batch on the unpadded north-star
@@ -25,7 +27,9 @@ Phases, one JSON line each on stdout:
    (``k1_launch``), K2's (``k2_launch``) and K3's and K4's
    (``multi_launch``) at each timed shape: blocks, splits, resident
    blocks per SM, the product kernels' registers and local memory, and
-   each kernel's device time under ``torch.profiler``.
+   each kernel's device time under ``torch.profiler``; K1 and K2 also at
+   each family path's rows, width, normalisation and scale on the path
+   catalog.
 4. path    — train MSGIFSR order 1 at d=256, 1 layer, batch 512, tiers
    (4, 8), feat_drop 0.1 on datasets/sample through ``run_training`` at
    the defaults (the native batch builder, ``unroll`` 8), with a
@@ -45,7 +49,8 @@ Phases, one JSON line each on stdout:
    (``launch_count_method`` says which held; the second where the trace
    sees no kernels inside replays).  The loss must be finite and fall,
    HR@20 and MRR@20 finite, and one batch's loss and gradients must
-   agree with the plain-PyTorch path on the CPU from the same parameters.
+   agree with the plain-PyTorch path on the CPU from the same parameters
+   (``path_vs_cpu``).
    Then ``o1_serve``: ``train.pt`` is deleted and the parameters alone
    restore into a fresh model, bit for bit; ``recommend`` over the test
    split's full sessions at batch 512 and k 20 gives the CPU's ids at
@@ -64,11 +69,20 @@ Phases, one JSON line each on stdout:
 5. paper   — the same for the WSDM'22 paper head (order 3, REnorm,
    fusion) at the same widths: K3 and K4 launch once per step, K1 and K2
    never; ``paper_serve``, ``paper_eval``.
-6. o1_resume — order 1: 2 epochs of 16 batches uninterrupted, against 1
-   epoch and then a fresh runner that resumes from its checkpoint for
-   the second: losses to rtol 1e-4, parameters to atol 1e-5, max_mrr /
-   max_hit to 1e-5, bad_counter equal; ``bit_identical`` says whether
-   every loss and state tensor came out equal.
+6. srgnn, niser, lessr — the same for SRGNN (d=64, 2 layers, batch 128,
+   feat_drop 0.5, shuffled), NISER+ (the same, normalised, scale 12) and
+   LESSR (d=32, 3 layers EOPA/SGAT/EOPA, batch 512, feat_drop 0.2,
+   BatchNorm), each at its preset with tiers (4, 8): K1 and K2 once per
+   step, K3 and K4 never; ``*_vs_cpu`` holds LESSR's BatchNorm buffers
+   after the forward too (1e-5 of their scale), and serving, eval and
+   ``*_graph_vs_plain`` restore and compare the buffers with the
+   parameters.
+7. o1_resume, lessr_resume — 2 epochs of 16 batches uninterrupted,
+   against 1 epoch and then a fresh runner that resumes from its
+   checkpoint for the second: losses to rtol 1e-4, parameters and
+   buffers to atol 1e-5, max_mrr / max_hit to 1e-5, bad_counter equal;
+   ``bit_identical`` says whether every loss and state tensor came out
+   equal.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before the last line.  Without a CUDA
@@ -95,6 +109,11 @@ K = 3                         # orders of the paper head
 NS = 19                       # longest session item list on datasets/sample
 CATALOGS = (3429, 37484)      # datasets/sample; yoochoose-1/4 (bench.py:47)
 RAGGED_B = 509                # rows of the ragged K1-K4 checks
+# K1/K2 on the SRGNN, NISER and LESSR paths (their presets): rows, width,
+# table normalised, logit scale
+FAMILY_XENT = {"srgnn": (128, 64, False, 1.0), "niser": (128, 64, True, 12.0),
+               "lessr": (512, 32, False, 1.0)}
+FAMILY_SHAPES = {k: v[:2] for k, v in FAMILY_XENT.items()}
 PATH_ITEMS = 3429
 ZERO_ROW = 5                  # the table row set to zero in the checks
 LARGE_ROW = 7                 # the table row of norm ~50 in the checks
@@ -122,7 +141,9 @@ EVENT_KEYS = {"train": ["ts", "kind", "step", "epoch", "loss",
                         "examples_per_s"],
               "eval": ["ts", "kind", "step", "epoch", "mrr", "hit",
                        "examples_per_s"]}
-SHORT = {"path": "o1", "paper": "paper"}   # phase-name prefix of each path
+# phase-name prefix of each path
+SHORT = {"path": "o1", "paper": "paper", "srgnn": "srgnn", "niser": "niser",
+         "lessr": "lessr"}
 TOPK = 20                                  # serving's k
 SCORE_TIE = 1e-5     # adjacent CPU scores closer than this may swap ids
 SCORE_ATOL = 1e-4    # card against CPU serving scores
@@ -165,14 +186,14 @@ def phase_device(torch):
 # phase 3: kernels against their plain versions, and timings
 # ---------------------------------------------------------------------------
 
-def make_inputs(torch, n_items, P, dtype, seed, dev="cuda", rows=B):
-    """``rows`` sr rows unit-norm (as the model emits them), table rows
-    inside the max-norm ball except one zero row and one of norm ~50; row
-    3 is a masked row (g = 0, label -1)."""
+def make_inputs(torch, n_items, P, dtype, seed, dev="cuda", rows=B, dim=D):
+    """``rows`` sr rows of width ``dim``, unit-norm (as the model emits
+    them), table rows inside the max-norm ball except one zero row and one
+    of norm ~50; row 3 is a masked row (g = 0, label -1)."""
     gen = torch.Generator().manual_seed(seed)
-    sr = torch.randn(rows, D, generator=gen)
+    sr = torch.randn(rows, dim, generator=gen)
     sr = sr / sr.norm(dim=1, keepdim=True)
-    tab = (torch.rand(P, D, generator=gen) * 2 - 1) / math.sqrt(D)
+    tab = (torch.rand(P, dim, generator=gen) * 2 - 1) / math.sqrt(dim)
     tab[ZERO_ROW] = 0.0
     tab[LARGE_ROW] *= 50.0
     labels = torch.randint(0, n_items, (rows,), generator=gen,
@@ -244,20 +265,29 @@ def check_cases(torch):
 
 
 def xent_check_cases(torch):
-    """(items, table rows, type, normalised, batch rows) of the K1-K4
-    checks: ``check_cases`` at B rows, and a ragged batch on the unpadded
-    north-star catalog, whose row and catalog edges fall inside tiles."""
-    return ([case + (B,) for case in check_cases(torch)]
-            + [(CATALOGS[1], CATALOGS[1], torch.float32, True, RAGGED_B)])
+    """(items, table rows, type, normalised, batch rows, width) of the
+    K1-K4 checks: ``check_cases`` at B rows of width D, a ragged batch on
+    the unpadded north-star catalog, whose row and catalog edges fall
+    inside tiles, and K1/K2's shapes on the SRGNN/NISER and LESSR paths
+    (``FAMILY_SHAPES``) on both catalogs, padded and not, float32, the
+    table normalised and not; K3/K4 take only the width-D cases."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    return ([case + (B, D) for case in check_cases(torch)]
+            + [(CATALOGS[1], CATALOGS[1], torch.float32, True, RAGGED_B, D)]
+            + [(n_items, P, torch.float32, norm, rows, dim)
+               for rows, dim in sorted(set(FAMILY_SHAPES.values()))
+               for n_items in CATALOGS
+               for P in (pad_catalog(n_items), n_items)
+               for norm in (True, False)])
 
 
 def phase_kernel_checks(torch, xent, seed):
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
     worst = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    for i, (n_items, P, dtype, norm, rows) in enumerate(
+    for i, (n_items, P, dtype, norm, rows, dim) in enumerate(
             xent_check_cases(torch)):
         sr, tab, labels, g = make_inputs(torch, n_items, P, dtype, seed + i,
-                                         rows=rows)
+                                         rows=rows, dim=dim)
         kw = dict(scale=SCALE, normalize_table=norm)
         loss_k, lse_k = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
         m, s, zl = xent._fwd_plain(sr, tab, labels, n_items, 0, **kw)
@@ -280,7 +310,7 @@ def phase_kernel_checks(torch, xent, seed):
         dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol)
         same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
         row = {"phase": "kernel_check", "items": n_items, "P": P,
-               "B": rows, "dtype": dname, "normalize_table": norm,
+               "B": rows, "D": dim, "dtype": dname, "normalize_table": norm,
                "fwd_max_abs_err": e_fwd, "dsr_max_abs_err": e_dsr,
                "fwd_tol": fwd_tol,
                "dsr_tol": dsr_tol, "dtable_err_tol": dtab,
@@ -293,7 +323,7 @@ def phase_kernel_checks(torch, xent, seed):
         emit(row)
         check(row["ok"], f"kernel disagrees with its plain version: {row}")
         if (P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm
-                and rows == B):
+                and rows == B and dim == D):
             worst["xent_fwd"] = e_fwd
             worst["xent_bwd"] = max(
                 [e_dsr] + [e for name, (e, _) in dtab.items()
@@ -366,8 +396,10 @@ def phase_multi_checks(torch, xm, seed):
     case (padded path catalog, float32, normalised)."""
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
     worst = {}
-    for i, (n_items, P, dtype, norm, rows) in enumerate(
+    for i, (n_items, P, dtype, norm, rows, dim) in enumerate(
             xent_check_cases(torch)):
+        if dim != D:
+            continue
         sr3, tab, labels, iids, cot, lse = make_multi_inputs(
             torch, xm, n_items, P, dtype, seed + i, norm, rows=rows)
         kw = dict(scale=SCALE, normalize_table=norm)
@@ -465,87 +497,103 @@ def bounds(n_bytes, n_ops, dname):
             else "operations")
 
 
+def xent_times(torch, xent, n_items, P, dtype, seed, smi, rows=B, dim=D,
+               norm=True, scale=SCALE):
+    """K1's and K2's times, their plain versions', their bounds and the
+    library's, at ``rows`` rows of width ``dim`` against a ``P``-row table;
+    emits the ``kernel_time``, ``k1_launch`` and ``k2_launch`` lines and
+    returns {kernel: times}."""
+    import torch.nn.functional as F
+    dname = str(dtype).split(".")[-1]
+    sr, tab, labels, g = make_inputs(torch, n_items, P, dtype, seed,
+                                     rows=rows, dim=dim)
+    kw = dict(scale=scale, normalize_table=norm)
+    iters = 50 if P < 10000 else 10
+    _, lse = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
+
+    def plain_fwd():
+        m, s, zl = xent._fwd_plain(sr, tab, labels, n_items, 0, **kw)
+        return xent._finish_lse(m, s) - zl
+
+    lbl = labels.clamp(min=0).long()
+    imask = torch.arange(P, device="cuda") < n_items
+    # in the operands' own type: a bfloat16 product accumulates in float32
+    # inside cuBLAS, as the kernels do
+    srl = sr.detach().clone().requires_grad_(True)
+    tabl = tab.detach().clone().requires_grad_(True)
+
+    def lib_fwd():
+        t = F.normalize(tabl, dim=1) if norm else tabl
+        z = torch.where(imask, scale * srl @ t.T, -1e30)
+        return F.cross_entropy(z, lbl, reduction="none")
+
+    lib_loss = lib_fwd()
+    g_lib = g.to(lib_loss.dtype)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_loss, (srl, tabl), g_lib,
+                                   retain_graph=True)
+
+    ops_f = 2 * rows * P * dim + 2 * P * dim
+    esz = sr.element_size()
+    bytes_f = (rows * dim + P * dim) * esz + rows * 4 + 2 * rows * 4
+    ops_b = 3 * 2 * rows * P * dim + 2 * P * dim
+    bytes_b = ((rows * dim + 2 * P * dim) * esz + 3 * rows * 4
+               + rows * dim * 4)
+    bf, byf = bounds(bytes_f, ops_f, dname)
+    bb, byb = bounds(bytes_b, ops_b, dname)
+
+    def k1():
+        return xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
+
+    def k2():
+        return xent._bwd_cuda(g, sr, tab, labels, lse, n_items, 0, **kw)
+
+    res = {
+        "xent_fwd": {
+            "ms": time_ms(torch, k1, iters),
+            "plain_ms": time_ms(torch, plain_fwd, iters),
+            "library_ms": time_ms(torch, lib_fwd, iters),
+            "library_kernel_ms": library_kernel_ms(torch, lib_fwd, iters),
+            "bound_ms": bf, "bound_by": byf},
+        "xent_bwd": {
+            "ms": time_ms(torch, k2, iters),
+            "plain_ms": time_ms(torch, lambda: xent._bwd_plain(
+                g, sr, tab, labels, lse, n_items, 0, **kw), iters),
+            "library_ms": time_ms(torch, lib_bwd, iters),
+            "library_kernel_ms": library_kernel_ms(torch, lib_bwd, iters),
+            "bound_ms": bb, "bound_by": byb},
+    }
+    dims = dict(P=P, B=rows, D=dim, dtype=dname)
+    for name, r in res.items():
+        emit({"phase": "kernel_time", "kernel": name, "items": n_items,
+              **dims, "normalize_table": norm, "scale": scale, **r,
+              "card": smi})
+    emit_launch(torch, "k1_launch", xent.fwd_launch_shape(sr, P), k1,
+                iters, smi, **dims)
+    emit_launch(torch, "k2_launch", xent.bwd_launch_shape(sr, P), k2,
+                iters, smi, **dims)
+    return res
+
+
 def phase_kernel_times(torch, xent, seed, smi):
     """Times at B=512, D=256, normalised table, both catalogs and types."""
-    import torch.nn.functional as F
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
-    rows = {}
-    for n_items in CATALOGS:
-        P = pad_catalog(n_items)
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            sr, tab, labels, g = make_inputs(torch, n_items, P, dtype, seed)
-            kw = dict(scale=SCALE, normalize_table=True)
-            iters = 50 if P < 10000 else 10
-            _, lse = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
+    return {(n_items, str(dtype).split(".")[-1]): xent_times(
+                torch, xent, n_items, pad_catalog(n_items), dtype, seed, smi)
+            for n_items in CATALOGS
+            for dtype in (torch.float32, torch.bfloat16)}
 
-            def plain_fwd():
-                m, s, zl = xent._fwd_plain(sr, tab, labels, n_items, 0, **kw)
-                return xent._finish_lse(m, s) - zl
 
-            lbl = labels.clamp(min=0).long()
-            imask = torch.arange(P, device="cuda") < n_items
-            # in the operands' own type: a bfloat16 product accumulates in
-            # float32 inside cuBLAS, as the kernels do
-            srl = sr.detach().clone().requires_grad_(True)
-            tabl = tab.detach().clone().requires_grad_(True)
-
-            def lib_fwd():
-                z = SCALE * srl @ F.normalize(tabl, dim=1).T
-                z = torch.where(imask, z, -1e30)
-                return F.cross_entropy(z, lbl, reduction="none")
-
-            lib_loss = lib_fwd()
-
-            g_lib = g.to(lib_loss.dtype)
-
-            def lib_bwd():
-                return torch.autograd.grad(lib_loss, (srl, tabl), g_lib,
-                                           retain_graph=True)
-
-            ops_f = 2 * B * P * D + 2 * P * D
-            esz = sr.element_size()
-            bytes_f = (B * D + P * D) * esz + B * 4 + 2 * B * 4
-            ops_b = 3 * 2 * B * P * D + 2 * P * D
-            bytes_b = (B * D + 2 * P * D) * esz + 3 * B * 4 + B * D * 4
-            bf, byf = bounds(bytes_f, ops_f, dname)
-            bb, byb = bounds(bytes_b, ops_b, dname)
-
-            def k1():
-                return xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
-
-            def k2():
-                return xent._bwd_cuda(g, sr, tab, labels, lse, n_items, 0,
-                                      **kw)
-
-            res = {
-                "xent_fwd": {
-                    "ms": time_ms(torch, k1, iters),
-                    "plain_ms": time_ms(torch, plain_fwd, iters),
-                    "library_ms": time_ms(torch, lib_fwd, iters),
-                    "library_kernel_ms": library_kernel_ms(torch, lib_fwd,
-                                                           iters),
-                    "bound_ms": bf, "bound_by": byf},
-                "xent_bwd": {
-                    "ms": time_ms(torch, k2, iters),
-                    "plain_ms": time_ms(torch, lambda: xent._bwd_plain(
-                        g, sr, tab, labels, lse, n_items, 0, **kw), iters),
-                    "library_ms": time_ms(torch, lib_bwd, iters),
-                    "library_kernel_ms": library_kernel_ms(torch, lib_bwd,
-                                                           iters),
-                    "bound_ms": bb, "bound_by": byb},
-            }
-            for name, r in res.items():
-                emit({"phase": "kernel_time", "kernel": name,
-                      "items": n_items, "P": P, "B": B, "D": D,
-                      "dtype": dname, "normalize_table": True, **r,
-                      "card": smi})
-            emit_launch(torch, "k1_launch", xent.fwd_launch_shape(sr, P), k1,
-                        iters, smi, P=P, B=B, D=D, dtype=dname)
-            emit_launch(torch, "k2_launch", xent.bwd_launch_shape(sr, P), k2,
-                        iters, smi, P=P, B=B, D=D, dtype=dname)
-            rows[(n_items, dname)] = res
-    return rows
+def phase_family_times(torch, xent, seed, smi):
+    """K1's and K2's times at each family path's rows, width, table
+    normalisation and scale (``FAMILY_XENT``), float32, on the path's
+    padded catalog."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    return {name: xent_times(torch, xent, PATH_ITEMS, pad_catalog(PATH_ITEMS),
+                             torch.float32, seed, smi, rows=rows, dim=dim,
+                             norm=norm, scale=scale)
+            for name, (rows, dim, norm, scale) in FAMILY_XENT.items()}
 
 
 def phase_multi_times(torch, xm, seed, smi):
@@ -637,17 +685,30 @@ def phase_multi_times(torch, xm, seed, smi):
 # phases 4 and 5: the paths
 # ---------------------------------------------------------------------------
 
-# the two paths: the model options, the kernels that must launch once per
-# step (the others never), and the parameters whose gradients are held
-# against the CPU
+# the paths: the model's preset and options, the kernels that must launch
+# once per step (the others never), and the parameters whose gradients are
+# held against the CPU (SRGNN's and NISER's GNN layers reach nothing under
+# the reference's readout-on-embedding quirk, so theirs are 0 on both)
+K12 = ("xent_fwd", "xent_bwd")
 PATHS = {
-    "path": dict(model=dict(order=1), kernels=("xent_fwd", "xent_bwd"),
+    "path": dict(preset="msgifsr", model=dict(order=1), kernels=K12,
                  grads=("embedding", "fc_sr.0.weight",
                         "layers.0.conv1.intra1.fc")),
-    "paper": dict(model=dict(order=3, extra=True, fusion=True),
+    "paper": dict(preset="msgifsr",
+                  model=dict(order=3, extra=True, fusion=True),
                   kernels=("xent_multi_fwd", "xent_multi_bwd"),
                   grads=("embedding", "alpha", "sc_sr.0.l1.weight",
                          "expander.grus.0.w_ih")),
+    "srgnn": dict(preset="srgnn", model={}, kernels=K12,
+                  grads=("embedding", "fc_sr.weight", "readout.fc_u.weight",
+                         "readout.fc_v.bias", "layers.0.gru.w_ih")),
+    "niser": dict(preset="niser", model={}, kernels=K12,
+                  grads=("embedding", "fc_sr.weight", "readout.fc_u.weight",
+                         "readout.fc_v.bias", "layers.0.gru.w_ih")),
+    "lessr": dict(preset="lessr", model={}, kernels=K12,
+                  grads=("embedding", "fc_sr.weight", "bn.scale",
+                         "layers.0.gru.w_ih", "layers.1.fc_q.weight",
+                         "layers.2.fc_neigh.weight", "readout.fc_out.weight")),
 }
 
 # the kernel by which a trace counts each wrapper's launches: its main
@@ -714,16 +775,18 @@ def first_batches(loader, n):
         it.close()
 
 
-def path_config(name, seed, dataset_dir, dev="cuda", dim=256, **train):
-    """The path's configuration at the reference's widths (d=256, 1
-    layer, batch 512, tiers (4, 8), feat_drop 0.1) on ``dataset_dir``;
-    ``train`` sets TrainConfig fields (epochs 1 unless given)."""
-    from sessionrec_tpu_torch.utils.config import preset
-    train = dict(dict(epochs=1, log_interval=10), **train)
-    return preset("msgifsr", embedding_dim=dim, num_layers=1,
-                  feat_drop=0.1, batch_size=512, split_len=(4, 8),
-                  dataset_dir=str(dataset_dir), seed=seed, device=dev,
-                  **PATHS[name]["model"], **train)
+def path_config(name, seed, dataset_dir, dev="cuda", dim=None, **train):
+    """The path's configuration on ``dataset_dir``: MSGIFSR at the
+    reference's widths (d=256, 1 layer, batch 512, feat_drop 0.1), the
+    other models at their presets, tiers (4, 8) (``utils/profiling.py:
+    run_config``); ``dim`` another width; ``train`` sets TrainConfig
+    fields (epochs 1 unless given)."""
+    from sessionrec_tpu_torch.utils.profiling import run_config
+    spec = PATHS[name]
+    kw = dict(dict(epochs=1, log_interval=10), **spec["model"], **train)
+    if dim is not None:
+        kw["embedding_dim"] = dim
+    return run_config(spec["preset"], seed, dataset_dir, device=dev, **kw)
 
 
 def check_run_files(ckpt_dir, metrics_file):
@@ -745,7 +808,7 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
     """The path's run (see the module docstring), with a checkpoint
     directory and a metrics file under ``tmp``; returns (wrapper launches,
     device launches, the runner, its config, the parameters it saved)."""
-    from sessionrec_tpu_torch.train.runner import launch_counts, make_loss
+    from sessionrec_tpu_torch.train.runner import launch_counts
     from sessionrec_tpu_torch.train.session import run_training
 
     spec = PATHS[name]
@@ -760,9 +823,9 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
     mrr, hit = runner.max_mrr, runner.max_hit
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    # the parameters the run saved, before the traced chunk trains on
-    saved = {n: p.detach().clone()
-             for n, p in runner.model.named_parameters()}
+    # the parameters and buffers the run saved, before the traced chunk
+    # trains on
+    saved = {n: t.clone() for n, t in runner.model.state_dict().items()}
     launches = launch_counts()
     on_device = device_launches(launches, runner.graphs)
     graphs = {s: {"captured": g.captured, "replays": g.replays}
@@ -777,8 +840,11 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
     traced, kernel_events = trace_launches(torch,
                                            lambda: runner.run_chunk(chunk))
     method = "trace" if kernel_events else "captured_x_replays"
-    row = {"phase": name, "model": "msgifsr", **spec["model"], "dim": 256,
-           "layers": 1, "batch": 512, "tiers": [4, 8], "steps": n,
+    m = cfg.model
+    row = {"phase": name, "model": m.name, **spec["model"],
+           "dim": m.embedding_dim, "layers": m.num_layers,
+           "batch": cfg.data.batch_size, "tiers": list(cfg.data.split_len),
+           "feat_drop": m.feat_drop, "steps": n,
            "unroll": G, "native_collate": cfg.data.use_native_collate,
            "launches": launches, "device_launches": on_device,
            "graphs": graphs,
@@ -818,54 +884,76 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
           f"loss did not fall: {head} -> {tail}")
     check(math.isfinite(mrr) and math.isfinite(hit), "non-finite metrics")
 
-    # one batch through the kernels against the plain path on the CPU
-    model = runner.model
-    batch = next(iter(runner.test_loader)).to("cuda")
-    model.zero_grad(set_to_none=True)
-    loss_gpu = make_loss(model, batch, None)
-    loss_gpu.backward()
-    cpu_model = copy.deepcopy(model).to("cpu")
-    cpu_model.zero_grad(set_to_none=True)
-    loss_cpu = make_loss(cpu_model, batch.to("cpu"), None)
-    loss_cpu.backward()
-    errs = {"loss": abs(float(loss_gpu.detach()) - float(loss_cpu.detach()))}
-    ok = errs["loss"] <= 1e-4 * abs(float(loss_cpu.detach()))
-    for pname in spec["grads"]:
-        pg = dict(model.named_parameters())[pname].grad.cpu()
-        pc = dict(cpu_model.named_parameters())[pname].grad
-        errs[pname] = max_err(pg, pc)
-        ok = ok and errs[pname] <= 1e-3 * float(pc.abs().max())
+    errs, ok = vs_cpu(torch, runner.model,
+                      next(iter(runner.test_loader)).to("cuda"),
+                      spec["grads"])
     emit({"phase": f"{name}_vs_cpu", "max_abs_err": errs, "ok": ok})
     check(ok, f"GPU {name} disagrees with the CPU plain path: {errs}")
     return {k: launches[k] for k in spec["kernels"]}, \
         {k: on_device[k] for k in spec["kernels"]}, runner, cfg, saved
 
 
+def grad_or_zeros(torch, p):
+    """``p``'s gradient, zeros where the loss did not reach it."""
+    return p.grad if p.grad is not None else torch.zeros_like(p)
+
+
+def vs_cpu(torch, model, batch, grads):
+    """({what: max abs err}, ok): one training forward and backward of
+    ``batch`` through the kernels against the plain path on the CPU, from
+    a copy taken before it: the loss to rtol 1e-4, each parameter of
+    ``grads``' gradient to 1e-3 of its largest magnitude, and each buffer
+    (LESSR's running BatchNorm statistics, which the forward updates) to
+    1e-5 of max(1, its largest magnitude)."""
+    from sessionrec_tpu_torch.train.runner import make_loss
+    cpu_model = copy.deepcopy(model).to("cpu")
+    for m in (model, cpu_model):
+        m.zero_grad(set_to_none=True)
+    loss_gpu = make_loss(model, batch, None)
+    loss_gpu.backward()
+    loss_cpu = make_loss(cpu_model, batch.to("cpu"), None)
+    loss_cpu.backward()
+    errs = {"loss": abs(float(loss_gpu.detach()) - float(loss_cpu.detach()))}
+    ok = errs["loss"] <= 1e-4 * abs(float(loss_cpu.detach()))
+    gpu_p, cpu_p = dict(model.named_parameters()), \
+        dict(cpu_model.named_parameters())
+    for pname in grads:
+        pc = grad_or_zeros(torch, cpu_p[pname])
+        errs[pname] = max_err(grad_or_zeros(torch, gpu_p[pname]).cpu(), pc)
+        ok = ok and errs[pname] <= 1e-3 * float(pc.abs().max())
+    cpu_b = dict(cpu_model.named_buffers())
+    for bname, t in model.named_buffers():
+        errs[bname] = max_err(t.cpu(), cpu_b[bname])
+        ok = ok and errs[bname] <= 1e-5 * max(
+            1.0, float(cpu_b[bname].abs().max()))
+    return errs, ok
+
+
 def graph_vs_plain(torch, runner, batches):
-    """(graph losses, plain losses, {parameter: max abs gap}): ``batches``
-    through the runner's captured graph and then, from the same state,
-    through the plain ``train_step``."""
+    """(graph losses, plain losses, {parameter or buffer: max abs gap}):
+    ``batches`` through the runner's captured graph and then, from the
+    same state, through the plain ``train_step``."""
     start = [t.clone() for t in runner.state_tensors()]
     got = runner.run_chunk(batches)
-    after = {n: p.detach().clone()
-             for n, p in runner.model.named_parameters()}
+    after = {n: t.clone() for n, t in runner.model.state_dict().items()}
     for t, v in zip(runner.state_tensors(), start):
         t.copy_(v)
     want = torch.stack([runner.train_step(b.to(runner.device))
                         for b in batches])
     torch.cuda.synchronize()
-    gaps = {n: max_err(after[n], p.detach()) for n, p in
-            runner.model.named_parameters()}
+    gaps = {n: max_err(after[n], t) for n, t in
+            runner.model.state_dict().items()}
     return got, want, gaps
 
 
 def phase_graph_vs_plain(torch, name, seed, dataset_dir, smi):
     """From one state, 8 steps through the graph and 8 plain steps on the
-    card: losses to rtol 1e-4, every parameter to atol 1e-5 (the bars of
-    tests/test_torch_train.py); then the graph loop's host line."""
+    card: losses to rtol 1e-4, every parameter and buffer to atol 1e-5
+    (the bars of tests/test_torch_train.py); then the graph loop's host
+    line."""
     from sessionrec_tpu_torch.utils.profiling import (host_breakdown,
                                                       setup_runner)
-    train, runner = setup_runner(dataset_dir, seed, **PATHS[name]["model"])
+    train, runner = setup_runner(path_config(name, seed, dataset_dir))
     G = runner.unroll
     batches = first_batches(train, 2 * G)
     runner.run_chunk(batches[:G])            # eager: Adam's state exists
@@ -912,8 +1000,8 @@ def compare_recommendations(np, got, want):
 
 def phase_serve(torch, name, trained, cfg, smi, dev="cuda"):
     """Serving from the path run's checkpoint: with ``train.pt`` deleted,
-    the parameters alone restore into a fresh model, bit for bit equal to
-    ``trained``, the run's parameters when it saved;
+    the parameters and buffers alone restore into a fresh model, bit for
+    bit equal to ``trained``, the run's when it saved;
     ``recommend`` over the whole test split at batch 512 and k 20 on the
     card agrees with ``recommend`` on the CPU from the same parameters;
     then one recommend step is timed over the split (synchronised host
@@ -929,8 +1017,8 @@ def phase_serve(torch, name, trained, cfg, smi, dev="cuda"):
     max_len = max(max_session_len(train), max_session_len(test))
     model = serving.restore_params(build_model(cfg.model, num_items), ckpt,
                                    dev)
-    same = all(torch.equal(p, trained[n]) for n, p in
-               model.named_parameters())
+    same = all(torch.equal(t, trained[n]) for n, t in
+               model.state_dict().items())
     order = cfg.model.order
     kw = dict(max_len=max_len, batch_size=cfg.data.batch_size, order=order)
     got = list(serving.recommend(model, test, k=TOPK, **kw))
@@ -940,8 +1028,8 @@ def phase_serve(torch, name, trained, cfg, smi, dev="cuda"):
     cmp = compare_recommendations(np, got, want)
 
     t0 = time.perf_counter()
-    batches = list(serving.session_batches(test, "ccs", kw["batch_size"],
-                                           max_len, order))
+    batches = list(serving.session_batches(
+        test, model.graph_kind, kw["batch_size"], max_len, order))
     build_ms = (time.perf_counter() - t0) / len(batches) * 1e3
     step = serving.make_recommend_step(model, TOPK)
     times = []
@@ -967,8 +1055,8 @@ def phase_serve(torch, name, trained, cfg, smi, dev="cuda"):
            "build_ms_per_batch": build_ms, "card": smi,
            "ok": same and cmp["ok"]}
     emit(row)
-    check(same, "parameters restored without train.pt differ from the "
-          "trained runner's")
+    check(same, "parameters or buffers restored without train.pt differ "
+          "from the trained runner's")
     check(cmp["ok"], f"card and CPU recommendations disagree: {cmp}")
     check(dev != "cuda" or row["graph"], "the recommend step ran no graph")
 
@@ -1021,21 +1109,22 @@ def phase_eval(torch, name, runner, smi, dev="cuda"):
           f"no replay of the {runner.unroll}-batch eval graph: {graphs}")
 
 
-def phase_resume(torch, seed, dataset_dir, smi, tmp, dev="cuda", dim=256,
-                 batches=16):
-    """o1: 2 epochs of ``batches`` capped batches uninterrupted, against 1
-    epoch, then a fresh runner that resumes from its checkpoint for the
-    second: losses to rtol 1e-4, parameters to atol 1e-5 (the bars of
-    ``graph_vs_plain``), max_mrr / max_hit to atol 1e-5 and bad_counter
-    equal; ``bit_identical`` says whether every loss and every tensor of
-    ``named_state`` came out equal."""
+def phase_resume(torch, seed, dataset_dir, smi, tmp, dev="cuda", dim=None,
+                 batches=16, name="path"):
+    """Path ``name``: 2 epochs of ``batches`` capped batches uninterrupted,
+    against 1 epoch, then a fresh runner that resumes from its checkpoint
+    for the second: losses to rtol 1e-4, parameters and buffers to atol
+    1e-5 (the bars of ``graph_vs_plain``), max_mrr / max_hit to atol 1e-5
+    and bad_counter equal; ``bit_identical`` says whether every loss and
+    every tensor of ``named_state`` came out equal."""
     from sessionrec_tpu_torch.train.session import run_training
 
     def run(sub, epochs, resume=False):
-        cfg = path_config("path", seed, dataset_dir, dev=dev, dim=dim,
+        cfg = path_config(name, seed, dataset_dir, dev=dev, dim=dim,
                           epochs=epochs, resume=resume,
                           log_interval=10 ** 9,
-                          checkpoint_dir=str(Path(tmp) / "resume" / sub))
+                          checkpoint_dir=str(Path(tmp) / f"resume_{name}"
+                                             / sub))
         return run_training(cfg, max_epoch_batches=batches)
 
     t0 = time.perf_counter()
@@ -1047,14 +1136,15 @@ def phase_resume(torch, seed, dataset_dir, smi, tmp, dev="cuda", dim=256,
     want = torch.tensor(full.losses[batches:])
     rel = float(((got - want).abs() / want.abs()).max())
     mine, ref = b.named_state(), full.named_state()
-    params = dict(full.model.named_parameters())
-    gaps = {n: max_err(mine[n], p.detach()) for n, p in params.items()}
+    gaps = {n: max_err(mine[n], t) for n, t in
+            full.model.state_dict().items()}
     worst = max(gaps, key=gaps.get)
     metric_gap = max(abs(b.max_mrr - full.max_mrr),
                      abs(b.max_hit - full.max_hit))
     bit = (torch.equal(got, want) and set(mine) == set(ref)
            and all(torch.equal(mine[k], ref[k]) for k in ref))
-    row = {"phase": "o1_resume", "epochs": 2, "batches_per_epoch": batches,
+    row = {"phase": f"{SHORT[name]}_resume", "epochs": 2,
+           "batches_per_epoch": batches,
            "steps": [full.steps, b.steps], "resumed_losses": b.losses,
            "loss_max_rel_gap": rel, "param_max_abs_gap": gaps[worst],
            "param_worst": worst, "max_mrr": [full.max_mrr, b.max_mrr],
@@ -1105,21 +1195,26 @@ def main(argv=None):
         errs = phase_kernel_checks(torch, xent, args.seed)
         errs.update(phase_multi_checks(torch, xm, args.seed))
         times = phase_kernel_times(torch, xent, args.seed, smi)
+        phase_family_times(torch, xent, args.seed, smi)
         multi_times = phase_multi_times(torch, xm, args.seed, smi)
-        launches, on_device = {}, {}
+        launches = dict.fromkeys(errs, 0)
+        on_device = dict.fromkeys(errs, 0)
         with tempfile.TemporaryDirectory() as tmp:
             for name in PATHS:
                 wrapped, dev, runner, cfg, saved = phase_path(
                     torch, xent, xm, name, args.steps, args.seed,
                     args.dataset_dir, smi, tmp)
-                launches.update(wrapped)
-                on_device.update(dev)
+                for k in wrapped:
+                    launches[k] += wrapped[k]
+                    on_device[k] += dev[k]
                 phase_serve(torch, name, saved, cfg, smi)
                 phase_eval(torch, name, runner, smi)
                 del runner
                 phase_graph_vs_plain(torch, name, args.seed,
                                      args.dataset_dir, smi)
-            phase_resume(torch, args.seed, args.dataset_dir, smi, tmp)
+            for name in ("path", "lessr"):
+                phase_resume(torch, args.seed, args.dataset_dir, smi, tmp,
+                             name=name)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -2,6 +2,7 @@
 
     python -m sessionrec_tpu_torch.cli train --model msgifsr --order 1 \
         --dataset-dir datasets/sample
+    python -m sessionrec_tpu_torch.cli train --model lessr   # srgnn, niser
     python -m sessionrec_tpu_torch.cli train --model msgifsr --order 3 \
         --extra --fusion                       # the WSDM'22 paper head
     python -m sessionrec_tpu_torch.cli train --model msgifsr --order 1 \
@@ -23,7 +24,8 @@ import sys
 
 
 def _add_train_flags(p):
-    p.add_argument("--model", required=True, choices=["msgifsr"])
+    p.add_argument("--model", required=True,
+                   choices=["srgnn", "niser", "lessr", "msgifsr"])
     p.add_argument("--dataset-dir", default="datasets/sample")
     p.add_argument("--embedding-dim", type=int, default=None)
     p.add_argument("--num-layers", type=int, default=None)
@@ -44,6 +46,9 @@ def _add_train_flags(p):
     p.add_argument("--log-interval", type=int, default=100)
     p.add_argument("--order", type=int, default=None, help="MSGIFSR order")
     p.add_argument("--reducer", default=None, choices=["mean", "max", "concat"])
+    p.add_argument("--no-norm", action="store_true",
+                   help="NISER/MSGIFSR without the l2-normalised table and "
+                        "session vectors")
     p.add_argument("--extra", action="store_true", help="MSGIFSR REnorm")
     p.add_argument("--fusion", action="store_true", help="MSGIFSR IFR")
     p.add_argument("--seed", type=int, default=123)
@@ -83,6 +88,8 @@ def build_config(args):
         m.order = args.order
     if args.reducer is not None:
         m.reducer = args.reducer
+    if args.no_norm:
+        m.norm = False
     m.extra = args.extra
     m.fusion = args.fusion
     d.dataset_dir = args.dataset_dir

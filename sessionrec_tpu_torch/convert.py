@@ -1,11 +1,16 @@
-"""Carry MSGIFSR parameters from the JAX package into the port.
+"""Carry parameters and model state from the JAX package into the port.
 
-``params_from_jax`` maps the JAX parameter tree (nested dicts and lists of
-numpy arrays, e.g. ``jax.device_get(params)``) one to one onto the
-``state_dict`` of ``sessionrec_tpu_torch.models.MSGIFSR``.  JAX linears
-store ``{"w": [out, in], "b": [out]}`` in torch's layout, so weights copy
-unchanged; the table keeps its padded ``[pad_catalog(num_items), d]``
-shape.
+``params_from_jax`` maps a JAX parameter tree (nested dicts and lists of
+numpy arrays, e.g. ``jax.device_get(params)``) of any of the four models
+one to one onto the port model's parameter names: dict keys and list
+indices join with dots, and a JAX linear's ``w`` and ``b`` become
+``weight`` and ``bias``.  JAX linears store ``w`` as ``[out, in]``,
+torch's layout, so every array copies unchanged; the table keeps its
+padded ``[pad_catalog(num_items), d]`` shape.  ``state_from_jax`` maps
+LESSR's BatchNorm state tree (``{"layers": [{"bn": {mean, var}}],
+"readout": {"bn": ...}, "bn": ...}``) onto the port's buffers the same
+way.  ``model.load_state_dict({**params_from_jax(p),
+**state_from_jax(s)})`` then loads a JAX model.
 """
 
 from __future__ import annotations
@@ -13,37 +18,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+_LEAF_NAMES = {"w": "weight", "b": "bias"}
+
 
 def _t(x):
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
-def _linear(out, prefix, p):
-    out[f"{prefix}.weight"] = _t(p["w"])
-    if "b" in p:
-        out[f"{prefix}.bias"] = _t(p["b"])
+def _walk(tree, prefix, out):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        out[prefix] = _t(tree)
+        return out
+    for key, sub in items:
+        if not isinstance(sub, (dict, list, tuple)):
+            key = _LEAF_NAMES.get(key, key)
+        _walk(sub, f"{prefix}.{key}" if prefix else str(key), out)
+    return out
 
 
 def params_from_jax(tree) -> dict:
-    """JAX MSGIFSR params -> ``state_dict`` of the port's MSGIFSR."""
-    out = {"embedding": _t(tree["embedding"]), "alpha": _t(tree["alpha"]),
-           "beta": _t(tree["beta"])}
-    for i, gru in enumerate(tree["expander"]["grus"]):
-        for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
-            out[f"expander.grus.{i}.{name}"] = _t(gru[name])
-    for i, p in enumerate(tree["expander"]["Ws"]):
-        _linear(out, f"expander.Ws.{i}", p)
-    for i, layer in enumerate(tree["layers"]):
-        for conv in ("conv1", "conv2"):
-            for rel, gat in layer[conv].items():
-                for name in ("fc", "attn_l", "attn_r", "bias"):
-                    out[f"layers.{i}.{conv}.{rel}.{name}"] = _t(gat[name])
-    for part in ("fc_u", "fc_v", "fc_e"):
-        for k, p in enumerate(tree["readout"][part]):
-            _linear(out, f"readout.{part}.{k}", p)
-    for k, p in enumerate(tree["fc_sr"]):
-        _linear(out, f"fc_sr.{k}", p)
-    for k, p in enumerate(tree["sc_sr"]):
-        _linear(out, f"sc_sr.{k}.l1", p["l1"])
-        _linear(out, f"sc_sr.{k}.l2", p["l2"])
-    return out
+    """JAX params -> ``{name: tensor}`` of the port model's parameters."""
+    return _walk(tree, "", {})
+
+
+def state_from_jax(state) -> dict:
+    """JAX model state (LESSR's running BatchNorm statistics; ``{}`` for
+    the other models) -> ``{name: tensor}`` of the port model's
+    buffers."""
+    return _walk(state, "", {})

@@ -1,11 +1,13 @@
-// Host C++ builder of the MSGIFSR CCS batch, the port's copy of the CCS
-// part of native/collate.cc.
+// Host C++ builders of the port's batches, the port's copy of
+// native/collate.cc: the SRGNN/NISER session graph, LESSR's mailboxes and
+// shortcut graph, and MSGIFSR's CCS heterograph.
 //
-// Same output, bit for bit, as graph/builders.py:build_ccs_batch (tested
-// in tests/test_torch_native_collate.py).  The Python builder loops over
-// every example under the interpreter lock; this one runs as one C call
-// through ctypes, which releases the lock, so the loader's prefetch
-// thread no longer competes with the training loop for it.
+// Same output, bit for bit, as graph/builders.py (tested in
+// tests/test_torch_native_collate.py and tests/test_torch_families.py).
+// The Python builders loop over every example under the interpreter lock;
+// these run as one C call each through ctypes, which releases the lock,
+// so the loader's prefetch thread does not compete with the training loop
+// for it.
 //
 // Built with the host C++ compiler (no nvcc) at first use by
 // data/native_collate.py into build/ at the repository root.
@@ -40,6 +42,70 @@ inline int unique_nodes(const int32_t* seq, int len, int32_t* items,
 }  // namespace
 
 extern "C" {
+
+// SRGNN/NISER weighted session graph (builders.build_session_batch).
+void srt_build_session(const int32_t* flat, const int32_t* offsets, int B,
+                       int N, int32_t* node_iid, float* node_mask, float* adj,
+                       int32_t* last_idx) {
+  std::vector<int32_t> items, nid;
+  for (int b = 0; b < B; ++b) {
+    const int32_t* seq = flat + offsets[b];
+    const int len = offsets[b + 1] - offsets[b];
+    if (len <= 0) continue;
+    items.resize(len);
+    nid.resize(len);
+    const int n = unique_nodes(seq, len, items.data(), nid.data());
+    int32_t* iid_b = node_iid + (size_t)b * N;
+    float* mask_b = node_mask + (size_t)b * N;
+    float* adj_b = adj + (size_t)b * N * N;
+    for (int i = 0; i < n; ++i) {
+      iid_b[i] = items[i];
+      mask_b[i] = 1.0f;
+    }
+    if (len > 1) {
+      for (int t = 1; t < len; ++t) adj_b[nid[t - 1] * N + nid[t]] += 1.0f;
+    } else {
+      adj_b[0] = 1.0f;  // self-loop 0 -> 0 of weight 1 (collate.py:74-76)
+    }
+    last_idx[b] = nid[len - 1];
+  }
+}
+
+// LESSR EOP mailboxes + shortcut graph (builders.build_lessr_batch); M is
+// the mailbox depth.
+void srt_build_lessr(const int32_t* flat, const int32_t* offsets, int B,
+                     int N, int M, int32_t* node_iid, float* node_mask,
+                     int32_t* mail_idx, float* mail_mask, float* sc_adj,
+                     int32_t* last_idx) {
+  std::vector<int32_t> items, nid, deg;
+  for (int b = 0; b < B; ++b) {
+    const int32_t* seq = flat + offsets[b];
+    const int len = offsets[b + 1] - offsets[b];
+    if (len <= 0) continue;
+    items.resize(len);
+    nid.resize(len);
+    deg.assign(len, 0);
+    const int n = unique_nodes(seq, len, items.data(), nid.data());
+    int32_t* iid_b = node_iid + (size_t)b * N;
+    float* mask_b = node_mask + (size_t)b * N;
+    int32_t* mi_b = mail_idx + (size_t)b * N * M;
+    float* mm_b = mail_mask + (size_t)b * N * M;
+    float* sc_b = sc_adj + (size_t)b * N * N;
+    for (int i = 0; i < n; ++i) {
+      iid_b[i] = items[i];
+      mask_b[i] = 1.0f;
+    }
+    for (int t = 1; t < len; ++t) {
+      const int v = nid[t], u = nid[t - 1];
+      mi_b[v * M + deg[v]] = u;
+      mm_b[v * M + deg[v]] = 1.0f;
+      ++deg[v];
+    }
+    for (int i = 0; i < len; ++i)
+      for (int j = i; j < len; ++j) sc_b[nid[i] * N + nid[j]] = 1.0f;
+    last_idx[b] = nid[len - 1];
+  }
+}
 
 // MSGIFSR CCS heterograph (builders.build_ccs_batch).
 //

@@ -9,9 +9,10 @@ so the prefetch thread never touches CUDA.  Train order is *sequential*
 by default to reproduce the reference's ordered-training semantics
 (README.md:37).
 
-Only the MSGIFSR batch kind ("ccs") is ported.  Its batches come from
-the C++ builder (``data/native_collate.py``) by default, as in the JAX
-package; ``use_native=False`` runs the pure-Python builder.  A native
+The batch kinds are the JAX package's: 'session' (SRGNN, NISER),
+'lessr' and 'ccs' (MSGIFSR).  Batches come from the C++ builders
+(``data/native_collate.py``) by default, as in the JAX package;
+``use_native=False`` runs the pure-Python builders.  A native
 builder that does not build or load raises: nothing falls back to
 Python.  Multi-host batch slicing waits for later work (ROADMAP.md).
 """
@@ -31,17 +32,20 @@ from sessionrec_tpu_torch.graph import builders
 
 def _make_batch(kind, seqs, labels, max_len, batch_size, order,
                 use_native=True):
+    bl = native_collate if use_native else builders
+    if kind == "session":
+        return B.SessionGraphBatch(
+            **bl.build_session_batch(seqs, labels, max_len, batch_size))
+    if kind == "lessr":
+        return B.LessrBatch(
+            **bl.build_lessr_batch(seqs, labels, max_len, batch_size))
     if kind == "ccs":
-        bl = native_collate if use_native else builders
         d = bl.build_ccs_batch(seqs, labels, order, max_len, batch_size)
         levels = tuple(B.CcsLevel(**lv) for lv in d["levels"])
         return B.CcsBatch(levels=levels, inter_in=tuple(d["inter_in"]),
                           inter_out=tuple(d["inter_out"]),
                           labels=d["labels"], valid=d["valid"])
-    raise NotImplementedError(
-        f"batch kind {kind!r} is not ported yet (ROADMAP.md, 'The other "
-        "three model families'); the port builds MSGIFSR ('ccs') batches "
-        "only")
+    raise ValueError(f"unknown batch kind {kind!r}")
 
 
 class BatchLoader:
@@ -49,13 +53,13 @@ class BatchLoader:
 
     Args:
       sessions: list of item-id sequences.
-      kind: 'ccs' (MSGIFSR).
+      kind: 'session' (SRGNN, NISER), 'lessr' or 'ccs' (MSGIFSR).
       batch_size: static batch size; the final partial batch is padded
         with ``valid=0`` rows.
       max_len: static per-session node cap.
       shuffle: shuffle example order each epoch, else the time-ordered
         stream.
-      order: CCS order.
+      order: CCS order (MSGIFSR only).
       seed: shuffle seed.
       prefetch: number of batches built ahead in a background thread.
       split_len: length-bucketed batches — an int or an ascending list of

@@ -92,6 +92,39 @@ class _Container:
 
 
 @dataclass
+class SessionGraphBatch(_Container):
+    """Weighted session graph for SRGNN/NISER (collate.py:61-85): nodes are
+    the session's unique items in ascending item order, ``adj[b, u, v]``
+    the count of consecutive pairs u -> v, and a session of one item gets
+    the self-loop 0 -> 0 of weight 1 (collate.py:74-76)."""
+
+    node_iid: torch.Tensor   # [B, N] int32
+    node_mask: torch.Tensor  # [B, N] float32
+    adj: torch.Tensor        # [B, N, N] float32
+    last_idx: torch.Tensor   # [B] int32 node of the session's last item
+    labels: torch.Tensor     # [B] int32
+    valid: torch.Tensor      # [B] float32
+
+
+@dataclass
+class LessrBatch(_Container):
+    """EOP multigraph as ordered mailboxes plus the shortcut graph, for
+    LESSR (collate.py:29-59): ``mail_idx[b, v, j]`` is the node of the
+    source of v's j-th in-edge in temporal order (duplicates kept), and
+    ``sc_adj[b, u, v]`` marks "u occurred at or before v" (self-loops
+    included, deduplicated)."""
+
+    node_iid: torch.Tensor   # [B, N] int32
+    node_mask: torch.Tensor  # [B, N] float32
+    mail_idx: torch.Tensor   # [B, N, M] int32, M = max(N - 1, 1)
+    mail_mask: torch.Tensor  # [B, N, M] float32
+    sc_adj: torch.Tensor     # [B, N, N] float32 0/1
+    last_idx: torch.Tensor   # [B] int32
+    labels: torch.Tensor     # [B] int32
+    valid: torch.Tensor      # [B] float32
+
+
+@dataclass
 class CcsLevel(_Container):
     """One granularity level of the CCS heterograph (collate.py:87-217).
 
@@ -140,7 +173,7 @@ class SplitBatch(_Container):
     their session vectors.
     """
 
-    short: object
+    short: object    # a SessionGraphBatch, LessrBatch or CcsBatch
     long: object
 
     @property

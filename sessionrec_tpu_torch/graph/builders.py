@@ -6,8 +6,9 @@ DGL graphs.  They run on the CPU in the input pipeline's prefetch thread;
 ``sessionrec_tpu_torch.data.loader`` wraps their arrays into the batch
 containers and the consumer moves them to the device.
 
-Only the MSGIFSR (CCS) builder is ported so far; it is a copy of
-``sessionrec_tpu/graph/builders.py:build_ccs_batch``.
+Copies of ``sessionrec_tpu/graph/builders.py``: the weighted session
+graph of SRGNN/NISER, LESSR's ordered mailboxes and shortcut graph, and
+MSGIFSR's CCS heterograph.
 """
 
 from __future__ import annotations
@@ -23,6 +24,88 @@ def _unique_nodes(seq):
     """
     items, seq_nid = np.unique(seq, return_inverse=True)
     return items, seq_nid
+
+
+# ---------------------------------------------------------------------------
+# SRGNN / NISER: weighted session graph (collate.py:61-85)
+# ---------------------------------------------------------------------------
+
+def build_session_batch(seqs, labels, max_nodes: int, batch_size: int):
+    """Dense weighted session graphs: consecutive pairs with count weights
+    (accumulated into the adjacency); a session of one item gets the
+    self-loop 0 -> 0 of weight 1 (collate.py:74-76)."""
+    B, N = batch_size, max_nodes
+    node_iid = np.zeros((B, N), dtype=np.int32)
+    node_mask = np.zeros((B, N), dtype=np.float32)
+    adj = np.zeros((B, N, N), dtype=np.float32)
+    last_idx = np.zeros(B, dtype=np.int32)
+    labels_arr = np.zeros(B, dtype=np.int32)
+    valid = np.zeros(B, dtype=np.float32)
+
+    for b, seq in enumerate(seqs):
+        items, seq_nid = _unique_nodes(seq)
+        n = len(items)
+        node_iid[b, :n] = items
+        node_mask[b, :n] = 1.0
+        if len(seq) > 1:
+            np.add.at(adj[b], (seq_nid[:-1], seq_nid[1:]), 1.0)
+        else:
+            adj[b, 0, 0] = 1.0
+        last_idx[b] = seq_nid[-1]
+        labels_arr[b] = labels[b]
+        valid[b] = 1.0
+
+    return dict(node_iid=node_iid, node_mask=node_mask, adj=adj,
+                last_idx=last_idx, labels=labels_arr, valid=valid)
+
+
+# ---------------------------------------------------------------------------
+# LESSR: EOP multigraph mailboxes + shortcut graph (collate.py:29-59)
+# ---------------------------------------------------------------------------
+
+def mailbox_depth(max_nodes: int) -> int:
+    """Mailbox slots of a LESSR batch at node cap ``max_nodes``: a node's
+    in-degree in the EOP multigraph is at most the session length - 1."""
+    return max(max_nodes - 1, 1)
+
+
+def build_lessr_batch(seqs, labels, max_nodes: int, batch_size: int):
+    """The EOP multigraph as ordered mailboxes (every consecutive pair,
+    duplicates too, in temporal order: ``mail_idx[b, v, j]`` is the source
+    node of v's j-th in-edge, as DGL's mailbox delivers them,
+    lessr.py:21-26) and the deduplicated shortcut adjacency of position
+    pairs i <= j, self-loops included (collate.py:52-53)."""
+    B, N = batch_size, max_nodes
+    M = mailbox_depth(max_nodes)
+    node_iid = np.zeros((B, N), dtype=np.int32)
+    node_mask = np.zeros((B, N), dtype=np.float32)
+    mail_idx = np.zeros((B, N, M), dtype=np.int32)
+    mail_mask = np.zeros((B, N, M), dtype=np.float32)
+    sc_adj = np.zeros((B, N, N), dtype=np.float32)
+    last_idx = np.zeros(B, dtype=np.int32)
+    labels_arr = np.zeros(B, dtype=np.int32)
+    valid = np.zeros(B, dtype=np.float32)
+
+    for b, seq in enumerate(seqs):
+        items, seq_nid = _unique_nodes(seq)
+        n = len(items)
+        node_iid[b, :n] = items
+        node_mask[b, :n] = 1.0
+        deg = np.zeros(n, dtype=np.int64)
+        for t in range(1, len(seq)):
+            v, u = seq_nid[t], seq_nid[t - 1]
+            mail_idx[b, v, deg[v]] = u
+            mail_mask[b, v, deg[v]] = 1.0
+            deg[v] += 1
+        for i in range(len(seq)):
+            sc_adj[b, seq_nid[i], seq_nid[i:]] = 1.0
+        last_idx[b] = seq_nid[-1]
+        labels_arr[b] = labels[b]
+        valid[b] = 1.0
+
+    return dict(node_iid=node_iid, node_mask=node_mask, mail_idx=mail_idx,
+                mail_mask=mail_mask, sc_adj=sc_adj, last_idx=last_idx,
+                labels=labels_arr, valid=valid)
 
 
 # ---------------------------------------------------------------------------

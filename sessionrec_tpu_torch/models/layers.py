@@ -1,9 +1,14 @@
-"""Neural layers over the dense graph layout — the parts MSGIFSR uses.
+"""Neural layers over the dense graph layout.
 
 Counterpart of ``sessionrec_tpu/models/layers.py``.  Parameters live in
-``nn.Module``s whose attribute names follow the JAX parameter tree, and
+``nn.Module``s whose attribute names follow the JAX parameter tree (a
+JAX linear's ``{w, b}`` is a ``Linear``'s ``weight`` and ``bias``), and
 the layer math is plain tensor functions over them.  Dropout takes a
-``SeedSource`` (None disables).
+``SeedSource`` (None disables).  The masked BatchNorm keeps its running
+statistics as buffers, ``mean`` and ``var``, which a training forward
+updates in place, so a captured CUDA graph replays the update.  A layer
+with a BatchNorm takes its input normalised by the caller, who runs
+``batchnorm_parts`` over all the tiers of a batch at once.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sessionrec_tpu_torch.ops import dropout as _dropout
-from sessionrec_tpu_torch.ops.gru import gru_scan
+from sessionrec_tpu_torch.ops.gru import gru_cell, gru_scan, masked_mailbox_gru
 from sessionrec_tpu_torch.ops.masked import masked_mean, masked_softmax
 
 
@@ -69,6 +74,219 @@ def dropout(rng, x, rate: float, training: bool):
     if not training or rate == 0.0 or rng is None:
         return x
     return _dropout.dropout(x, rate, rng.next())
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose construction draws nothing: the model's reset
+    fills every parameter from its own generator (models/init.py), and
+    the global RNG stays untouched."""
+
+    def reset_parameters(self):
+        pass
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU slopes ``a`` (JAX ``init.prelu_params``)."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.a = nn.Parameter(torch.empty(dim))
+
+
+def prelu(p: PReLU, x):
+    return torch.where(x >= 0, x, p.a * x)
+
+
+# ---------------------------------------------------------------------------
+# Masked BatchNorm1d (torch semantics, running statistics included)
+# ---------------------------------------------------------------------------
+
+class BatchNorm(nn.Module):
+    """BatchNorm1d over the last axis: ``scale`` and ``bias`` parameters,
+    ``mean`` and ``var`` running buffers (JAX ``init.batchnorm_params``)."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+
+def bn_batch_moments(parts):
+    """Masked BatchNorm batch statistics taken jointly over several arrays.
+
+    ``parts`` is a list of ``(x [..., C], mask [...])``.  Returns ``(mean
+    [C], biased var [C], n)`` in float32: the mean first, then the centred
+    second moment, over the rows whose mask is 1 (n at least 1).  One
+    array gives that array's own statistics; the tiers of a SplitBatch
+    give those of the unsplit batch, up to float summation order."""
+    flats = [(x.to(torch.float32).reshape(-1, x.shape[-1]),
+              m.reshape(-1, 1).to(torch.float32)) for x, m in parts]
+    n = torch.clamp(sum(torch.sum(mf) for _, mf in flats), min=1.0)
+    mean = sum(torch.sum(xf * mf, 0) for xf, mf in flats) / n
+    var = sum(torch.sum((xf - mean) ** 2 * mf, 0) for xf, mf in flats) / n
+    return mean, var, n
+
+
+def batchnorm_parts(p: BatchNorm, xs, masks, *, training, momentum=0.1,
+                    eps=1e-5):
+    """BatchNorm over all leading axes of the tiers ``xs [..., C]`` of one
+    batch, in float32; ``masks`` mark their real rows.
+
+    Training normalises with the batch statistics of the real rows of all
+    tiers together (``bn_batch_moments``, biased variance) and moves the
+    running buffers once, in place: ``(1 - momentum) * running + momentum
+    * batch``, with the unbiased variance ``var * n / (n - 1)`` (torch's
+    rule).  Eval normalises with the running buffers."""
+    if training:
+        mean, var, n = bn_batch_moments(list(zip(xs, masks)))
+        with torch.no_grad():
+            unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+            p.mean.mul_(1 - momentum).add_(momentum * mean)
+            p.var.mul_(1 - momentum).add_(momentum * unbiased)
+    else:
+        mean, var = p.mean, p.var
+    inv = torch.rsqrt(var + eps)
+    return [((x.to(torch.float32) - mean) * inv * p.scale + p.bias)
+            .to(x.dtype) for x in xs]
+
+
+# ---------------------------------------------------------------------------
+# SRGNNLayer (reference srgnn.py:11-51, niser.py:11-49)
+# ---------------------------------------------------------------------------
+
+class SRGNNLayer(nn.Module):
+    """A gated-GNN step: the GRU over ``[W1 neigh_in, W2 neigh_out]``
+    (JAX ``init_srgnn_layer``)."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.gru = GRU(2 * dim, dim)
+        self.W1 = Linear(dim, dim, bias=False)
+        self.W2 = Linear(dim, dim, bias=False)
+
+
+def srgnn_layer_apply(p: SRGNNLayer, feat, adj, rng, *, feat_drop, training):
+    """One gated-GNN step on the weighted session graph: messages are the
+    dropped features, the GRU's hidden state the undropped ones
+    (srgnn.py:35,45); weighted-mean aggregation in both edge directions,
+    a node with no in-weight aggregating to 0."""
+    ft = dropout(rng, feat, feat_drop, training)
+    neigh1 = torch.einsum("buv,bud->bvd", adj, ft) \
+        / torch.clamp(torch.sum(adj, dim=1), min=1e-24)[..., None]
+    neigh2 = torch.einsum("buv,bvd->bud", adj, ft) \
+        / torch.clamp(torch.sum(adj, dim=2), min=1e-24)[..., None]
+    hn = torch.cat([p.W1(neigh1), p.W2(neigh2)], dim=-1)
+    return gru_cell(p.gru, hn, feat)
+
+
+def gather_rows(x, idx):
+    """``x[b, idx[b]]`` for ``x [B, N, d]`` and ``idx [B]``."""
+    idx = idx.to(torch.int64)[:, None, None].expand(-1, 1, x.shape[-1])
+    return torch.gather(x, 1, idx)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# AttnReadout (homogeneous; srgnn.py:53-91, lessr.py:80-118)
+# ---------------------------------------------------------------------------
+
+class AttnReadout(nn.Module):
+    """Soft-attention pooling (JAX ``init_attn_readout``): ``fc_u`` without
+    bias, ``fc_v`` with, ``fc_e``; ``fc_out`` when the widths differ, and
+    optionally a BatchNorm ``bn`` of the input and a PReLU ``act``."""
+
+    def __init__(self, in_dim, hidden_dim, out_dim, *, batch_norm=False,
+                 activation=False):
+        super().__init__()
+        if batch_norm:
+            self.bn = BatchNorm(in_dim)
+        self.fc_u = Linear(in_dim, hidden_dim, bias=False)
+        self.fc_v = Linear(in_dim, hidden_dim, bias=True)
+        self.fc_e = Linear(hidden_dim, 1, bias=False)
+        if out_dim != in_dim:
+            self.fc_out = Linear(in_dim, out_dim, bias=False)
+        if activation:
+            self.act = PReLU(out_dim)
+
+
+def attn_readout_apply(p: AttnReadout, feat, mask, last_idx, rng, *,
+                       feat_drop, training):
+    """One session vector per graph: attention of every node against the
+    last one, softmax over the real nodes, weighted sum.  ``feat`` comes
+    normalised already where the readout has a ``bn``
+    (``batchnorm_parts``)."""
+    feat = dropout(rng, feat, feat_drop, training)
+    feat_u = p.fc_u(feat)                                  # [B, N, H]
+    feat_v = p.fc_v(gather_rows(feat, last_idx))           # [B, H]
+    e = p.fc_e(torch.sigmoid(feat_u + feat_v[:, None, :]))
+    alpha = masked_softmax(e, mask[..., None], dim=1)
+    rst = torch.sum(feat * alpha, dim=1)
+    if hasattr(p, "fc_out"):
+        rst = p.fc_out(rst)
+    if hasattr(p, "act"):
+        rst = prelu(p.act, rst)
+    return rst
+
+
+# ---------------------------------------------------------------------------
+# EOPA and SGAT (reference lessr.py:8-77)
+# ---------------------------------------------------------------------------
+
+class EOPA(nn.Module):
+    """Edge-order-preserving aggregation (JAX ``init_eopa``)."""
+
+    def __init__(self, in_dim, out_dim, *, batch_norm=True):
+        super().__init__()
+        if batch_norm:
+            self.bn = BatchNorm(in_dim)
+        self.gru = GRU(in_dim, in_dim)
+        self.fc_self = Linear(in_dim, out_dim, bias=False)
+        self.fc_neigh = Linear(in_dim, out_dim, bias=False)
+        self.act = PReLU(out_dim)
+
+
+def eopa_apply(p: EOPA, feat, mail_idx, mail_mask, rng, *, feat_drop,
+               training):
+    """The mailbox GRU over each node's in-messages in temporal order
+    (DGL's edge-insertion mailbox, lessr.py:21-26), then ``fc_self(feat)
+    + fc_neigh(neigh)`` and the PReLU.  ``feat`` comes normalised where
+    the layer has a ``bn``.  The mailbox gather is a one-hot product over
+    the N source nodes, as in the JAX package: its backward is a product
+    too, with no scatter of atomics, so a step repeats its bits."""
+    ft = dropout(rng, feat, feat_drop, training)
+    N = feat.shape[1]
+    onehot = (mail_idx.to(torch.int64)[..., None]
+              == torch.arange(N, device=feat.device)).to(ft.dtype)
+    mail = torch.einsum("bvjn,bnd->bvjd", onehot, ft)
+    neigh = masked_mailbox_gru(p.gru, mail, mail_mask)
+    return prelu(p.act, p.fc_self(feat) + p.fc_neigh(neigh))
+
+
+class SGAT(nn.Module):
+    """Shortcut-graph attention (JAX ``init_sgat``)."""
+
+    def __init__(self, in_dim, hidden_dim, out_dim, *, batch_norm=True):
+        super().__init__()
+        if batch_norm:
+            self.bn = BatchNorm(in_dim)
+        self.fc_q = Linear(in_dim, hidden_dim, bias=True)
+        self.fc_k = Linear(in_dim, hidden_dim, bias=False)
+        self.fc_v = Linear(in_dim, out_dim, bias=False)
+        self.fc_e = Linear(hidden_dim, 1, bias=False)
+        self.act = PReLU(out_dim)
+
+
+def sgat_apply(p: SGAT, feat, sc_adj, rng, *, feat_drop, training):
+    """``e_uv = fc_e(sigmoid(q_u + k_v))``, softmax over each destination's
+    in-edges of the shortcut graph, weighted sum of ``v_u``, PReLU.
+    ``feat`` comes normalised where the layer has a ``bn``."""
+    feat = dropout(rng, feat, feat_drop, training)
+    q, k, v = p.fc_q(feat), p.fc_k(feat), p.fc_v(feat)
+    e = p.fc_e(torch.sigmoid(q[:, :, None, :] + k[:, None, :, :]))
+    a = masked_softmax(e, sc_adj[..., None], dim=1)        # by destination
+    rst = torch.einsum("buv,bud->bvd", a[..., 0], v)
+    return prelu(p.act, rst)
 
 
 # ---------------------------------------------------------------------------

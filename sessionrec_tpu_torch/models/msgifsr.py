@@ -22,7 +22,7 @@ Two heads, as in the JAX package:
 The ``max_norm=1`` embedding is a whole-table projection
 (``project_params``) that the trainer applies after every update, so
 gradients are always taken at a projected table (see
-``sessionrec_tpu/models/lessr.py``).
+models/lessr.py).
 """
 
 from __future__ import annotations
@@ -32,25 +32,13 @@ from torch import nn
 
 from sessionrec_tpu_torch.graph.batch import SplitBatch
 from sessionrec_tpu_torch.models import layers as L
+from sessionrec_tpu_torch.models.lessr import renorm_rows
 from sessionrec_tpu_torch.ops import scoring
 from sessionrec_tpu_torch.ops.masked import NEG_INF, masked_softmax
 
 # safe-log floor of the REnorm/fusion score (sessionrec_tpu/models/
 # msgifsr.py:_TINY): a normal float32 far below any reachable probability
 _TINY = 1e-30
-
-
-@torch.no_grad()
-def renorm_rows(table, max_norm=1.0, eps=1e-7):
-    """torch Embedding(max_norm) renorm, in place: rows with
-    ``||r|| > max_norm`` are scaled by ``max_norm / (||r|| + eps)``; norms
-    and scales in float32 (``sessionrec_tpu/models/lessr.py:renorm_rows``).
-    """
-    n = torch.linalg.vector_norm(table.to(torch.float32), dim=-1,
-                                 keepdim=True)
-    scale = torch.where(n > max_norm, max_norm / (n + eps), 1.0)
-    table.mul_(scale.to(table.dtype))
-    return table
 
 
 class _Readout(nn.Module):
@@ -81,6 +69,7 @@ class MSGIFSR(nn.Module):
     scale = 12.0
 
     has_multi_head = True
+    graph_kind = "ccs"
 
     def __init__(self, num_items, embedding_dim, num_layers, feat_drop=0.0,
                  reducer="mean", order=1, norm=True, extra=False,
@@ -161,19 +150,13 @@ class MSGIFSR(nn.Module):
         all_mask = torch.cat([lv.mask for lv in batch.levels], dim=1)
         outs = []
         for i in range(self.order):
-            last = self._last(feats[i], batch.levels[i].last_idx)
+            last = L.gather_rows(feats[i], batch.levels[i].last_idx)
             fu = self.readout.fc_u[i](all_feat)
             fv = self.readout.fc_v[i](last)
             e = self.readout.fc_e[i](torch.sigmoid(fu + fv[:, None, :]))
             alpha = masked_softmax(e, all_mask[..., None], dim=1)
             outs.append(torch.sum(all_feat * alpha, dim=1))
         return torch.stack(outs, dim=1)                    # [B, K, d]
-
-    @staticmethod
-    def _last(x, last_idx):
-        idx = last_idx.to(torch.int64)[:, None, None].expand(-1, 1,
-                                                            x.shape[-1])
-        return torch.gather(x, 1, idx)[:, 0]
 
     def _session_repr(self, batch, rng, training):
         """Per-order session vectors ``sr [B, K, d]``.  A SplitBatch runs
@@ -191,7 +174,7 @@ class MSGIFSR(nn.Module):
         if self.norm:
             h = [L.l2norm(x) for x in h]
         sr_g = self._readout(batch, h)
-        sr_l = torch.stack([self._last(h[i], batch.levels[i].last_idx)
+        sr_l = torch.stack([L.gather_rows(h[i], batch.levels[i].last_idx)
                             for i in range(self.order)], dim=1)
         sr = torch.cat([sr_l, sr_g], dim=-1)               # [B, K, 2d]
         sr = torch.stack([self.fc_sr[i](sr[:, i])

@@ -15,7 +15,8 @@ sessions whose ``valid`` is 0; their rows are dropped before the ids go
 to the host.
 
 Scores are ``train/runner.py:eval_scores``, the code eval ranks: the
-plain head's raw masked catalog logits, the multi head's
+plain head's raw masked catalog logits (against ``l2norm(table)`` for
+NISER; LESSR's BatchNorm at its running statistics), the multi head's
 log-probabilities.  Top-k is exact (``torch.topk``; tied scores may come
 in another order than ``lax.top_k``'s lower-index-first).  On CUDA the
 step replays a CUDA graph captured over a static batch slot after its
@@ -34,9 +35,6 @@ from sessionrec_tpu_torch.train.runner import (StepGraph, _Slots, _capture,
                                                _on_side_stream, eval_scores,
                                                resolve_device, set_precision)
 from sessionrec_tpu_torch.utils.checkpoint import Checkpointer
-
-_KIND = {"msgifsr": "ccs"}
-
 
 def restore_params(model, checkpoint_dir, device="cuda"):
     """``model`` on ``device`` with the latest checkpoint's parameters in
@@ -143,7 +141,7 @@ def recommend(model, sessions, *, max_len, k=20, batch_size=256,
     the model's device."""
     validate_sessions(sessions, model.num_items)
     step = make_recommend_step(model, k=k, method=method)
-    kind = _KIND[type(model).__name__.lower()]
+    kind = model.graph_kind
     done = 0
     for batch, n in session_batches(sessions, kind, batch_size, max_len,
                                     order=order, use_native=use_native):

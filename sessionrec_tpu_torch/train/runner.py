@@ -373,13 +373,15 @@ class TrainRunner:
 
     def named_state(self):
         """Every tensor a step reads and writes besides the batch and the
-        gradients, by name: the parameters under their own names
-        (detached, so cloning them keeps no autograd node alive), Adam's
-        moments and step counts as ``adam/<parameter>/<key>``, the
-        schedule's counter and rate and the dropout counter.  Copying
-        values into them in place leaves the captured graphs valid."""
+        gradients, by name: the parameters and the model's buffers (LESSR's
+        running BatchNorm statistics) under their own names (detached, so
+        cloning them keeps no autograd node alive), Adam's moments and step
+        counts as ``adam/<parameter>/<key>``, the schedule's counter and
+        rate and the dropout counter.  Copying values into them in place
+        leaves the captured graphs valid."""
         named = dict(self.model.named_parameters())
         out = {n: p.detach() for n, p in named.items()}
+        out.update(self.model.named_buffers())
         for n, p in named.items():
             st = self.opt.state.get(p, {})
             out.update({f"adam/{n}/{k}": st[k]

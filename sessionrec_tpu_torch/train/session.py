@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from sessionrec_tpu_torch.data.io import max_session_len, read_dataset
 from sessionrec_tpu_torch.data.loader import BatchLoader
-from sessionrec_tpu_torch.models import build_model
+from sessionrec_tpu_torch.models import build_model, graph_kind
 from sessionrec_tpu_torch.train.runner import TrainRunner, resolve_device
 from sessionrec_tpu_torch.utils.checkpoint import Checkpointer
 from sessionrec_tpu_torch.utils.logging import get_logger
@@ -37,7 +37,7 @@ def make_loaders(cfg, model_name=None, order=1):
         log.warning(
             "longest session is %d items; consider --max-len 20 "
             "(prefixes keep their most recent items)", max_len)
-    kind = {"msgifsr": "ccs"}.get(model_name, model_name)
+    kind = graph_kind(model_name)
     split_len = getattr(cfg, "split_len", None)
     train_loader = BatchLoader(
         train_sessions, kind, cfg.batch_size, max_len,

@@ -5,7 +5,8 @@ Counterpart of ``sessionrec_tpu/utils/checkpoint.py``, with torch files in
 place of orbax.  Epoch ``e`` of a run writes, under the checkpoint
 directory:
 
-* ``epoch_EEEE/params.pt`` — the model's ``state_dict``: all that serving
+* ``epoch_EEEE/params.pt`` — the model's ``state_dict``, its parameters
+  and buffers (LESSR's running BatchNorm statistics): all that serving
   reads (``restore_params``), so it works when ``train.pt`` is deleted;
 * ``epoch_EEEE/train.pt`` — the rest of the runner's ``named_state``:
   Adam's moments and step counts by parameter name, the schedule's
@@ -129,15 +130,14 @@ class Checkpointer:
         return True
 
     def restore_params(self, model):
-        """Copy the latest checkpoint's parameters into ``model`` in place
-        (the counterpart of ``restore_subtree``): reads ``params.pt`` only,
-        never ``train.pt``, so Adam's table-sized moments are never
-        loaded.  False when there is no checkpoint."""
+        """Copy the latest checkpoint's parameters and buffers into
+        ``model`` in place (the counterpart of ``restore_subtree``): reads
+        ``params.pt`` only, never ``train.pt``, so Adam's table-sized
+        moments are never loaded.  False when there is no checkpoint."""
         ep = self.latest_epoch()
         if ep is None:
             return False
         path = self._path(ep)
         device = next(model.parameters()).device
-        _copy_into({n: p.detach() for n, p in model.named_parameters()},
-                   _load(path / PARAMS, device), path)
+        _copy_into(model.state_dict(), _load(path / PARAMS, device), path)
         return True

@@ -1,15 +1,17 @@
-"""Dataclass configuration with the MSGIFSR preset.
+"""Dataclass configuration with per-model presets.
 
 Reproduces the reference's flag defaults for the fields this port reads
-(SURVEY.md §5): MSGIFSR main_msgifsr.py:36-111; shared trainer defaults
-train.py:74-75.
+(SURVEY.md §5): LESSR main_lessr.py:11-52, NISER main_niser.py:11-52,
+MSGIFSR main_msgifsr.py:36-111; shared trainer defaults train.py:74-75.
+SRGNN has no reference script (start.sh:6 points at a missing file); its
+preset is NISER's wiring with SRGNN's model, as in the JAX package.
 
 Cut down from ``sessionrec_tpu/utils/config.py`` (the port imports
 nothing of the JAX package) to the fields the PyTorch trainer reads, so
 ``preset`` raises ``KeyError`` on an option the port does not implement
 (the bf16 table, parallelism, the other models' knobs) instead of
-ignoring it.  A later slice adds a field with the code that
-reads it.
+ignoring it.  A later slice adds a field with the code that reads
+it.
 """
 
 from __future__ import annotations
@@ -39,15 +41,24 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    name: str = "msgifsr"
+    name: str = "msgifsr"         # srgnn | niser | lessr | msgifsr
     embedding_dim: int = 256
     num_layers: int = 1
     feat_drop: float = 0.1
-    reducer: str = "mean"         # SemanticExpander reducer: mean|max|concat
-    norm: bool = True             # l2-normalised table and session repr
+    # NISER and MSGIFSR: l2-normalised table and session vectors
+    norm: bool = True
+    scale: float = 12.0           # NISER's logit scale
+    # MSGIFSR
     order: int = 1
+    reducer: str = "mean"         # SemanticExpander reducer: mean|max|concat
     extra: bool = False           # REnorm (store_true flag, default off)
     fusion: bool = False          # IFR (store_true flag, default off)
+    # LESSR
+    batch_norm: bool = True
+    # SRGNN/NISER parity quirk (SURVEY.md §7.4): the reference's readout
+    # reads the pre-GNN embedding, leaving the GNN output unused
+    # (srgnn.py:141-142); False feeds it the GNN output
+    readout_on_embedding: bool = True
 
 
 @dataclass
@@ -84,6 +95,21 @@ class Config:
 
 
 _PRESETS = {
+    # main_lessr.py defaults: dim 32, 3 layers, drop 0.2, bs 512, patience 2
+    "lessr": dict(model=dict(name="lessr", embedding_dim=32, num_layers=3,
+                             feat_drop=0.2),
+                  data=dict(batch_size=512, shuffle_train=False),
+                  train=dict(patience=2)),
+    # main_niser.py defaults: dim 64, 2 layers, drop 0.5, bs 128, shuffled
+    "niser": dict(model=dict(name="niser", embedding_dim=64, num_layers=2,
+                             feat_drop=0.5),
+                  data=dict(batch_size=128, shuffle_train=True),
+                  train=dict(patience=2)),
+    # no reference script exists; NISER-like wiring, SRGNN model
+    "srgnn": dict(model=dict(name="srgnn", embedding_dim=64, num_layers=2,
+                             feat_drop=0.5),
+                  data=dict(batch_size=128, shuffle_train=True),
+                  train=dict(patience=2)),
     # main_msgifsr.py defaults: dim 256, 1 layer, drop 0.1, bs 512,
     # patience 3, order 3 (start.sh:10 runs --order 1)
     "msgifsr": dict(model=dict(name="msgifsr", embedding_dim=256, num_layers=1,

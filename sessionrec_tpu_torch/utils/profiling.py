@@ -7,11 +7,13 @@ The hooks are the counterparts of ``sessionrec_tpu/utils/profiling.py``
 wall times.  Run as a module, this file is the step-breakdown tool:
 
     python -m sessionrec_tpu_torch.utils.profiling [--steps 24] [--warmup 16]
-        [--order 3 --extra --fusion] [--unroll 8]
+        [--model msgifsr|srgnn|niser|lessr] [--order 3 --extra --fusion]
+        [--unroll 8]
 
 Runs the main path's configuration (MSGIFSR order 1, d=256, 1 layer, batch
-512, tiers (4, 8), feat_drop 0.1, datasets/sample), or with ``--order 3
---extra --fusion`` the WSDM'22 paper head at the same widths, through the
+512, tiers (4, 8), feat_drop 0.1, datasets/sample), with ``--order 3
+--extra --fusion`` the WSDM'22 paper head at the same widths, or with
+``--model`` SRGNN, NISER or LESSR at its preset, tiers (4, 8), through the
 runner's default loop (``run_chunk``: the native batch builder, ``unroll``
 steps per CUDA-graph replay), and prints JSON lines:
 
@@ -102,22 +104,34 @@ class StepTimer:
                 for k, (t, n) in out.items()}
 
 
-def setup_runner(dataset_dir, seed, order=1, extra=False, fusion=False,
-                 unroll=8):
-    """(train loader, TrainRunner) of the profiled configuration on the
-    card; the loader yields host batches."""
+# MSGIFSR runs at the reference's widths (main_msgifsr.py:36-111, start.sh:10
+# at order 1); the other models at their presets
+WIDTHS = {"msgifsr": dict(embedding_dim=256, num_layers=1, feat_drop=0.1,
+                          batch_size=512)}
+
+
+def run_config(model, seed, dataset_dir, **overrides):
+    """The profiled (and ``chip_smoke.py``'s) configuration of ``model``
+    on ``dataset_dir``: its widths, tiers (4, 8), then ``overrides``
+    (config fields)."""
+    from sessionrec_tpu_torch.utils.config import preset
+    return preset(model, **{**WIDTHS.get(model, {}), "split_len": (4, 8),
+                            "dataset_dir": str(dataset_dir), "seed": seed,
+                            **overrides})
+
+
+def setup_runner(cfg, unroll=8):
+    """(train loader, TrainRunner) of ``cfg`` on the card, with no initial
+    eval; the loader yields host batches."""
     from sessionrec_tpu_torch.models import build_model
     from sessionrec_tpu_torch.train.runner import TrainRunner
     from sessionrec_tpu_torch.train.session import make_loaders
-    from sessionrec_tpu_torch.utils.config import preset
-    cfg = preset("msgifsr", order=order, extra=extra, fusion=fusion,
-                 embedding_dim=256, num_layers=1, feat_drop=0.1,
-                 batch_size=512, split_len=(4, 8),
-                 dataset_dir=str(dataset_dir), seed=seed)
-    train, test, num_items, _ = make_loaders(cfg.data, "msgifsr", order)
-    model = build_model(cfg.model, num_items)
-    runner = TrainRunner(model, train, test, seed=seed, device="cuda",
-                         eval_before_train=False, unroll=unroll)
+    m = cfg.model
+    train, test, num_items, _ = make_loaders(cfg.data, m.name, m.order)
+    model = build_model(m, num_items)
+    runner = TrainRunner(model, train, test, seed=cfg.train.seed,
+                         device="cuda", eval_before_train=False,
+                         unroll=unroll)
     return train, runner
 
 
@@ -234,18 +248,22 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dataset-dir", default=str(REPO / "datasets" / "sample"))
+    ap.add_argument("--model", default="msgifsr",
+                    choices=["msgifsr", "srgnn", "niser", "lessr"])
     ap.add_argument("--order", type=int, default=1)
     ap.add_argument("--extra", action="store_true", help="MSGIFSR REnorm")
     ap.add_argument("--fusion", action="store_true", help="MSGIFSR IFR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    train, runner = setup_runner(args.dataset_dir, args.seed, args.order,
-                                 args.extra, args.fusion, args.unroll)
+    mkw = dict(order=args.order, extra=args.extra, fusion=args.fusion) \
+        if args.model == "msgifsr" else {}
+    train, runner = setup_runner(
+        run_config(args.model, args.seed, args.dataset_dir, **mkw),
+        args.unroll)
     print(json.dumps({"phase": "device",
                       "name": torch.cuda.get_device_name(0),
-                      "order": args.order, "extra": args.extra,
-                      "fusion": args.fusion}), flush=True)
+                      "model": args.model, **mkw}), flush=True)
     print(json.dumps(host_breakdown(train, runner, args.warmup,
                                     args.steps)), flush=True)
     print(json.dumps(device_breakdown(train, runner, args.warmup, args.steps,

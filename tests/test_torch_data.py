@@ -126,6 +126,6 @@ def test_split_overflow_raises():
 
 def test_prefetch_error_surfaces():
     tl = TLoader([[1, 2, 3]] * 40, "ccs", 8, 3, prefetch=2)
-    tl.kind = "lessr"
-    with pytest.raises(NotImplementedError, match="not ported"):
+    tl.kind = "gru4rec"
+    with pytest.raises(ValueError, match="unknown batch kind"):
         list(tl)

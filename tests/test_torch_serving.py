@@ -80,8 +80,8 @@ def test_session_batches_match_jax(order):
 
 
 def test_session_batches_refuse_other_kinds():
-    with pytest.raises(NotImplementedError, match="other three model"):
-        list(serving.session_batches([[1, 2]], "session", 4, MAX_LEN))
+    with pytest.raises(ValueError, match="unknown batch kind"):
+        list(serving.session_batches([[1, 2]], "gru4rec", 4, MAX_LEN))
 
 
 def _clear(scores):

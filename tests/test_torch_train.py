@@ -116,14 +116,13 @@ def test_cuda_device_is_not_silently_replaced():
 
 @pytest.mark.parametrize("option", [
     dict(table_dtype="bfloat16"), dict(compute_dtype="bfloat16"),
-    dict(data_parallel=4), dict(model_parallel=2),
-    dict(readout_on_embedding=False)])
+    dict(data_parallel=4), dict(model_parallel=2)])
 def test_preset_refuses_options_the_port_does_not_run(option):
     from sessionrec_tpu_torch.utils.config import preset
     with pytest.raises(KeyError, match="unknown config field"):
         preset("msgifsr", order=1, **option)
     with pytest.raises(KeyError):
-        preset("lessr")
+        preset("gru4rec")
 
 
 def test_non_finite_loss_aborts():
