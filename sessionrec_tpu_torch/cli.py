@@ -9,6 +9,8 @@
         --checkpoint-dir ckpt --metrics-file metrics.jsonl
     python -m sessionrec_tpu_torch.cli predict --model msgifsr --order 1 \
         --checkpoint-dir ckpt --sessions-file sessions.txt --k 20
+    python -m sessionrec_tpu_torch.cli train --model msgifsr --order 1 \
+        --table-dtype bfloat16 --compute-dtype bfloat16   # mixed precision
 
 Flag names and defaults follow ``sessionrec_tpu/cli.py`` ``train`` and
 ``predict`` (the reference scripts' surface, see utils/config.py) for the
@@ -59,6 +61,13 @@ def _add_train_flags(p):
     p.add_argument("--unroll", type=int, default=8,
                    help="optimizer steps per dispatch: on CUDA one captured "
                         "CUDA graph replays this many steps")
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--table-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="embedding-table storage dtype; bfloat16 keeps "
+                        "float32 Adam moments and rounds the table's "
+                        "updates stochastically")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
@@ -92,6 +101,8 @@ def build_config(args):
         m.norm = False
     m.extra = args.extra
     m.fusion = args.fusion
+    m.compute_dtype = args.compute_dtype
+    m.table_dtype = args.table_dtype
     d.dataset_dir = args.dataset_dir
     if args.batch_size is not None:
         d.batch_size = args.batch_size

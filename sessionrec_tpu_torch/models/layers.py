@@ -58,6 +58,60 @@ class SeedSource:
         return self.base ^ self._hash(self.site)
 
 
+class _Cast:
+    """A read-only view of module ``m`` whose parameters read in
+    ``dtype``: attribute reads give the parameters cast (once per view),
+    submodules as views, and buffers and everything else as they are
+    (LESSR's running BatchNorm statistics stay float32 and are updated in
+    place); calling a ``Linear``'s view applies it."""
+
+    def __init__(self, m, dtype):
+        self._m = m
+        self._dtype = dtype
+        self._cache = {}
+
+    def _view(self, key, v):
+        if key not in self._cache:
+            if isinstance(v, nn.Parameter):
+                v = v.to(self._dtype)
+            elif isinstance(v, nn.Module):
+                v = _Cast(v, self._dtype)
+            self._cache[key] = v
+        return self._cache[key]
+
+    def __getattr__(self, name):
+        return self._view(name, getattr(self._m, name))
+
+    def __getitem__(self, key):
+        return self._view(("item", key), self._m[key])
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._m)))
+
+    def __len__(self):
+        return len(self._m)
+
+    def __call__(self, x):
+        if not isinstance(self._m, nn.Linear):
+            raise TypeError(f"cannot apply a cast view of "
+                            f"{type(self._m).__name__}")
+        return F.linear(x, self.weight, self.bias)
+
+
+def cast_floats(module, dtype):
+    """``module`` with its parameters read in ``dtype`` (the JAX package's
+    ``cast_floats`` of a parameter tree), or ``module`` itself for None.
+    The master parameters stay float32 and the casts are part of the
+    forward, so the gradients land on the masters in float32."""
+    return module if dtype is None else _Cast(module, dtype)
+
+
+def compute_dtype(name: str):
+    """The torch dtype a model computes in for config value ``name``; None
+    for float32 (no casts anywhere)."""
+    return None if name == "float32" else getattr(torch, name)
+
+
 def embedding_lookup(table, ids):
     """``table[ids]`` — a plain gather; callers cast the rows."""
     return table[ids.to(torch.int64)]

@@ -21,6 +21,11 @@ whose parameter and buffer names follow the JAX parameter and state trees
   update, so gradients are always taken at a projected table.
 * No ``reset_parameters`` in the reference: torch's per-module defaults
   apply (models/init.py).
+* ``compute_dtype`` bfloat16 runs every layer in bf16 on float32 master
+  parameters (``layers.cast_floats``; the BatchNorm statistics and
+  normalisation stay float32), the gathered rows and the shortcut
+  adjacency cast to it; ``table_dtype`` bfloat16 stores the table in
+  bf16, whose renorm takes its norms in float32.
 """
 
 from __future__ import annotations
@@ -60,14 +65,17 @@ class LESSR(nn.Module):
     table_norm = False
 
     def __init__(self, num_items, embedding_dim, num_layers, batch_norm=True,
-                 feat_drop=0.0):
+                 feat_drop=0.0, compute_dtype="float32",
+                 table_dtype="float32"):
         super().__init__()
         self.num_items = num_items
         self.embedding_dim = d = embedding_dim
         self.num_layers = num_layers
         self.batch_norm = batch_norm
         self.feat_drop = feat_drop
-        self.embedding = nn.Parameter(torch.empty(self.padded_items, d))
+        self.compute_dtype = compute_dtype
+        self.embedding = nn.Parameter(torch.empty(
+            self.padded_items, d, dtype=getattr(torch, table_dtype)))
         self.layers = nn.ModuleList()
         width = d
         for i in range(num_layers):
@@ -86,19 +94,30 @@ class LESSR(nn.Module):
     def from_config(cls, cfg, num_items):
         return cls(num_items=num_items, embedding_dim=cfg.embedding_dim,
                    num_layers=cfg.num_layers, batch_norm=cfg.batch_norm,
-                   feat_drop=cfg.feat_drop)
+                   feat_drop=cfg.feat_drop, compute_dtype=cfg.compute_dtype,
+                   table_dtype=cfg.table_dtype)
 
     @property
     def padded_items(self):
         return scoring.pad_catalog(self.num_items)
 
+    @property
+    def cdt(self):
+        """The compute dtype; None for float32."""
+        return L.compute_dtype(self.compute_dtype)
+
     def reset_parameters(self, gen: torch.Generator):
         from sessionrec_tpu_torch.models.init import reset_torch_defaults
         reset_torch_defaults(self, gen)
 
+    def project_table(self, table):
+        """Max-norm projection of ``table`` (the table or a float32 copy of
+        it), in place."""
+        return renorm_rows(table, 1.0)
+
     def project_params(self):
         """Max-norm projection of the table, in place."""
-        renorm_rows(self.embedding.data, 1.0)
+        self.project_table(self.embedding.data)
 
     def head(self, batch, *, training=False, seeds=None):
         """``(sr [B, d], raw table)`` for the fused softmax-CE path (scale
@@ -108,25 +127,30 @@ class LESSR(nn.Module):
         parts = flatten_blocks(batch)
         masks = [b.node_mask for b in parts]
         kw = dict(feat_drop=self.feat_drop, training=training)
+        cdt = self.cdt
+        cp = L.cast_floats(self, cdt)
+        # the gathered rows move to the compute dtype (the table may be
+        # stored bf16 whatever the compute dtype)
         feats = [L.embedding_lookup(self.embedding, b.node_iid)
-                 .to(torch.float32) for b in parts]
-        for i, lp in enumerate(self.layers):
+                 .to(cdt or torch.float32) for b in parts]
+        for i, lp in enumerate(cp.layers):
             ins = _normalised(lp, feats, masks, training)
             if i % 2 == 0:
                 outs = [L.eopa_apply(lp, f, b.mail_idx, b.mail_mask, seeds,
                                      **kw) for b, f in zip(parts, ins)]
             else:
-                outs = [L.sgat_apply(lp, f, b.sc_adj, seeds, **kw)
+                outs = [L.sgat_apply(lp, f, b.sc_adj if cdt is None
+                                     else b.sc_adj.to(cdt), seeds, **kw)
                         for b, f in zip(parts, ins)]
             feats = [torch.cat([o, f], dim=-1) for o, f in zip(outs, feats)]
-        ro_in = _normalised(self.readout, feats, masks, training)
+        ro_in = _normalised(cp.readout, feats, masks, training)
         srs = [torch.cat([L.gather_rows(f, b.last_idx),
-                          L.attn_readout_apply(self.readout, x, b.node_mask,
+                          L.attn_readout_apply(cp.readout, x, b.node_mask,
                                                b.last_idx, seeds, **kw)],
                          dim=-1)
                for b, f, x in zip(parts, feats, ro_in)]
         sr = torch.cat(srs, dim=0)
         valid = torch.cat([b.valid for b in parts], dim=0)
-        sr = _normalised(self, [sr], [valid], training)[0]
-        sr = self.fc_sr(L.dropout(seeds, sr, self.feat_drop, training))
+        sr = _normalised(cp, [sr], [valid], training)[0]
+        sr = cp.fc_sr(L.dropout(seeds, sr, self.feat_drop, training))
         return sr, self.embedding

@@ -20,9 +20,16 @@ Two heads, as in the JAX package:
   materialised ``[B, K, P]`` scores, for eval.
 
 The ``max_norm=1`` embedding is a whole-table projection
-(``project_params``) that the trainer applies after every update, so
+(``project_params``, or ``project_table`` of a float32 copy for a
+bfloat16 table) that the trainer applies after every update, so
 gradients are always taken at a projected table (see
 models/lessr.py).
+
+``compute_dtype`` bfloat16 runs the layers in bf16 on float32 master
+parameters (``layers.cast_floats``) with the gathered rows cast to it;
+the REnorm gate's softmax and the fusion weights stay float32.
+``table_dtype`` bfloat16 stores the table in bf16 (drawn in float32,
+then cast, as the JAX package does).
 """
 
 from __future__ import annotations
@@ -73,7 +80,8 @@ class MSGIFSR(nn.Module):
 
     def __init__(self, num_items, embedding_dim, num_layers, feat_drop=0.0,
                  reducer="mean", order=1, norm=True, extra=False,
-                 fusion=False):
+                 fusion=False, compute_dtype="float32",
+                 table_dtype="float32"):
         super().__init__()
         if reducer not in ("mean", "max", "concat"):
             raise ValueError(f"unknown reducer {reducer!r}")
@@ -86,7 +94,9 @@ class MSGIFSR(nn.Module):
         self.norm = norm
         self.extra = extra
         self.fusion = fusion
-        self.embedding = nn.Parameter(torch.empty(self.padded_items, d))
+        self.compute_dtype = compute_dtype
+        self.embedding = nn.Parameter(torch.empty(
+            self.padded_items, d, dtype=getattr(torch, table_dtype)))
         self.alpha = nn.Parameter(torch.empty(K))
         self.beta = nn.Parameter(torch.empty(1))
         self.expander = L.SemanticExpander(d, reducer, K)
@@ -102,7 +112,9 @@ class MSGIFSR(nn.Module):
         return cls(num_items=num_items, embedding_dim=cfg.embedding_dim,
                    num_layers=cfg.num_layers, feat_drop=cfg.feat_drop,
                    reducer=cfg.reducer, order=cfg.order, norm=cfg.norm,
-                   extra=cfg.extra, fusion=cfg.fusion)
+                   extra=cfg.extra, fusion=cfg.fusion,
+                   compute_dtype=cfg.compute_dtype,
+                   table_dtype=cfg.table_dtype)
 
     @property
     def padded_items(self):
@@ -111,6 +123,11 @@ class MSGIFSR(nn.Module):
     @property
     def table_norm(self):
         return self.norm
+
+    @property
+    def cdt(self):
+        """The compute dtype; None for float32."""
+        return L.compute_dtype(self.compute_dtype)
 
     @property
     def has_plain_head(self):
@@ -123,27 +140,34 @@ class MSGIFSR(nn.Module):
         from sessionrec_tpu_torch.models.init import reset_msgifsr
         reset_msgifsr(self, gen)
 
+    def project_table(self, table):
+        """Max-norm projection of ``table`` (the table or a float32 copy of
+        it), in place."""
+        return renorm_rows(table, 1.0)
+
     def project_params(self):
         """Max-norm projection of the table, in place."""
-        renorm_rows(self.embedding.data, 1.0)
+        self.project_table(self.embedding.data)
 
     # -- pieces ------------------------------------------------------------
 
-    def _embed_levels(self, batch, rng, training):
+    def _embed_levels(self, cp, batch, rng, training):
         feats = []
         for l in range(1, self.order + 1):
             lv = batch.levels[l - 1]
+            # the gathered rows move to the compute dtype (the table may
+            # be stored bf16 whatever the compute dtype)
             feat = L.embedding_lookup(self.embedding, lv.iid) \
-                .to(torch.float32)                         # [B, Nk, k, d]
+                .to(self.cdt or torch.float32)             # [B, Nk, k, d]
             feat = L.dropout(rng, feat, self.feat_drop, training)
-            feat = L.semantic_expander_apply(self.expander, feat, l,
+            feat = L.semantic_expander_apply(cp.expander, feat, l,
                                              self.reducer)
             if self.norm:
                 feat = L.l2norm(feat)
             feats.append(feat)
         return feats
 
-    def _readout(self, batch, feats):
+    def _readout(self, cp, batch, feats):
         """Attention readout over the combined node set of all orders
         (msgifsr.py:124-155)."""
         all_feat = torch.cat(feats, dim=1)
@@ -151,9 +175,9 @@ class MSGIFSR(nn.Module):
         outs = []
         for i in range(self.order):
             last = L.gather_rows(feats[i], batch.levels[i].last_idx)
-            fu = self.readout.fc_u[i](all_feat)
-            fv = self.readout.fc_v[i](last)
-            e = self.readout.fc_e[i](torch.sigmoid(fu + fv[:, None, :]))
+            fu = cp.readout.fc_u[i](all_feat)
+            fv = cp.readout.fc_v[i](last)
+            e = cp.readout.fc_e[i](torch.sigmoid(fu + fv[:, None, :]))
             alpha = masked_softmax(e, all_mask[..., None], dim=1)
             outs.append(torch.sum(all_feat * alpha, dim=1))
         return torch.stack(outs, dim=1)                    # [B, K, d]
@@ -167,17 +191,18 @@ class MSGIFSR(nn.Module):
             return torch.cat([self._session_repr(batch.short, rng, training),
                               self._session_repr(batch.long, rng, training)],
                              dim=0)
-        h = self._embed_levels(batch, rng, training)
-        for lp in self.layers:
+        cp = L.cast_floats(self, self.cdt)
+        h = self._embed_levels(cp, batch, rng, training)
+        for lp in cp.layers:
             h = L.mshgnn_apply(lp, h, batch, rng, feat_drop=self.feat_drop,
                                training=training, num_heads=self.num_heads)
         if self.norm:
             h = [L.l2norm(x) for x in h]
-        sr_g = self._readout(batch, h)
+        sr_g = self._readout(cp, batch, h)
         sr_l = torch.stack([L.gather_rows(h[i], batch.levels[i].last_idx)
                             for i in range(self.order)], dim=1)
         sr = torch.cat([sr_l, sr_g], dim=-1)               # [B, K, 2d]
-        sr = torch.stack([self.fc_sr[i](sr[:, i])
+        sr = torch.stack([cp.fc_sr[i](sr[:, i])
                           for i in range(self.order)], dim=1)
         if self.norm:
             sr = L.l2norm(sr)
@@ -214,7 +239,7 @@ class MSGIFSR(nn.Module):
     def _phi(self, sr):
         """REnorm gate ``softmax(l2(relu(l1(sr))))`` of ``sc_sr[0]``,
         float32 ``[B, K, 2]``."""
-        sc = self.sc_sr[0]
+        sc = L.cast_floats(self.sc_sr[0], self.cdt)
         return torch.softmax(sc.l2(torch.relu(sc.l1(sr))).to(torch.float32),
                              dim=-1)
 
@@ -245,8 +270,7 @@ class MSGIFSR(nn.Module):
         table = L.l2norm(self.embedding) if self.norm else self.embedding
         imask = scoring.item_mask(self.num_items, self.padded_items,
                                   sr.device).to(torch.float32)
-        logits = torch.einsum("bkd,pd->bkp", sr.to(torch.float32),
-                              table.to(torch.float32))
+        logits = scoring.catalog_logits(sr, table, self.cdt)
         if self.extra:
             phi = self._phi(sr)
             smask = self._session_item_mask(batch)

@@ -17,6 +17,9 @@ whose parameter names follow the JAX parameter tree (``embedding``,
   sr @ table^T`` over the catalog (against ``l2norm(table)`` with
   ``norm``), which the trainer computes with the fused catalog loss
   (ops/xent.py, K1/K2).  There is no max-norm table.
+* ``compute_dtype`` bfloat16 runs the layers in bf16 on float32 master
+  parameters (``layers.cast_floats``), the gathered rows and the
+  adjacency cast to it; ``table_dtype`` bfloat16 stores the table in bf16.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ class SRGNN(nn.Module):
     graph_kind = "session"
 
     def __init__(self, num_items, embedding_dim, num_layers, feat_drop=0.0,
-                 readout_on_embedding=True, norm=False, scale=1.0):
+                 readout_on_embedding=True, norm=False, scale=1.0,
+                 compute_dtype="float32", table_dtype="float32"):
         super().__init__()
         self.num_items = num_items
         self.embedding_dim = d = embedding_dim
@@ -43,7 +47,9 @@ class SRGNN(nn.Module):
         self.readout_on_embedding = readout_on_embedding
         self.norm = norm
         self.scale = float(scale) if scale else 1.0
-        self.embedding = nn.Parameter(torch.empty(self.padded_items, d))
+        self.compute_dtype = compute_dtype
+        self.embedding = nn.Parameter(torch.empty(
+            self.padded_items, d, dtype=getattr(torch, table_dtype)))
         self.layers = nn.ModuleList(L.SRGNNLayer(d)
                                     for _ in range(num_layers))
         self.fc_sr = L.Linear(2 * d, d, bias=False)
@@ -53,7 +59,9 @@ class SRGNN(nn.Module):
     def from_config(cls, cfg, num_items):
         return cls(num_items=num_items, embedding_dim=cfg.embedding_dim,
                    num_layers=cfg.num_layers, feat_drop=cfg.feat_drop,
-                   readout_on_embedding=cfg.readout_on_embedding)
+                   readout_on_embedding=cfg.readout_on_embedding,
+                   compute_dtype=cfg.compute_dtype,
+                   table_dtype=cfg.table_dtype)
 
     @property
     def padded_items(self):
@@ -64,9 +72,18 @@ class SRGNN(nn.Module):
         """The loss scores against ``l2norm(table)``, folded into K1/K2."""
         return self.norm
 
+    @property
+    def cdt(self):
+        """The compute dtype; None for float32."""
+        return L.compute_dtype(self.compute_dtype)
+
     def reset_parameters(self, gen: torch.Generator):
         from sessionrec_tpu_torch.models.init import reset_uniform
         reset_uniform(self, gen)
+
+    def project_table(self, table):
+        """No max-norm table: ``table`` as it is."""
+        return table
 
     def project_params(self):
         """No max-norm table: nothing to project."""
@@ -79,25 +96,30 @@ class SRGNN(nn.Module):
             return torch.cat([self._session_repr(batch.short, rng, training),
                               self._session_repr(batch.long, rng, training)],
                              dim=0)
+        cdt = self.cdt
+        cp = L.cast_floats(self, cdt)
+        # the gathered rows move to the compute dtype (the table may be
+        # stored bf16 whatever the compute dtype)
         emb = L.embedding_lookup(self.embedding, batch.node_iid) \
-            .to(torch.float32)
+            .to(cdt or torch.float32)
+        adj = batch.adj if cdt is None else batch.adj.to(cdt)
         feat = L.dropout(rng, emb, self.feat_drop, training)
         if self.norm:
             feat = L.l2norm(feat)
         ro_feat = feat
         if not self.readout_on_embedding:
-            for lp in self.layers:
-                ro_feat = L.srgnn_layer_apply(lp, ro_feat, batch.adj, rng,
+            for lp in cp.layers:
+                ro_feat = L.srgnn_layer_apply(lp, ro_feat, adj, rng,
                                               feat_drop=self.feat_drop,
                                               training=training)
         if self.norm:
             ro_feat = L.l2norm(ro_feat)
-        sr_g = L.attn_readout_apply(self.readout, ro_feat, batch.node_mask,
+        sr_g = L.attn_readout_apply(cp.readout, ro_feat, batch.node_mask,
                                     batch.last_idx, rng,
                                     feat_drop=self.feat_drop,
                                     training=training)
         sr_l = L.gather_rows(ro_feat, batch.last_idx)
-        sr = self.fc_sr(torch.cat([sr_l, sr_g], dim=-1))
+        sr = cp.fc_sr(torch.cat([sr_l, sr_g], dim=-1))
         return L.l2norm(sr) if self.norm else sr
 
     def head(self, batch, *, training=False, seeds=None):

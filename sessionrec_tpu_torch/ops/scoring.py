@@ -24,12 +24,16 @@ def item_mask(num_items: int, padded: int, device=None):
     return torch.arange(padded, device=device) < num_items
 
 
-def catalog_logits(sr, table):
+def catalog_logits(sr, table, compute_dtype=None):
     """sr [.., d] @ table[P, d]^T -> [.., P] in float32.
 
     A plain product, left to ``torch.matmul`` as the JAX package leaves
-    it to XLA.
+    it to XLA.  ``compute_dtype`` (e.g. ``torch.bfloat16``) rounds the
+    inputs to it first; the products and their sums stay float32 either
+    way, as JAX's ``preferred_element_type=float32``.
     """
+    if compute_dtype is not None:
+        sr, table = sr.to(compute_dtype), table.to(compute_dtype)
     return torch.matmul(sr.to(torch.float32), table.to(torch.float32).T)
 
 

@@ -21,6 +21,26 @@ Beside each kernel sits its plain PyTorch version (``_fwd_plain``,
 CPU.  For CUDA tensors it launches the kernel or raises.  Logits and the
 softmax always accumulate in float32, also for bfloat16 inputs.
 
+The kernels and their plain versions take ``sr`` and the table in one
+type; ``catalog_xent`` maps the four combinations of the table's type and
+the compute type onto them:
+
+* both float32, or both bfloat16: as they are (bf16 products accumulate
+  in float32; the backward's operands are bf16, as the JAX kernels'
+  ``mxu_dtype``; ``d_table`` is bf16);
+* a bfloat16 table with float32 ``sr``: both go to float32 and the
+  float32 kernels run, exactly the JAX numbers (a bf16 table upcasts
+  losslessly; the JAX backward takes its operand type from ``sr``); the
+  backward of the cast rounds ``d_table`` to bf16, as the JAX kernel's
+  output type does;
+* a float32 table with bfloat16 ``sr``: both go to float32 as well.  The
+  forward is the JAX forward (bf16 values of ``sr`` against the float32
+  table); the backward keeps its operands float32 where the JAX kernel
+  rounds ``dz`` and the table operand to bf16, so the gradients differ
+  from JAX's by bf16 rounding (about 2^-8 of their magnitude,
+  ``tests/test_torch_bf16.py``); ``d_sr`` is rounded to bf16 by the
+  cast's backward.
+
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/`` at the repository root and loaded with ctypes
 (``ops/cuda_build.py``).
@@ -156,8 +176,7 @@ def _check(sr, table, labels, *vectors):
     dev = sr.device
     if sr.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"sr must be float32 or bfloat16, got {sr.dtype}")
-    if table.dtype != sr.dtype:
-        raise TypeError(f"table dtype {table.dtype} != sr dtype {sr.dtype}")
+    same_dtype(sr, table)
     if sr.dim() != 2 or table.dim() != 2 or sr.shape[1] != table.shape[1]:
         raise ValueError(f"need sr [B, D] and table [P, D], got "
                          f"{tuple(sr.shape)} and {tuple(table.shape)}")
@@ -384,6 +403,21 @@ def _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset, *, scale,
 # dispatch: the kernel for CUDA tensors, the plain version for CPU tensors
 # ---------------------------------------------------------------------------
 
+def same_dtype(sr, table):
+    """Raise unless ``sr`` and ``table`` have one type, as the kernels
+    take them (the plain versions keep the kernels' rule)."""
+    if table.dtype != sr.dtype:
+        raise TypeError(f"table dtype {table.dtype} != sr dtype {sr.dtype}")
+
+
+def common_dtype(sr, table):
+    """``(sr, table)`` in the one type the kernels take: as they are when
+    their types agree, else both float32 (see the module docstring)."""
+    if sr.dtype == table.dtype:
+        return sr, table
+    return sr.to(torch.float32), table.to(torch.float32)
+
+
 def xent_fwd(sr, table, labels, n_valid, col_offset=0, *, scale,
              normalize_table):
     """K1: ``(per-row loss [B], lse [B])``, float32."""
@@ -392,6 +426,7 @@ def xent_fwd(sr, table, labels, n_valid, col_offset=0, *, scale,
                          scale=scale, normalize_table=normalize_table)
     if sr.device.type != "cpu":
         raise NotImplementedError(f"no xent kernel for {sr.device}")
+    same_dtype(sr, table)
     m, s, zl = _fwd_plain(sr, table, labels, n_valid, col_offset,
                           scale=scale, normalize_table=normalize_table)
     lse = _finish_lse(m, s)
@@ -406,6 +441,7 @@ def xent_bwd(g, sr, table, labels, lse, n_valid, col_offset=0, *, scale,
                          scale=scale, normalize_table=normalize_table)
     if sr.device.type != "cpu":
         raise NotImplementedError(f"no xent kernel for {sr.device}")
+    same_dtype(sr, table)
     return _bwd_plain(g, sr, table, labels, lse, n_valid, col_offset,
                       scale=scale, normalize_table=normalize_table)
 
@@ -435,9 +471,11 @@ def catalog_xent(sr, table, labels, *, scale: float, num_items: int,
                  normalize_table: bool = False):
     """Per-row ``-log softmax(scale * sr @ table^T)[label]`` over the first
     ``num_items`` table rows (the rest are padding).  ``sr [B, D]``,
-    ``table [P, D]`` of one type (float32 or bfloat16), ``labels [B]``.
-    Returns ``[B]`` float32.  ``normalize_table`` scores against
-    ``l2norm(table)`` with the normalisation folded into the kernels."""
+    ``table [P, D]``, each float32 or bfloat16 (``common_dtype``),
+    ``labels [B]``.  Returns ``[B]`` float32.  ``normalize_table`` scores
+    against ``l2norm(table)`` with the normalisation folded into the
+    kernels."""
+    sr, table = common_dtype(sr, table)
     return _CatalogXent.apply(sr, table, labels, float(scale),
                               int(num_items), bool(normalize_table))
 

@@ -27,7 +27,10 @@ The small ``[K, B]`` stats feed the plain-torch combiner
 (``combine_stats``: phi, alpha, fusion), whose gradients come from
 autograd.  Beside each kernel sits its plain PyTorch version
 (``_fwd_plain``, ``_bwd_plain``), taken only for tensors on the CPU; for
-CUDA tensors a wrapper launches the kernel or raises.
+CUDA tensors a wrapper launches the kernel or raises.  They take ``sr3``
+and the table in one type; ``catalog_multi_stats`` maps the combinations
+of table and compute type onto them as ``ops/xent.py`` does
+(``xent.common_dtype``: equal types as they are, mixed ones float32).
 """
 
 from __future__ import annotations
@@ -288,6 +291,7 @@ def xent_multi_fwd(sr3, table, labels, iids, n_valid, col_offset=0, *, scale,
                          scale=scale, normalize_table=normalize_table)
     if sr3.device.type != "cpu":
         raise NotImplementedError(f"no xent_multi kernel for {sr3.device}")
+    xent.same_dtype(sr3, table)
     return _fwd_plain(sr3, table, labels, iids, n_valid, col_offset,
                       scale=scale, normalize_table=normalize_table)
 
@@ -301,6 +305,7 @@ def xent_multi_bwd(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
                          normalize_table=normalize_table)
     if sr3.device.type != "cpu":
         raise NotImplementedError(f"no xent_multi kernel for {sr3.device}")
+    xent.same_dtype(sr3, table)
     return _bwd_plain(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
                       n_valid, col_offset, scale=scale,
                       normalize_table=normalize_table)
@@ -339,7 +344,9 @@ def catalog_multi_stats(sr3, table, labels, iids, *, scale: float,
     """``(zl, lse_in, lse_ex)``, each ``[K, B]`` float32, of
     ``scale * sr3 @ t^T`` over the first ``num_items`` rows of ``table``
     (``t = l2norm(table)`` when ``normalize_table``), with membership from
-    ``iids [B, Ns]`` (-1 = padding)."""
+    ``iids [B, Ns]`` (-1 = padding); ``sr3`` and ``table`` each float32 or
+    bfloat16 (``xent.common_dtype``)."""
+    sr3, table = xent.common_dtype(sr3, table)
     return _CatalogMultiStats.apply(sr3, table, labels, iids, float(scale),
                                     int(num_items), bool(normalize_table))
 

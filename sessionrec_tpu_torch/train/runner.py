@@ -19,7 +19,16 @@ loader's host batches in chunks of ``unroll``:
 
 Every step is forward, backward, Adam, the schedule and the max-norm
 projection, with no host synchronisation (dropout seeds, the learning
-rate and Adam's step counts live on the device).  Metrics and early
+rate and Adam's step counts live on the device).  A bfloat16 table
+(``table_dtype``) takes the bf16 branch of the JAX package's
+``_apply_updates_project`` (runner.py:195-231): its float32 update
+(``optim.TableAdam``) is added to the table in float32, the max-norm
+projection runs on that float32 sum, and the sum is rounded back to bf16
+stochastically (``ops/sround.py``) with a seed drawn on the device from
+the step's ``SeedSource``.  A graph replay therefore rounds anew, an
+eager step from the same counter rounds as the graph does, and a resume
+replays the rounding.  The JAX package folds its seed out of the step's
+PRNG key instead, so the two streams differ.  Metrics and early
 stopping follow the reference: one evaluation before any training
 (train.py:91), early stop only when *both* MRR and HR worsened against
 the running maxima (train.py:118-123), and the running maximum of each
@@ -51,6 +60,7 @@ import torch
 
 from sessionrec_tpu_torch.models.layers import SeedSource, l2norm
 from sessionrec_tpu_torch.ops import scoring, xent, xent_multi
+from sessionrec_tpu_torch.ops.sround import stochastic_round_bf16
 from sessionrec_tpu_torch.train.optim import make_optimizer
 from sessionrec_tpu_torch.utils.logging import get_logger
 
@@ -59,9 +69,12 @@ log = get_logger(__name__)
 
 def set_precision():
     """float32 products mean float32 on the card, as on the TPU reference:
-    no TF32 in matmuls or convolutions."""
+    no TF32 in matmuls or convolutions; and bfloat16 products accumulate
+    in float32 in cuBLAS, as JAX's ``preferred_element_type=float32``
+    (no reduced-precision reduction)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(name: str) -> torch.device:
@@ -81,17 +94,39 @@ def make_loss(model, batch, seeds):
     (ops/xent.py, K1/K2), else the fused multi-order REnorm/fusion loss
     of the multi head (ops/xent_multi.py, K3/K4); the table l2norm folds
     into either.  ``seeds`` (a ``SeedSource``) drives dropout; None
-    disables it."""
+    disables it.  A model that computes in its table's type gives the
+    loss ``sr`` in that type too, and the kernels run in it (their bf16
+    branch for a bf16 table and bf16 compute); anything else raises."""
     kw = dict(scale=model.scale, num_items=model.num_items,
               normalize_table=model.table_norm)
     if model.has_plain_head:
         sr, table = model.head(batch, training=True, seeds=seeds)
+        _check_loss_dtype(model, sr, table)
         return xent.fused_nll_loss(sr, table, batch.labels, batch.valid, **kw)
     sr, table, phi, alpha, iids = model.head_multi(batch, training=True,
                                                    seeds=seeds)
+    _check_loss_dtype(model, sr, table)
     return xent_multi.multi_nll_loss(sr, table, batch.labels, batch.valid,
                                      iids, phi, alpha, extra=model.extra,
                                      fusion=model.fusion, **kw)
+
+
+@torch.no_grad()
+def apply_table_update(model, update, seed):
+    """The bf16 branch of the JAX package's ``_apply_updates_project``
+    (runner.py:195-231): the float32 ``update`` is added to the bfloat16
+    ``model.embedding`` in float32, ``model.project_table`` projects the
+    float32 sum, and the sum is rounded back into the table in place with
+    ``stochastic_round_bf16(., seed)``."""
+    table = model.embedding
+    new = model.project_table(table.to(torch.float32) + update)
+    table.copy_(stochastic_round_bf16(new, seed))
+
+
+def _check_loss_dtype(model, sr, table):
+    if table.dtype == (model.cdt or torch.float32) and sr.dtype != table.dtype:
+        raise TypeError(f"the loss gets sr in {sr.dtype} from a model that "
+                        f"computes in its {table.dtype} table's type")
 
 
 # Eval materialises the [B, P] float32 scores plus about as many bytes of
@@ -129,7 +164,7 @@ def eval_scores(model, batch):
         sr, table = model.head(batch, training=False)
         if model.table_norm:
             table = l2norm(table)
-        logits = scoring.catalog_logits(sr, table)
+        logits = scoring.catalog_logits(sr, table, model.cdt)
         imask = scoring.item_mask(model.num_items, model.padded_items,
                                   logits.device)
         return torch.where(imask, logits, -math.inf)
@@ -310,7 +345,7 @@ class TrainRunner:
         # graph finds every gradient where it left it
         for p in self.params:
             p.grad = torch.zeros_like(p)
-        self.opt, self.sched = make_optimizer(
+        self.opt, self.sched, self.table_opt = make_optimizer(
             model, lr, weight_decay, steps_per_epoch=len(train_loader),
             lr_step_size=lr_step_size, lr_gamma=lr_gamma)
         self.graphs = {}          # steps -> StepGraph, captured at first use
@@ -342,11 +377,23 @@ class TrainRunner:
         self.seeds.begin_step()
         loss = make_loss(self.model, batch, self.seeds)
         self.opt.zero_grad(set_to_none=False)
+        if self.table_opt is not None:
+            self.table_opt.zero_grad()
         loss.backward()
         self.opt.step()
+        update = self.table_opt.update() if self.table_opt else None
         self.sched.step()
-        self.model.project_params()
+        self._project(update)
         return loss.detach()
+
+    def _project(self, table_update):
+        """The max-norm projection after the optimizer's step: in place on
+        a float32 table; a bfloat16 table takes ``table_update`` through
+        ``apply_table_update`` with the step's next device seed."""
+        if table_update is None:
+            self.model.project_params()
+        else:
+            apply_table_update(self.model, table_update, self.seeds.next())
 
     def train_step(self, batch):
         """One plain eager step on ``batch`` (on the device); returns the
@@ -383,7 +430,8 @@ class TrainRunner:
         out = {n: p.detach() for n, p in named.items()}
         out.update(self.model.named_buffers())
         for n, p in named.items():
-            st = self.opt.state.get(p, {})
+            st = (self.table_opt.state if self.table_opt is not None
+                  and p is self.table_opt.param else self.opt.state.get(p, {}))
             out.update({f"adam/{n}/{k}": st[k]
                         for k in ("step", "exp_avg", "exp_avg_sq")
                         if k in st})

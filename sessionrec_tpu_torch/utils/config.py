@@ -9,9 +9,8 @@ preset is NISER's wiring with SRGNN's model, as in the JAX package.
 Cut down from ``sessionrec_tpu/utils/config.py`` (the port imports
 nothing of the JAX package) to the fields the PyTorch trainer reads, so
 ``preset`` raises ``KeyError`` on an option the port does not implement
-(the bf16 table, parallelism, the other models' knobs) instead of
-ignoring it.  A later slice adds a field with the code that reads
-it.
+(parallelism) instead of ignoring it, and ``ValueError`` on a dtype
+other than float32 and bfloat16.
 """
 
 from __future__ import annotations
@@ -59,6 +58,15 @@ class ModelConfig:
     # reads the pre-GNN embedding, leaving the GNN output unused
     # (srgnn.py:141-142); False feeds it the GNN output
     readout_on_embedding: bool = True
+    # numerics: the layers' compute dtype (the float32 master parameters
+    # are cast to it in each forward), and the item table's storage dtype;
+    # a bfloat16 table keeps float32 Adam moments and rounds its updates
+    # stochastically (ops/sround.py)
+    compute_dtype: str = "float32"
+    table_dtype: str = "float32"
+
+
+DTYPES = ("float32", "bfloat16")
 
 
 @dataclass
@@ -140,4 +148,8 @@ def preset(name: str, **overrides) -> Config:
                 break
         if not placed:
             raise KeyError(f"unknown config field {k!r}")
+    for k in ("compute_dtype", "table_dtype"):
+        if getattr(cfg.model, k) not in DTYPES:
+            raise ValueError(f"{k} must be one of {DTYPES}, got "
+                             f"{getattr(cfg.model, k)!r}")
     return cfg

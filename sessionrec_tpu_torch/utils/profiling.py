@@ -8,12 +8,13 @@ wall times.  Run as a module, this file is the step-breakdown tool:
 
     python -m sessionrec_tpu_torch.utils.profiling [--steps 24] [--warmup 16]
         [--model msgifsr|srgnn|niser|lessr] [--order 3 --extra --fusion]
-        [--unroll 8]
+        [--table-dtype bfloat16 --compute-dtype bfloat16] [--unroll 8]
 
 Runs the main path's configuration (MSGIFSR order 1, d=256, 1 layer, batch
 512, tiers (4, 8), feat_drop 0.1, datasets/sample), with ``--order 3
 --extra --fusion`` the WSDM'22 paper head at the same widths, or with
-``--model`` SRGNN, NISER or LESSR at its preset, tiers (4, 8), through the
+``--model`` SRGNN, NISER or LESSR at its preset, tiers (4, 8), in the
+table and compute dtypes asked for (float32 by default), through the
 runner's default loop (``run_chunk``: the native batch builder, ``unroll``
 steps per CUDA-graph replay), and prints JSON lines:
 
@@ -253,11 +254,16 @@ def main(argv=None):
     ap.add_argument("--order", type=int, default=1)
     ap.add_argument("--extra", action="store_true", help="MSGIFSR REnorm")
     ap.add_argument("--fusion", action="store_true", help="MSGIFSR IFR")
+    ap.add_argument("--table-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     mkw = dict(order=args.order, extra=args.extra, fusion=args.fusion) \
         if args.model == "msgifsr" else {}
+    mkw.update(table_dtype=args.table_dtype, compute_dtype=args.compute_dtype)
     train, runner = setup_runner(
         run_config(args.model, args.seed, args.dataset_dir, **mkw),
         args.unroll)

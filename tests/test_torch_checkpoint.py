@@ -5,10 +5,12 @@ order-1 head and on the paper head: parameters, Adam's moments and step
 counts, the schedule's counter and rate, the dropout counter, the
 losses and the early-stop bookkeeping; the shuffle order of epoch k is a
 pure function of (seed, k).  The counterpart of
-tests/test_checkpoint_resume.py (its bfloat16 case waits for the port's
-bf16 table).  Also: ``checkpoint_every``, the migration of catalog
-padding, the refusal of other shape drift, and the sidecar's keys
-against the JAX package's ``Checkpointer``.
+tests/test_checkpoint_resume.py, with its bfloat16 case: a bf16 table
+and bf16 compute, the table's float32 moments and the stochastic
+rounding included, atol 0.  Also: ``checkpoint_every``, the migration of
+catalog padding and of a table's dtype, the refusal of other shape
+drift, and the sidecar's keys against the JAX package's
+``Checkpointer``.
 """
 
 import json
@@ -29,7 +31,9 @@ from sessionrec_tpu_torch.utils import checkpoint as ck
 SAMPLE_DIR = pathlib.Path(__file__).resolve().parent.parent / "datasets" \
     / "sample"
 HEADS = {"o1": dict(order=1), "paper": dict(order=3, extra=True,
-                                             fusion=True)}
+                                             fusion=True),
+         "bfloat16": dict(order=1, table_dtype="bfloat16",
+                          compute_dtype="bfloat16")}
 
 
 def make_runner(ckpt_dir=None, head="o1", **kw):
@@ -86,6 +90,9 @@ def test_resume_reproduces_uninterrupted_run(tmp_path, head):
     for name, t in want.items():
         assert torch.equal(got[name], t), name
     assert got["adam/embedding/step"].dtype == torch.float32
+    table = HEADS[head].get("table_dtype", "float32")
+    assert b.model.embedding.dtype == getattr(torch, table)
+    assert got["adam/embedding/exp_avg_sq"].dtype == torch.float32
     assert int(b.sched.count) == int(b.seeds.count) == full.steps
     assert float(b.sched.lr) == pytest.approx(1e-3 * 0.5 ** 2)
     assert (b.max_mrr, b.max_hit, b.bad_counter) == \
@@ -99,6 +106,27 @@ def test_checkpoint_every_epochs(tmp_path):
     assert saved == ["epoch_0001", "epoch_0001.json", "epoch_0003",
                      "epoch_0003.json"]
     assert r.checkpointer.latest_epoch() == 3
+
+
+def test_restore_casts_a_table_of_another_dtype(tmp_path, monkeypatch):
+    """A float32 run's checkpoint restores into a bfloat16-table runner:
+    the table is cast and the cast logged (the JAX package's dtype
+    migration); its float32 moments restore exactly."""
+    a = make_runner(tmp_path / "dt")
+    a.train(1, log_interval=10 ** 9)
+    b = make_runner(tmp_path / "dt", "bfloat16")
+    warned = []
+    monkeypatch.setattr(ck.log, "warning",
+                        lambda msg, *args: warned.append(msg % args))
+    assert b.checkpointer.restore_latest(b)
+    assert warned == ["migrated embedding dtype torch.float32 -> "
+                      "torch.bfloat16 (resume is no longer bit-identical)"]
+    assert torch.equal(b.model.embedding,
+                       a.model.embedding.detach().to(torch.bfloat16))
+    for key in ("exp_avg", "exp_avg_sq"):
+        assert torch.equal(b.named_state()[f"adam/embedding/{key}"],
+                           a.named_state()[f"adam/embedding/{key}"])
+    b.train(2, log_interval=10 ** 9)
 
 
 def _rewrite(path, fn):
