@@ -99,6 +99,32 @@ Phases, one JSON line each on stdout:
    ``bit_identical`` says whether every loss and state tensor came out
    equal (required of o1_bf16).
 
+9. niser_1m, paper_1m — the JAX package's million-item configurations
+   (bench.py:93, :149) on a split written from ``--seed`` (2^20 items,
+   ids uniform, session lengths drawn from datasets/sample's train
+   sessions; 3,000 train and 640 test sessions).  Before the paths, K1
+   and K2 at niser_1m's shape (B 512, D 64, P 2^20, normalised, scale 12)
+   and K3 and K4 at paper_1m's (B 64, K 3, D 256, P 2^20) against their
+   plain versions on the card, and their times (K3/K4 also at B 512).
+   ``*_train``: NISER+ (batch 512, d 64, 2 layers, feat_drop 0.5) 16
+   steps, the paper head (order 3, REnorm, fusion, d 256) 8, through
+   ``run_training`` with its evals at the auto policy: the path's kernels
+   once a step, the others never, and the device ms a step of one more
+   traced chunk.  ``*_eval``: the runner's sweep (niser_1m materialises,
+   paper_1m streams), then each method through a one-batch eval graph
+   (capture seconds, replay ms a batch, peak memory): streamed against
+   materialised (paper_1m at batch 64, where ``[B, K, P]`` fits),
+   HR@20/MRR@20 to 1e-6 and ranks equal on every row whose label is not
+   within 1e-5 (relative) of another item's score, on the test labels
+   and on labels placed at ranks 1..30 with exact ties from a copied
+   table row; the ``topk`` rank method on one batch; niser_1m also a
+   batch of 1,024 examples (1,056 rows with its tiers' padding), which
+   the auto policy streams.  ``niser_1m_serve``
+   as the other paths serve (from the checkpoint, against the CPU);
+   ``paper_1m_serve`` auto-streamed at the tile of 32,768 and at 2,048,
+   ids against the materialised top-k at batch 64.  Every phase prints
+   its peak memory.
+
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before the last line.  Without a CUDA
 device, or without the package beside this file, it exits 2.
@@ -158,7 +184,8 @@ EVENT_KEYS = {"train": ["ts", "kind", "step", "epoch", "loss",
                        "examples_per_s"]}
 # phase-name prefix of each path
 SHORT = {"path": "o1", "paper": "paper", "srgnn": "srgnn", "niser": "niser",
-         "lessr": "lessr", "o1_bf16": "o1_bf16", "paper_bf16": "paper_bf16"}
+         "lessr": "lessr", "o1_bf16": "o1_bf16", "paper_bf16": "paper_bf16",
+         "niser_1m": "niser_1m"}
 TOPK = 20                                  # serving's k
 SCORE_TIE = 1e-5     # adjacent CPU scores closer than this may swap ids
 SCORE_ATOL = 1e-4    # card against CPU serving scores
@@ -312,53 +339,60 @@ def xent_check_cases(torch):
                for norm in (True, False)])
 
 
+def xent_check(torch, xent, case, seed, **tags):
+    """K1 and K2 against their plain versions at one case of
+    ``xent_check_cases``: emits the ``kernel_check`` line, fails on a
+    disagreement, and returns (K1's error, K2's largest error but the
+    zero-norm row's)."""
+    n_items, P, dtype, norm, rows, dim = case
+    sr, tab, labels, g = make_inputs(torch, n_items, P, dtype, seed,
+                                     rows=rows, dim=dim)
+    kw = dict(scale=SCALE, normalize_table=norm)
+    loss_k, lse_k = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
+    m, s, zl = xent._fwd_plain(sr, tab, labels, n_items, 0, **kw)
+    lse_p = xent._finish_lse(m, s)
+    loss_p = lse_p - zl
+    dsr_k, dtab_k = xent._bwd_cuda(g, sr, tab, labels, lse_p, n_items,
+                                   0, **kw)
+    dsr_k2, dtab_k2 = xent._bwd_cuda(g, sr, tab, labels, lse_p,
+                                     n_items, 0, **kw)
+    dsr_p, dtab_p = xent._bwd_plain(g, sr, tab, labels, lse_p, n_items,
+                                    0, **kw)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    e_fwd, fwd_tol = fwd_errors((loss_k, lse_k), (loss_p, lse_p),
+                                TOL[("fwd", dname)])
+    tol = TOL[("bwd", dname)]
+    e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
+    # the zero-norm row's gradient is G / eps, about 1e12 times the
+    # others, and rows with no label carry only the softmax term
+    dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol)
+    same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
+    row = {"phase": "kernel_check", "items": n_items, "P": P,
+           "B": rows, "D": dim, "dtype": dname, "normalize_table": norm,
+           **tags, "fwd_max_abs_err": e_fwd, "dsr_max_abs_err": e_dsr,
+           "fwd_tol": fwd_tol, "dsr_tol": dsr_tol, "dtable_err_tol": dtab,
+           "k2_repeat_bit_identical": same}
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (loss_k, lse_k, dsr_k, dtab_k))
+    row["ok"] = (finite and same and e_fwd <= row["fwd_tol"]
+                 and e_dsr <= row["dsr_tol"]
+                 and all(e <= t for e, t in dtab.values()))
+    emit(row)
+    check(row["ok"], f"kernel disagrees with its plain version: {row}")
+    return e_fwd, max([e_dsr] + [e for name, (e, _) in dtab.items()
+                                 if name != "zero_row"])
+
+
 def phase_kernel_checks(torch, xent, seed):
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
     worst = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    for i, (n_items, P, dtype, norm, rows, dim) in enumerate(
-            xent_check_cases(torch)):
-        sr, tab, labels, g = make_inputs(torch, n_items, P, dtype, seed + i,
-                                         rows=rows, dim=dim)
-        kw = dict(scale=SCALE, normalize_table=norm)
-        loss_k, lse_k = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
-        m, s, zl = xent._fwd_plain(sr, tab, labels, n_items, 0, **kw)
-        lse_p = xent._finish_lse(m, s)
-        loss_p = lse_p - zl
-        dsr_k, dtab_k = xent._bwd_cuda(g, sr, tab, labels, lse_p, n_items,
-                                       0, **kw)
-        dsr_k2, dtab_k2 = xent._bwd_cuda(g, sr, tab, labels, lse_p,
-                                         n_items, 0, **kw)
-        dsr_p, dtab_p = xent._bwd_plain(g, sr, tab, labels, lse_p, n_items,
-                                        0, **kw)
-        torch.cuda.synchronize()
-        dname = str(dtype).split(".")[-1]
-        e_fwd, fwd_tol = fwd_errors((loss_k, lse_k), (loss_p, lse_p),
-                                    TOL[("fwd", dname)])
-        tol = TOL[("bwd", dname)]
-        e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
-        # the zero-norm row's gradient is G / eps, about 1e12 times the
-        # others, and rows with no label carry only the softmax term
-        dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol)
-        same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
-        row = {"phase": "kernel_check", "items": n_items, "P": P,
-               "B": rows, "D": dim, "dtype": dname, "normalize_table": norm,
-               "fwd_max_abs_err": e_fwd, "dsr_max_abs_err": e_dsr,
-               "fwd_tol": fwd_tol,
-               "dsr_tol": dsr_tol, "dtable_err_tol": dtab,
-               "k2_repeat_bit_identical": same}
-        finite = all(bool(torch.isfinite(t.float()).all())
-                     for t in (loss_k, lse_k, dsr_k, dtab_k))
-        row["ok"] = (finite and same and e_fwd <= row["fwd_tol"]
-                     and e_dsr <= row["dsr_tol"]
-                     and all(e <= t for e, t in dtab.values()))
-        emit(row)
-        check(row["ok"], f"kernel disagrees with its plain version: {row}")
+    for i, case in enumerate(xent_check_cases(torch)):
+        errs = xent_check(torch, xent, case, seed + i)
+        _, P, dtype, norm, rows, dim = case
         if (P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm
                 and rows == B and dim == D):
-            worst["xent_fwd"] = e_fwd
-            worst["xent_bwd"] = max(
-                [e_dsr] + [e for name, (e, _) in dtab.items()
-                           if name != "zero_row"])
+            worst["xent_fwd"], worst["xent_bwd"] = errs
     return worst
 
 
@@ -421,56 +455,63 @@ def stats_errors(torch, got, want, tol):
     return errs
 
 
+def multi_check(torch, xm, case, seed, **tags):
+    """K3 and K4 against their plain versions at one width-D case of
+    ``xent_check_cases``: emits the ``multi_kernel_check`` line, fails on
+    a disagreement, and returns (K3's error, K4's largest error but the
+    zero-norm row's)."""
+    n_items, P, dtype, norm, rows, _ = case
+    sr3, tab, labels, iids, cot, lse = make_multi_inputs(
+        torch, xm, n_items, P, dtype, seed, norm, rows=rows)
+    kw = dict(scale=SCALE, normalize_table=norm)
+    got = xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
+    want = xm._fwd_plain(sr3, tab, labels, iids, n_items, 0, **kw)
+    dsr_k, dtab_k = xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
+                                 n_items, 0, **kw)
+    dsr_k2, dtab_k2 = xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
+                                   n_items, 0, **kw)
+    dsr_p, dtab_p = xm._bwd_plain(*cot, sr3, tab, labels, iids, *lse,
+                                  n_items, 0, **kw)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    stats = stats_errors(torch, got, want, TOL[("fwd", dname)])
+    e_fwd = max(max_err(a, b) for a, b in zip(got, want))
+    tol = TOL[("bwd", dname)]
+    e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
+    dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol, iids)
+    same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
+    row = {"phase": "multi_kernel_check", "items": n_items, "P": P,
+           "K": K, "B": rows, "dtype": dname, "normalize_table": norm,
+           **tags, "stats_err_tol": stats, "stats_max_abs_err": e_fwd,
+           "dsr_max_abs_err": e_dsr, "dsr_tol": dsr_tol,
+           "dtable_err_tol": dtab, "k4_repeat_bit_identical": same}
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (*got[1::2], dsr_k, dtab_k))
+    row["ok"] = (finite and same
+                 and all(e <= t for e, t in stats.values())
+                 and e_dsr <= row["dsr_tol"]
+                 and all(e <= t for e, t in dtab.values()))
+    emit(row)
+    check(row["ok"], f"multi kernel disagrees with its plain version: "
+          f"{row}")
+    return e_fwd, max([e_dsr] + [e for name, (e, _) in dtab.items()
+                                 if name != "zero_row"])
+
+
 def phase_multi_checks(torch, xm, seed):
     """K3 and K4 against their plain versions, on the K1/K2 checks' cases
     (``xent_check_cases``); returns the largest errors of the main path's
     case (padded path catalog, float32, normalised)."""
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
     worst = {}
-    for i, (n_items, P, dtype, norm, rows, dim) in enumerate(
-            xent_check_cases(torch)):
+    for i, case in enumerate(xent_check_cases(torch)):
+        _, P, dtype, norm, rows, dim = case
         if dim != D:
             continue
-        sr3, tab, labels, iids, cot, lse = make_multi_inputs(
-            torch, xm, n_items, P, dtype, seed + i, norm, rows=rows)
-        kw = dict(scale=SCALE, normalize_table=norm)
-        got = xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
-        want = xm._fwd_plain(sr3, tab, labels, iids, n_items, 0, **kw)
-        dsr_k, dtab_k = xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
-                                     n_items, 0, **kw)
-        dsr_k2, dtab_k2 = xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
-                                       n_items, 0, **kw)
-        dsr_p, dtab_p = xm._bwd_plain(*cot, sr3, tab, labels, iids, *lse,
-                                      n_items, 0, **kw)
-        torch.cuda.synchronize()
-        dname = str(dtype).split(".")[-1]
-        stats = stats_errors(torch, got, want, TOL[("fwd", dname)])
-        e_fwd = max(max_err(a, b) for a, b in zip(got, want))
-        tol = TOL[("bwd", dname)]
-        e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
-        dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol,
-                             iids)
-        same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
-        row = {"phase": "multi_kernel_check", "items": n_items, "P": P,
-               "K": K, "B": rows, "dtype": dname, "normalize_table": norm,
-               "stats_err_tol": stats, "stats_max_abs_err": e_fwd,
-               "dsr_max_abs_err": e_dsr, "dsr_tol": dsr_tol,
-               "dtable_err_tol": dtab, "k4_repeat_bit_identical": same}
-        finite = all(bool(torch.isfinite(t.float()).all())
-                     for t in (*got[1::2], dsr_k, dtab_k))
-        row["ok"] = (finite and same
-                     and all(e <= t for e, t in stats.values())
-                     and e_dsr <= row["dsr_tol"]
-                     and all(e <= t for e, t in dtab.values()))
-        emit(row)
-        check(row["ok"], f"multi kernel disagrees with its plain version: "
-              f"{row}")
+        errs = multi_check(torch, xm, case, seed + i)
         if (P == pad_catalog(PATH_ITEMS) and dtype == torch.float32 and norm
                 and rows == B):
-            worst["xent_multi_fwd"] = e_fwd
-            worst["xent_multi_bwd"] = max(
-                [e_dsr] + [e for name, (e, _) in dtab.items()
-                           if name != "zero_row"])
+            worst["xent_multi_fwd"], worst["xent_multi_bwd"] = errs
     return worst
 
 
@@ -691,89 +732,93 @@ def phase_sround(torch, seed, smi):
               f"CPU's at P={P}")
 
 
+def multi_times(torch, xm, n_items, P, dtype, seed, smi, rows=B, **tags):
+    """K3's and K4's times at ``rows`` rows of K orders against a ``P``-row
+    normalised table, their plain versions', their bounds and the
+    library's; emits the ``kernel_time`` and ``multi_launch`` lines, with
+    ``tags``, and returns {kernel: times}.  The yardstick is the shortest
+    PyTorch expression of the same function, several calls: one batched
+    product, the membership mask (built once, outside the timing) in
+    ``torch.where``, two ``logsumexp`` and a gather; for K4 its autograd
+    backward."""
+    import torch.nn.functional as F
+    dname = str(dtype).split(".")[-1]
+    sr3, tab, labels, iids, cot, lse = make_multi_inputs(
+        torch, xm, n_items, P, dtype, seed, rows=rows)
+    kw = dict(scale=SCALE, normalize_table=True)
+    iters = 50 if P < 10000 else 10
+    member = xm._member(iids, P, 0)
+    imask = torch.arange(P, device="cuda") < n_items
+    lbl = labels.clamp(min=0).long()[None, :, None].expand(K, rows, 1)
+    srl = sr3.detach().clone().requires_grad_(True)
+    tabl = tab.detach().clone().requires_grad_(True)
+
+    def lib_fwd():
+        z = SCALE * torch.matmul(srl, F.normalize(tabl, dim=1).T)
+        z = torch.where(imask, z, -1e30)
+        return (torch.gather(z, 2, lbl)[..., 0],
+                torch.logsumexp(torch.where(member, z, -1e30), -1),
+                torch.logsumexp(torch.where(member, -1e30, z), -1))
+
+    lib_out = lib_fwd()
+    lib_cot = tuple(c.to(dtype) for c in cot)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (srl, tabl), lib_cot,
+                                   retain_graph=True)
+
+    esz = sr3.element_size()
+    small = rows * 4 + rows * NS * 4                 # labels, iids
+    ops_f = 2 * K * rows * P * D + 2 * P * D
+    bytes_f = (K * rows * D + P * D) * esz + small + 5 * K * rows * 4
+    ops_b = 3 * 2 * K * rows * P * D + 2 * P * D
+    bytes_b = ((K * rows * D + 2 * P * D) * esz + small + 5 * K * rows * 4
+               + K * rows * D * 4)
+    bf, byf = bounds(bytes_f, ops_f, dname)
+    bb, byb = bounds(bytes_b, ops_b, dname)
+
+    def k3():
+        return xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
+
+    def k4():
+        return xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse, n_items, 0,
+                            **kw)
+
+    res = {
+        "xent_multi_fwd": {
+            "ms": time_ms(torch, k3, iters),
+            "plain_ms": time_ms(torch, lambda: xm._fwd_plain(
+                sr3, tab, labels, iids, n_items, 0, **kw), iters),
+            "library_ms": time_ms(torch, lib_fwd, iters),
+            "library_kernel_ms": library_kernel_ms(torch, lib_fwd, iters),
+            "bound_ms": bf, "bound_by": byf},
+        "xent_multi_bwd": {
+            "ms": time_ms(torch, k4, iters),
+            "plain_ms": time_ms(torch, lambda: xm._bwd_plain(
+                *cot, sr3, tab, labels, iids, *lse, n_items, 0, **kw),
+                iters),
+            "library_ms": time_ms(torch, lib_bwd, iters),
+            "library_kernel_ms": library_kernel_ms(torch, lib_bwd, iters),
+            "bound_ms": bb, "bound_by": byb},
+    }
+    for name, r in res.items():
+        emit({"phase": "kernel_time", "kernel": name, "items": n_items,
+              "P": P, "K": K, "B": rows, "D": D, "dtype": dname,
+              "normalize_table": True, **tags, **r, "card": smi})
+    emit_launch(torch, "multi_launch", xm.multi_launch_shape(sr3, P),
+                lambda: (k3(), k4()), iters, smi, P=P, K=K, B=rows, D=D,
+                dtype=dname, **tags)
+    return res
+
+
 def phase_multi_times(torch, xm, seed, smi):
     """K3/K4 times at B=512, K=3, D=256, normalised table, both catalogs
-    and types.  The yardstick is the shortest PyTorch expression of the
-    same function, several calls: one batched product, the membership
-    mask (built once, outside the timing) in ``torch.where``, two
-    ``logsumexp`` and a gather; for K4 its autograd backward."""
-    import torch.nn.functional as F
+    and types (``multi_times``)."""
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
-    rows = {}
-    for n_items in CATALOGS:
-        P = pad_catalog(n_items)
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            sr3, tab, labels, iids, cot, lse = make_multi_inputs(
-                torch, xm, n_items, P, dtype, seed)
-            kw = dict(scale=SCALE, normalize_table=True)
-            iters = 50 if P < 10000 else 10
-            member = xm._member(iids, P, 0)
-            imask = torch.arange(P, device="cuda") < n_items
-            lbl = labels.clamp(min=0).long()[None, :, None].expand(K, B, 1)
-            srl = sr3.detach().clone().requires_grad_(True)
-            tabl = tab.detach().clone().requires_grad_(True)
-
-            def lib_fwd():
-                z = SCALE * torch.matmul(srl, F.normalize(tabl, dim=1).T)
-                z = torch.where(imask, z, -1e30)
-                return (torch.gather(z, 2, lbl)[..., 0],
-                        torch.logsumexp(torch.where(member, z, -1e30), -1),
-                        torch.logsumexp(torch.where(member, -1e30, z), -1))
-
-            lib_out = lib_fwd()
-            lib_cot = tuple(c.to(dtype) for c in cot)
-
-            def lib_bwd():
-                return torch.autograd.grad(lib_out, (srl, tabl), lib_cot,
-                                           retain_graph=True)
-
-            esz = sr3.element_size()
-            small = B * 4 + B * NS * 4                 # labels, iids
-            ops_f = 2 * K * B * P * D + 2 * P * D
-            bytes_f = (K * B * D + P * D) * esz + small + 5 * K * B * 4
-            ops_b = 3 * 2 * K * B * P * D + 2 * P * D
-            bytes_b = ((K * B * D + 2 * P * D) * esz + small + 5 * K * B * 4
-                       + K * B * D * 4)
-            bf, byf = bounds(bytes_f, ops_f, dname)
-            bb, byb = bounds(bytes_b, ops_b, dname)
-
-            def k3():
-                return xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
-
-            def k4():
-                return xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
-                                    n_items, 0, **kw)
-
-            res = {
-                "xent_multi_fwd": {
-                    "ms": time_ms(torch, k3, iters),
-                    "plain_ms": time_ms(torch, lambda: xm._fwd_plain(
-                        sr3, tab, labels, iids, n_items, 0, **kw), iters),
-                    "library_ms": time_ms(torch, lib_fwd, iters),
-                    "library_kernel_ms": library_kernel_ms(torch, lib_fwd,
-                                                           iters),
-                    "bound_ms": bf, "bound_by": byf},
-                "xent_multi_bwd": {
-                    "ms": time_ms(torch, k4, iters),
-                    "plain_ms": time_ms(torch, lambda: xm._bwd_plain(
-                        *cot, sr3, tab, labels, iids, *lse, n_items, 0,
-                        **kw), iters),
-                    "library_ms": time_ms(torch, lib_bwd, iters),
-                    "library_kernel_ms": library_kernel_ms(torch, lib_bwd,
-                                                           iters),
-                    "bound_ms": bb, "bound_by": byb},
-            }
-            for name, r in res.items():
-                emit({"phase": "kernel_time", "kernel": name,
-                      "items": n_items, "P": P, "K": K, "B": B, "D": D,
-                      "dtype": dname, "normalize_table": True, **r,
-                      "card": smi})
-            emit_launch(torch, "multi_launch", xm.multi_launch_shape(sr3, P),
-                        lambda: (k3(), k4()), iters, smi, P=P, K=K, B=B, D=D,
-                        dtype=dname)
-            rows[(n_items, dname)] = res
-    return rows
+    return {(n_items, str(dtype).split(".")[-1]): multi_times(
+                torch, xm, n_items, pad_catalog(n_items), dtype, seed, smi)
+            for n_items in CATALOGS
+            for dtype in (torch.float32, torch.bfloat16)}
 
 
 # ---------------------------------------------------------------------------
@@ -841,10 +886,9 @@ def kernel_base_name(name):
 TRACE_SETTLE_S = 0.5
 
 
-def trace_launches(torch, fn):
-    """({wrapper: launches counted by kernel name}, {wrapper: those of
-    its bfloat16 instantiation}, kernel events) in a ``torch.profiler``
-    trace of ``fn()``."""
+def traced_events(torch, fn):
+    """(name, start us, duration us) of the device's work in a
+    ``torch.profiler`` trace of ``fn()``."""
     from torch.profiler import ProfilerActivity, profile
     from sessionrec_tpu_torch.utils.profiling import profiled_device_events
     torch.cuda.synchronize()
@@ -853,12 +897,22 @@ def trace_launches(torch, fn):
         fn()
         torch.cuda.synchronize()
         time.sleep(TRACE_SETTLE_S)
-    full = [n for n, _, _ in profiled_device_events(prof)
-            if not n.startswith("Mem")]
+    return profiled_device_events(prof)
+
+
+def count_launches(events):
+    """({wrapper: launches counted by kernel name}, {wrapper: those of
+    its bfloat16 instantiation}, kernel events) among trace ``events``."""
+    full = [n for n, _, _ in events if not n.startswith("Mem")]
     names = [kernel_base_name(n) for n in full]
     bf16 = [b for n, b in zip(full, names) if "bfloat16" in n]
     return ({k: names.count(v) for k, v in TRACE_KERNEL.items()},
             {k: bf16.count(v) for k, v in TRACE_KERNEL.items()}, len(names))
+
+
+def trace_launches(torch, fn):
+    """``count_launches`` of a ``torch.profiler`` trace of ``fn()``."""
+    return count_launches(traced_events(torch, fn))
 
 
 def device_launches(launches, graphs):
@@ -1014,7 +1068,8 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
 
 def is_bf16(name):
     """True for a path with a bfloat16 table and bfloat16 compute."""
-    return PATHS[name]["model"].get("table_dtype") == "bfloat16"
+    spec = PATHS.get(name) or MILLION_PATHS[name]
+    return spec["model"].get("table_dtype") == "bfloat16"
 
 
 def table_state(torch, runner):
@@ -1187,6 +1242,7 @@ def phase_serve(torch, name, trained, cfg, smi, dev="cuda"):
 
     ckpt = Path(cfg.train.checkpoint_dir)
     (ckpt / "epoch_0000" / "train.pt").unlink()
+    held = reset_peak(torch) if dev == "cuda" else None
     train, test, num_items = read_dataset(cfg.data.dataset_dir)
     max_len = max(max_session_len(train), max_session_len(test))
     model = serving.restore_params(build_model(cfg.model, num_items), ckpt,
@@ -1226,8 +1282,10 @@ def phase_serve(torch, name, trained, cfg, smi, dev="cuda"):
            "ms_per_batch_median": float(np.median(ms)),
            "ms_per_batch_p99": float(np.percentile(ms, 99)),
            "sessions_per_s": 5 * len(test) / (ms.sum() / 1e3),
-           "build_ms_per_batch": build_ms, "card": smi,
-           "ok": same and cmp["ok"]}
+           "build_ms_per_batch": build_ms,
+           "peak_gib": peak_gib(torch) if dev == "cuda" else None,
+           "held_before_gib": held,
+           "card": smi, "ok": same and cmp["ok"]}
     emit(row)
     check(same, "parameters or buffers restored without train.pt differ "
           "from the trained runner's")
@@ -1334,6 +1392,483 @@ def phase_resume(torch, seed, dataset_dir, smi, tmp, dev="cuda", dim=None,
     check(row["ok"], f"the resumed run differs from the uninterrupted one: "
           f"{row}")
 
+# ---------------------------------------------------------------------------
+# phase 9: million-item catalogs (bench.py:93 niser-1m, :149 msgifsr-o3-1m)
+# ---------------------------------------------------------------------------
+
+MILLION = 1 << 20
+# sessions of the synthetic split: about 9,300 train examples (18 batches
+# of 512) and 2,000 test examples (4 batches; a 1,024-row batch fits)
+M_SESSIONS = {"train": 3000, "test": 640}
+# the paper head's batch where its [B, K, P] scores are materialised too
+# (3 x 64 x 2^20 float32, 0.75 GiB a tensor), and how many of them
+M_SMALL_B, M_SMALL_BATCHES = 64, 8
+REL_TIE = 1e-5      # a score this close (relative) to the label's may swap
+PLACED = 30         # labels placed at ranks 1 .. PLACED of the scores
+MILLION_PATHS = {
+    # NISER+ at bench.py:93: batch 512, d 64, 2 layers, feat_drop 0.5,
+    # normalised table, scale 12; 16 steps (8 eager, one 8-step replay)
+    "niser_1m": dict(preset="niser", model=dict(batch_size=512),
+                     kernels=K12, steps=16),
+    # the paper head at bench.py:149: order 3, REnorm, fusion, d 256,
+    # batch 512, feat_drop 0.1, "real" lengths, tiers (4, 8); 8 steps
+    "paper_1m": dict(preset="msgifsr",
+                     model=dict(order=3, extra=True, fusion=True),
+                     kernels=("xent_multi_fwd", "xent_multi_bwd"), steps=8),
+}
+
+
+def reset_peak(torch):
+    """Reset the card's peak-memory counter; returns the GiB allocated
+    now (tensors of earlier phases still alive), which every later peak
+    includes."""
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def peak_gib(torch):
+    """The card's peak allocated memory since the last reset, GiB."""
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def million_dataset(np, root, seed, dataset_dir):
+    """A dataset of MILLION items under ``root``: ids uniform over the
+    catalog, session lengths drawn from ``dataset_dir``'s train sessions,
+    so that the prefixes follow its train prefix lengths (the "real"
+    lengths of bench.py:154-167, which draws those prefix lengths)."""
+    from sessionrec_tpu_torch.data.io import read_sessions
+    lens = np.array([len(s) for s in
+                     read_sessions(Path(dataset_dir) / "train.txt")])
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    for split, n in M_SESSIONS.items():
+        ls = rng.choice(lens[lens >= 2], size=n)
+        ids = rng.integers(0, MILLION, size=int(ls.sum())).tolist()
+        ends = np.cumsum(ls).tolist()
+        lines = [",".join(map(str, ids[e - l:e])) for l, e in zip(ls, ends)]
+        (root / f"{split}.txt").write_text("\n".join(lines) + "\n")
+    (root / "num_items.txt").write_text(f"{MILLION}\n")
+    return root
+
+
+def million_config(name, seed, data_dir, **train):
+    from sessionrec_tpu_torch.utils.profiling import run_config
+    spec = MILLION_PATHS[name]
+    return run_config(spec["preset"], seed, data_dir, device="cuda",
+                      epochs=1, log_interval=10 ** 9, **spec["model"],
+                      **train)
+
+
+def with_labels(batch, labels):
+    """``batch`` with its (row-concatenated) labels replaced, tier by
+    tier."""
+    import dataclasses
+    from sessionrec_tpu_torch.graph.batch import flatten_blocks, nest_blocks
+    blocks, start = [], 0
+    for b in flatten_blocks(batch):
+        n = b.labels.shape[0]
+        blocks.append(dataclasses.replace(b, labels=labels[start:start + n]))
+        start += n
+    return nest_blocks(blocks)
+
+
+def phase_million_train(torch, xent, xm, name, seed, data_dir, smi, tmp):
+    """Train path ``name`` for its steps through ``run_training`` (an
+    initial and a final eval at the auto policy; niser_1m checkpoints):
+    the path's kernels once a step, counted as the other paths count them,
+    the others never; a finite, falling loss; then one more chunk traced,
+    whose device ms a step is the train step's.  Returns (wrapper
+    launches, device launches, runner, config, the parameters saved in
+    the checkpoint or None)."""
+    from sessionrec_tpu_torch.train.runner import launch_counts
+    from sessionrec_tpu_torch.train.session import run_training
+    from sessionrec_tpu_torch.utils.profiling import busy_us
+    spec = MILLION_PATHS[name]
+    steps = spec["steps"]
+    ckpt = {"checkpoint_dir": str(Path(tmp) / name / "ckpt")} \
+        if name == "niser_1m" else {}
+    cfg = million_config(name, seed, data_dir, **ckpt)
+    held = reset_peak(torch)
+    xent.reset_launches()
+    xm.reset_launches()
+    t0 = time.perf_counter()
+    runner = run_training(cfg, max_epoch_batches=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    on_device = device_launches(launches, runner.graphs)
+    peak = peak_gib(torch)
+    n = runner.steps
+    # the parameters the checkpoint holds, before the traced chunk
+    saved = {k: t.clone() for k, t in runner.model.state_dict().items()} \
+        if ckpt else None
+    G = runner.unroll
+    chunk = first_batches(runner.train_loader, G)
+    t0 = time.perf_counter()
+    events = traced_events(torch, lambda: runner.run_chunk(chunk))
+    traced, _, kernel_events = count_launches(events)
+    busy_ms = busy_us(events) / 1e3
+    traced_s = time.perf_counter() - t0 - 2 * TRACE_SETTLE_S
+    losses = runner.losses
+    m = cfg.model
+    row = {"phase": f"{name}_train", "model": m.name, "items": MILLION,
+           "P": runner.model.padded_items, "dim": m.embedding_dim,
+           "layers": m.num_layers, "order": m.order, "extra": m.extra,
+           "fusion": m.fusion, "batch": cfg.data.batch_size,
+           "tiers": list(cfg.data.split_len), "feat_drop": m.feat_drop,
+           "steps": n, "launches": launches, "device_launches": on_device,
+           "graphs": {n: g.replays for n, g in runner.graphs.items()},
+           "traced_chunk_launches": traced,
+           "traced_kernel_events": kernel_events,
+           "traced_chunk_s": traced_s,
+           "device_ms_a_step": busy_ms / G if kernel_events else None,
+           "first_losses": losses[:4], "last_losses": losses[-4:],
+           "mrr20": runner.max_mrr, "hr20": runner.max_hit,
+           "train_examples": runner.train_examples,
+           "train_seconds": runner.train_seconds, "wall_seconds": wall,
+           "peak_gib": peak, "held_before_gib": held, "card": smi}
+    emit(row)
+    check(n == steps, f"{name}: ran {n} steps, expected {steps}")
+    bad = launch_errors(on_device, steps, spec["kernels"])
+    check(not bad, f"{name}: device launches {bad} [counted, expected]")
+    check(all((launches[k] > 0) == (k in spec["kernels"]) for k in launches),
+          f"{name}: wrapper launches {launches}")
+    if kernel_events:
+        bad = launch_errors(traced, G, spec["kernels"])
+        check(not bad, f"{name}: traced launches {bad} in {G} steps")
+    check(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss")
+    check(sum(losses[-4:]) < sum(losses[:4]),
+          f"{name}: loss did not fall: {losses}")
+    return ({k: launches[k] for k in spec["kernels"]},
+            {k: on_device[k] for k in spec["kernels"]}, runner, cfg, saved)
+
+
+def graph_ranks(torch, model, batches, cutoff=TOPK, **kw):
+    """``eval_ranks(model, batch, cutoff, **kw)`` of each host batch
+    through a one-batch CUDA graph over a static slot (after one eager
+    batch): (ranks per batch, capture seconds, ms a batch per replay,
+    staging the batch and reading nothing back)."""
+    from sessionrec_tpu_torch.train.runner import (_capture, _on_side_stream,
+                                                   _Slots, eval_ranks)
+    slots = _Slots(torch.device("cuda"))
+    _on_side_stream(slots.device, lambda: eval_ranks(
+        model, slots.stage(0, batches[0]), cutoff, **kw))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g, _ = _capture({}, 1, None,
+                    lambda: eval_ranks(model, slots[0], cutoff, **kw))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    ranks, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        slots.stage(0, b)
+        g.graph.replay()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ranks.append(g.out.clone())
+    return ranks, capture_s, ms
+
+
+def rank_metrics(torch, ranks, batches):
+    """(MRR@20, HR@20) of per-batch label ranks over the batches' valid
+    rows, in float64."""
+    hit = mrr = n = 0.0
+    for r, b in zip(ranks, batches):
+        v = torch.as_tensor(b.valid, dtype=torch.float64).to(r.device)
+        r = r.to(torch.float64)
+        hit += float(torch.sum((r > 0) * v))
+        mrr += float(torch.sum(torch.where(r > 0, 1.0 / r.clamp(min=1),
+                                           0.0) * v))
+        n += float(v.sum())
+    return mrr / max(n, 1.0), hit / max(n, 1.0)
+
+
+def ranked_scores(torch, model, batch):
+    """The materialised scores whose order the rankers count, on the
+    card: the plain head's masked logits, the multi head's blended
+    probabilities (``exp`` of ``model.apply``'s log-probabilities)."""
+    from sessionrec_tpu_torch.train.runner import eval_scores
+    scores = eval_scores(model, batch)
+    return scores if model.has_plain_head else torch.exp(scores)
+
+
+def compare_ranks(torch, model, got, want, batches):
+    """{rows, ranked, excluded, mismatched, tied}: ranks ``got`` against
+    ``want`` per device batch.  ``excluded``: rows that either ranks
+    within the cutoff whose label's score has another real item's within
+    REL_TIE (relative) without equalling it, where float32 rounding in
+    another order may swap the two; ``tied``: rows whose label ties
+    another item exactly, held like the others."""
+    out = dict(rows=0, ranked=0, excluded=0, mismatched=0, tied=0)
+    for g, w, b in zip(got, want, batches):
+        scores = ranked_scores(torch, model, b)
+        lv = torch.gather(scores, 1, b.labels.to(torch.int64)[:, None])
+        near = ((scores - lv).abs() <= REL_TIE * lv.abs()) & (scores != lv)
+        near[:, model.num_items:] = False
+        near = near.any(dim=1) & ((g > 0) | (w > 0))
+        out["rows"] += len(g)
+        out["ranked"] += int((w > 0).sum())
+        out["excluded"] += int(near.sum())
+        out["mismatched"] += int(((g != w) & ~near).sum())
+        out["tied"] += int(((scores == lv).sum(1) > 1).sum())
+    return out
+
+
+def placed_batch(torch, model, batch, seed):
+    """``batch`` on the card with labels at ranks 1, 2, .. PLACED of the
+    materialised scores (row r at rank r % PLACED + 1) and exact ties: for
+    each of the first 4 rows, its best item outside the session (so that
+    both lie in one REnorm part) copied into a random table row, which
+    becomes the row's label.  Returns (batch, restore), ``restore()``
+    putting the table rows back."""
+    from sessionrec_tpu_torch.ops.scoring import stable_topk
+    gen = torch.Generator().manual_seed(seed)
+    top = stable_topk(ranked_scores(torch, model, batch), PLACED)[1]
+    rows = torch.arange(top.shape[0], device=top.device)
+    src = top[:, 0]
+    if not model.has_plain_head:
+        member = model._session_item_mask(batch).bool()
+        outside = ~torch.gather(member, 1, top)
+        src = top[rows, torch.argmax(outside.to(torch.int32), dim=1)]
+    tab = model.embedding.data
+    dst = torch.randint(0, model.num_items, (4,), generator=gen)
+    dst = dst.to(tab.device)
+    saved = tab[dst].clone()
+    tab[dst] = tab[src[:4]]
+    labels = top[rows, rows % PLACED]
+    labels[:4] = dst
+    batch = with_labels(batch, labels.to(torch.int32))
+
+    def restore():
+        tab[dst] = saved
+
+    return batch, restore
+
+
+def phase_million_eval(torch, name, runner, cfg, smi):
+    """Eval at P = 2^20.  The runner's sweep over the test split at the
+    auto policy (its eval graphs; timed, sums); then per method a
+    one-batch eval graph (``graph_ranks``: capture seconds and replay ms
+    a batch): streamed against materialised, metrics to SUMS_ATOL and
+    ranks equal on every row not within REL_TIE of another item, on the
+    test labels and on placed labels with exact ties; the ``topk`` rank
+    method on one batch; niser_1m also a 1,024-row batch, where the auto
+    policy streams."""
+    import numpy as np
+    from sessionrec_tpu_torch.data.io import max_session_len, read_dataset
+    from sessionrec_tpu_torch.data.loader import BatchLoader
+    from sessionrec_tpu_torch.train.runner import _streams, sweep_metrics
+    model, dev = runner.model, torch.device("cuda")
+    model.eval()
+    batches = list(runner.test_loader)
+    runner.test_loader = batches
+    held = reset_peak(torch)
+    runner.eval_sweep()                               # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sums = runner.eval_sweep()
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) / 3 / len(batches) * 1e3
+    auto = _streams(model, batches[0], None)
+    mrr, hit = sweep_metrics(sums)
+    row = {"phase": f"{name}_eval", "batches": len(batches),
+           "batch": cfg.data.batch_size, "auto_path":
+           "streamed" if auto else "materialised",
+           "sweep_ms_per_batch": sweep_ms, "sweep_sums": sums.tolist(),
+           "mrr20": mrr, "hr20": hit,
+           "eval_graph_replays": {n: g.replays for n, g in
+                                  runner.eval_graphs.items()},
+           "sweep_peak_gib": peak_gib(torch), "held_before_gib": held,
+           "card": smi}
+    check(auto == (name == "paper_1m"),
+          f"{name}: the auto policy picked the {row['auto_path']} path")
+    dbatches = [b.to(dev) for b in batches]
+    methods = {}
+
+    def run(key, bs, db, **kw):
+        held = reset_peak(torch)
+        ranks, cap, ms = graph_ranks(torch, model, bs, **kw)
+        methods[key] = {"capture_s": cap, "ms_per_batch_median":
+                        float(np.median(ms)), "ms_per_batch": ms,
+                        "peak_gib": peak_gib(torch), "held_before_gib": held,
+                        "metrics": rank_metrics(torch, ranks, db)}
+        return ranks
+
+    train, test, _ = read_dataset(cfg.data.dataset_dir)
+    max_len = max(max_session_len(train), max_session_len(test))
+
+    def loader(batch_size):
+        return BatchLoader(test, model.graph_kind, batch_size, max_len,
+                           order=cfg.model.order, prefetch=0,
+                           split_len=cfg.data.split_len)
+
+    if name == "niser_1m":
+        ref_b, ref_db = batches, dbatches
+    else:
+        ref_b = first_batches(loader(M_SMALL_B), M_SMALL_BATCHES)
+        ref_db = [b.to(dev) for b in ref_b]
+        run("streamed_count_b512", batches, dbatches, streamed=True)
+    want = run("materialised_count", ref_b, ref_db, streamed=False)
+    got = run("streamed_count", ref_b, ref_db, streamed=True)
+    cmp = compare_ranks(torch, model, got, want, ref_db)
+    gap = max(abs(a - b) for a, b in zip(methods["streamed_count"]["metrics"],
+                                         methods["materialised_count"]
+                                         ["metrics"]))
+    # the topk rank method, both paths, on one batch
+    one, d_one = ref_b[:1], ref_db[:1]
+    topk = {s: run(f"{s}_topk", one, d_one,
+                   streamed=s == "streamed", rank_method="topk")[0]
+            for s in ("materialised", "streamed")}
+    topk_cmp = compare_ranks(torch, model, [topk["streamed"],
+                                            topk["materialised"]],
+                             [want[0], want[0]], d_one * 2)
+    # placed labels with exact ties, on the first batch
+    placed, restore = placed_batch(torch, model, ref_db[0], 7)
+    try:
+        p_want = graph_ranks(torch, model, [placed], streamed=False)[0]
+        p_got = graph_ranks(torch, model, [placed], streamed=True)[0]
+        p_cmp = compare_ranks(torch, model, p_got, p_want, [placed])
+    finally:
+        restore()
+    row.update(methods=methods, ranks=cmp, metrics_max_abs_gap=gap,
+               topk_ranks=topk_cmp, placed_ranks=p_cmp)
+    ok = (gap <= SUMS_ATOL and cmp["mismatched"] == 0
+          and topk_cmp["mismatched"] == 0 and p_cmp["mismatched"] == 0
+          and p_cmp["ranked"] >= len(p_want[0]) // 4 and p_cmp["tied"] >= 1)
+    if name == "niser_1m":
+        big_b = first_batches(loader(2 * cfg.data.batch_size), 1)
+        big_d = [big_b[0].to(dev)]
+        picks = _streams(model, big_d[0], None)
+        g = run("auto_b1024", big_b, big_d)
+        w = run("materialised_b1024", big_b, big_d, streamed=False)
+        big_cmp = compare_ranks(torch, model, g, w, big_d)
+        row["b1024"] = {"rows": int(big_d[0].labels.shape[0]),
+                        "auto_path": "streamed" if picks
+                        else "materialised", "ranks": big_cmp}
+        ok = ok and picks and big_cmp["mismatched"] == 0
+    row["ok"] = ok
+    emit(row)
+    check(ok, f"{name}: streamed and materialised eval disagree: {row}")
+
+
+def phase_million_serve(torch, name, model, cfg, smi):
+    """Serving the paper head at P = 2^20 from the trained model: the
+    whole test split at batch 512, auto-streamed (``streamed_multi_topk``
+    at the serving tile of 32,768), against the materialised top-k at
+    batch 64 (``streamed=False``): ids equal at every position whose
+    materialised probability lies more than REL_TIE of the row's largest
+    from its neighbours', values to REL_TIE of it; then at the tile of
+    2,048, its ids against the 32,768 tile's under the same rule.  Each
+    timed as ``phase_serve`` times one step (6 passes, the first warms up
+    and captures): sessions/s, median and p99 ms a batch, peak memory."""
+    import numpy as np
+    from sessionrec_tpu_torch import serving
+    from sessionrec_tpu_torch.data.io import max_session_len, read_dataset
+    from sessionrec_tpu_torch.train.runner import _streams
+    train, test, _ = read_dataset(cfg.data.dataset_dir)
+    max_len = max(max_session_len(train), max_session_len(test))
+    kw = dict(max_len=max_len, order=cfg.model.order)
+    want = list(serving.recommend(model, test, k=TOPK + 1,
+                                  batch_size=M_SMALL_B, streamed=False,
+                                  **kw))
+    w_ids = np.array([ids for _, ids, _ in want])
+    w_p = np.exp(np.array([v for _, _, v in want], np.float64))
+    scale = w_p.max(axis=1, keepdims=True)
+    clear = clear_positions(np, w_p / scale, REL_TIE)
+    batches = list(serving.session_batches(
+        test, model.graph_kind, cfg.data.batch_size, max_len,
+        cfg.model.order))
+    out, ids_by_tile = {}, {}
+    for tile in (serving.serving_tile(model.padded_items), 2048):
+        held = reset_peak(torch)
+        step = serving.make_recommend_step(model, TOPK, tile=tile)
+        times, got_ids, got_vals = [], [], []
+        for rep in range(6):
+            for batch, n in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vals, ids = step(batch)
+                vals, ids = vals[:n].cpu(), ids[:n].cpu()
+                if rep:
+                    times.append(time.perf_counter() - t0)
+                else:
+                    got_ids.append(ids.numpy())
+                    got_vals.append(vals.numpy())
+        g_ids = np.concatenate(got_ids)
+        g_val = np.concatenate(got_vals).astype(np.float64)
+        ids_by_tile[tile] = g_ids
+        ms = np.array(times) * 1e3
+        out[str(tile)] = {
+            "id_mismatches": int((g_ids != w_ids[:, :TOPK])[clear].sum()),
+            "value_max_rel_err": float((np.abs(g_val - w_p[:, :TOPK])
+                                        / scale).max()),
+            "graph_replays": step.graph.replays if step.graph else 0,
+            "ms_per_batch_median": float(np.median(ms)),
+            "ms_per_batch_p99": float(np.percentile(ms, 99)),
+            "sessions_per_s": 5 * len(test) / (ms.sum() / 1e3),
+            "peak_gib": peak_gib(torch), "held_before_gib": held}
+    tiles = list(ids_by_tile)
+    auto = _streams(model, batches[0][0], None)
+    row = {"phase": f"{name}_serve", "sessions": len(test),
+           "batch": cfg.data.batch_size, "k": TOPK,
+           "auto_path": "streamed" if auto else "materialised",
+           "clear_positions": int(clear.sum()),
+           "tied_positions": int((~clear).sum()), "tiles": out,
+           "tile_id_mismatches": int((ids_by_tile[tiles[0]]
+                                      != ids_by_tile[tiles[1]])[clear].sum()),
+           "card": smi}
+    row["ok"] = (auto and all(t["id_mismatches"] == 0
+                              and t["graph_replays"] > 0
+                     and t["value_max_rel_err"] <= REL_TIE
+                     for t in out.values())
+                 and row["tile_id_mismatches"] == 0)
+    emit(row)
+    check(row["ok"], f"{name}: streamed serving disagrees: {row}")
+
+
+def phase_million_kernels(torch, xent, xm, seed, smi):
+    """K1 and K2 at niser_1m's shape (B 512, D 64, P 2^20, normalised,
+    scale 12), K3 and K4 at paper_1m's (K 3, D 256, P 2^20): each against
+    its plain version on the card (``xent_check``, ``multi_check``: K3/K4
+    at B 64), then timed with its bound and the library's time (K3/K4 at
+    B 64 and at the train step's B 512)."""
+    xent_check(torch, xent, (MILLION, MILLION, torch.float32, True, B, 64),
+               seed, path="niser_1m")
+    xent_times(torch, xent, MILLION, MILLION, torch.float32, seed, smi,
+               rows=B, dim=64, path="niser_1m")
+    multi_check(torch, xm, (MILLION, MILLION, torch.float32, True,
+                            M_SMALL_B, D), seed, path="paper_1m")
+    for rows in (M_SMALL_B, B):
+        torch.cuda.empty_cache()
+        multi_times(torch, xm, MILLION, MILLION, torch.float32, seed, smi,
+                    rows=rows, path="paper_1m")
+    torch.cuda.empty_cache()
+
+
+def run_million_paths(torch, np, xent, xm, seed, dataset_dir, smi, tmp):
+    """The two million-item paths on a synthetic split written under
+    ``tmp``: train, eval, serve; returns ({kernel: wrapper launches},
+    {kernel: device launches}) of their training runs."""
+    data = million_dataset(np, Path(tmp) / "million", seed, dataset_dir)
+    launches, on_device = {}, {}
+    for name in MILLION_PATHS:
+        wrapped, dev, runner, cfg, saved = phase_million_train(
+            torch, xent, xm, name, seed, data, smi, tmp)
+        for k in wrapped:
+            launches[k] = launches.get(k, 0) + wrapped[k]
+            on_device[k] = on_device.get(k, 0) + dev[k]
+        phase_million_eval(torch, name, runner, cfg, smi)
+        if saved is not None:
+            phase_serve(torch, name, saved, cfg, smi)
+        else:
+            phase_million_serve(torch, name, runner.model, cfg, smi)
+        del runner
+        torch.cuda.empty_cache()
+    return launches, on_device
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1342,6 +1877,7 @@ def main(argv=None):
     ap.add_argument("--dataset-dir", default=str(HERE / "datasets" / "sample"))
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1373,6 +1909,7 @@ def main(argv=None):
         phase_bf16_path_times(torch, xent, args.seed, smi)
         phase_sround(torch, args.seed, smi)
         multi_times = phase_multi_times(torch, xm, args.seed, smi)
+        phase_million_kernels(torch, xent, xm, args.seed, smi)
         launches = dict.fromkeys(errs, 0)
         on_device = dict.fromkeys(errs, 0)
         with tempfile.TemporaryDirectory() as tmp:
@@ -1391,6 +1928,11 @@ def main(argv=None):
             for name in ("path", "lessr", "o1_bf16"):
                 phase_resume(torch, args.seed, args.dataset_dir, smi, tmp,
                              name=name)
+            wrapped, dev = run_million_paths(torch, np, xent, xm, args.seed,
+                                             args.dataset_dir, smi, tmp)
+            for k in wrapped:
+                launches[k] += wrapped[k]
+                on_device[k] += dev[k]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

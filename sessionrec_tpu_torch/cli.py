@@ -164,7 +164,7 @@ def cmd_predict(args):
         for sess, ids, scores in serving.recommend(
                 model, sessions, max_len=max_len, k=args.k,
                 batch_size=cfg.data.batch_size, method=args.topk_method,
-                order=cfg.model.order,
+                recall_target=args.recall_target, order=cfg.model.order,
                 use_native=cfg.data.use_native_collate):
             out.write(json.dumps({"session": sess, "items": ids,
                                   "scores": [round(s, 4) for s in scores]})
@@ -190,9 +190,13 @@ def main(argv=None):
                     help="JSONL output path (default: stdout)")
     pr.add_argument("--topk-method", default="exact",
                     choices=["exact", "approx"],
-                    help="exact = torch.topk; approx (the TPU's "
-                         "lax.approx_max_k in the JAX package) is not "
-                         "ported and raises")
+                    help="exact = the stable top-k of lax.top_k; approx "
+                         "is lax.approx_max_k in the JAX package, "
+                         "approximate only on a TPU and exact elsewhere: "
+                         "here the exact top-k, recall 1")
+    pr.add_argument("--recall-target", type=float, default=0.95,
+                    help="approx's recall target, in (0, 1]; the exact "
+                         "top-k meets any")
     args = parser.parse_args(argv)
     if args.cmd == "train":
         cmd_train(args)

@@ -37,6 +37,16 @@ def catalog_logits(sr, table, compute_dtype=None):
     return torch.matmul(sr.to(torch.float32), table.to(torch.float32).T)
 
 
+def log_softmax_scores(sr, table, imask, scale: float = 1.0,
+                       compute_dtype=None):
+    """log(softmax(scale * sr @ table^T)) over real items; padded columns
+    (``imask`` false) get ~NEG_INF log-probability (srgnn.py:147,
+    niser.py:154)."""
+    logits = scale * catalog_logits(sr, table, compute_dtype)
+    logits = torch.where(imask.bool(), logits, NEG_INF)
+    return torch.log_softmax(logits, dim=-1)
+
+
 def masked_catalog_softmax(logits, col_mask):
     """softmax over the last axis restricted to ``col_mask``; rows with an
     empty mask return zeros (MSGIFSR's REnorm split, msgifsr.py:289-292)."""
@@ -72,3 +82,53 @@ def label_ranks_by_count(scores, labels, k: int):
     eq_before = torch.sum((scores == lv) & (col < labels), dim=-1)
     rank = greater + eq_before + 1
     return torch.where(rank <= k, rank, 0)
+
+
+def use_count_ranks(rank_method) -> bool:
+    """Resolve the eval rank method: None (auto) and "count" count, "topk"
+    takes the reference-shaped top-k; anything else raises."""
+    if rank_method not in (None, "count", "topk"):
+        raise ValueError(
+            f"rank_method must be None, 'count' or 'topk', got "
+            f"{rank_method!r}")
+    return rank_method != "topk"
+
+
+def stable_topk(x, k: int):
+    """``lax.top_k`` over the last axis: ``(values, int64 indices)``, the
+    largest first, equal values by ascending index.
+
+    ``torch.topk`` finds the right values but promises no order among
+    equal ones.  So its k-th value ``v`` fixes the set: every element
+    above ``v``, and of those equal to ``v`` the lowest indices, until
+    there are k.  The set's indices come out in ascending order (a prefix
+    sum places each); a stable sort of their k values then puts them in
+    ``lax.top_k``'s order.  Every shape is static, so the function runs
+    inside a CUDA graph.
+    """
+    n = x.shape[-1]
+    v = torch.topk(x, k, dim=-1).values[..., -1:]
+    above = x > v
+    eq = x == v
+    need = k - torch.sum(above, dim=-1, keepdim=True, dtype=torch.int32)
+    take = above | (eq & (torch.cumsum(eq, -1, dtype=torch.int32) <= need))
+    pos = torch.cumsum(take, -1, dtype=torch.int32) - 1
+    cols = torch.arange(n, device=x.device).expand(x.shape)
+    slots = torch.full(x.shape[:-1] + (k + 1,), n, dtype=torch.int64,
+                       device=x.device)
+    # the columns not taken all land in slot k, which is dropped
+    slots.scatter_(-1, torch.where(take, pos, k).to(torch.int64), cols)
+    ids = slots[..., :k]
+    vals = torch.gather(x, -1, ids)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    return torch.gather(vals, -1, order), torch.gather(ids, -1, order)
+
+
+def topk_ranks(log_probs, labels, k: int):
+    """1-based rank of each label within the top-k, else 0: the label's
+    position in ``stable_topk`` (evaluate(), train.py:45-53), ties
+    resolved as ``lax.top_k`` resolves them."""
+    _, idx = stable_topk(log_probs, k)
+    hit = idx == labels.to(torch.int64)[:, None]
+    rank = torch.argmax(hit.to(torch.int32), dim=-1) + 1
+    return torch.where(torch.any(hit, dim=-1), rank, 0)

@@ -14,13 +14,19 @@ are flat (no length tiers), padded to the batch size with ``[0]``
 sessions whose ``valid`` is 0; their rows are dropped before the ids go
 to the host.
 
-Scores are ``train/runner.py:eval_scores``, the code eval ranks: the
-plain head's raw masked catalog logits (against ``l2norm(table)`` for
-NISER; LESSR's BatchNorm at its running statistics), the multi head's
-log-probabilities.  Top-k is exact (``torch.topk``; tied scores may come
-in another order than ``lax.top_k``'s lower-index-first).  On CUDA the
-step replays a CUDA graph captured over a static batch slot after its
-first, eager batch; a capture that fails raises.
+The plain head always scores its materialised masked catalog logits
+(``train/runner.py:eval_scores``: against ``l2norm(table)`` for NISER;
+LESSR's BatchNorm at its running statistics), as the JAX package does.
+The multi head scores its fused REnorm/fusion blend: ``model.apply``'s
+log-probabilities while the ``[B, K, P]`` scores stay below eval's
+streaming threshold (``runner._auto_stream``), and above it, or with
+``streamed=True``, the slab-streamed two-pass top-k
+(``ops/streamed_eval.py:streamed_multi_topk``), whose values are raw
+blended probabilities in the same order and whose ids are the same.
+Top-k is ``scoring.stable_topk``: ``lax.top_k``'s order, equal scores by
+ascending id.  On CUDA the step replays a CUDA graph captured over a
+static batch slot after its first, eager batch; a capture that fails
+raises.
 """
 
 from __future__ import annotations
@@ -31,10 +37,14 @@ import numpy as np
 import torch
 
 from sessionrec_tpu_torch.data.loader import _make_batch
+from sessionrec_tpu_torch.ops.scoring import stable_topk
+from sessionrec_tpu_torch.ops.streamed_eval import streamed_multi_topk
 from sessionrec_tpu_torch.train.runner import (StepGraph, _Slots, _capture,
-                                               _on_side_stream, eval_scores,
-                                               resolve_device, set_precision)
+                                               _on_side_stream, _streams,
+                                               eval_scores, resolve_device,
+                                               set_precision)
 from sessionrec_tpu_torch.utils.checkpoint import Checkpointer
+
 
 def restore_params(model, checkpoint_dir, device="cuda"):
     """``model`` on ``device`` with the latest checkpoint's parameters in
@@ -66,15 +76,43 @@ def session_batches(sessions, kind, batch_size, max_len, order=1,
         yield dataclasses.replace(batch, valid=valid), n
 
 
+def serving_tile(padded_items):
+    """Slab rows of the streamed multi-head top-k: 16 times eval's, since
+    each slab pays a top-k where counting pays none (chosen on a TPU,
+    ``sessionrec_tpu/serving.py:145-150``; PERF.md §7 holds it against
+    2048 on the H100)."""
+    return 32768 if padded_items >= 32768 else 2048
+
+
+@torch.no_grad()
+def recommend_topk(model, batch, k, streamed=None, tile=None):
+    """``(scores [B, k], item ids [B, k])`` of a device batch.
+    ``streamed``: None streams the multi head where eval would
+    (``runner._auto_stream``), True or False forces it; the plain head
+    always materialises.  ``tile``: the streamed slab rows, None for
+    ``serving_tile``."""
+    if model.has_plain_head or not _streams(model, batch, streamed):
+        return stable_topk(eval_scores(model, batch), k)
+    sr, table, phi, alpha, iids = model.head_multi(batch, training=False)
+    return streamed_multi_topk(
+        sr, table, iids, phi, alpha, num_items=model.num_items,
+        extra=model.extra, fusion=model.fusion, k=k,
+        scale=float(model.scale), normalize_table=model.table_norm,
+        compute_dtype=model.cdt,
+        tile=tile or serving_tile(model.padded_items))
+
+
 class RecommendStep:
     """``step(batch) -> (scores [B, k], item ids [B, k])`` on the model's
-    device for a host batch.  On CUDA the first batch runs eagerly on a
-    side stream and later ones replay a graph captured over a static
-    batch slot (``graph``, None until captured)."""
+    device for a host batch (``recommend_topk``).  On CUDA the first batch
+    runs eagerly on a side stream and later ones replay a graph captured
+    over a static batch slot (``graph``, None until captured)."""
 
-    def __init__(self, model, k):
+    def __init__(self, model, k, streamed=None, tile=None):
         self.model = model
         self.k = k
+        self.streamed = streamed
+        self.tile = tile
         self.device = next(model.parameters()).device
         self._slot = _Slots(self.device)
         self._graphs = {}
@@ -85,9 +123,9 @@ class RecommendStep:
         capture."""
         return self._graphs.get(1)
 
-    @torch.no_grad()
     def _topk(self, batch):
-        return torch.topk(eval_scores(self.model, batch), self.k, dim=-1)
+        return recommend_topk(self.model, batch, self.k, self.streamed,
+                              self.tile)
 
     def __call__(self, batch):
         if self.device.type != "cuda":
@@ -103,22 +141,25 @@ class RecommendStep:
         return tuple(t.clone() for t in g.out)
 
 
-def make_recommend_step(model, k=20, method="exact"):
-    """The step that scores a batch and takes its exact top-k
-    (``RecommendStep``).  Projects the model's table once (identity for a
+def make_recommend_step(model, k=20, method="exact", recall_target=0.95,
+                        streamed=None, tile=None):
+    """The step that scores a batch and takes its top-k
+    (``RecommendStep``; ``streamed`` and ``tile`` as in
+    ``recommend_topk``).  Projects the model's table once (identity for a
     trained checkpoint: the training step keeps it projected).
-    ``method="approx"`` is the TPU's ``lax.approx_max_k`` in the JAX
-    package and is not ported."""
-    if method == "approx":
-        raise NotImplementedError(
-            "topk method 'approx' is the TPU's lax.approx_max_k; on the GPU "
-            "it would be a kernel of its own, not ported (ROADMAP.md, "
-            "'Serving')")
-    if method != "exact":
+
+    ``method="approx"`` is ``lax.approx_max_k`` in the JAX package, which
+    is approximate only on a TPU: on the CPU and the GPU XLA computes it
+    as the exact ``lax.top_k``.  So here it is the exact stable top-k, of
+    recall 1, which meets any ``recall_target`` in (0, 1]."""
+    if method not in ("exact", "approx"):
         raise ValueError(f"unknown topk method {method!r}")
+    if not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"recall_target must lie in (0, 1], got "
+                         f"{recall_target}")
     model.eval()
     model.project_params()
-    return RecommendStep(model, k)
+    return RecommendStep(model, k, streamed, tile)
 
 
 def validate_sessions(sessions, num_items):
@@ -136,11 +177,14 @@ def validate_sessions(sessions, num_items):
 
 
 def recommend(model, sessions, *, max_len, k=20, batch_size=256,
-              method="exact", order=1, use_native=True):
+              method="exact", recall_target=0.95, order=1, streamed=None,
+              use_native=True):
     """Yield (session, top-k item ids, scores) for each input session, on
-    the model's device."""
+    the model's device (``make_recommend_step``'s options)."""
     validate_sessions(sessions, model.num_items)
-    step = make_recommend_step(model, k=k, method=method)
+    step = make_recommend_step(model, k=k, method=method,
+                               recall_target=recall_target,
+                               streamed=streamed)
     kind = model.graph_kind
     done = 0
     for batch, n in session_batches(sessions, kind, batch_size, max_len,

@@ -42,7 +42,10 @@ own static slots in chunks of ``unroll``: the first chunk ever runs
 eagerly, a full chunk replays one captured ``unroll``-batch eval graph,
 and a shorter tail replays a one-batch graph per batch, as the training
 tail does.  The eval graphs have a memory pool of their own, apart from
-the training graphs'.  On the CPU eval runs per batch.
+the training graphs'.  On the CPU eval runs per batch.  A batch whose
+``[B, (K,) P]`` scores reach 2^30 elements ranks by streaming the catalog
+in slabs (``ops/streamed_eval.py``, ``_auto_stream``), inside the same
+eval graphs.
 
 With a ``Checkpointer`` the runner saves after every
 ``checkpoint_every``-th epoch and at an early stop (runner.py:701-704);
@@ -59,7 +62,7 @@ from dataclasses import dataclass
 import torch
 
 from sessionrec_tpu_torch.models.layers import SeedSource, l2norm
-from sessionrec_tpu_torch.ops import scoring, xent, xent_multi
+from sessionrec_tpu_torch.ops import scoring, streamed_eval, xent, xent_multi
 from sessionrec_tpu_torch.ops.sround import stochastic_round_bf16
 from sessionrec_tpu_torch.train.optim import make_optimizer
 from sessionrec_tpu_torch.utils.logging import get_logger
@@ -129,37 +132,41 @@ def _check_loss_dtype(model, sr, table):
                         f"computes in its {table.dtype} table's type")
 
 
-# Eval materialises the [B, P] float32 scores plus about as many bytes of
-# comparison temporaries in label_ranks_by_count.  2^31 elements (8 GiB of
-# scores, ~16 GiB with temporaries) leaves most of an 80 GB H100 to the
-# table, its Adam moments and the activations even at a 2^20-item
-# catalog.  Above it eval has to stream the catalog, which is not ported.
-_STREAM_EVAL_ELEMS = 2 ** 31
+# Eval streams the catalog (ops/streamed_eval.py) from 2^30 score
+# elements on, as the JAX package does (sessionrec_tpu/train/runner.py:
+# 329-342), so both packages take the same path at every shape.  Below it
+# the materialised [B, (K,) P] float32 scores (4 GiB at the threshold,
+# about as much again in comparison temporaries) sit beside the table,
+# its Adam moments and the activations on an 80 GB H100.
+_STREAM_EVAL_ELEMS = 2 ** 30
 
 
 def _auto_stream(batch_size: int, padded_items: int,
                  score_rows: int = 1) -> bool:
-    """``score_rows`` is the score tensor's rows per example: K for the
+    """True where eval streams instead of materialising the scores.
+    ``score_rows`` is the score tensor's rows per example: K for the
     multi head's ``[B, K, P]`` scores."""
     return batch_size * score_rows * padded_items >= _STREAM_EVAL_ELEMS
 
 
+def _streams(model, batch, streamed):
+    """``streamed``, or where it is None the auto policy at ``batch``'s
+    size, with the JAX package's score rows: the order K for every MSGIFSR
+    (``has_multi_head``), whichever head ranks, else 1."""
+    if streamed is not None:
+        return streamed
+    rows = model.order if getattr(model, "has_multi_head", False) else 1
+    return _auto_stream(batch.labels.shape[0], model.padded_items, rows)
+
+
 @torch.no_grad()
 def eval_scores(model, batch):
-    """``[B, P]`` scores whose per-row order ranks the catalog, on
-    materialised scores (runner.py:407-430 of the JAX package); eval ranks
-    them and serving takes their top-k.  The plain head gives the raw
-    masked logits: positive scaling and log_softmax preserve each row's
-    order and ties.  The multi head gives ``model.apply``'s
+    """``[B, P]`` materialised scores whose per-row order ranks the catalog
+    (runner.py:407-430 of the JAX package); eval ranks them below the
+    streaming threshold, and serving takes their top-k.  The plain head
+    gives the raw masked logits: positive scaling and log_softmax preserve
+    each row's order and ties.  The multi head gives ``model.apply``'s
     log-probabilities.  Padded catalog columns score -inf."""
-    B = batch.labels.shape[0]
-    rows = 1 if model.has_plain_head else model.order
-    if _auto_stream(B, model.padded_items, rows):
-        raise NotImplementedError(
-            f"scoring {B} x {rows} x {model.padded_items} elements exceeds "
-            f"{_STREAM_EVAL_ELEMS} and needs the streamed catalog, which is "
-            "not ported yet (ROADMAP.md, 'Large-catalog eval'); use a "
-            "smaller batch")
     if model.has_plain_head:
         sr, table = model.head(batch, training=False)
         if model.table_norm:
@@ -172,18 +179,41 @@ def eval_scores(model, batch):
 
 
 @torch.no_grad()
-def eval_ranks(model, batch, cutoff):
-    """Label ranks of one eval batch, counted on ``eval_scores``."""
-    return scoring.label_ranks_by_count(eval_scores(model, batch),
-                                        batch.labels, cutoff)
+def eval_ranks(model, batch, cutoff, streamed=None, rank_method=None):
+    """Label ranks of one eval batch (``_eval_ranks``, runner.py:356-430 of
+    the JAX package).  ``streamed``: None picks by ``_auto_stream``, True
+    walks the catalog in slabs (``ops/streamed_eval.py``), False ranks
+    ``eval_scores``.  ``rank_method``: None or "count" counts, "topk"
+    takes the stable top-k; both give the same ranks."""
+    count = scoring.use_count_ranks(rank_method)
+    if not _streams(model, batch, streamed):
+        scores = eval_scores(model, batch)
+        if count:
+            return scoring.label_ranks_by_count(scores, batch.labels, cutoff)
+        return scoring.topk_ranks(scores, batch.labels, cutoff)
+    kw = dict(num_items=model.num_items, k=cutoff,
+              normalize_table=model.table_norm, compute_dtype=model.cdt)
+    if model.has_plain_head:
+        sr, table = model.head(batch, training=False)
+        if count:
+            return streamed_eval.streamed_count_ranks(sr, table, batch.labels,
+                                                      **kw)
+        return streamed_eval.streamed_topk_ranks(
+            sr, table, batch.labels, scale=float(model.scale), **kw)
+    sr, table, phi, alpha, iids = model.head_multi(batch, training=False)
+    fn = (streamed_eval.streamed_multi_count_ranks if count
+          else streamed_eval.streamed_multi_topk_ranks)
+    return fn(sr, table, batch.labels, iids, phi, alpha, extra=model.extra,
+              fusion=model.fusion, scale=float(model.scale), **kw)
 
 
 @torch.no_grad()
-def eval_sums(model, batch, cutoff):
+def eval_sums(model, batch, cutoff, streamed=None, rank_method=None):
     """``[hits@cutoff, sum of reciprocal ranks, valid rows]`` of one batch:
     a float64 vector on the batch's device (float32 sums within the batch,
-    as the JAX eval step)."""
-    ranks = eval_ranks(model, batch, cutoff)
+    as the JAX eval step); ``streamed`` and ``rank_method`` as in
+    ``eval_ranks``."""
+    ranks = eval_ranks(model, batch, cutoff, streamed, rank_method)
     v = batch.valid
     hit = torch.sum((ranks > 0) * v)
     mrr = torch.sum(
@@ -200,12 +230,14 @@ def sweep_metrics(sums):
 
 
 @torch.no_grad()
-def eager_sums(model, batches, cutoff, device):
+def eager_sums(model, batches, cutoff, device, streamed=None,
+               rank_method=None):
     """Summed ``eval_sums`` of ``batches`` (host or device batches, moved
     to ``device``), one eager batch at a time, added in order."""
     total = torch.zeros(3, dtype=torch.float64, device=device)
     for batch in batches:
-        total += eval_sums(model, batch.to(device), cutoff)
+        total += eval_sums(model, batch.to(device), cutoff, streamed,
+                           rank_method)
     return total
 
 

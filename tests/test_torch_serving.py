@@ -9,9 +9,10 @@ longer so the last position has a right neighbour too), and the same
 scores to atol 1e-5, on the order-1 head and on the paper head.  Then
 the contract: exact ids are the top-k of the model's log-probabilities
 and rank 1..k under eval's ranking, out-of-catalog ids raise naming the
-session, parameters restore without ``train.pt``, and ``cli train
+session, parameters restore without ``train.pt``, ``cli train
 --checkpoint-dir`` then ``cli predict`` writes one JSONL line per
-session.
+session, and ``approx`` serves the exact top-k, as the JAX package's
+does off a TPU.
 """
 
 import dataclasses
@@ -93,16 +94,9 @@ def _clear(scores):
     return (gap > TIE) & (left > TIE)
 
 
-@pytest.mark.parametrize("head", list(HEADS))
-def test_recommend_matches_jax(head):
-    kw = HEADS[head]
-    order = kw.get("order", 1)
-    jm, jp, tm = make_pair(seed=3, **kw)
-    sess = _sessions(2, n=23)
-    want = list(jserving.recommend(jm, jp, {}, sess, max_len=MAX_LEN,
-                                   k=K + 1, batch_size=8, order=order))
-    got = list(serving.recommend(tm, sess, max_len=MAX_LEN, k=K,
-                                 batch_size=8, order=order))
+def _assert_matches_jax(got, want, sess):
+    """Port lists ``got`` (K ids) against JAX lists ``want`` (K + 1 ids):
+    ids at every clear position, scores to TIE."""
     assert [s for s, _, _ in got] == sess
     w_ids = np.array([ids for _, ids, _ in want])
     w_scores = np.array([v for _, _, v in want], np.float64)
@@ -113,6 +107,19 @@ def test_recommend_matches_jax(head):
     np.testing.assert_allclose(g_scores, w_scores[:, :K], rtol=0, atol=TIE)
     assert clear.mean() > 0.9
     assert ((0 <= g_ids) & (g_ids < NUM_ITEMS)).all()
+
+
+@pytest.mark.parametrize("head", list(HEADS))
+def test_recommend_matches_jax(head):
+    kw = HEADS[head]
+    order = kw.get("order", 1)
+    jm, jp, tm = make_pair(seed=3, **kw)
+    sess = _sessions(2, n=23)
+    want = list(jserving.recommend(jm, jp, {}, sess, max_len=MAX_LEN,
+                                   k=K + 1, batch_size=8, order=order))
+    got = list(serving.recommend(tm, sess, max_len=MAX_LEN, k=K,
+                                 batch_size=8, order=order))
+    _assert_matches_jax(got, want, sess)
 
 
 @pytest.mark.parametrize("head", list(HEADS))
@@ -192,13 +199,33 @@ def test_cli_train_then_predict(tmp_path):
 
 
 def test_predict_refuses_approx_and_a_missing_card(tmp_path):
+    """``--topk-method approx`` serves what the JAX package's
+    ``lax.approx_max_k`` serves off a TPU, the exact top-k: ``cli
+    predict`` writes the exact method's lines, and ``recommend`` gives
+    JAX's ``approx`` ids on the CPU; without a card the default device
+    raises."""
     ckpt = _train_cli(tmp_path)
     args = ["predict", "--model", "msgifsr", "--order", "1",
             "--dataset-dir", str(REPO / "datasets" / "sample"),
-            "--embedding-dim", "16", "--checkpoint-dir", str(ckpt),
-            "--output", str(tmp_path / "out.jsonl")]
-    with pytest.raises(NotImplementedError, match="approx"):
-        cli.main(args + ["--device", "cpu", "--topk-method", "approx"])
+            "--embedding-dim", "16", "--checkpoint-dir", str(ckpt)]
+    lines = {}
+    for method in ("exact", "approx"):
+        out = tmp_path / f"{method}.jsonl"
+        cli.main(args + ["--device", "cpu", "--topk-method", method,
+                         "--recall-target", "0.9", "--output", str(out)])
+        lines[method] = out.read_text()
+    assert lines["approx"] == lines["exact"] and lines["exact"]
+    jm, jp, tm = make_pair(seed=3)
+    sess = _sessions(2, n=23)
+    want = list(jserving.recommend(jm, jp, {}, sess, max_len=MAX_LEN,
+                                   k=K + 1, batch_size=8, method="approx",
+                                   recall_target=0.95))
+    got = list(serving.recommend(tm, sess, max_len=MAX_LEN, k=K,
+                                 batch_size=8, method="approx",
+                                 recall_target=0.95))
+    _assert_matches_jax(got, want, sess)
+    with pytest.raises(ValueError, match="recall_target"):
+        serving.make_recommend_step(tm, K, "approx", recall_target=1.5)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
-            cli.main(args)
+            cli.main(args + ["--output", str(tmp_path / "out.jsonl")])
