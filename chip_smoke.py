@@ -125,7 +125,41 @@ Phases, one JSON line each on stdout:
    ids against the materialised top-k at batch 64.  Every phase prints
    its peak memory.
 
-Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+10. mesh — the (data, model) mesh (``sessionrec_tpu_torch/parallel/``).
+   Before the paths, K1-K4 against their plain versions on a catalog
+   shard: rank (0, 1) of a (2, 2) mesh on the padded path catalog (rows
+   1,792.. of 3,584, 1,637 real), 256 rows a rank, with the operands the
+   mesh's losses give them (``col_offset`` 1,792, ``n_valid`` at the
+   shard's last item, off-shard labels -1), float32 and bfloat16,
+   normalised and not (``kernel_check`` / ``multi_kernel_check`` lines
+   with ``"mesh_shard": true``), and their times at that shape
+   (``kernel_time`` lines with ``"path": "mesh_shard"``).  Then o1 and
+   the paper head at full width: each first on the card alone (4 eager
+   steps, dropout on, its state and gradients after each step, its eval
+   sweep, the full ranks of the test split at its final parameters),
+   then on 4 ranks on this one card (``--mesh-worker``, one process a
+   rank, gloo, ``[cuda:0] x 4``; the kernel library is built before they
+   start): the same 4 steps from the same seed, each rank its data
+   position's rows of every tier and its model position's shard of the
+   table, step 1 from the mesh's own initial state and each later step
+   from the card's state before it (so each step is held on its own,
+   with no drift carried from the steps before).  ``mesh_o1`` /
+   ``mesh_paper``: the losses (rtol 1e-4), the gathered state after each
+   step (rtol 1e-4, atol 1e-5): the table and its Adam moments with no
+   exception; the replicated graph side on at most 2e-4 of all the
+   state's elements, each within lr of the card's (``MESH_SHARE``; with
+   the card's gradient of each such element, to show its cause), HR@20
+   and MRR@20 of each side's own
+   parameters within 2 rows of the test split, the full ranks at the
+   card's parameters equal on every row but near ties (``REL_TIE``,
+   counted as ``excluded``) and exact ties on the card alone (counted as
+   ``mismatched_at_tie``), and K1/K2 (K3/K4) once a step on every rank,
+   the others never; with which collectives gloo staged through host
+   memory and the seconds a step (gloo on one card: not a speed figure;
+   NCCL, which needs a card a rank, is not run).
+
+Then the ``{"kernels": [...]}`` line (each kernel's ``mesh_launches``
+summed over the ranks) and, last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before the last line.  Without a CUDA
 device, or without the package beside this file, it exits 2.
 """
@@ -609,11 +643,14 @@ def xent_times(torch, xent, n_items, P, dtype, seed, smi, rows=B, dim=D,
         return torch.autograd.grad(lib_loss, (srl, tabl), g_lib,
                                    retain_graph=True)
 
-    ops_f = 2 * rows * P * dim + 2 * P * dim
+    # the work the function needs: the n_items real rows (padding and
+    # other shards' rows are masked), read once; d_table written whole
+    nrm = 2 * n_items * dim if norm else 0
+    ops_f = 2 * rows * n_items * dim + nrm
     esz = sr.element_size()
-    bytes_f = (rows * dim + P * dim) * esz + rows * 4 + 2 * rows * 4
-    ops_b = 3 * 2 * rows * P * dim + 2 * P * dim
-    bytes_b = ((rows * dim + 2 * P * dim) * esz + 3 * rows * 4
+    bytes_f = (rows * dim + n_items * dim) * esz + rows * 4 + 2 * rows * 4
+    ops_b = 3 * 2 * rows * n_items * dim + nrm
+    bytes_b = ((rows * dim + (n_items + P) * dim) * esz + 3 * rows * 4
                + rows * dim * 4)
     bf, byf = bounds(bytes_f, ops_f, dname)
     bb, byb = bounds(bytes_b, ops_b, dname)
@@ -769,11 +806,12 @@ def multi_times(torch, xm, n_items, P, dtype, seed, smi, rows=B, **tags):
 
     esz = sr3.element_size()
     small = rows * 4 + rows * NS * 4                 # labels, iids
-    ops_f = 2 * K * rows * P * D + 2 * P * D
-    bytes_f = (K * rows * D + P * D) * esz + small + 5 * K * rows * 4
-    ops_b = 3 * 2 * K * rows * P * D + 2 * P * D
-    bytes_b = ((K * rows * D + 2 * P * D) * esz + small + 5 * K * rows * 4
-               + K * rows * D * 4)
+    # over the n_items real rows, as ``xent_times`` counts them
+    ops_f = 2 * K * rows * n_items * D + 2 * n_items * D
+    bytes_f = (K * rows * D + n_items * D) * esz + small + 5 * K * rows * 4
+    ops_b = 3 * 2 * K * rows * n_items * D + 2 * n_items * D
+    bytes_b = ((K * rows * D + (n_items + P) * D) * esz + small
+               + 5 * K * rows * 4 + K * rows * D * 4)
     bf, byf = bounds(bytes_f, ops_f, dname)
     bb, byb = bounds(bytes_b, ops_b, dname)
 
@@ -1594,14 +1632,17 @@ def ranked_scores(torch, model, batch):
     return scores if model.has_plain_head else torch.exp(scores)
 
 
-def compare_ranks(torch, model, got, want, batches):
+def compare_ranks(torch, model, got, want, batches, ties_held=True):
     """{rows, ranked, excluded, mismatched, tied}: ranks ``got`` against
     ``want`` per device batch.  ``excluded``: rows that either ranks
     within the cutoff whose label's score has another real item's within
     REL_TIE (relative) without equalling it, where float32 rounding in
     another order may swap the two; ``tied``: rows whose label ties
-    another item exactly, held like the others."""
-    out = dict(rows=0, ranked=0, excluded=0, mismatched=0, tied=0)
+    another item exactly in ``want``'s scores, held like the others, or,
+    without ``ties_held``, counted apart where they differ
+    (``mismatched_at_tie``): scores computed another way need not tie."""
+    out = dict(rows=0, ranked=0, excluded=0, mismatched=0, tied=0,
+               mismatched_at_tie=0)
     for g, w, b in zip(got, want, batches):
         scores = ranked_scores(torch, model, b)
         lv = torch.gather(scores, 1, b.labels.to(torch.int64)[:, None])
@@ -1610,9 +1651,14 @@ def compare_ranks(torch, model, got, want, batches):
         near = near.any(dim=1) & ((g > 0) | (w > 0))
         out["rows"] += len(g)
         out["ranked"] += int((w > 0).sum())
+        tied = (scores == lv).sum(1) > 1
+        off = (g != w) & ~near
         out["excluded"] += int(near.sum())
-        out["mismatched"] += int(((g != w) & ~near).sum())
-        out["tied"] += int(((scores == lv).sum(1) > 1).sum())
+        out["tied"] += int(tied.sum())
+        if not ties_held:
+            out["mismatched_at_tie"] += int((off & tied).sum())
+            off = off & ~tied
+        out["mismatched"] += int(off.sum())
     return out
 
 
@@ -1870,11 +1916,473 @@ def run_million_paths(torch, np, xent, xm, seed, dataset_dir, smi, tmp):
     return launches, on_device
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the (data, model) mesh, 4 ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_DP, MESH_MP = 2, 2
+MESH_PATHS = ("path", "paper")
+MESH_STEPS = 4
+MESH_ROWS = B // MESH_DP                   # each rank's rows of a batch
+# tolerances, mesh against one device, justified by the reduction orders:
+# a loss is a float32 log-sum-exp over 3,429 logits merged from two shards
+# (one max, sums in another order) and a mean over two data blocks, a few
+# ulps apart: losses rtol MESH_RTOL.  Every product of the graph side runs
+# on 256 rows a rank where the card alone runs 512, so cuBLAS tiles its
+# float32 sums otherwise and every activation and gradient differs in its
+# last bits, and every gradient is summed over two data positions.  Each
+# step starts from the card's state before it, so these differences are
+# one step's, not carried over.  State after a step: rtol MESH_RTOL and
+# atol MESH_ATOL (as the CPU tests hold the one-device step,
+# tests/test_torch_mesh_train.py), on the table and its Adam moments with
+# no exception.  Adam divides by sqrt(v) + eps, so where an element's
+# gradients are all within a few eps (1e-8) of zero, a last-bit change of
+# the gradient moves the update by a share of lr: on the replicated graph
+# side, at most MESH_SHARE of all the state's elements may differ by more,
+# each by at most lr (counted by tensor, with the card's gradient of each
+# such element, and that gradient's largest size in its tensor).  Eval on
+# the two sides' own parameters: HR@20 and MRR@20 within MESH_METRIC rows'
+# worth of the test split; on the same parameters, the label's full rank
+# (cutoff the padded catalog) equal on every row, except where another
+# item's score lies within REL_TIE of the label's (float32 products of
+# another shape may swap the two) or equals it exactly on the card alone
+# (a float32 coincidence that other-shaped products need not repeat):
+# those are counted, not held
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
+MESH_SHARE = 2e-4
+MESH_METRIC = 2
+
+
+def shard_inputs(torch, xent, xm, dtype, norm, seed, multi):
+    """The K1/K2 (or, ``multi``, K3/K4) check inputs at the mesh's shapes:
+    MESH_ROWS rows against the padded path catalog, cut to rank (0, 1)'s
+    shard of a (2, 2) mesh (rows 1,792.., 1,637 real), with the operands
+    the mesh's losses give the wrappers (``_shard_operands``: labels
+    shifted or kept global, -1 off the shard; n_valid; col_offset) and the
+    whole catalog's log-partitions for the backward.  Returns (shard,
+    local labels, local session ids or None, operands, the rest)."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    from sessionrec_tpu_torch.parallel.mesh import Mesh
+    P = pad_catalog(PATH_ITEMS)
+    mesh = Mesh(MESH_DP, MESH_MP, 1, "cuda", "nccl", None, None)
+    rows = P // MESH_MP
+    if multi:
+        sr3, tab, labels, iids, cot, lse = make_multi_inputs(
+            torch, xm, PATH_ITEMS, P, dtype, seed, norm, rows=MESH_ROWS)
+        ops = xm._shard_operands(labels, rows, PATH_ITEMS, mesh)
+        local = iids - ops[2]
+        local = torch.where((local >= 0) & (local < rows), local, -1)
+        return (tab[ops[2]:ops[2] + rows].contiguous(), ops[0], local, ops,
+                (sr3, iids, cot, lse))
+    sr, tab, labels, g = make_inputs(torch, PATH_ITEMS, P, dtype, seed,
+                                     rows=MESH_ROWS)
+    m, s, _ = xent._fwd_plain(sr, tab, labels, PATH_ITEMS, 0, scale=SCALE,
+                              normalize_table=norm)
+    ops = xent._shard_operands(labels, rows, PATH_ITEMS, mesh)
+    local = torch.where(ops[0] >= 0, ops[0] - ops[2], -1)
+    return (tab[ops[2]:ops[2] + rows].contiguous(), local, None, ops,
+            (sr, g, xent._finish_lse(m, s)))
+
+
+def phase_shard_checks(torch, xent, xm, seed):
+    """K1-K4 against their plain versions on a catalog shard at the mesh's
+    shapes (``shard_inputs``), float32 and bfloat16, the table normalised
+    and not: ``kernel_check`` / ``multi_kernel_check`` lines with
+    ``"mesh_shard": true``, the tolerances of the whole-catalog checks;
+    the backward kernels twice, their bits repeated."""
+    for i, (dtype, norm) in enumerate(
+            (d, n) for d in (torch.float32, torch.bfloat16)
+            for n in (True, False)):
+        dname = str(dtype).split(".")[-1]
+        kw = dict(scale=SCALE, normalize_table=norm)
+        tab, local, _, (lbl, n_valid, off), (sr, g, lse) = shard_inputs(
+            torch, xent, xm, dtype, norm, seed + i, multi=False)
+        got = xent._fwd_cuda(sr, tab, lbl, n_valid, off, **kw)
+        m, s, zl = xent._fwd_plain(sr, tab, lbl, n_valid, off, **kw)
+        want = (xent._finish_lse(m, s) - zl, xent._finish_lse(m, s))
+        bwd = [xent._bwd_cuda(g, sr, tab, lbl, lse, n_valid, off, **kw)
+               for _ in range(2)]
+        dsr_p, dtab_p = xent._bwd_plain(g, sr, tab, lbl, lse, n_valid, off,
+                                        **kw)
+        torch.cuda.synchronize()
+        e_fwd, fwd_tol = fwd_errors(got, want, TOL[("fwd", dname)])
+        tol = TOL[("bwd", dname)]
+        e_dsr, dsr_tol = dsr_errors(bwd[0][0], dsr_p, tol)
+        dtab = dtable_errors(torch, bwd[0][1], dtab_p, local,
+                             n_valid - off, tol)
+        same = all(torch.equal(a, b) for a, b in zip(*bwd))
+        row = {"phase": "kernel_check", "mesh_shard": True,
+               "items": PATH_ITEMS, "P": tab.shape[0], "col_offset": off,
+               "n_valid": n_valid, "B": MESH_ROWS, "D": D, "dtype": dname,
+               "normalize_table": norm, "fwd_max_abs_err": e_fwd,
+               "fwd_tol": fwd_tol, "dsr_max_abs_err": e_dsr,
+               "dsr_tol": dsr_tol, "dtable_err_tol": dtab,
+               "k2_repeat_bit_identical": same,
+               "ok": (same and e_fwd <= fwd_tol and e_dsr <= dsr_tol
+                      and all(e <= t for e, t in dtab.values()))}
+        emit(row)
+        check(row["ok"], f"K1/K2 disagree on a catalog shard: {row}")
+
+        tab, local, local_ids, (lbl, n_valid, off), (sr3, iids, cot, lse) \
+            = shard_inputs(torch, xent, xm, dtype, norm, seed + i,
+                           multi=True)
+        got = xm._fwd_cuda(sr3, tab, lbl, iids, n_valid, off, **kw)
+        want = xm._fwd_plain(sr3, tab, lbl, iids, n_valid, off, **kw)
+        bwd = [xm._bwd_cuda(*cot, sr3, tab, lbl, iids, *lse, n_valid, off,
+                            **kw) for _ in range(2)]
+        dsr_p, dtab_p = xm._bwd_plain(*cot, sr3, tab, lbl, iids, *lse,
+                                      n_valid, off, **kw)
+        torch.cuda.synchronize()
+        stats = stats_errors(torch, got, want, TOL[("fwd", dname)])
+        e_dsr, dsr_tol = dsr_errors(bwd[0][0], dsr_p, tol)
+        dtab = dtable_errors(torch, bwd[0][1], dtab_p, local, n_valid, tol,
+                             local_ids)
+        same = all(torch.equal(a, b) for a, b in zip(*bwd))
+        row = {"phase": "multi_kernel_check", "mesh_shard": True,
+               "items": PATH_ITEMS, "P": tab.shape[0], "col_offset": off,
+               "n_valid": n_valid, "K": K, "B": MESH_ROWS, "dtype": dname,
+               "normalize_table": norm, "stats_err_tol": stats,
+               "dsr_max_abs_err": e_dsr, "dsr_tol": dsr_tol,
+               "dtable_err_tol": dtab, "k4_repeat_bit_identical": same,
+               "ok": (same and all(e <= t for e, t in stats.values())
+                      and e_dsr <= dsr_tol
+                      and all(e <= t for e, t in dtab.values()))}
+        emit(row)
+        check(row["ok"], f"K3/K4 disagree on a catalog shard: {row}")
+
+
+def phase_shard_times(torch, xent, xm, seed, smi):
+    """K1-K4 timed at the mesh's shard shapes: MESH_ROWS rows against one
+    of the MESH_MP shards of the padded path catalog (1,792 rows, 1,637
+    real), float32, normalised (``kernel_time`` lines with ``"path":
+    "mesh_shard"``); the column offset changes no work, so the shard is
+    timed as a catalog of its own."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    rows = pad_catalog(PATH_ITEMS) // MESH_MP
+    items = PATH_ITEMS - rows
+    out = xent_times(torch, xent, items, rows, torch.float32, seed, smi,
+                     rows=MESH_ROWS, path="mesh_shard")
+    out.update(multi_times(torch, xm, items, rows, torch.float32, seed, smi,
+                           rows=MESH_ROWS, path="mesh_shard"))
+    return out
+
+
+def mesh_runner(torch, name, seed, dataset_dir, mesh=None):
+    """(runner, its first MESH_STEPS training batches, the test batches) of
+    mesh path ``name`` at its full width (``path_config``), on ``mesh`` (its
+    loaders then yield the rank's rows of every tier) or on the card."""
+    from sessionrec_tpu_torch.models import build_model
+    from sessionrec_tpu_torch.train.runner import TrainRunner
+    from sessionrec_tpu_torch.train.session import make_loaders
+    cfg = path_config(name, seed, dataset_dir)
+    tl, el, n, _ = make_loaders(cfg.data, "msgifsr", cfg.model.order, mesh)
+    t = cfg.train
+    runner = TrainRunner(build_model(cfg.model, n), tl, el, lr=t.lr,
+                         weight_decay=t.weight_decay, seed=t.seed,
+                         cutoff=t.cutoff, lr_step_size=t.lr_step_size,
+                         lr_gamma=t.lr_gamma, device="cuda", mesh=mesh)
+    return runner, first_batches(tl, MESH_STEPS), list(el)
+
+
+def step_snapshot(torch, runner):
+    """{"state": the runner's global state (the table and its moments
+    gathered on a mesh: a collective), "grads": the gradients of the
+    parameters that hold one (on a mesh the replicated ones, summed over
+    data)}, on the host; None on a mesh's other ranks."""
+    from sessionrec_tpu_torch.utils.checkpoint import global_state
+    state = global_state(runner)
+    if runner.mesh is not None and not runner.mesh.is_primary:
+        return None
+    return {"state": {k: v.detach().cpu().clone() for k, v in state.items()},
+            "grads": {n: p.grad.detach().cpu().clone() for n, p
+                      in runner.model.named_parameters()
+                      if p.grad is not None}}
+
+
+def mesh_steps(torch, xent, xm, runner, batches, out, prefix, start=None):
+    """(losses, the wrappers' launches, seconds a step): eager steps on
+    ``batches``, every launch count set to 0 just before and read just
+    after; ``step_snapshot`` is saved as ``out/<prefix><k>.pt`` after
+    step k (k = 0: before the first), and with ``start`` each step k > 1 first
+    loads the state of ``out/<start><k - 1>.pt``."""
+    from sessionrec_tpu_torch.train.runner import launch_counts
+    from sessionrec_tpu_torch.utils.checkpoint import load_state
+    losses, seconds = [], []
+    snap = step_snapshot(torch, runner)
+    if snap is not None:
+        torch.save(snap, out / f"{prefix}0.pt")
+    xent.reset_launches()
+    xm.reset_launches()
+    for k, b in enumerate(batches, 1):
+        if start is not None and k > 1:
+            load_state(runner, torch.load(out / f"{start}{k - 1}.pt",
+                                          weights_only=True,
+                                          map_location=runner.device)
+                       ["state"])
+        b = b.to(runner.device)
+        t0 = time.perf_counter()
+        losses.append(float(runner.train_step(b)))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        snap = step_snapshot(torch, runner)
+        if snap is not None:
+            torch.save(snap, out / f"{prefix}{k}.pt")
+    return losses, launch_counts(), seconds
+
+
+def full_ranks(model):
+    """A cutoff that ranks every label (the padded catalog)."""
+    return model.padded_items
+
+
+def mesh_worker(torch, rank, port, out, seed, dataset_dir):
+    """Rank ``rank`` of the MESH_DP x MESH_MP mesh on cuda:0 over gloo: each
+    mesh path's steps (``mesh_steps``: rank 0 saves the state after each
+    as ``OUT/<path>/mesh<k>.pt``), its eval sweep, and the full ranks of
+    the test split at the card's final state (``OUT/<path>/card<steps>.pt``);
+    rank 0 saves every rank's results to ``OUT/mesh.pt``."""
+    import torch.distributed as dist
+    from sessionrec_tpu_torch.ops import xent
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    from sessionrec_tpu_torch.parallel.mesh import make_mesh
+    from sessionrec_tpu_torch.parallel.sharded import sharded_eval_ranks
+    from sessionrec_tpu_torch.utils.checkpoint import load_state
+    world = MESH_DP * MESH_MP
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(MESH_DP, MESH_MP,
+                         devices=[torch.device("cuda", 0)] * world,
+                         backend="gloo")
+        results = {}
+        for name in MESH_PATHS:
+            runner, batches, tests = mesh_runner(torch, name, seed,
+                                                 dataset_dir, mesh)
+            where = Path(out) / name
+            losses, launches, seconds = mesh_steps(
+                torch, xent, xm, runner, batches, where, "mesh", "card")
+            t0 = time.perf_counter()
+            sums = runner.eval_sweep().cpu()
+            eval_s = time.perf_counter() - t0
+            load_state(runner, torch.load(
+                where / f"card{MESH_STEPS}.pt", weights_only=True,
+                map_location=runner.device)["state"])
+            model = runner.model
+            ranks = [sharded_eval_ranks(model, b.to("cuda"),
+                                        full_ranks(model))[0].cpu()
+                     for b in tests]
+            mine = dict(losses=losses, launches=launches, seconds=seconds,
+                        ranks=ranks, d=mesh.d, m=mesh.m)
+            every = [None] * world
+            dist.all_gather_object(every, mine)
+            results[name] = dict(ranks=every, sums=sums,
+                                 eval_seconds=eval_s,
+                                 staged=sorted(mesh.staged))
+            del runner, model
+        if rank == 0:
+            torch.save(results, Path(out) / "mesh.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def join_data_blocks(torch, blocks, batch):
+    """One device's row order from the data positions' ``blocks`` (each the
+    rank's tiers' blocks joined): tier by tier, the blocks in order."""
+    from sessionrec_tpu_torch.graph.batch import flatten_blocks
+    sizes = [int(b.labels.shape[0]) // MESH_DP
+             for b in flatten_blocks(batch)]
+    out, start = [], 0
+    for n in sizes:
+        out += [blk[start:start + n] for blk in blocks]
+        start += n
+    return torch.cat(out)
+
+
+def run_mesh_workers(out, seed, dataset_dir):
+    """Start the mesh's ranks (``--mesh-worker``) and wait for them; a rank
+    that fails stops the others and fails the phase with its output."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(r), port, str(out), "--seed", str(seed), "--dataset-dir",
+         str(dataset_dir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_DP * MESH_MP)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"mesh rank {r} exited {p.returncode}:\n{text[-3000:]}")
+
+
+def is_table(key):
+    """True for the table and its Adam moments in a runner's state."""
+    return key == "embedding" or key.startswith("adam/embedding/")
+
+
+def mesh_state_gaps(torch, out, k, wd):
+    """The mesh's state after step ``k`` (``out/mesh<k>.pt``) against the
+    card's (``out/card<k>.pt``), each element at rtol MESH_RTOL, atol
+    MESH_ATOL: {"step", "elements", "table_over", "table_max_abs_gap",
+    "over": {key: [elements over, largest gap, the card's largest
+    gradient among them, the card's largest gradient in the tensor, their
+    gradients' largest relative mesh-card gap]}, "share" (over, off the
+    table, of all elements), "max_abs_gap" (off the table)}.  A
+    gradient here is Adam's: the loss's plus weight decay's ``wd * p``
+    where the parameter decays."""
+    from sessionrec_tpu_torch.train.optim import decays
+    card = torch.load(out / f"card{k}.pt", weights_only=True)
+    mesh = torch.load(out / f"mesh{k}.pt", weights_only=True)
+    before = torch.load(out / f"card{max(k - 1, 0)}.pt",
+                        weights_only=True)["state"]
+    row = {"step": k, "elements": 0, "table_over": 0,
+           "table_max_abs_gap": 0.0, "over": {}, "share": 0.0,
+           "max_abs_gap": 0.0}
+    for key, want in card["state"].items():
+        want = want.float()
+        gap = (mesh["state"][key].float() - want).abs()
+        row["elements"] += gap.numel()
+        bad = gap > MESH_ATOL + MESH_RTOL * want.abs()
+        big = float(gap.max()) if gap.numel() else 0.0
+        if is_table(key):
+            row["table_over"] += int(bad.sum())
+            row["table_max_abs_gap"] = max(row["table_max_abs_gap"], big)
+            continue
+        row["max_abs_gap"] = max(row["max_abs_gap"], big)
+        if not bool(bad.any()):
+            continue
+        param = key.split("/")[1] if key.startswith("adam/") else key
+        g = card["grads"].get(param)
+        if g is None or k == 0 or g.shape != gap.shape:
+            row["over"][key] = [int(bad.sum()), big, None, None, None]
+            continue
+        g_adam = g + wd * before[param] if decays(param) else g
+        g_mesh = mesh["grads"][param]
+        rel = ((g_mesh - g).abs() / g.abs().clamp(min=1e-30))[bad]
+        row["over"][key] = [int(bad.sum()), big,
+                            float(g_adam.abs()[bad].max()),
+                            float(g_adam.abs().max()), float(rel.max())]
+    row["share"] = sum(v[0] for v in row["over"].values()) / row["elements"]
+    return row
+
+
+def phase_mesh(torch, xent, xm, seed, dataset_dir, smi, tmp):
+    """The mesh paths (module docstring, phase 10): each on the card alone
+    first (its steps with their states, its eval sweep and the full ranks
+    of the test split at its final parameters), then on the mesh's 4
+    ranks (``mesh_worker``), held against it step by step; returns
+    {kernel: launches summed over the ranks}."""
+    from sessionrec_tpu_torch.train.runner import eval_ranks, sweep_metrics
+    out = Path(tmp) / "mesh"
+    refs = {}
+    for name in MESH_PATHS:
+        (out / name).mkdir(parents=True, exist_ok=True)
+        runner, batches, tests = mesh_runner(torch, name, seed, dataset_dir)
+        losses, launches, seconds = mesh_steps(torch, xent, xm, runner,
+                                               batches, out / name, "card")
+        sums = runner.eval_sweep().cpu()
+        model = runner.model
+        model.eval()
+        tests = [b.to("cuda") for b in tests]
+        want = [eval_ranks(model, b, full_ranks(model), streamed=False)
+                for b in tests]
+        refs[name] = (model, losses, seconds, sums, tests, want,
+                      runner.sched.base_lr,
+                      runner.opt.param_groups[0]["weight_decay"])
+        del runner
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_mesh_workers(out, seed, dataset_dir)
+    workers_s = time.perf_counter() - t0
+    res = torch.load(out / "mesh.pt", weights_only=False)
+    total = {}
+    for name in MESH_PATHS:
+        model, losses, seconds, sums, tests, want, lr, wd = refs[name]
+        got = res[name]
+        ranks = got["ranks"]
+        kernels = PATHS[name]["kernels"]
+        bad_launch = {r["d"] * MESH_MP + r["m"]: r["launches"] for r in ranks
+                      if any(r["launches"][k] != (MESH_STEPS if k in kernels
+                                                  else 0)
+                             for k in r["launches"])}
+        for r in ranks:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        loss_gap = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["losses"], losses))
+        steps = [mesh_state_gaps(torch, out / name, k, wd)
+                 for k in range(MESH_STEPS + 1)]
+        table_over = sum(st["table_over"] for st in steps)
+        share = max(st["share"] for st in steps)
+        gap_max = max(st["max_abs_gap"] for st in steps)
+        mrr, hit = sweep_metrics(got["sums"])
+        mrr_ref, hit_ref = sweep_metrics(sums)
+        n = float(sums[2])
+        by_d = {}
+        for r in ranks:
+            by_d.setdefault(r["m"], {})[r["d"]] = r["ranks"]
+        models_agree = all(
+            all(torch.equal(a, b) for a, b in zip(by_d[0][d], by_d[m][d]))
+            for m in by_d for d in by_d[m])
+        joined = [join_data_blocks(torch, [by_d[0][d][i]
+                                           for d in range(MESH_DP)], b)
+                  .to("cuda") for i, b in enumerate(tests)]
+        cmp = compare_ranks(torch, model, joined, want, tests,
+                            ties_held=False)
+        row = {"phase": f"mesh_{SHORT[name]}", "data": MESH_DP,
+               "model": MESH_MP, "backend": "gloo", "devices": "cuda:0 x 4",
+               "steps": MESH_STEPS, "rows_per_rank": MESH_ROWS,
+               "staged_through_host": got["staged"],
+               "losses": losses, "loss_max_rel_gap": loss_gap,
+               "launches_by_rank": [r["launches"] for r in ranks],
+               "state_by_step": steps, "table_over": table_over,
+               "table_max_abs_gap": max(st["table_max_abs_gap"]
+                                        for st in steps),
+               "graph_share_over": share, "graph_max_abs_gap": gap_max,
+               "lr": lr,
+               "mrr20": [mrr, mrr_ref], "hr20": [hit, hit_ref],
+               "eval_rows": n, "full_ranks": cmp,
+               "model_positions_agree": models_agree,
+               "step_seconds_mesh": [r["seconds"] for r in ranks][0],
+               "step_seconds_one_device": seconds,
+               "eval_seconds_mesh": got["eval_seconds"],
+               "workers_seconds": workers_s, "card": smi}
+        emit(row)
+        check(not bad_launch, f"mesh launches {bad_launch}: the path's "
+              f"kernels once a step on every rank, the others never")
+        check(loss_gap <= MESH_RTOL, f"mesh losses {row['losses']} off "
+              f"the card's by {loss_gap}")
+        check(table_over == 0, f"mesh table or its moments off the card's: "
+              f"{[st['table_over'] for st in steps]} elements by step")
+        check(share <= MESH_SHARE and gap_max <= lr,
+              f"mesh state off the card's: {steps}")
+        check(abs(mrr - mrr_ref) <= MESH_METRIC / n
+              and abs(hit - hit_ref) <= MESH_METRIC / n,
+              f"mesh metrics {row['mrr20']} {row['hr20']}")
+        check(models_agree and cmp["mismatched"] == 0,
+              f"mesh ranks differ: {cmp}, model positions agree "
+              f"{models_agree}")
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--dataset-dir", default=str(HERE / "datasets" / "sample"))
+    ap.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "OUT"),
+                    help="run one rank of the mesh phase (started by it)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1893,6 +2401,10 @@ def main(argv=None):
     from sessionrec_tpu_torch.ops import xent_multi as xm
     from sessionrec_tpu_torch.train.runner import set_precision
     set_precision()
+    if args.mesh_worker:
+        rank, port, out = args.mesh_worker
+        return mesh_worker(torch, int(rank), port, out, args.seed,
+                           args.dataset_dir)
 
     try:
         smi = phase_device(torch)
@@ -1910,6 +2422,8 @@ def main(argv=None):
         phase_sround(torch, args.seed, smi)
         multi_times = phase_multi_times(torch, xm, args.seed, smi)
         phase_million_kernels(torch, xent, xm, args.seed, smi)
+        phase_shard_checks(torch, xent, xm, args.seed)
+        phase_shard_times(torch, xent, xm, args.seed, smi)
         launches = dict.fromkeys(errs, 0)
         on_device = dict.fromkeys(errs, 0)
         with tempfile.TemporaryDirectory() as tmp:
@@ -1933,6 +2447,8 @@ def main(argv=None):
             for k in wrapped:
                 launches[k] += wrapped[k]
                 on_device[k] += dev[k]
+            mesh_launches = phase_mesh(torch, xent, xm, args.seed,
+                                       args.dataset_dir, smi, tmp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1952,6 +2468,7 @@ def main(argv=None):
          "source": f"sessionrec_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name],
          "device_launches": on_device[name],
+         "mesh_launches": mesh_launches[name],
          "max_abs_err": errs[name], "ms": path[name]["ms"],
          "plain_ms": path[name]["plain_ms"],
          "bound_ms": path[name]["bound_ms"],

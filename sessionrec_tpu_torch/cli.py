@@ -11,17 +11,28 @@
         --checkpoint-dir ckpt --sessions-file sessions.txt --k 20
     python -m sessionrec_tpu_torch.cli train --model msgifsr --order 1 \
         --table-dtype bfloat16 --compute-dtype bfloat16   # mixed precision
+    python -m sessionrec_tpu_torch.cli train --model msgifsr --order 1 \
+        --data-parallel 2 --model-parallel 2   # a mesh: 4 processes, 4 cards
 
 Flag names and defaults follow ``sessionrec_tpu/cli.py`` ``train`` and
 ``predict`` (the reference scripts' surface, see utils/config.py) for the
 flags the port runs, plus ``--device`` (default ``cuda``; the CPU must be
 asked for).
+
+``train`` with ``--data-parallel x --model-parallel > 1`` runs a (data,
+model) mesh of that many ranks, one process each: without
+``--coordinator`` it starts them on this host, one per visible card (NCCL;
+fewer cards raise), or on the CPU with ``--device cpu`` (gloo); with
+``--coordinator host:port --num-processes N --process-id I`` this process
+is rank I of a launch that starts each process itself.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
+import socket
 import sys
 
 
@@ -81,6 +92,15 @@ def _add_train_flags(p):
                    help="append train/eval events here as JSONL")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of training here")
+    p.add_argument("--data-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="catalog shards: the table is row-sharded over "
+                        "this many ranks")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 in a launch that starts one "
+                        "process per rank itself")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
 
 
 def build_config(args):
@@ -129,15 +149,95 @@ def build_config(args):
     t.resume = args.resume
     t.metrics_file = args.metrics_file
     t.profile_dir = args.profile_dir
+    t.data_parallel = args.data_parallel
+    t.model_parallel = args.model_parallel
     return cfg
 
 
-def cmd_train(args):
+def _backend(device):
+    return "gloo" if device == "cpu" else "nccl"
+
+
+def _train(args, **kw):
+    """``run_training`` as ``args`` say (``kw``: its further arguments);
+    the primary prints the metrics."""
+    from sessionrec_tpu_torch.parallel.multihost import is_primary
     from sessionrec_tpu_torch.train.session import run_training
-    cfg = build_config(args)
-    runner = run_training(cfg, max_epoch_batches=args.max_epoch_batches)
-    print("MRR@20\tHR@20")
-    print(f"{runner.max_mrr * 100:.3f}%\t{runner.max_hit * 100:.3f}%")
+    runner = run_training(build_config(args),
+                          max_epoch_batches=args.max_epoch_batches, **kw)
+    if is_primary():
+        print("MRR@20\tHR@20")
+        print(f"{runner.max_mrr * 100:.3f}%\t{runner.max_hit * 100:.3f}%")
+
+
+def _mesh_worker(argv, rank, world, port):
+    """One rank of a mesh that ``cmd_train`` started on this host."""
+    import torch.distributed as dist
+    from sessionrec_tpu_torch.parallel.multihost import initialize
+    args = _parser().parse_args(argv)
+    if args.device == "cpu":
+        import os
+        import torch
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    initialize(f"127.0.0.1:{port}", world, rank, _backend(args.device))
+    try:
+        _train(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_mesh(argv, args, world):
+    """Run ``world`` ranks of the mesh on this host, one process each; a
+    rank that fails stops the others."""
+    if args.device != "cpu":
+        import torch
+        n = torch.cuda.device_count()
+        if world > n:
+            sys.exit(f"a mesh of {world} ranks needs a card per rank, but "
+                     f"only {n} devices are visible (--device cpu runs it "
+                     "on the CPU)")
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_worker, args=(argv, r, world, port))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            procs[0].join(timeout=1.0)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    if failed:
+        sys.exit(f"mesh ranks {failed} failed")
+
+
+def cmd_train(args, argv):
+    from sessionrec_tpu_torch.parallel.multihost import initialize
+    world = args.data_parallel * args.model_parallel
+    if initialize(args.coordinator, args.num_processes, args.process_id,
+                  _backend(args.device)):
+        import torch.distributed as dist
+        try:
+            _train(args, slice_batches=True)
+        finally:
+            dist.destroy_process_group()
+    elif world > 1:
+        _spawn_mesh(argv, args, world)
+    else:
+        _train(args)
 
 
 def cmd_predict(args):
@@ -174,7 +274,7 @@ def cmd_predict(args):
             out.close()
 
 
-def main(argv=None):
+def _parser():
     parser = argparse.ArgumentParser(prog="sessionrec_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     pt = sub.add_parser("train", help="train a model")
@@ -197,9 +297,14 @@ def main(argv=None):
     pr.add_argument("--recall-target", type=float, default=0.95,
                     help="approx's recall target, in (0, 1]; the exact "
                          "top-k meets any")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
     if args.cmd == "train":
-        cmd_train(args)
+        cmd_train(args, argv)
     elif args.cmd == "predict":
         cmd_predict(args)
 

@@ -14,7 +14,14 @@ The batch kinds are the JAX package's: 'session' (SRGNN, NISER),
 (``data/native_collate.py``) by default, as in the JAX package;
 ``use_native=False`` runs the pure-Python builders.  A native
 builder that does not build or load raises: nothing falls back to
-Python.  Multi-host batch slicing waits for later work (ROADMAP.md).
+Python.
+
+On a (data, model) mesh a rank takes its data position's rows of each
+global batch in one of two ways: ``data_block`` builds the global batch,
+tiers included, and keeps block ``d`` of every tier's rows (the layout
+GSPMD gives a batch in the JAX package; each rank pays the whole build);
+``batch_slice`` builds only the rank's rows of the global stream, as the
+JAX package's multi-host loader does, and takes no tiers.
 """
 
 from __future__ import annotations
@@ -71,11 +78,18 @@ class BatchLoader:
       use_native: build batches with the C++ builder
         (``data/native_collate.py``; built here, at construction, so a
         missing compiler raises at once), else the pure-Python one.
+      data_block: ``(d, dp)`` — yield data position ``d``'s block of each
+        global batch's rows, per tier (``graph.batch`` ``data_block``);
+        the batch size and the tier caps must divide over ``dp``.
+      batch_slice: ``(start, stop)`` rows of each global batch that this
+        process builds (``parallel/multihost.py:local_batch_slice``); the
+        epoch order stays the global stream.  Raises with ``split_len``.
     """
 
     def __init__(self, sessions, kind, batch_size, max_len, shuffle=False,
                  order=1, seed=0, prefetch=2, drop_last=False,
-                 split_len=None, device=None, use_native=True):
+                 split_len=None, device=None, use_native=True,
+                 data_block=None, batch_slice=None):
         self.index = AugmentedIndex(sessions)
         self.kind = kind
         self.batch_size = batch_size
@@ -88,6 +102,8 @@ class BatchLoader:
         self.epoch = 0
         self.device = device
         self.use_native = use_native
+        self.data_block = data_block
+        self.batch_slice = batch_slice
         if use_native:
             native_collate.library()
         self.split = None
@@ -96,6 +112,11 @@ class BatchLoader:
             thresholds = tuple(sorted({int(t) for t in ts
                                        if 0 < int(t) < max_len}))
             if thresholds:
+                if batch_slice is not None:
+                    raise ValueError(
+                        "split_len tiers cannot take a batch_slice: each "
+                        "process's tier caps would disagree with the "
+                        "global batch's layout")
                 self.split = (thresholds, self._split_caps(thresholds))
 
     # Epochs whose shuffle orders are scanned when sizing the split
@@ -130,6 +151,8 @@ class BatchLoader:
                 ng = ((lp > lo) & (lp <= hi)).sum(axis=1) if gi \
                     else ((lp >= 0) & (lp <= hi)).sum(axis=1)
                 maxes[gi] = max(maxes[gi], int(ng.max()))
+        # round up so that every tier's rows divide over a mesh's data
+        # axis (any dp that divides the multiple; ``data_block``)
         mult = 32 if B % 32 == 0 else (8 if B % 8 == 0 else 1)
 
         def cap(x):
@@ -158,6 +181,16 @@ class BatchLoader:
         return order
 
     def _build(self, ids):
+        batch = self._build_rows(ids)
+        if self.data_block is not None:
+            batch = batch.data_block(*self.data_block)
+        return batch
+
+    def _build_rows(self, ids):
+        size = self.batch_size
+        if self.batch_slice is not None:
+            start, stop = self.batch_slice
+            ids, size = ids[start:stop], stop - start
         seqs, labels = [], []
         for i in ids:
             s, l = self.index.example(i)
@@ -168,8 +201,8 @@ class BatchLoader:
             labels.append(l)
         if self.split is not None:
             return self._build_split(seqs, labels)
-        return _make_batch(self.kind, seqs, labels, self.max_len,
-                           self.batch_size, self.order, self.use_native)
+        return _make_batch(self.kind, seqs, labels, self.max_len, size,
+                           self.order, self.use_native)
 
     def _build_split(self, seqs, labels):
         """Partition one batch's examples by prefix length into the

@@ -40,17 +40,47 @@ def _staged(x, device):
 
 def _move(x, device):
     device = torch.device(device)
-    return _staged(x, device).to(device, non_blocking=True)
+    # Only a copy onto the GPU may skip the wait: a non-blocking copy from
+    # the GPU to the host returns before its bytes have landed.
+    return _staged(x, device).to(device,
+                                 non_blocking=device.type == "cuda")
 
 
 def _copy_leaf(dst, src):
     if tuple(dst.shape) != tuple(src.shape):
         raise ValueError(f"batch slot of shape {tuple(dst.shape)} cannot "
                          f"take an array of shape {tuple(src.shape)}")
-    dst.copy_(_staged(src, dst.device), non_blocking=True)
+    dst.copy_(_staged(src, dst.device),
+              non_blocking=dst.device.type == "cuda")
+
+
+def _block(x, d, dp):
+    """Rows ``[d n/dp, (d + 1) n/dp)`` of ``x``'s ``n`` rows."""
+    n = x.shape[0]
+    if n % dp:
+        raise ValueError(f"a batch block of {n} rows does not divide over "
+                         f"data={dp}")
+    return x[d * (n // dp):(d + 1) * (n // dp)]
 
 
 class _Container:
+    def data_block(self, d, dp):
+        """This batch's rows of data position ``d`` of ``dp``: block ``d``
+        of every array's rows, and of each tier's rows in a SplitBatch
+        (the layout of a batch sharded over a mesh's data axis)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, tuple):
+                out[f.name] = tuple(e.data_block(d, dp)
+                                    if isinstance(e, _Container)
+                                    else _block(e, d, dp) for e in v)
+            elif isinstance(v, _Container):
+                out[f.name] = v.data_block(d, dp)
+            else:
+                out[f.name] = _block(v, d, dp)
+        return type(self)(**out)
+
     def to(self, device):
         """Copy of this batch with every array a tensor on ``device``."""
         out = {}

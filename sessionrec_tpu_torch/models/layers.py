@@ -20,6 +20,8 @@ from torch import nn
 from sessionrec_tpu_torch.ops import dropout as _dropout
 from sessionrec_tpu_torch.ops.gru import gru_cell, gru_scan, masked_mailbox_gru
 from sessionrec_tpu_torch.ops.masked import masked_mean, masked_softmax
+from sessionrec_tpu_torch.parallel.lookup import sharded_lookup
+from sessionrec_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_sum
 
 
 class SeedSource:
@@ -32,11 +34,18 @@ class SeedSource:
     (``site_i`` a hash of i).  Every step has the same sites in the same
     order, so a CUDA graph captured over steps replays fresh masks from
     the counter, and an eager step from the same counter draws the same
-    masks as the graph."""
+    masks as the graph.
 
-    def __init__(self, seed: int, device=None):
+    On a mesh (``data``: the rank's data position and the data axis's
+    size) every rank draws the same seeds, and ``offset`` places the
+    rank's rows in the global batch, so each rank hashes the global flat
+    indices of its block, as GSPMD does in the JAX package: the masks are
+    the single-device run's."""
+
+    def __init__(self, seed: int, device=None, data=(0, 1)):
         self.key = self._hash(seed)
         self.count = torch.zeros((), dtype=torch.int64, device=device)
+        self.data = data
         self._base()
 
     @staticmethod
@@ -56,6 +65,29 @@ class SeedSource:
         """The next site's seed: a 0-d int64 tensor on the device."""
         self.site += 1
         return self.base ^ self._hash(self.site)
+
+    def offset(self, x, tiers=None):
+        """Where this rank's ``x`` starts in the global tensor of which it
+        holds the data block, in flat elements: 0 on one device.  ``x``'s
+        leading axis is its rows; where it joins the blocks of several
+        length tiers (``tiers``: each tier's rows here), each tier's rows
+        sit after the whole of the earlier tiers, and the offset is an
+        ``[R, 1]`` tensor, one per row of ``x`` viewed as ``[R, C]``."""
+        d, dp = self.data
+        if dp == 1:
+            return 0
+        if tiers is None:
+            return d * x.numel()
+        per_row = x.numel() // x.shape[0]
+        offs, done, here = [], 0, 0
+        for rows in tiers:
+            offs.append(torch.full((rows,), (done + d * rows - here)
+                                   * per_row, dtype=torch.int64,
+                                   device=x.device))
+            done += rows * dp
+            here += rows
+        return torch.repeat_interleave(
+            torch.cat(offs), per_row // x.shape[-1])[:, None]
 
 
 class _Cast:
@@ -112,8 +144,12 @@ def compute_dtype(name: str):
     return None if name == "float32" else getattr(torch, name)
 
 
-def embedding_lookup(table, ids):
-    """``table[ids]`` — a plain gather; callers cast the rows."""
+def embedding_lookup(table, ids, shard=None):
+    """``table[ids]`` — a plain gather; callers cast the rows.  With a
+    ``shard`` (``parallel/sharded.py:TableShard``; ``table`` is then this
+    rank's rows) the mesh's lookup (``parallel/lookup.py``)."""
+    if shard is not None:
+        return sharded_lookup(shard.mesh, table, ids, shard.grad)
     return table[ids.to(torch.int64)]
 
 
@@ -123,11 +159,12 @@ def l2norm(x, eps=1e-12, dim=-1):
     return x / torch.clamp(n, min=eps).to(x.dtype)
 
 
-def dropout(rng, x, rate: float, training: bool):
-    """Inverted dropout with a counter-hash mask (ops/dropout.py)."""
+def dropout(rng, x, rate: float, training: bool, tiers=None):
+    """Inverted dropout with a counter-hash mask (ops/dropout.py); ``tiers``
+    as ``SeedSource.offset`` takes them."""
     if not training or rate == 0.0 or rng is None:
         return x
-    return _dropout.dropout(x, rate, rng.next())
+    return _dropout.dropout(x, rate, rng.next(), rng.offset(x, tiers))
 
 
 class Linear(nn.Linear):
@@ -167,24 +204,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(dim))
 
 
-def bn_batch_moments(parts):
+def bn_batch_moments(parts, mesh=None):
     """Masked BatchNorm batch statistics taken jointly over several arrays.
 
     ``parts`` is a list of ``(x [..., C], mask [...])``.  Returns ``(mean
     [C], biased var [C], n)`` in float32: the mean first, then the centred
     second moment, over the rows whose mask is 1 (n at least 1).  One
     array gives that array's own statistics; the tiers of a SplitBatch
-    give those of the unsplit batch, up to float summation order."""
+    give those of the unsplit batch, up to float summation order.  On a
+    ``mesh`` the counts, sums and squared deviations are summed over its
+    data group, so every rank normalises with the global batch's
+    statistics, as GSPMD computes them in the JAX package."""
     flats = [(x.to(torch.float32).reshape(-1, x.shape[-1]),
               m.reshape(-1, 1).to(torch.float32)) for x, m in parts]
-    n = torch.clamp(sum(torch.sum(mf) for _, mf in flats), min=1.0)
-    mean = sum(torch.sum(xf * mf, 0) for xf, mf in flats) / n
-    var = sum(torch.sum((xf - mean) ** 2 * mf, 0) for xf, mf in flats) / n
+    n = torch.clamp(all_reduce_sum(sum(torch.sum(mf) for _, mf in flats),
+                                   mesh, DATA_AXIS), min=1.0)
+    mean = all_reduce_sum(sum(torch.sum(xf * mf, 0) for xf, mf in flats),
+                          mesh, DATA_AXIS) / n
+    var = all_reduce_sum(sum(torch.sum((xf - mean) ** 2 * mf, 0)
+                             for xf, mf in flats), mesh, DATA_AXIS) / n
     return mean, var, n
 
 
 def batchnorm_parts(p: BatchNorm, xs, masks, *, training, momentum=0.1,
-                    eps=1e-5):
+                    eps=1e-5, mesh=None):
     """BatchNorm over all leading axes of the tiers ``xs [..., C]`` of one
     batch, in float32; ``masks`` mark their real rows.
 
@@ -192,9 +235,11 @@ def batchnorm_parts(p: BatchNorm, xs, masks, *, training, momentum=0.1,
     tiers together (``bn_batch_moments``, biased variance) and moves the
     running buffers once, in place: ``(1 - momentum) * running + momentum
     * batch``, with the unbiased variance ``var * n / (n - 1)`` (torch's
-    rule).  Eval normalises with the running buffers."""
+    rule).  Eval normalises with the running buffers.  ``mesh`` as
+    ``bn_batch_moments`` takes it: the buffers move alike on every
+    rank."""
     if training:
-        mean, var, n = bn_batch_moments(list(zip(xs, masks)))
+        mean, var, n = bn_batch_moments(list(zip(xs, masks)), mesh)
         with torch.no_grad():
             unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
             p.mean.mul_(1 - momentum).add_(momentum * mean)

@@ -51,11 +51,13 @@ def renorm_rows(table, max_norm=1.0, eps=1e-7):
     return table
 
 
-def _normalised(module, xs, masks, training):
-    """The tiers ``xs`` through ``module.bn`` where the module has one."""
+def _normalised(module, xs, masks, training, mesh=None):
+    """The tiers ``xs`` through ``module.bn`` where the module has one;
+    on a ``mesh`` with the global batch's statistics."""
     if not hasattr(module, "bn"):
         return xs
-    return L.batchnorm_parts(module.bn, xs, masks, training=training)
+    return L.batchnorm_parts(module.bn, xs, masks, training=training,
+                             mesh=mesh)
 
 
 class LESSR(nn.Module):
@@ -63,6 +65,7 @@ class LESSR(nn.Module):
     graph_kind = "lessr"
     scale = 1.0
     table_norm = False
+    shard = None        # parallel/sharded.py:bind_mesh sets it on a mesh
 
     def __init__(self, num_items, embedding_dim, num_layers, batch_norm=True,
                  feat_drop=0.0, compute_dtype="float32",
@@ -131,10 +134,11 @@ class LESSR(nn.Module):
         cp = L.cast_floats(self, cdt)
         # the gathered rows move to the compute dtype (the table may be
         # stored bf16 whatever the compute dtype)
-        feats = [L.embedding_lookup(self.embedding, b.node_iid)
+        mesh = self.shard.mesh if self.shard is not None else None
+        feats = [L.embedding_lookup(self.embedding, b.node_iid, self.shard)
                  .to(cdt or torch.float32) for b in parts]
         for i, lp in enumerate(cp.layers):
-            ins = _normalised(lp, feats, masks, training)
+            ins = _normalised(lp, feats, masks, training, mesh)
             if i % 2 == 0:
                 outs = [L.eopa_apply(lp, f, b.mail_idx, b.mail_mask, seeds,
                                      **kw) for b, f in zip(parts, ins)]
@@ -143,7 +147,7 @@ class LESSR(nn.Module):
                                      else b.sc_adj.to(cdt), seeds, **kw)
                         for b, f in zip(parts, ins)]
             feats = [torch.cat([o, f], dim=-1) for o, f in zip(outs, feats)]
-        ro_in = _normalised(cp.readout, feats, masks, training)
+        ro_in = _normalised(cp.readout, feats, masks, training, mesh)
         srs = [torch.cat([L.gather_rows(f, b.last_idx),
                           L.attn_readout_apply(cp.readout, x, b.node_mask,
                                                b.last_idx, seeds, **kw)],
@@ -151,6 +155,7 @@ class LESSR(nn.Module):
                for b, f, x in zip(parts, feats, ro_in)]
         sr = torch.cat(srs, dim=0)
         valid = torch.cat([b.valid for b in parts], dim=0)
-        sr = _normalised(cp, [sr], [valid], training)[0]
-        sr = cp.fc_sr(L.dropout(seeds, sr, self.feat_drop, training))
+        sr = _normalised(cp, [sr], [valid], training, mesh)[0]
+        sr = cp.fc_sr(L.dropout(seeds, sr, self.feat_drop, training,
+                                tiers=[b.valid.shape[0] for b in parts]))
         return sr, self.embedding

@@ -77,6 +77,7 @@ class MSGIFSR(nn.Module):
 
     has_multi_head = True
     graph_kind = "ccs"
+    shard = None        # parallel/sharded.py:bind_mesh sets it on a mesh
 
     def __init__(self, num_items, embedding_dim, num_layers, feat_drop=0.0,
                  reducer="mean", order=1, norm=True, extra=False,
@@ -157,7 +158,7 @@ class MSGIFSR(nn.Module):
             lv = batch.levels[l - 1]
             # the gathered rows move to the compute dtype (the table may
             # be stored bf16 whatever the compute dtype)
-            feat = L.embedding_lookup(self.embedding, lv.iid) \
+            feat = L.embedding_lookup(self.embedding, lv.iid, self.shard) \
                 .to(self.cdt or torch.float32)             # [B, Nk, k, d]
             feat = L.dropout(rng, feat, self.feat_drop, training)
             feat = L.semantic_expander_apply(cp.expander, feat, l,

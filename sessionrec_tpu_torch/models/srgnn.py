@@ -35,6 +35,7 @@ from sessionrec_tpu_torch.ops import scoring
 class SRGNN(nn.Module):
     has_plain_head = True
     graph_kind = "session"
+    shard = None        # parallel/sharded.py:bind_mesh sets it on a mesh
 
     def __init__(self, num_items, embedding_dim, num_layers, feat_drop=0.0,
                  readout_on_embedding=True, norm=False, scale=1.0,
@@ -100,8 +101,8 @@ class SRGNN(nn.Module):
         cp = L.cast_floats(self, cdt)
         # the gathered rows move to the compute dtype (the table may be
         # stored bf16 whatever the compute dtype)
-        emb = L.embedding_lookup(self.embedding, batch.node_iid) \
-            .to(cdt or torch.float32)
+        emb = L.embedding_lookup(self.embedding, batch.node_iid,
+                                 self.shard).to(cdt or torch.float32)
         adj = batch.adj if cdt is None else batch.adj.to(cdt)
         feat = L.dropout(rng, emb, self.feat_drop, training)
         if self.norm:

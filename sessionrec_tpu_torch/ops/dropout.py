@@ -40,17 +40,22 @@ def fmix32(h):
     return h ^ (h >> 16)
 
 
-def _hash_bits(seed, shape, device=None):
+def _hash_bits(seed, shape, device=None, offset=0):
     """murmur3 finalizer of (seed, flat element index) -> [R, C] int64
     holding uint32 values (``sessionrec_tpu/ops/dropout.py:_hash_bits``).
     ``seed`` is an int or a 0-d int64 tensor on ``device``; its low 32
-    bits count."""
+    bits count.  ``offset`` (an int, or an int64 ``[R, 1]`` tensor, one
+    per row) is added to the flat indices: the place of a mesh rank's
+    block in the global tensor whose indices the JAX package hashes."""
     R, C = shape
     if not torch.is_tensor(seed):
         seed = torch.tensor(int(seed) & _M32, dtype=torch.int64,
                             device=device)
     idx = torch.arange(R * C, dtype=torch.int64, device=device) \
-        .reshape(R, C) & _M32
+        .reshape(R, C)
+    if torch.is_tensor(offset) or offset:     # one device adds nothing
+        idx = idx + offset
+    idx = idx & _M32
     return fmix32(idx ^ _mul32(seed & _M32, 0x9E3779B9))
 
 
@@ -59,14 +64,15 @@ def _keep_threshold(rate: float) -> int:
     return min(int((1.0 - rate) * 4294967296.0), 4294967295)
 
 
-def dropout(x, rate: float, seed):
+def dropout(x, rate: float, seed, offset=0):
     """Inverted dropout on ``x`` (any rank; last axis = features):
     ``y = x / keep * [hash < keep * 2^32]``, torch nn.Dropout semantics.
-    ``seed``: an int or a 0-d int64 tensor on ``x``'s device."""
+    ``seed``: an int or a 0-d int64 tensor on ``x``'s device; ``offset``
+    as ``_hash_bits`` takes it."""
     if rate == 0.0:
         return x
     C = x.shape[-1]
-    keep = _hash_bits(seed, (x.numel() // C, C), x.device) \
+    keep = _hash_bits(seed, (x.numel() // C, C), x.device, offset) \
         < _keep_threshold(rate)
     # a host tensor's value: no device work, so legal inside a capture
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32) \

@@ -31,15 +31,17 @@ from sessionrec_tpu_torch.ops.dropout import _M32, _hash_bits
 _QUIET = 0x00400000
 
 
-def stochastic_round_bf16_bits(x, seed):
+def stochastic_round_bf16_bits(x, seed, offset=0):
     """The bf16 bit patterns of ``stochastic_round_bf16(x, seed)``: the
     uint16 values in an int16 tensor of ``x``'s shape (the JAX package's
-    ``stochastic_round_bf16_bits`` returns them as uint16)."""
+    ``stochastic_round_bf16_bits`` returns them as uint16).  ``offset``
+    is added to the flat indices that are hashed (a catalog shard's place
+    in the whole table)."""
     x = x.to(torch.float32)
     C = x.shape[-1]
     flat = x.reshape(-1, C)
     u = flat.view(torch.int32).to(torch.int64) & _M32
-    r = _hash_bits(seed, tuple(flat.shape), x.device) >> 16
+    r = _hash_bits(seed, tuple(flat.shape), x.device, offset) >> 16
     y = torch.where(torch.isfinite(flat), u + r,
                     torch.where(torch.isnan(flat), u | _QUIET, u))
     bits = y >> 16                                  # [0, 2^16)

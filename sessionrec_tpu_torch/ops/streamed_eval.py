@@ -42,8 +42,12 @@ bytes.
 
 ``col_offset`` and ``n_valid`` give the shard-local form (the table is
 one catalog shard, ``col_offset`` its first global row, ``n_valid`` its
-real rows); merging shards across processes (``axis_name``) waits for
-the port's multi-GPU slice and raises.
+real rows).  With ``axis_name``, a ``parallel/mesh.py:Mesh``, the shards
+of its model group merge: the label's score comes from the rank that
+holds its column (a sum of one exact value and zeros), the counts add up,
+and the multi head's (max, sum-exp) merge as the training loss's do
+(``ops/xent.py:merge_partial_max_sum``), so every shard blends its columns
+against the whole catalog's denominators.
 """
 
 from __future__ import annotations
@@ -53,15 +57,19 @@ import torch
 from sessionrec_tpu_torch.models.layers import l2norm
 from sessionrec_tpu_torch.ops.masked import NEG_INF
 from sessionrec_tpu_torch.ops.scoring import stable_topk
+from sessionrec_tpu_torch.ops.xent import merge_partial_max_sum
+from sessionrec_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, all_reduce
 
 TILE = 2048
 
 
-def _no_axis(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "streamed ranking across catalog shards (axis_name) comes with "
-            "the port's multi-GPU slice (ROADMAP.md, queue 1 item 4)")
+def _mesh_of(axis_name):
+    """The mesh whose model group merges the shards, or None; the JAX
+    package's axis names have no meaning here."""
+    if axis_name is not None and not isinstance(axis_name, Mesh):
+        raise TypeError(f"axis_name must be a parallel.mesh.Mesh, got "
+                        f"{axis_name!r}")
+    return axis_name
 
 
 def _slabs(sr, table, normalize_table, compute_dtype, tile):
@@ -130,7 +138,19 @@ def _counts(n_tiles, slab_scores, labels, lv):
     return gt, eq
 
 
-def _clip_ranks(gt, eq, k):
+def _merge_label_scores(lv, labels, col_offset, n_valid, mesh):
+    """Every shard's label score from the one that holds the label's
+    column: that shard's exact value plus zeros over the model group."""
+    if mesh is None:
+        return lv
+    owned = (labels >= col_offset) & (labels - col_offset < n_valid)
+    return all_reduce(torch.where(owned, lv, 0.0), mesh, MODEL_AXIS)
+
+
+def _clip_ranks(gt, eq, k, mesh=None):
+    if mesh is not None:
+        gt = all_reduce(gt, mesh, MODEL_AXIS)
+        eq = all_reduce(eq, mesh, MODEL_AXIS)
     rank = gt + eq + 1
     return torch.where(rank <= k, rank, 0)
 
@@ -182,16 +202,19 @@ def streamed_count_ranks(sr, table, labels, *, num_items, k=20,
     pass 2 counts ``#{j : s_j > s_label}`` and the equal scores at lower
     columns.  ``table`` may be one catalog shard: ``col_offset`` is its
     first global row and ``n_valid`` its real rows, labels are global
-    ids; across shards the label scores of pass 1 and the counts of pass
-    2 add up to the whole catalog's (``axis_name``, not ported)."""
-    _no_axis(axis_name)
+    ids; across the shards of ``axis_name`` (a mesh) the label scores of
+    pass 1 and the counts of pass 2 add up to the whole catalog's."""
+    mesh = _mesh_of(axis_name)
     labels = labels.to(torch.int64)
+    n_valid = num_items if n_valid is None else n_valid
     n_tiles, slab_logits = _plain_ctx(
         sr, table, normalize_table=normalize_table,
         compute_dtype=compute_dtype, tile=tile, col_offset=col_offset,
-        n_valid=num_items if n_valid is None else n_valid)
-    lv = _label_scores(n_tiles, slab_logits, labels, col_offset, tile)
-    return _clip_ranks(*_counts(n_tiles, slab_logits, labels, lv), k)
+        n_valid=n_valid)
+    lv = _merge_label_scores(
+        _label_scores(n_tiles, slab_logits, labels, col_offset, tile),
+        labels, col_offset, n_valid, mesh)
+    return _clip_ranks(*_counts(n_tiles, slab_logits, labels, lv), k, mesh)
 
 
 def _multi_ctx(sr, table, iids, phi, alpha, *, num_items, extra, fusion,
@@ -200,9 +223,12 @@ def _multi_ctx(sr, table, iids, phi, alpha, *, num_items, extra, fusion,
     """What the multi-order rankers share: the slab logits, the REnorm part
     masks, the LSE pass, and the blended score of a slab (the same float
     operations in every caller, so the counting ranker's label score is
-    bitwise the score its count pass computes at that column).  Returns
-    ``(slab count, slab_logits, fused_score)``."""
-    _no_axis(axis_name)
+    bitwise the score its count pass computes at that column).  With
+    ``axis_name`` (a mesh) the table is one catalog shard and the LSE
+    pass's (max, sum-exp) merge over its model group
+    (``xent.merge_partial_max_sum``).  Returns ``(slab count,
+    slab_logits, fused_score)``."""
+    mesh = _mesh_of(axis_name)
     B, K, _ = sr.shape
     sr, tab, n_tiles = _slabs(sr, table, normalize_table, compute_dtype,
                               tile)
@@ -245,6 +271,9 @@ def _multi_ctx(sr, table, iids, phi, alpha, *, num_items, extra, fusion,
             ss[p] = (ss[p] * torch.exp(torch.clamp(ms[p], min=floor)
                                        - m_safe) + torch.sum(ex, dim=-1))
             ms[p] = m_new
+    if mesh is not None:
+        for p in range(len(ms)):
+            ms[p], ss[p] = merge_partial_max_sum(ms[p], ss[p], mesh)
     m_safe = [torch.clamp(m, min=floor)[..., None] for m in ms]
     denom = [torch.clamp(s, min=torch.finfo(torch.float32).tiny)[..., None]
              for s in ss]
@@ -270,22 +299,27 @@ def _multi_ctx(sr, table, iids, phi, alpha, *, num_items, extra, fusion,
 
 def streamed_multi_topk(sr, table, iids, phi, alpha, *, num_items, extra,
                         fusion, k=20, scale=12.0, normalize_table=True,
-                        compute_dtype=None, tile=TILE):
+                        compute_dtype=None, tile=TILE, col_offset=0,
+                        n_valid=None, axis_name=None):
     """Global top-k ``(values [B, k], item ids [B, k])`` of MSGIFSR's
     blended REnorm/fusion score without the ``[B, K, P]`` scores: the LSE
     pass, then each slab's blended score and its top-k merged into the
     running candidates.  Inputs are ``model.head_multi``'s: ``sr [B, K,
     d]``, the raw ``table``, ``phi [B, K, 2]`` or None, ``alpha [K]``,
     ``iids [B, N]`` (-1 padded).  Values are raw blended probabilities;
-    the ids are ``stable_topk`` of ``model.apply``'s log-probabilities."""
+    the ids are ``stable_topk`` of ``model.apply``'s log-probabilities.
+    On a catalog shard (``col_offset``, ``n_valid``, ``axis_name``, as
+    ``_multi_ctx`` takes them) the shard's own top-k, global ids."""
     n_tiles, slab_logits, fused_score = _multi_ctx(
         sr, table, iids, phi, alpha, num_items=num_items, extra=extra,
         fusion=fusion, scale=scale, normalize_table=normalize_table,
-        compute_dtype=compute_dtype, tile=tile)
+        compute_dtype=compute_dtype, tile=tile, col_offset=col_offset,
+        n_valid=n_valid, axis_name=axis_name)
     vals, idxs = _init_topk(sr.shape[0], k, sr.device)
     for i in range(n_tiles):
         tv, ti = stable_topk(fused_score(*slab_logits(i)), k)
-        vals, idxs = _merge_topk(vals, idxs, tv, ti + i * tile, k)
+        vals, idxs = _merge_topk(vals, idxs, tv,
+                                 ti + i * tile + col_offset, k)
     return vals, idxs
 
 
@@ -320,10 +354,13 @@ def streamed_multi_count_ranks(sr, table, labels, iids, phi, alpha, *,
         compute_dtype=compute_dtype, tile=tile, col_offset=col_offset,
         n_valid=n_valid, axis_name=axis_name)
     labels = labels.to(torch.int64)
+    mesh = _mesh_of(axis_name)
 
     def slab_scores(i):
         lo, col, imask = slab_logits(i)
         return fused_score(lo, col, imask), col
 
-    lv = _label_scores(n_tiles, slab_scores, labels, col_offset, tile)
-    return _clip_ranks(*_counts(n_tiles, slab_scores, labels, lv), k)
+    lv = _merge_label_scores(
+        _label_scores(n_tiles, slab_scores, labels, col_offset, tile),
+        labels, col_offset, num_items if n_valid is None else n_valid, mesh)
+    return _clip_ranks(*_counts(n_tiles, slab_scores, labels, lv), k, mesh)

@@ -54,6 +54,8 @@ import torch
 
 from sessionrec_tpu_torch.ops import cuda_build
 from sessionrec_tpu_torch.ops.masked import NEG_INF
+from sessionrec_tpu_torch.parallel.mesh import (MODEL_AXIS, all_reduce,
+                                                shard_span)
 
 _NORM_EPS = 1e-12   # torch F.normalize eps (layers.l2norm)
 _TINY = torch.finfo(torch.float32).tiny
@@ -444,6 +446,87 @@ def xent_bwd(g, sr, table, labels, lse, n_valid, col_offset=0, *, scale,
     same_dtype(sr, table)
     return _bwd_plain(g, sr, table, labels, lse, n_valid, col_offset,
                       scale=scale, normalize_table=normalize_table)
+
+
+# ---------------------------------------------------------------------------
+# catalog-sharded forms (the table row-sharded over the mesh's model axis;
+# parallel/sharded.py stitches forward and backward into one autograd
+# Function with the collectives written out, as the JAX package's
+# custom_vjp does)
+# ---------------------------------------------------------------------------
+
+def _localize_labels(labels, offset, n_valid):
+    """Global labels shifted into a shard's rows, ``[0, n_valid)``.
+
+    Off-shard labels become -1, so they can never match a column.  (Merely
+    lying outside ``[0, n_valid)`` is not enough: a kernel's tile runs past
+    ``n_valid`` over masked columns, and a label there would pick up a
+    masked logit in the label term and the backward's one-hot.)"""
+    lbl = labels.to(torch.int32) - offset
+    return torch.where((lbl >= 0) & (lbl < n_valid), lbl,
+                       -1).to(torch.int32)
+
+
+def merge_partial_max_sum(m, s, mesh):
+    """Every shard's (max, sum-exp relative to it) merged over the mesh's
+    model group with one max and one sum all-reduce: ``(m, s)`` of the
+    whole catalog, ``m`` clamped above ``NEG_INF`` (all-masked rows)."""
+    m_g = all_reduce(m, mesh, MODEL_AXIS, "max")
+    m_safe = torch.clamp(m_g, min=NEG_INF * 0.5)
+    s_g = all_reduce(s * torch.exp(torch.clamp(m, min=NEG_INF) - m_safe),
+                     mesh, MODEL_AXIS)
+    return m_safe, s_g
+
+
+def merge_partial_lse(m, s, mesh):
+    """Finish a log-sum-exp from every shard's (max, relative sum-exp)
+    over the mesh's model group (``merge_partial_max_sum``)."""
+    m_safe, s_g = merge_partial_max_sum(m, s, mesh)
+    return m_safe + torch.log(torch.clamp(s_g, min=_TINY))
+
+
+def _shard_operands(labels, ploc, num_items, mesh):
+    """K1/K2's ``(labels, n_valid, col_offset)`` on this rank's shard of
+    ``ploc`` rows: they compare global columns, so the labels are the
+    global ids this shard holds (-1 elsewhere) and ``n_valid`` is the
+    shard's end in global ids."""
+    offset, n_valid = shard_span(mesh, ploc, num_items)
+    lbl = _localize_labels(labels, offset, n_valid)
+    return torch.where(lbl >= 0, lbl + offset, -1).to(torch.int32), \
+        offset + n_valid, offset
+
+
+def sharded_xent_fwd(sr, table_local, labels, *, scale, num_items,
+                     normalize_table, mesh):
+    """Per-row catalog cross-entropy with the table row-sharded over the
+    mesh's model axis (``sessionrec_tpu/ops/xent.py:sharded_xent_fwd``).
+
+    ``sr [B, D]`` and ``labels [B]`` are this rank's data rows (the same on
+    every rank of its model group); ``table_local`` its ``[P/mp, D]``
+    shard.  K1 runs over the shard's rows only; its ``lse`` and the label
+    logit ``zl = lse - loss`` (exactly 0 where the shard lacks the label)
+    merge with a max and two sum all-reduces of ``[B]`` vectors.  Returns
+    ``(per-row loss [B], global lse [B])``."""
+    lbl, n_valid, offset = _shard_operands(labels, table_local.shape[0],
+                                           num_items, mesh)
+    loss, lse_local = xent_fwd(sr, table_local, lbl, n_valid, offset,
+                               scale=scale, normalize_table=normalize_table)
+    lse = merge_partial_lse(lse_local, torch.ones_like(lse_local), mesh)
+    zl = all_reduce(lse_local - loss, mesh, MODEL_AXIS)
+    return lse - zl, lse
+
+
+def sharded_xent_bwd(g_row, sr, table_local, labels, lse, *, scale,
+                     num_items, normalize_table, mesh):
+    """Backward of ``sharded_xent_fwd``: K2 over the shard's rows against
+    the global ``lse``.  Returns ``(d_sr [B, D] float32, summed over the
+    model group, d_table_local [P/mp, D])``; the caller sums the table's
+    gradient over the data group."""
+    lbl, n_valid, offset = _shard_operands(labels, table_local.shape[0],
+                                           num_items, mesh)
+    dsr, dtab = xent_bwd(g_row, sr, table_local, lbl, lse, n_valid, offset,
+                         scale=scale, normalize_table=normalize_table)
+    return all_reduce(dsr, mesh, MODEL_AXIS), dtab
 
 
 class _CatalogXent(torch.autograd.Function):

@@ -41,6 +41,8 @@ import torch
 
 from sessionrec_tpu_torch.ops import xent
 from sessionrec_tpu_torch.ops.masked import NEG_INF
+from sessionrec_tpu_torch.parallel.mesh import (MODEL_AXIS, all_reduce,
+                                                shard_span)
 
 # safe-log floor of the label probability (models/msgifsr.py:_TINY)
 _TINY = 1e-30
@@ -309,6 +311,52 @@ def xent_multi_bwd(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
     return _bwd_plain(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
                       n_valid, col_offset, scale=scale,
                       normalize_table=normalize_table)
+
+
+# ---------------------------------------------------------------------------
+# catalog-sharded forms (parallel/sharded.py:fused_multi_loss_sharded
+# stitches them into one autograd Function, as the JAX package's
+# _fused_multi_mesh custom_vjp does)
+# ---------------------------------------------------------------------------
+
+def _shard_operands(labels, ploc, num_items, mesh):
+    """K3/K4's ``(labels, n_valid, col_offset)`` on this rank's shard of
+    ``ploc`` rows: they compare local columns with ``n_valid`` and the
+    labels (shifted into the shard, -1 elsewhere) and global ids with the
+    session items (``col_offset``)."""
+    offset, n_valid = shard_span(mesh, ploc, num_items)
+    return xent._localize_labels(labels, offset, n_valid), n_valid, offset
+
+
+def sharded_multi_fwd(sr3, table_local, labels, iids, *, scale, num_items,
+                      normalize_table, mesh):
+    """``(zl, lse_in, lse_ex)``, each ``[K, B]``, of the whole catalog with
+    the table row-sharded over the mesh's model axis: K3 over this rank's
+    shard, its per-partition (max, sum-exp) merged by
+    ``xent.merge_partial_lse`` and the label logits summed over the model
+    group (``sessionrec_tpu/parallel/sharded.py:_fused_multi_mesh_fwd``).
+    """
+    lbl, n_valid, offset = _shard_operands(labels, table_local.shape[0],
+                                           num_items, mesh)
+    m_in, s_in, m_ex, s_ex, zl = xent_multi_fwd(
+        sr3, table_local, lbl, iids, n_valid, offset, scale=scale,
+        normalize_table=normalize_table)
+    return (all_reduce(zl, mesh, MODEL_AXIS),
+            xent.merge_partial_lse(m_in, s_in, mesh),
+            xent.merge_partial_lse(m_ex, s_ex, mesh))
+
+
+def sharded_multi_bwd(gz, gin, gex, sr3, table_local, labels, iids, lse_in,
+                      lse_ex, *, scale, num_items, normalize_table, mesh):
+    """Backward of ``sharded_multi_fwd``: K4 over this rank's shard against
+    the global log-sum-exps.  Returns ``(d_sr [K, B, D] float32, summed
+    over the model group, d_table_local [P/mp, D])``."""
+    lbl, n_valid, offset = _shard_operands(labels, table_local.shape[0],
+                                           num_items, mesh)
+    dsr, dtab = xent_multi_bwd(gz, gin, gex, sr3, table_local, lbl, iids,
+                               lse_in, lse_ex, n_valid, offset, scale=scale,
+                               normalize_table=normalize_table)
+    return all_reduce(dsr, mesh, MODEL_AXIS), dtab
 
 
 class _CatalogMultiStats(torch.autograd.Function):

@@ -47,6 +47,17 @@ the training graphs'.  On the CPU eval runs per batch.  A batch whose
 in slabs (``ops/streamed_eval.py``, ``_auto_stream``), inside the same
 eval graphs.
 
+With a ``mesh`` (``parallel/mesh.py``; the mesh branches of
+runner.py:29-232 and :549-597 of the JAX package) the runner is one rank
+of a (data, model) mesh: its model holds its table shard
+(``parallel/sharded.py:bind_mesh``), its loaders yield its data
+position's rows, the loss and eval run K1-K4 and the rankers on the
+shard, the replicated parameters' gradients are summed over the data
+group and the table steps with ``optim.ShardedTableAdam`` (the ZeRO
+layout).  Mesh steps and evals run eagerly, as the CPU's do: a CUDA graph
+that holds collectives needs NCCL's graph capture, which is not part of
+this port.
+
 With a ``Checkpointer`` the runner saves after every
 ``checkpoint_every``-th epoch and at an early stop (runner.py:701-704);
 with a metrics sink it logs ``train`` events at log intervals and an
@@ -64,6 +75,12 @@ import torch
 from sessionrec_tpu_torch.models.layers import SeedSource, l2norm
 from sessionrec_tpu_torch.ops import scoring, streamed_eval, xent, xent_multi
 from sessionrec_tpu_torch.ops.sround import stochastic_round_bf16
+from sessionrec_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce
+from sessionrec_tpu_torch.parallel.multihost import place_chunk
+from sessionrec_tpu_torch.parallel.sharded import (bind_mesh,
+                                                   sharded_eval_ranks,
+                                                   sharded_loss,
+                                                   sum_data_grads)
 from sessionrec_tpu_torch.train.optim import make_optimizer
 from sessionrec_tpu_torch.utils.logging import get_logger
 
@@ -99,7 +116,11 @@ def make_loss(model, batch, seeds):
     into either.  ``seeds`` (a ``SeedSource``) drives dropout; None
     disables it.  A model that computes in its table's type gives the
     loss ``sr`` in that type too, and the kernels run in it (their bf16
-    branch for a bf16 table and bf16 compute); anything else raises."""
+    branch for a bf16 table and bf16 compute); anything else raises.  A
+    model on a mesh (``model.shard``) takes the sharded losses
+    (``parallel/sharded.py:sharded_loss``)."""
+    if model.shard is not None:
+        return sharded_loss(model, batch, seeds)
     kw = dict(scale=model.scale, num_items=model.num_items,
               normalize_table=model.table_norm)
     if model.has_plain_head:
@@ -184,7 +205,11 @@ def eval_ranks(model, batch, cutoff, streamed=None, rank_method=None):
     the JAX package).  ``streamed``: None picks by ``_auto_stream``, True
     walks the catalog in slabs (``ops/streamed_eval.py``), False ranks
     ``eval_scores``.  ``rank_method``: None or "count" counts, "topk"
-    takes the stable top-k; both give the same ranks."""
+    takes the stable top-k; both give the same ranks.  On a mesh the
+    catalog shards stream (``parallel/sharded.py:sharded_eval_ranks``),
+    whatever ``streamed`` says."""
+    if model.shard is not None:
+        return sharded_eval_ranks(model, batch, cutoff, rank_method)[0]
     count = scoring.use_count_ranks(rank_method)
     if not _streams(model, batch, streamed):
         scores = eval_scores(model, batch)
@@ -339,7 +364,7 @@ def _on_side_stream(device, fn):
 
 
 class TrainRunner:
-    """Training loop on one device.
+    """Training loop on one device, or one rank of a ``mesh``.
 
     Invariant (as in the JAX package): parameters enter every step
     max-norm-projected, gradients are taken at the projected table, and
@@ -350,9 +375,11 @@ class TrainRunner:
                  weight_decay=1e-4, patience=3, seed=123, cutoff=20,
                  lr_step_size=3, lr_gamma=0.1, eval_before_train=True,
                  checkpointer=None, checkpoint_every=1, unroll=8,
-                 metrics=None, device="cuda"):
+                 metrics=None, device="cuda", mesh=None):
         set_precision()
-        self.device = resolve_device(str(device))
+        self.mesh = mesh
+        self.device = resolve_device(str(device)) if mesh is None \
+            else mesh.device
         self.model = model
         self.train_loader = train_loader
         self.test_loader = test_loader
@@ -365,10 +392,15 @@ class TrainRunner:
         self.metrics = metrics
         model.reset_parameters(torch.Generator().manual_seed(seed))
         model.to(self.device)
-        self.seeds = SeedSource(seed + 1, self.device)
+        # on a mesh every rank draws the whole table from the seed, keeps
+        # its shard, and hashes its rows' global indices
+        self.seeds = SeedSource(seed + 1, self.device, data=(0, 1)
+                                if mesh is None else (mesh.d, mesh.dp))
+        if mesh is not None:
+            bind_mesh(model, mesh)
         # establish the step invariant; identity for fresh inits
         model.project_params()
-        self.params = list(model.parameters())
+        self.params = [p for p in model.parameters() if p.requires_grad]
         # every parameter holds its gradient from the start, zeroed in
         # place before each backward: the parameters the loss does not
         # reach (the 'inter' GATs at order 1, sc_sr[k > 0], beta) still
@@ -397,9 +429,9 @@ class TrainRunner:
 
     @property
     def uses_graph(self):
-        """True where ``run_chunk`` and eval replay CUDA graphs (on
-        CUDA)."""
-        return self.device.type == "cuda"
+        """True where ``run_chunk`` and eval replay CUDA graphs (on CUDA,
+        off a mesh)."""
+        return self.device.type == "cuda" and self.mesh is None
 
     def _step(self, batch):
         """fwd -> bwd -> Adam -> schedule -> project on a device batch;
@@ -412,6 +444,13 @@ class TrainRunner:
         if self.table_opt is not None:
             self.table_opt.zero_grad()
         loss.backward()
+        if self.mesh is not None:
+            sum_data_grads(self.params, self.mesh)
+            self.opt.step()
+            bf16 = self.model.embedding.dtype == torch.bfloat16
+            self.table_opt.step(self.seeds.next() if bf16 else None)
+            self.sched.step()
+            return loss.detach()
         self.opt.step()
         update = self.table_opt.update() if self.table_opt else None
         self.sched.step()
@@ -489,6 +528,9 @@ class TrainRunner:
         """Train on ``chunk``, at most ``unroll`` batches of the loader
         (host arrays or tensors); returns their losses, one device
         tensor."""
+        if self.mesh is not None:
+            return torch.stack([self.train_step(b) for b in
+                                place_chunk(self.mesh, chunk)])
         if not self.uses_graph:
             return torch.stack([self.train_step(b.to(self.device))
                                 for b in chunk])
@@ -547,6 +589,10 @@ class TrainRunner:
         invariant; it covers parameters loaded from elsewhere)."""
         self.model.eval()
         self.model.project_params()
+        if self.mesh is not None:
+            # each data position's sums, then the whole test set's
+            return all_reduce(self._chunk_sums(self.test_loader), self.mesh,
+                              DATA_AXIS)
         if not self.uses_graph:
             return self._chunk_sums(self.test_loader)
         total = torch.zeros(3, dtype=torch.float64, device=self.device)
@@ -573,6 +619,14 @@ class TrainRunner:
                 "reference's per-batch NaN assert, train.py:98)")
         return total / max(len(vals), 1)
 
+    def _global_count(self, n):
+        """``n``, a count over this rank's rows, summed over the data
+        group (``n`` itself off a mesh)."""
+        if self.mesh is None:
+            return n
+        t = torch.tensor(float(n), dtype=torch.float64, device=self.device)
+        return float(all_reduce(t, self.mesh, DATA_AXIS))
+
     def train(self, epochs, log_interval=100):
         if self.eval_before_train:
             mrr, hit = self.evaluate()
@@ -594,7 +648,8 @@ class TrainRunner:
                     mean_loss = self._drain_losses(pending)
                     pending, since_log = [], 0
                     dt = time.perf_counter() - t
-                    rate = (examples - interval_examples) / max(dt, 1e-9)
+                    rate = self._global_count(examples - interval_examples) \
+                        / max(dt, 1e-9)
                     log.info("step %d: loss = %.4f, %.1f examples/s, %.2fs",
                              self.steps, mean_loss, rate, dt)
                     if self.metrics is not None:
@@ -604,7 +659,7 @@ class TrainRunner:
                     interval_examples = examples
                     t = time.perf_counter()
             self._drain_losses(pending)
-            self.train_examples = int(examples)
+            self.train_examples = int(self._global_count(examples))
             self.train_seconds = time.perf_counter() - epoch_t
             rate = self.train_examples / max(self.train_seconds, 1e-9)
 

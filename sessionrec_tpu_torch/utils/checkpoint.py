@@ -19,6 +19,13 @@ directory:
 A restore copies the saved values *in place* into the tensors the runner
 already holds, so CUDA graphs captured from them stay valid.  Files load
 with ``weights_only=True`` onto the target's device.
+
+On a (data, model) mesh a checkpoint holds global tensors, as orbax saves
+the JAX package's global arrays: every rank gathers the table (over the
+model group) and its Adam moments (over the data group where they are
+ZeRO-sharded, then over the model group), and rank 0 writes the files.
+A restore, at any ``(dp, mp)`` or on one device, slices each rank's part
+out of them.
 """
 
 from __future__ import annotations
@@ -27,7 +34,10 @@ import json
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
+from sessionrec_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                all_gather)
 from sessionrec_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -79,6 +89,47 @@ def _copy_into(targets, saved, path):
         target.copy_(_migrate(name, saved[name], target))
 
 
+_TABLE = "embedding"
+_MOMENTS = ("adam/embedding/exp_avg", "adam/embedding/exp_avg_sq")
+
+
+def global_state(runner):
+    """``runner.named_state()`` with the table and its moments whole: on a
+    mesh every rank gathers them (a collective; every rank calls it)."""
+    state = runner.named_state()
+    mesh = runner.mesh
+    if mesh is None:
+        return state
+    state[_TABLE] = all_gather(state[_TABLE], mesh, MODEL_AXIS)
+    for name in _MOMENTS:
+        x = state[name]
+        if runner.table_opt.scatter:
+            x = all_gather(x, mesh, DATA_AXIS)
+        state[name] = all_gather(x, mesh, MODEL_AXIS)
+    return state
+
+
+def _local_part(runner, name, saved):
+    """This rank's part of the global ``saved`` tensor ``name``: its shard
+    of the table, its slice of the table's moments; all of the rest."""
+    if runner.mesh is None or name not in (_TABLE,) + _MOMENTS:
+        return saved
+    opt = runner.table_opt
+    lo = runner.mesh.m * opt.shard.rows
+    if name == _TABLE:
+        return saved[lo:lo + opt.shard.rows]
+    return saved[lo + opt.lo:lo + opt.lo + opt.rows]
+
+
+def load_state(runner, saved, source="state"):
+    """Copy the global state ``saved`` (``global_state``'s names and
+    shapes) into ``runner`` in place, each rank its part; Adam's state is
+    created first where no step has made it yet."""
+    saved = {k: _local_part(runner, k, v) for k, v in saved.items()}
+    runner.init_opt_state()
+    _copy_into(runner.named_state(), saved, source)
+
+
 class Checkpointer:
     def __init__(self, directory):
         self.dir = Path(directory).absolute()
@@ -90,17 +141,24 @@ class Checkpointer:
         """Snapshot everything a bit-identical resume needs: the runner's
         ``named_state`` in the two files, and the loop counters and
         early-stop bookkeeping in the sidecar, written last."""
-        path = self._path(epoch)
-        path.mkdir(parents=True, exist_ok=True)
-        params = runner.model.state_dict()
-        torch.save(params, path / PARAMS)
-        torch.save({k: v for k, v in runner.named_state().items()
-                    if k not in params}, path / TRAIN)
-        meta = {"epoch": epoch, "metrics": metrics or {},
-                "batch": runner.steps, "max_mrr": runner.max_mrr,
-                "max_hit": runner.max_hit, "bad_counter": runner.bad_counter}
-        (self.dir / f"epoch_{epoch:04d}.json").write_text(json.dumps(meta))
-        log.info("saved checkpoint %s", path)
+        state = global_state(runner)
+        mesh = runner.mesh
+        if mesh is None or mesh.is_primary:
+            path = self._path(epoch)
+            path.mkdir(parents=True, exist_ok=True)
+            names = runner.model.state_dict().keys()
+            torch.save({k: state[k] for k in names}, path / PARAMS)
+            torch.save({k: v for k, v in state.items() if k not in names},
+                       path / TRAIN)
+            meta = {"epoch": epoch, "metrics": metrics or {},
+                    "batch": runner.steps, "max_mrr": runner.max_mrr,
+                    "max_hit": runner.max_hit,
+                    "bad_counter": runner.bad_counter}
+            (self.dir / f"epoch_{epoch:04d}.json").write_text(
+                json.dumps(meta))
+            log.info("saved checkpoint %s", path)
+        if mesh is not None:
+            dist.barrier()      # the files exist for every rank
 
     def latest_epoch(self):
         epochs = sorted(int(p.stem.split("_")[1])
@@ -118,8 +176,7 @@ class Checkpointer:
         path = self._path(ep)
         saved = _load(path / PARAMS, runner.device)
         saved.update(_load(path / TRAIN, runner.device))
-        runner.init_opt_state()
-        _copy_into(runner.named_state(), saved, path)
+        load_state(runner, saved, path)
         meta = json.loads((self.dir / f"epoch_{ep:04d}.json").read_text())
         runner.epoch = ep + 1
         runner.steps = int(meta.get("batch", 0))

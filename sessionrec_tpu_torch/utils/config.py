@@ -6,11 +6,11 @@ MSGIFSR main_msgifsr.py:36-111; shared trainer defaults train.py:74-75.
 SRGNN has no reference script (start.sh:6 points at a missing file); its
 preset is NISER's wiring with SRGNN's model, as in the JAX package.
 
-Cut down from ``sessionrec_tpu/utils/config.py`` (the port imports
-nothing of the JAX package) to the fields the PyTorch trainer reads, so
+A copy of ``sessionrec_tpu/utils/config.py`` (the port imports nothing
+of the JAX package) with the fields the PyTorch trainer reads, so
 ``preset`` raises ``KeyError`` on an option the port does not implement
-(parallelism) instead of ignoring it, and ``ValueError`` on a dtype
-other than float32 and bfloat16.
+instead of ignoring it, and ``ValueError`` on a dtype other than float32
+and bfloat16.
 """
 
 from __future__ import annotations
@@ -90,6 +90,10 @@ class TrainConfig:
     checkpoint_dir: str | None = None
     checkpoint_every_epochs: int = 1
     resume: bool = False
+    # parallelism: a (data, model) mesh of data_parallel x model_parallel
+    # ranks, one process each (parallel/mesh.py)
+    data_parallel: int = 1
+    model_parallel: int = 1
     # observability (absent in the reference, SURVEY.md §5)
     metrics_file: str | None = None   # JSONL sink (utils/metrics.py)
     profile_dir: str | None = None    # torch.profiler trace dir

@@ -15,6 +15,7 @@ skips.  No JAX is imported:
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -155,3 +156,33 @@ def test_recommend_step_matches_the_cpu(cuda, path):
                                             kw["order"]):
         step(batch)
     assert step.graph is not None and step.graph.replays == 4
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_batch_round_trips_through_the_card(cuda, path):
+    """A batch moved to the card and back equals the host's arrays, also
+    while the stream is busy: the copy back waits for its bytes (a
+    non-blocking copy to the host returned before they had landed)."""
+    loader = BatchLoader(_sessions(1, 200), "ccs", 64, 15, split_len=(4, 8),
+                         order=PATHS[path]["order"], prefetch=0)
+    host = next(iter(loader))
+    busy = torch.randn(4096, 4096, device=cuda)
+    for _ in range(3):
+        on_card = host.to(cuda)
+        for _ in range(8):
+            busy = busy @ busy / 64.0
+        back = on_card.to("cpu")
+        for (name, got), (_, want) in zip(_leaves(back), _leaves(host)):
+            assert np.array_equal(got.numpy(), np.asarray(want)), name
+
+
+def _leaves(batch, prefix=""):
+    """(dotted name, array) of every array of ``batch``, in field order."""
+    for f in dataclasses.fields(batch):
+        v = getattr(batch, f.name)
+        for i, e in enumerate(v if isinstance(v, tuple) else (v,)):
+            name = f"{prefix}{f.name}[{i}]"
+            if dataclasses.is_dataclass(e):
+                yield from _leaves(e, name + ".")
+            else:
+                yield name, e

@@ -11,7 +11,9 @@ products summed in another order); K2 1e-3 (float32) or 1e-2 (bfloat16) of the l
 reference magnitude, for d_table in each group of rows, since dz and a
 bfloat16 d_table are rounded.  K3 and K4 likewise: the five stats to
 1e-5 * max(1, |ref|) element by element, d_sr and d_table as K2, with
-d_table's rows hit only by session items a group of their own.
+d_table's rows hit only by session items a group of their own.  K1-K4
+also on a catalog shard, with the operands a (2, 2) mesh's losses give
+them (``ops/xent.py`` and ``ops/xent_multi.py`` ``_shard_operands``).
 """
 
 import numpy as np
@@ -126,6 +128,46 @@ def test_k1_matches_plain_on_a_catalog_shard(cuda, norm):
     got = tx._fwd_cuda(s, shard, lbl, 2500, 1000, scale=12.0,
                        normalize_table=norm)
     _assert_k1_close(got, s, shard, lbl, 2500, 1000, norm)
+
+
+# rank (0, 1) of a (2, 2) mesh on the path catalog: shard 1 of the 3,584
+# rows starts at row 1,792 and holds 1,637 of the 3,429 items
+SHARD_P, SHARD_ITEMS, SHARD_ROWS = 3584, 3429, 1792
+
+
+def _shard_operands(cuda, ops, labels):
+    """The operands the mesh's losses give a kernel wrapper on that shard
+    (``ops._shard_operands``): labels, n_valid and col_offset."""
+    from sessionrec_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(2, 2, 1, cuda, "nccl", None, None)
+    lbl, n_valid, offset = ops._shard_operands(labels, SHARD_ROWS,
+                                               SHARD_ITEMS, mesh)
+    assert offset == SHARD_ROWS
+    assert int((lbl >= 0).sum()) > 0 and int((lbl == -1).sum()) > 0
+    return lbl, n_valid, offset
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+def test_k2_matches_plain_on_a_catalog_shard(cuda, dtype, norm):
+    """K2 on that shard with the mesh's operands (global labels the shard
+    holds, -1 elsewhere; n_valid the shard's end in global ids; col_offset
+    1,792) and the whole catalog's lse, as the mesh's backward calls it:
+    its plain version's numbers, d_table by groups of rows, the rows past
+    the last item exactly 0."""
+    s, t, lbl, g, lse = _k2_case(cuda, 256, 256, SHARD_P, SHARD_ITEMS, dtype,
+                                 norm)
+    shard = t[SHARD_ROWS:].contiguous()
+    lk, n_valid, offset = _shard_operands(cuda, tx, lbl)
+    assert n_valid == SHARD_ITEMS
+    kw = dict(scale=12.0, normalize_table=norm)
+    dsr, dtab = tx._bwd_cuda(g, s, shard, lk, lse, n_valid, offset, **kw)
+    dsr_p, dtab_p = tx._bwd_plain(g, s, shard, lk, lse, n_valid, offset,
+                                  **kw)
+    _assert_k2_close(dsr, dtab, dsr_p, dtab_p,
+                     torch.where(lk >= 0, lk - offset, -1), SHARD_ROWS,
+                     SHARD_ITEMS - SHARD_ROWS,
+                     1e-3 if dtype == torch.float32 else 1e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -356,6 +398,36 @@ def test_multi_kernels_match_plain_at_edge_shapes(cuda, B, D, P, n, dtype,
     assert dsr.dtype == torch.float32 and dtab.dtype == dtype
     _assert_k4_close(dsr, dtab, dsr_p, dtab_p, lbl, iids, P, n,
                      1e-3 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+def test_multi_kernels_match_plain_on_a_catalog_shard(cuda, dtype, norm):
+    """K3 and K4 on rank (0, 1)'s shard with the mesh's operands (labels
+    shifted into the shard, -1 elsewhere; n_valid its 1,637 real rows;
+    col_offset 1,792 for the global session ids): their plain versions'
+    numbers, K4 against the whole catalog's log-partitions."""
+    K, B, D, N = 3, 256, 256, 19
+    s, t, lbl, iids, g = _multi_case(cuda, K, B, D, SHARD_P, SHARD_ITEMS, N,
+                                     dtype)
+    kw = dict(scale=12.0, normalize_table=norm)
+    whole = txm._fwd_plain(s, t, lbl, iids, SHARD_ITEMS, 0, **kw)
+    lse = (txm._finish(whole[0], whole[1]), txm._finish(whole[2], whole[3]))
+    shard = t[SHARD_ROWS:].contiguous()
+    lk, n_valid, offset = _shard_operands(cuda, txm, lbl)
+    assert n_valid == SHARD_ITEMS - SHARD_ROWS
+    _assert_k3_close(txm._fwd_cuda(s, shard, lk, iids, n_valid, offset,
+                                   **kw),
+                     txm._fwd_plain(s, shard, lk, iids, n_valid, offset,
+                                    **kw))
+    dsr, dtab = txm._bwd_cuda(*g, s, shard, lk, iids, *lse, n_valid, offset,
+                              **kw)
+    dsr_p, dtab_p = txm._bwd_plain(*g, s, shard, lk, iids, *lse, n_valid,
+                                   offset, **kw)
+    local = iids - offset
+    local = torch.where((local >= 0) & (local < SHARD_ROWS), local, -1)
+    _assert_k4_close(dsr, dtab, dsr_p, dtab_p, lk, local, SHARD_ROWS,
+                     n_valid, 1e-3 if dtype == torch.float32 else 1e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

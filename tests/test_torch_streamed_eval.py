@@ -18,7 +18,7 @@ exact ties (a table row copied); the auto policy decides as JAX's; a
 catalog cut into two shards by ``col_offset`` / ``n_valid`` gives the
 whole catalog's ranks once the shards' label scores and counts are
 combined (what a catalog-sharded caller will reduce across processes);
-``axis_name`` raises; ``eval_sums(streamed=True)`` equals the JAX
+``axis_name`` takes a mesh, not a JAX axis name; ``eval_sums(streamed=True)`` equals the JAX
 ``make_eval_step(streamed=True)`` sums to 1e-6; ``topk_ranks`` takes
 ``lax.top_k``'s tie order; ``log_softmax_scores`` equals JAX's to 1e-5.
 """
@@ -260,12 +260,14 @@ def test_two_catalog_shards_add_up_to_the_whole():
 
 
 def test_axis_name_raises():
+    """``axis_name`` takes a ``parallel.mesh.Mesh`` (the model group that
+    merges catalog shards); a JAX axis name means nothing here."""
     tab, labels, sr, iids, phi, alpha = _inputs(3, orders=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="Mesh"):
         se.streamed_count_ranks(torch.tensor(sr[:, 0]), torch.tensor(tab),
                                 torch.tensor(labels), num_items=ITEMS,
                                 axis_name="model")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="Mesh"):
         se.streamed_multi_count_ranks(
             torch.tensor(sr), torch.tensor(tab), torch.tensor(labels),
             torch.tensor(iids), torch.tensor(phi), torch.tensor(alpha),

@@ -116,10 +116,10 @@ def test_cuda_device_is_not_silently_replaced():
 
 @pytest.mark.parametrize("option", [
     dict(table_dtype="float16"), dict(compute_dtype="float8_e4m3fn"),
-    dict(data_parallel=4), dict(model_parallel=2)])
+    dict(tensor_parallel=4), dict(pipeline_parallel=2)])
 def test_preset_refuses_options_the_port_does_not_run(option):
-    """Parallelism is not ported (an unknown field); the dtypes are, for
-    float32 and bfloat16 only, as the JAX package's flags."""
+    """Fields neither package has raise (unknown fields); the dtypes are
+    taken for float32 and bfloat16 only, as the JAX package's flags."""
     from sessionrec_tpu_torch.utils.config import preset
     dtype = next(iter(option)).endswith("_dtype")
     with pytest.raises(ValueError if dtype else KeyError,
@@ -128,6 +128,14 @@ def test_preset_refuses_options_the_port_does_not_run(option):
         preset("msgifsr", order=1, **option)
     with pytest.raises(KeyError):
         preset("gru4rec")
+
+
+def test_preset_takes_the_mesh_sizes():
+    """``data_parallel`` and ``model_parallel`` are the JAX package's
+    fields (a mesh of their product of ranks, parallel/mesh.py)."""
+    from sessionrec_tpu_torch.utils.config import preset
+    t = preset("msgifsr", order=1, data_parallel=4, model_parallel=2).train
+    assert (t.data_parallel, t.model_parallel) == (4, 2)
 
 
 def test_non_finite_loss_aborts():
