@@ -158,6 +158,31 @@ Phases, one JSON line each on stdout:
    memory and the seconds a step (gloo on one card: not a speed figure;
    NCCL, which needs a card a rank, is not run).
 
+11. wide — K1-K4 past 256 features, the slab kernels (csrc/tiles.cuh's
+   slab path): against their plain versions at D = 258 (no multiple of
+   4: staged by plain loads), 512 and 1,000, B 512 on the padded path
+   catalog, float32 and bfloat16, normalised and not, the backward
+   kernels twice with their bits repeated (``kernel_check`` /
+   ``multi_kernel_check`` lines with ``"wide": true``); K3/K4 with item
+   lists of 300 and 1,024 ids at D 256 and 512 (``"long_items": true``);
+   K1-K4 on the mesh's catalog shard (column offset 1,792) at D 512; and
+   their times at D 512 on the path and north-star catalogs
+   (``kernel_time``, ``k1_launch``, ``k2_launch``, ``multi_launch`` lines
+   with ``"D": 512``).
+
+12. raw clicks to a trained model — ``preprocess``: a gowalla-shaped log
+   of 500,000 check-ins from ``--seed`` (``gowalla_log``), through
+   ``python -c ... cli preprocess --dataset gowalla`` in a subprocess with
+   pandas blocked, its seconds, events/s, sessions and items, and the
+   sha256 of its three files against the JAX package's (PRE_SHA256, seed
+   0).  ``gowalla_o1``: MSGIFSR order 1 at its preset on that output, 16
+   steps (8 eager, one 8-step replay), as phase 4 runs a path (K1/K2 once a
+   step, K3/K4 never, ``*_vs_cpu``, serving and eval against the CPU and
+   the eager sweep, 8 graph steps against 8 plain ones).  ``o1_wide`` and
+   ``paper_wide``: the o1 and paper heads at ``--embedding-dim 512`` on
+   datasets/sample, 16 and 8 steps, the same way but without serving.
+   ``late_seconds`` gives each of these phases' seconds.
+
 Then the ``{"kernels": [...]}`` line (each kernel's ``mesh_launches``
 summed over the ranks) and, last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before the last line.  Without a CUDA
@@ -168,6 +193,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import hashlib
 import json
 import math
 import re
@@ -219,7 +245,8 @@ EVENT_KEYS = {"train": ["ts", "kind", "step", "epoch", "loss",
 # phase-name prefix of each path
 SHORT = {"path": "o1", "paper": "paper", "srgnn": "srgnn", "niser": "niser",
          "lessr": "lessr", "o1_bf16": "o1_bf16", "paper_bf16": "paper_bf16",
-         "niser_1m": "niser_1m"}
+         "niser_1m": "niser_1m", "gowalla_o1": "gowalla_o1",
+         "o1_wide": "o1_wide", "paper_wide": "paper_wide"}
 TOPK = 20                                  # serving's k
 SCORE_TIE = 1e-5     # adjacent CPU scores closer than this may swap ids
 SCORE_ATOL = 1e-4    # card against CPU serving scores
@@ -339,11 +366,13 @@ def dtable_groups(torch, labels, n_items, P, iids=None):
 
 def dtable_errors(torch, got, want, labels, n_items, tol, iids=None):
     """{group: [max abs err, tolerance]} of d_table, each group of rows
-    held to tol times its own largest reference magnitude."""
+    held to tol times its own largest reference magnitude; a group with no
+    row (long session item lists can hit every catalog row) is left out."""
     return {name: [max_err(got[rows], want[rows]),
                    tol * float(want[rows].float().abs().max())]
             for name, rows in dtable_groups(torch, labels, n_items,
-                                            want.shape[0], iids).items()}
+                                            want.shape[0], iids).items()
+            if bool(rows.any())}
 
 
 def check_cases(torch):
@@ -431,22 +460,22 @@ def phase_kernel_checks(torch, xent, seed):
 
 
 def make_multi_inputs(torch, xm, n_items, P, dtype, seed, norm=True,
-                      dev="cuda", rows=B):
-    """K3/K4 inputs: sr3 [K, rows, D] of unit rows, the K1 checks' table and
-    labels (row 3 masked), session item lists iids [rows, NS] of 1 to NS ids
-    (-1 padded; none on row 1; the label inside the session on the other
-    even rows), and the cotangents (gz, gin, gex) that the paper head's
-    loss (REnorm and fusion, random phi and alpha, masked mean) gives the
-    plain stats, with those stats' (lse_in, lse_ex)."""
+                      dev="cuda", rows=B, dim=D, ns=NS):
+    """K3/K4 inputs: sr3 [K, rows, dim] of unit rows, the K1 checks' table
+    and labels (row 3 masked), session item lists iids [rows, ns] of 1 to
+    ns ids (-1 padded; none on row 1; the label inside the session on the
+    other even rows), and the cotangents (gz, gin, gex) that the paper
+    head's loss (REnorm and fusion, random phi and alpha, masked mean)
+    gives the plain stats, with those stats' (lse_in, lse_ex)."""
     gen = torch.Generator().manual_seed(seed + 1000)
     _, tab, labels, _ = make_inputs(torch, n_items, P, dtype, seed, dev,
-                                    rows)
-    sr3 = torch.randn(K, rows, D, generator=gen)
+                                    rows, dim)
+    sr3 = torch.randn(K, rows, dim, generator=gen)
     sr3 = (sr3 / sr3.norm(dim=-1, keepdim=True)).to(dev, dtype)
-    iids = torch.randint(0, n_items, (rows, NS), generator=gen,
+    iids = torch.randint(0, n_items, (rows, ns), generator=gen,
                          dtype=torch.int32)
-    lens = torch.randint(1, NS + 1, (rows,), generator=gen)
-    iids[torch.arange(NS)[None, :] >= lens[:, None]] = -1
+    lens = torch.randint(1, ns + 1, (rows,), generator=gen)
+    iids[torch.arange(ns)[None, :] >= lens[:, None]] = -1
     iids[1] = -1
     iids = iids.to(dev)
     even = torch.arange(rows, device=dev) % 2 == 0
@@ -489,14 +518,15 @@ def stats_errors(torch, got, want, tol):
     return errs
 
 
-def multi_check(torch, xm, case, seed, **tags):
-    """K3 and K4 against their plain versions at one width-D case of
-    ``xent_check_cases``: emits the ``multi_kernel_check`` line, fails on
-    a disagreement, and returns (K3's error, K4's largest error but the
+def multi_check(torch, xm, case, seed, ns=NS, **tags):
+    """K3 and K4 against their plain versions at one case of
+    ``xent_check_cases`` (or ``wide_check_cases``), with item lists of up
+    to ``ns`` ids: emits the ``multi_kernel_check`` line, fails on a
+    disagreement, and returns (K3's error, K4's largest error but the
     zero-norm row's)."""
-    n_items, P, dtype, norm, rows, _ = case
+    n_items, P, dtype, norm, rows, dim = case
     sr3, tab, labels, iids, cot, lse = make_multi_inputs(
-        torch, xm, n_items, P, dtype, seed, norm, rows=rows)
+        torch, xm, n_items, P, dtype, seed, norm, rows=rows, dim=dim, ns=ns)
     kw = dict(scale=SCALE, normalize_table=norm)
     got = xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
     want = xm._fwd_plain(sr3, tab, labels, iids, n_items, 0, **kw)
@@ -515,8 +545,9 @@ def multi_check(torch, xm, case, seed, **tags):
     dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol, iids)
     same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
     row = {"phase": "multi_kernel_check", "items": n_items, "P": P,
-           "K": K, "B": rows, "dtype": dname, "normalize_table": norm,
-           **tags, "stats_err_tol": stats, "stats_max_abs_err": e_fwd,
+           "K": K, "B": rows, "D": dim, "Ns": ns, "dtype": dname,
+           "normalize_table": norm, **tags, "stats_err_tol": stats,
+           "stats_max_abs_err": e_fwd,
            "dsr_max_abs_err": e_dsr, "dsr_tol": dsr_tol,
            "dtable_err_tol": dtab, "k4_repeat_bit_identical": same}
     finite = all(bool(torch.isfinite(t.float()).all())
@@ -769,7 +800,8 @@ def phase_sround(torch, seed, smi):
               f"CPU's at P={P}")
 
 
-def multi_times(torch, xm, n_items, P, dtype, seed, smi, rows=B, **tags):
+def multi_times(torch, xm, n_items, P, dtype, seed, smi, rows=B, dim=D,
+                **tags):
     """K3's and K4's times at ``rows`` rows of K orders against a ``P``-row
     normalised table, their plain versions', their bounds and the
     library's; emits the ``kernel_time`` and ``multi_launch`` lines, with
@@ -781,7 +813,7 @@ def multi_times(torch, xm, n_items, P, dtype, seed, smi, rows=B, **tags):
     import torch.nn.functional as F
     dname = str(dtype).split(".")[-1]
     sr3, tab, labels, iids, cot, lse = make_multi_inputs(
-        torch, xm, n_items, P, dtype, seed, rows=rows)
+        torch, xm, n_items, P, dtype, seed, rows=rows, dim=dim)
     kw = dict(scale=SCALE, normalize_table=True)
     iters = 50 if P < 10000 else 10
     member = xm._member(iids, P, 0)
@@ -807,11 +839,12 @@ def multi_times(torch, xm, n_items, P, dtype, seed, smi, rows=B, **tags):
     esz = sr3.element_size()
     small = rows * 4 + rows * NS * 4                 # labels, iids
     # over the n_items real rows, as ``xent_times`` counts them
-    ops_f = 2 * K * rows * n_items * D + 2 * n_items * D
-    bytes_f = (K * rows * D + n_items * D) * esz + small + 5 * K * rows * 4
-    ops_b = 3 * 2 * K * rows * n_items * D + 2 * n_items * D
-    bytes_b = ((K * rows * D + (n_items + P) * D) * esz + small
-               + 5 * K * rows * 4 + K * rows * D * 4)
+    ops_f = 2 * K * rows * n_items * dim + 2 * n_items * dim
+    bytes_f = (K * rows * dim + n_items * dim) * esz + small \
+        + 5 * K * rows * 4
+    ops_b = 3 * 2 * K * rows * n_items * dim + 2 * n_items * dim
+    bytes_b = ((K * rows * dim + (n_items + P) * dim) * esz + small
+               + 5 * K * rows * 4 + K * rows * dim * 4)
     bf, byf = bounds(bytes_f, ops_f, dname)
     bb, byb = bounds(bytes_b, ops_b, dname)
 
@@ -841,10 +874,10 @@ def multi_times(torch, xm, n_items, P, dtype, seed, smi, rows=B, **tags):
     }
     for name, r in res.items():
         emit({"phase": "kernel_time", "kernel": name, "items": n_items,
-              "P": P, "K": K, "B": rows, "D": D, "dtype": dname,
+              "P": P, "K": K, "B": rows, "D": dim, "dtype": dname,
               "normalize_table": True, **tags, **r, "card": smi})
     emit_launch(torch, "multi_launch", xm.multi_launch_shape(sr3, P),
-                lambda: (k3(), k4()), iters, smi, P=P, K=K, B=rows, D=D,
+                lambda: (k3(), k4()), iters, smi, P=P, K=K, B=rows, D=dim,
                 dtype=dname, **tags)
     return res
 
@@ -900,12 +933,14 @@ PATHS = {
                               "expander.grus.0.w_ih"), steps=16),
 }
 
-# the kernel by which a trace counts each wrapper's launches: its main
-# product, launched once per wrapper call
-TRACE_KERNEL = {"xent_fwd": "xent_fwd_partial",
-                "xent_bwd": "xent_bwd_dtable",
-                "xent_multi_fwd": "xent_multi_fwd_partial",
-                "xent_multi_bwd": "xent_multi_bwd_dtable"}
+# the kernels by which a trace counts each wrapper's launches: its main
+# product, launched once per wrapper call, up to 256 features and past
+TRACE_KERNEL = {"xent_fwd": ("xent_fwd_partial", "xent_fwd_slab"),
+                "xent_bwd": ("xent_bwd_dtable", "xent_bwd_dtable_slab"),
+                "xent_multi_fwd": ("xent_multi_fwd_partial",
+                                   "xent_multi_fwd_slab"),
+                "xent_multi_bwd": ("xent_multi_bwd_dtable",
+                                   "xent_multi_bwd_dtable_slab")}
 
 
 def kernel_base_name(name):
@@ -944,8 +979,9 @@ def count_launches(events):
     full = [n for n, _, _ in events if not n.startswith("Mem")]
     names = [kernel_base_name(n) for n in full]
     bf16 = [b for n, b in zip(full, names) if "bfloat16" in n]
-    return ({k: names.count(v) for k, v in TRACE_KERNEL.items()},
-            {k: bf16.count(v) for k, v in TRACE_KERNEL.items()}, len(names))
+    return ({k: sum(map(names.count, v)) for k, v in TRACE_KERNEL.items()},
+            {k: sum(map(bf16.count, v)) for k, v in TRACE_KERNEL.items()},
+            len(names))
 
 
 def trace_launches(torch, fn):
@@ -977,15 +1013,21 @@ def first_batches(loader, n):
         it.close()
 
 
+def path_spec(name):
+    """The entry of PATHS or LATE_PATHS for path ``name``."""
+    return PATHS.get(name) or LATE_PATHS[name]
+
+
 def path_config(name, seed, dataset_dir, dev="cuda", dim=None, **train):
     """The path's configuration on ``dataset_dir``: MSGIFSR at the
     reference's widths (d=256, 1 layer, batch 512, feat_drop 0.1), the
     other models at their presets, tiers (4, 8) (``utils/profiling.py:
-    run_config``); ``dim`` another width; ``train`` sets TrainConfig
-    fields (epochs 1 unless given)."""
+    run_config``); ``dim`` another width (default the path's own, if it
+    has one); ``train`` sets TrainConfig fields (epochs 1 unless given)."""
     from sessionrec_tpu_torch.utils.profiling import run_config
-    spec = PATHS[name]
+    spec = path_spec(name)
     kw = dict(dict(epochs=1, log_interval=10), **spec["model"], **train)
+    dim = spec.get("dim") if dim is None else dim
     if dim is not None:
         kw["embedding_dim"] = dim
     return run_config(spec["preset"], seed, dataset_dir, device=dev, **kw)
@@ -1013,9 +1055,10 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
     from sessionrec_tpu_torch.train.runner import launch_counts
     from sessionrec_tpu_torch.train.session import run_training
 
-    spec = PATHS[name]
+    spec = path_spec(name)
     steps = spec.get("steps", steps)
-    cfg = path_config(name, seed, dataset_dir,
+    # a train event at least once (every 10 steps, or at the last of fewer)
+    cfg = path_config(name, seed, dataset_dir, log_interval=min(10, steps),
                       checkpoint_dir=str(Path(tmp) / name / "ckpt"),
                       metrics_file=str(Path(tmp) / name / "metrics.jsonl"))
     Path(tmp, name).mkdir(parents=True, exist_ok=True)
@@ -1072,7 +1115,7 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
           f"metrics file lacks a train or eval event with the JAX keys: "
           f"{row['metrics_events']}")
     check(n == steps, f"ran {n} steps, expected {steps}")
-    check(graphs.get(G, {}).get("replays") == steps // G - 1,
+    check(graphs.get(G, {}).get("replays", 0) == steps // G - 1,
           f"expected {steps // G - 1} replays of the {G}-step graph: "
           f"{graphs}")
     check(all((launches[k] > 0) == (k in spec["kernels"]) for k in launches),
@@ -1106,7 +1149,7 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
 
 def is_bf16(name):
     """True for a path with a bfloat16 table and bfloat16 compute."""
-    spec = PATHS.get(name) or MILLION_PATHS[name]
+    spec = PATHS.get(name) or LATE_PATHS.get(name) or MILLION_PATHS[name]
     return spec["model"].get("table_dtype") == "bfloat16"
 
 
@@ -1953,7 +1996,7 @@ MESH_SHARE = 2e-4
 MESH_METRIC = 2
 
 
-def shard_inputs(torch, xent, xm, dtype, norm, seed, multi):
+def shard_inputs(torch, xent, xm, dtype, norm, seed, multi, dim=D):
     """The K1/K2 (or, ``multi``, K3/K4) check inputs at the mesh's shapes:
     MESH_ROWS rows against the padded path catalog, cut to rank (0, 1)'s
     shard of a (2, 2) mesh (rows 1,792.., 1,637 real), with the operands
@@ -1968,14 +2011,15 @@ def shard_inputs(torch, xent, xm, dtype, norm, seed, multi):
     rows = P // MESH_MP
     if multi:
         sr3, tab, labels, iids, cot, lse = make_multi_inputs(
-            torch, xm, PATH_ITEMS, P, dtype, seed, norm, rows=MESH_ROWS)
+            torch, xm, PATH_ITEMS, P, dtype, seed, norm, rows=MESH_ROWS,
+            dim=dim)
         ops = xm._shard_operands(labels, rows, PATH_ITEMS, mesh)
         local = iids - ops[2]
         local = torch.where((local >= 0) & (local < rows), local, -1)
         return (tab[ops[2]:ops[2] + rows].contiguous(), ops[0], local, ops,
                 (sr3, iids, cot, lse))
     sr, tab, labels, g = make_inputs(torch, PATH_ITEMS, P, dtype, seed,
-                                     rows=MESH_ROWS)
+                                     rows=MESH_ROWS, dim=dim)
     m, s, _ = xent._fwd_plain(sr, tab, labels, PATH_ITEMS, 0, scale=SCALE,
                               normalize_table=norm)
     ops = xent._shard_operands(labels, rows, PATH_ITEMS, mesh)
@@ -1984,19 +2028,21 @@ def shard_inputs(torch, xent, xm, dtype, norm, seed, multi):
             (sr, g, xent._finish_lse(m, s)))
 
 
-def phase_shard_checks(torch, xent, xm, seed):
+def phase_shard_checks(torch, xent, xm, seed, dim=D, cases=None):
     """K1-K4 against their plain versions on a catalog shard at the mesh's
-    shapes (``shard_inputs``), float32 and bfloat16, the table normalised
-    and not: ``kernel_check`` / ``multi_kernel_check`` lines with
+    shapes (``shard_inputs``) at width ``dim``, for each (type, table
+    normalised) of ``cases`` (default: float32 and bfloat16, normalised
+    and not): ``kernel_check`` / ``multi_kernel_check`` lines with
     ``"mesh_shard": true``, the tolerances of the whole-catalog checks;
     the backward kernels twice, their bits repeated."""
-    for i, (dtype, norm) in enumerate(
-            (d, n) for d in (torch.float32, torch.bfloat16)
-            for n in (True, False)):
+    if cases is None:
+        cases = [(d, n) for d in (torch.float32, torch.bfloat16)
+                 for n in (True, False)]
+    for i, (dtype, norm) in enumerate(cases):
         dname = str(dtype).split(".")[-1]
         kw = dict(scale=SCALE, normalize_table=norm)
         tab, local, _, (lbl, n_valid, off), (sr, g, lse) = shard_inputs(
-            torch, xent, xm, dtype, norm, seed + i, multi=False)
+            torch, xent, xm, dtype, norm, seed + i, multi=False, dim=dim)
         got = xent._fwd_cuda(sr, tab, lbl, n_valid, off, **kw)
         m, s, zl = xent._fwd_plain(sr, tab, lbl, n_valid, off, **kw)
         want = (xent._finish_lse(m, s) - zl, xent._finish_lse(m, s))
@@ -2013,7 +2059,7 @@ def phase_shard_checks(torch, xent, xm, seed):
         same = all(torch.equal(a, b) for a, b in zip(*bwd))
         row = {"phase": "kernel_check", "mesh_shard": True,
                "items": PATH_ITEMS, "P": tab.shape[0], "col_offset": off,
-               "n_valid": n_valid, "B": MESH_ROWS, "D": D, "dtype": dname,
+               "n_valid": n_valid, "B": MESH_ROWS, "D": dim, "dtype": dname,
                "normalize_table": norm, "fwd_max_abs_err": e_fwd,
                "fwd_tol": fwd_tol, "dsr_max_abs_err": e_dsr,
                "dsr_tol": dsr_tol, "dtable_err_tol": dtab,
@@ -2025,7 +2071,7 @@ def phase_shard_checks(torch, xent, xm, seed):
 
         tab, local, local_ids, (lbl, n_valid, off), (sr3, iids, cot, lse) \
             = shard_inputs(torch, xent, xm, dtype, norm, seed + i,
-                           multi=True)
+                           multi=True, dim=dim)
         got = xm._fwd_cuda(sr3, tab, lbl, iids, n_valid, off, **kw)
         want = xm._fwd_plain(sr3, tab, lbl, iids, n_valid, off, **kw)
         bwd = [xm._bwd_cuda(*cot, sr3, tab, lbl, iids, *lse, n_valid, off,
@@ -2040,7 +2086,8 @@ def phase_shard_checks(torch, xent, xm, seed):
         same = all(torch.equal(a, b) for a, b in zip(*bwd))
         row = {"phase": "multi_kernel_check", "mesh_shard": True,
                "items": PATH_ITEMS, "P": tab.shape[0], "col_offset": off,
-               "n_valid": n_valid, "K": K, "B": MESH_ROWS, "dtype": dname,
+               "n_valid": n_valid, "K": K, "B": MESH_ROWS, "D": dim,
+               "dtype": dname,
                "normalize_table": norm, "stats_err_tol": stats,
                "dsr_max_abs_err": e_dsr, "dsr_tol": dsr_tol,
                "dtable_err_tol": dtab, "k4_repeat_bit_identical": same,
@@ -2376,6 +2423,237 @@ def phase_mesh(torch, xent, xm, seed, dataset_dir, smi, tmp):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: K1-K4 past 256 features and 256 session items (the slab kernels)
+# ---------------------------------------------------------------------------
+
+# widths of the slab kernels' checks: 258 is no multiple of 4 (the tiles go
+# by plain loads), 512 is the wide paths' width, 1000 four slabs of 252
+WIDE_DIMS = (258, 512, 1000)
+WIDE_D = 512
+LONG_NS = (300, 1024)            # K3/K4's session item lists past 256
+
+
+def wide_check_cases(torch):
+    """(items, table rows, type, normalised, batch rows, width) of the
+    slab kernels' checks: B rows against the padded path catalog at each
+    of WIDE_DIMS, float32 and bfloat16, normalised and not."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    return [(PATH_ITEMS, pad_catalog(PATH_ITEMS), dtype, norm, B, dim)
+            for dim in WIDE_DIMS
+            for dtype in (torch.float32, torch.bfloat16)
+            for norm in (True, False)]
+
+
+def phase_wide_checks(torch, xent, xm, seed):
+    """K1-K4 against their plain versions past 256 features
+    (``wide_check_cases``, ``kernel_check`` / ``multi_kernel_check``
+    lines with ``"wide": true``); K3/K4 with LONG_NS session items a row at
+    D and WIDE_D (``"long_items": true``); and K1-K4 on a catalog shard
+    with its column offset at WIDE_D, float32, normalised.  The
+    tolerances of the other checks; the backward kernels twice, their
+    bits repeated."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    t0 = time.perf_counter()
+    for i, case in enumerate(wide_check_cases(torch)):
+        xent_check(torch, xent, case, seed + i, wide=True)
+        multi_check(torch, xm, case, seed + i, wide=True)
+    for dim in (D, WIDE_D):
+        for ns in LONG_NS:
+            case = (PATH_ITEMS, pad_catalog(PATH_ITEMS), torch.float32, True,
+                    B, dim)
+            multi_check(torch, xm, case, seed + ns, ns=ns, long_items=True)
+    phase_shard_checks(torch, xent, xm, seed, dim=WIDE_D,
+                       cases=[(torch.float32, True)])
+    emit({"phase": "wide_checks", "seconds": time.perf_counter() - t0})
+
+
+def phase_wide_times(torch, xent, xm, seed, smi):
+    """K1-K4 timed at WIDE_D: B rows (K orders of them for K3/K4) against
+    the padded path and north-star catalogs, float32, normalised
+    (``kernel_time`` lines with ``"D": 512``)."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    t0 = time.perf_counter()
+    for n_items in CATALOGS:
+        P = pad_catalog(n_items)
+        xent_times(torch, xent, n_items, P, torch.float32, seed, smi,
+                   dim=WIDE_D)
+        multi_times(torch, xm, n_items, P, torch.float32, seed, smi,
+                    dim=WIDE_D)
+    emit({"phase": "wide_times", "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
+# phase 12: raw clicks to a trained model (offline preprocessing without
+# pandas, gowalla_o1), and the wide paths (o1_wide, paper_wide)
+# ---------------------------------------------------------------------------
+
+# the synthetic gowalla-shaped log: check-ins of PRE_USERS users over
+# PRE_ITEMS locations in bursts of about 4 (gaps of about half an hour),
+# location popularity a Zipf law of exponent PRE_ZIPF (so the top-30,000
+# cut falls among tied counts), ISO 8601 times with Z over PRE_DAYS days,
+# second resolution (so session end times tie), rows in gowalla's order
+# (user, then time descending), a few empty location fields and a few
+# quote-led latitude fields holding a tab and an escaped quote.  500,000
+# check-ins, not 1,000,000, so the CPU test that recomputes PRE_SHA256
+# through the JAX package stays under 20 s.
+PRE_EVENTS, PRE_USERS, PRE_ITEMS = 500_000, 100_000, 60_000
+PRE_ZIPF, PRE_DAYS = 1.1, 365
+# sha256 over train.txt, test.txt and num_items.txt (in that order) that
+# the JAX package's pandas pipeline writes from the log of seed 0
+# (tests/test_torch_preprocess.py recomputes it)
+PRE_SHA256 = "f82a611d5eac39e0841025136b0a284150c17da33f4e7b30a5ca81612374e01c"
+# sha256 of that log itself, to tell a changed generator from a changed
+# pipeline
+PRE_LOG_SHA256 = \
+    "9a907ebdc6028f8050c57904321a3273d90865d180ce977780c28265d4bc970f"
+
+
+def gowalla_log(np, path, seed, n=PRE_EVENTS):
+    """Write the synthetic gowalla-shaped log of ``n`` check-ins from
+    ``seed`` to ``path``.  Only uniform draws (``integers``, ``random``)
+    feed it, whose streams numpy keeps from version to version."""
+    rng = np.random.default_rng(seed)
+    n_bursts = n // 4
+    b_user = rng.integers(0, PRE_USERS, n_bursts)
+    b_start = rng.integers(0, PRE_DAYS * 86400, n_bursts)
+    ev = np.sort(rng.integers(0, n_bursts, n))
+    gaps = (-1800.0 * np.log1p(-rng.random(n))).astype(np.int64)
+    cum = np.cumsum(gaps)
+    within = cum - cum[np.searchsorted(ev, ev)]
+    t = np.minimum(b_start[ev] + within, PRE_DAYS * 86400 - 1)
+    user = b_user[ev]
+    cdf = np.cumsum(np.arange(1, PRE_ITEMS + 1, dtype=np.float64)
+                    ** -PRE_ZIPF)
+    rank = np.minimum(np.searchsorted(cdf, rng.random(n) * cdf[-1],
+                                      side="right"), PRE_ITEMS - 1)
+    loc = np.argsort(rng.random(PRE_ITEMS), kind="stable")[rank]
+    stamp = np.datetime_as_string(
+        np.datetime64("2010-01-01T00:00:00")
+        + t.astype("timedelta64[s]"), unit="s")
+    lat = [f"{x:.6f}" for x in rng.random(n) * 180 - 90]
+    lon = [f"{x:.6f}" for x in rng.random(n) * 360 - 180]
+    loc = [str(x) for x in loc.tolist()]
+    for r in rng.integers(0, n, 8).tolist():
+        loc[r] = ""
+    for r in rng.integers(0, n, 8).tolist():
+        lat[r] = '"12.5\t3 ""x"""'
+    order = np.lexsort((-t, user)).tolist()
+    user, stamp = user.tolist(), stamp.tolist()
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        f.write("".join(f"{user[r]}\t{stamp[r]}Z\t{lat[r]}\t{lon[r]}\t"
+                        f"{loc[r]}\n" for r in order))
+
+
+def preprocess_digest(out_dir):
+    """sha256 over a preprocessed dataset's three files."""
+    h = hashlib.sha256()
+    for name in ("train.txt", "test.txt", "num_items.txt"):
+        h.update((Path(out_dir) / name).read_bytes())
+    return h.hexdigest()
+
+
+def phase_preprocess(np, seed, tmp):
+    """``cli preprocess --dataset gowalla`` on the synthetic log of
+    ``seed``, in a subprocess with pandas blocked (``sys.modules``), its
+    seconds, events/s, sessions and items, and its files' sha256 against
+    the JAX package's (PRE_SHA256, seed 0).  Returns the dataset's
+    directory."""
+    import importlib.util
+    root = Path(tmp) / "gowalla"
+    log, out = root / "checkins.txt", root / "data"
+    t0 = time.perf_counter()
+    gowalla_log(np, log, seed)
+    log_s = time.perf_counter() - t0
+    code = ("import sys; sys.modules['pandas'] = None; "
+            "from sessionrec_tpu_torch.cli import main; main(sys.argv[1:])")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "preprocess", "--dataset", "gowalla",
+         "--input", str(log), "--output-dir", str(out)], cwd=str(HERE),
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli preprocess failed ({proc.returncode}):"
+          f" {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    digest = preprocess_digest(out)
+    want = PRE_SHA256 if seed == 0 else None
+    log_sha = hashlib.sha256(log.read_bytes()).hexdigest()
+    lines = {s: len((out / f"{s}.txt").read_text().splitlines())
+             for s in ("train", "test")}
+    row = {"phase": "preprocess", "dataset": "gowalla", "events": PRE_EVENTS,
+           "users": PRE_USERS, "locations": PRE_ITEMS,
+           "log_seconds": log_s, "seconds": seconds,
+           "events_per_s": PRE_EVENTS / seconds,
+           "sessions": lines, "items": int((out / "num_items.txt")
+                                           .read_text()),
+           "printed": proc.stdout.strip().splitlines(),
+           "pandas_installed": importlib.util.find_spec("pandas")
+           is not None, "log_sha256": log_sha,
+           "log_sha256_seed0": PRE_LOG_SHA256, "sha256": digest,
+           "jax_sha256": want,
+           "ok": want is None or digest == want}
+    emit(row)
+    check(row["ok"], f"preprocess output differs from the JAX package's: "
+          f"{digest} != {want}")
+    return out
+
+
+# the paths of phase 12: MSGIFSR order 1 at its preset on the preprocessed
+# gowalla log (16 steps: 8 eager, one 8-step replay), and the o1 and paper
+# heads at WIDE_D on datasets/sample (16 and 8 steps) through the slab
+# kernels
+LATE_PATHS = {
+    "gowalla_o1": dict(PATHS["path"], steps=16),
+    "o1_wide": dict(PATHS["path"], dim=WIDE_D, steps=16),
+    "paper_wide": dict(PATHS["paper"], dim=WIDE_D, steps=8),
+}
+
+
+def run_late_paths(torch, np, xent, xm, seed, dataset_dir, smi, tmp):
+    """Phases 11 and 12: the slab kernels' checks and times, preprocessing,
+    K1/K2 against their plain versions at gowalla_o1's catalog
+    (``kernel_check`` with ``"path": "gowalla_o1"``), then each of
+    LATE_PATHS through ``phase_path`` (its kernels once a
+    step, counted with the counts set to 0 just before), ``*_vs_cpu``,
+    ``phase_eval`` and ``phase_graph_vs_plain``; gowalla_o1 also serves
+    from its checkpoint against the CPU.  Emits each phase's seconds and
+    returns (wrapper launches, device launches) summed over the paths."""
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_wide_checks(torch, xent, xm, seed)
+    seconds["wide_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_wide_times(torch, xent, xm, seed, smi)
+    seconds["wide_times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = phase_preprocess(np, seed, tmp)
+    seconds["preprocess"] = time.perf_counter() - t0
+    # K1/K2 at gowalla_o1's own catalog, before the path runs them
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    items = int((data / "num_items.txt").read_text())
+    xent_check(torch, xent, (items, pad_catalog(items), torch.float32, True,
+                             B, D), seed, path="gowalla_o1")
+    launches, on_device = {}, {}
+    for name, ds in (("gowalla_o1", data), ("o1_wide", dataset_dir),
+                     ("paper_wide", dataset_dir)):
+        t0 = time.perf_counter()
+        wrapped, dev, runner, cfg, saved = phase_path(
+            torch, xent, xm, name, None, seed, str(ds), smi, tmp)
+        for k in wrapped:
+            launches[k] = launches.get(k, 0) + wrapped[k]
+            on_device[k] = on_device.get(k, 0) + dev[k]
+        if name == "gowalla_o1":
+            phase_serve(torch, name, saved, cfg, smi)
+        phase_eval(torch, name, runner, smi)
+        del runner
+        phase_graph_vs_plain(torch, name, seed, str(ds), smi)
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "late_seconds", **seconds,
+          "total": sum(seconds.values())})
+    return launches, on_device
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2449,6 +2727,11 @@ def main(argv=None):
                 on_device[k] += dev[k]
             mesh_launches = phase_mesh(torch, xent, xm, args.seed,
                                        args.dataset_dir, smi, tmp)
+            wrapped, dev = run_late_paths(torch, np, xent, xm, args.seed,
+                                          args.dataset_dir, smi, tmp)
+            for k in wrapped:
+                launches[k] += wrapped[k]
+                on_device[k] += dev[k]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,11 +13,14 @@
         --table-dtype bfloat16 --compute-dtype bfloat16   # mixed precision
     python -m sessionrec_tpu_torch.cli train --model msgifsr --order 1 \
         --data-parallel 2 --model-parallel 2   # a mesh: 4 processes, 4 cards
+    python -m sessionrec_tpu_torch.cli preprocess --dataset gowalla \
+        --input checkins.txt --output-dir datasets/gowalla   # no device
 
-Flag names and defaults follow ``sessionrec_tpu/cli.py`` ``train`` and
-``predict`` (the reference scripts' surface, see utils/config.py) for the
-flags the port runs, plus ``--device`` (default ``cuda``; the CPU must be
-asked for).
+Flag names and defaults follow ``sessionrec_tpu/cli.py`` ``train``,
+``predict`` and ``preprocess`` (the reference scripts' surface, see
+utils/config.py) for the flags the port runs, plus ``--device`` (default
+``cuda``; the CPU must be asked for).  ``preprocess`` is host code
+(``data/preprocess.py``, numpy only) and has no device.
 
 ``train`` with ``--data-parallel x --model-parallel > 1`` runs a (data,
 model) mesh of that many ranks, one process each: without
@@ -274,11 +277,23 @@ def cmd_predict(args):
             out.close()
 
 
+def cmd_preprocess(args):
+    from sessionrec_tpu_torch.data import preprocess as pp
+    pp.run(args.dataset, args.input, args.output_dir)
+
+
 def _parser():
     parser = argparse.ArgumentParser(prog="sessionrec_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     pt = sub.add_parser("train", help="train a model")
     _add_train_flags(pt)
+    pp = sub.add_parser("preprocess", help="offline dataset preprocessing")
+    pp.add_argument("--dataset", required=True,
+                    choices=["diginetica", "gowalla", "lastfm", "yoochoose",
+                             "yoochoose_stage1"])
+    pp.add_argument("--input", required=True,
+                    help="raw csv/dat file")
+    pp.add_argument("--output-dir", required=True)
     pr = sub.add_parser(
         "predict", help="serve top-k recommendations from a checkpoint")
     _add_train_flags(pr)   # model geometry + --dataset-dir + --checkpoint-dir
@@ -307,6 +322,8 @@ def main(argv=None):
         cmd_train(args, argv)
     elif args.cmd == "predict":
         cmd_predict(args)
+    elif args.cmd == "preprocess":
+        cmd_preprocess(args)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@ constexpr float NEG_INF = -1e30f;   // ops/masked.py:NEG_INF
 constexpr float NORM_EPS = 1e-12f;  // layers.l2norm eps
 constexpr int NT = 256;             // threads per block
 constexpr int NWARPS = NT / 32;
-constexpr int MAX_D = 256;          // D <= MAX_D (8 features a lane, tiles.cuh)
+constexpr int MAX_D = 256;          // one pass up to here (8 features a lane);
+                                    // wider rows go by slabs (tiles.cuh)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -483,4 +483,270 @@ __global__ void __launch_bounds__(NT) xent_bwd_dtable_reduce(
   finish_dtable_row<T>(gs, col, tab, nrm, D, normalize, dtab);
 }
 
+// ---------------------------------------------------------------------------
+// The slab path, for D > MAX_D.  A row of D features is cut into
+// slab_count(D) slabs of slab_width(D) features (the last one narrower, none
+// wider than MAX_D).  A block stages one slab of each operand tile at a time
+// into a [TILE][tile_ld(slab_width(D))] buffer, so its shared memory does not
+// grow with D, and a logits tile sums the products of all its slabs before
+// anything reads it (slab_logits).  The backward kernels take the slab of
+// their output features from the grid's z axis and recompute the full-width
+// dz tile in every slab's block; the l2norm VJP, which couples a table row's
+// features, is applied once every slab's partial is in
+// (xent_slab_dtable_reduce).  One buffer per operand, waited for whole: a
+// simple design, not yet a tuned one.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ int slab_count(int D) {
+  return (D + MAX_D - 1) / MAX_D;
+}
+
+// features of every slab but the last: ceil(D / slabs) rounded up to 4, so
+// each slab starts four-element aligned
+__host__ __device__ __forceinline__ int slab_width(int D) {
+  const int n = slab_count(D);
+  return ((D + n - 1) / n + 3) & ~3;
+}
+
+// wait until every committed group of this thread has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// columns [k0, k0 + w) of rows [row0, row0 + TILE) of a row-major
+// [n_rows, D] array into dst (row stride ld), as columns [0, round_up(w,
+// 4)); rows at or past n_rows and columns at or past w read 0.  With vec
+// (D % 4 == 0 and the array aligned to four elements, so k0 + k is too)
+// every four elements of a live row go by one cp.async, to be waited for
+// with the group that the caller commits.
+template <typename T>
+__device__ __forceinline__ void stage_slab(T* dst, int ld,
+                                           const T* __restrict__ src,
+                                           int row0, int n_rows, int D,
+                                           int k0, int w, bool vec) {
+  const int q4 = (w + 3) >> 2;
+  for (int e = threadIdx.x; e < TILE * q4; e += NT) {
+    const int r = e / q4, k = (e - r * q4) * 4;
+    const int gr = row0 + r;
+    T* d = dst + r * ld + k;
+    if (vec && gr < n_rows) {
+      copy4_async(d, src + (size_t)gr * D + k0 + k);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        d[v] = (gr < n_rows && k + v < w) ? src[(size_t)gr * D + k0 + k + v]
+                                          : from_f<T>(0.f);
+    }
+  }
+}
+
+// S += the 64 x 64 logits tile of rows [a0, a0 + TILE) of a [a_rows, D]
+// against rows [c0, c0 + TILE) of c [c_rows, D] over all D features, one
+// slab at a time through A_s and C_s (product_logits's thread layout).  On
+// return every thread is done reading A_s and C_s.
+template <typename T>
+__device__ __forceinline__ void slab_logits(float (&S)[4][4], T* A_s, T* C_s,
+                                            int ld, const T* __restrict__ a,
+                                            int a0, int a_rows,
+                                            const T* __restrict__ c, int c0,
+                                            int c_rows, int D, int sw,
+                                            bool vec) {
+  for (int k0 = 0; k0 < D; k0 += sw) {
+    const int w = min(sw, D - k0);
+    stage_slab(A_s, ld, a, a0, a_rows, D, k0, w, vec);
+    stage_slab(C_s, ld, c, c0, c_rows, D, k0, w, vec);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    product_logits(S, A_s, C_s, ld, (w + 3) & ~3);
+    __syncthreads();
+  }
+}
+
+// the slab of rank_update's accumulators of one row (features
+// lane_feature(j) of a slab w wide) to row, which points at the slab's first
+// feature in a float32 row of D; four at a time where D % 4 == 0 (then w and
+// every slab's start are multiples of four as well)
+__device__ __forceinline__ void store_slab8(float* row, const float (&v)[8],
+                                            int w, int D) {
+  if ((D & 3) == 0) {
+    store_row8(row, v, w);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = lane_feature(j);
+    if (d < w) row[d] = v[j];
+  }
+}
+
+// shared memory of a slab-path forward block: a slab of the rows and one
+// of a catalog tile and, with MEMBERS, the rows' masks
+template <typename T, bool MEMBERS>
+size_t fwd_slab_smem(int D) {
+  return (size_t)2 * TILE * tile_ld(slab_width(D)) * sizeof(T) +
+         (MEMBERS ? TILE * sizeof(unsigned long long) : 0);
+}
+
+// shared memory of a slab-path backward block: two slab tiles and the dz
+// tile
+template <typename T>
+size_t bwd_slab_smem(int D) {
+  return (size_t)2 * TILE * tile_ld(slab_width(D)) * sizeof(T) +
+         (size_t)TILE * LDZ * sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// fwd_tile_loop for D > MAX_D: the same partial online log-sum-exp over one
+// catalog split and the same outputs, with each 64 x 64 logits tile summed
+// over the slabs (the rows' slab is staged again for every catalog tile).
+// ---------------------------------------------------------------------------
+template <typename T, bool MEMBERS>
+__device__ __forceinline__ void fwd_slab_loop(
+    unsigned char* smem, const T* __restrict__ sr, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int normalize, int vec,
+    int tiles_per_split, float* __restrict__ part) {
+  const int sw = slab_width(D), ld = tile_ld(sw);
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] rows
+  T* C_s = A_s + TILE * ld;                            // [TILE][ld] table
+  unsigned long long* mask_s =
+      reinterpret_cast<unsigned long long*>(C_s + TILE * ld);  // [TILE]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int shift = MEMBERS ? 0 : col_offset;
+  n_valid -= shift;
+
+  int lbl[4];
+  float m_in[4], s_in[4], m_ex[4], s_ex[4], zl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    lbl[i] = r < R ? labels[r % B] - shift : -1;
+    m_in[i] = m_ex[i] = NEG_INF;
+    s_in[i] = s_ex[i] = zl[i] = 0.f;
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int p0 = t * TILE;
+    if constexpr (MEMBERS)
+      row_masks(mask_s, iids, row0, R, B, Ns, col_offset + p0);
+    float S[4][4] = {};
+    slab_logits(S, A_s, C_s, ld, sr, row0, R, tab, p0, P, D, sw, vec);
+    float n[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = p0 + tx + 16 * j;
+      n[j] = normalize && col < P ? nrm[col] : 1.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned long long bits = MEMBERS ? mask_s[ty + 16 * i] : 0ull;
+      float z[4];
+      bool mem[4];
+      float t_in = NEG_INF, t_ex = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const int col = p0 + c;
+        float v = scale * S[i][j];
+        if (normalize) v = v / n[j];
+        const bool in_table = col < P;
+        if (!in_table || col >= n_valid) v = NEG_INF;
+        if (in_table && col == lbl[i]) zl[i] += v;
+        mem[j] = MEMBERS && ((bits >> c) & 1ull);
+        z[j] = v;
+        if (mem[j]) t_in = fmaxf(t_in, v);
+        else t_ex = fmaxf(t_ex, v);
+      }
+      const float mi = fmaxf(m_in[i], t_in), me = fmaxf(m_ex[i], t_ex);
+      const float si = fmaxf(mi, NEG_INF * 0.5f);
+      const float se = fmaxf(me, NEG_INF * 0.5f);
+      float acc_in = s_in[i] * expf(m_in[i] - si);
+      float acc_ex = s_ex[i] * expf(m_ex[i] - se);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (mem[j]) acc_in += expf(z[j] - si);
+        else acc_ex += expf(z[j] - se);
+      }
+      s_in[i] = acc_in;
+      s_ex[i] = acc_ex;
+      m_in[i] = mi;
+      m_ex[i] = me;
+    }
+    if constexpr (MEMBERS) __syncthreads();  // the masks are consumed
+  }
+
+  const size_t plane = (size_t)gridDim.y * R;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off; off >>= 1) {
+      float mio = 0.f, sio = 0.f;
+      if constexpr (MEMBERS) {
+        mio = __shfl_xor_sync(FULL, m_in[i], off);
+        sio = __shfl_xor_sync(FULL, s_in[i], off);
+      }
+      const float meo = __shfl_xor_sync(FULL, m_ex[i], off);
+      const float seo = __shfl_xor_sync(FULL, s_ex[i], off);
+      zl[i] += __shfl_xor_sync(FULL, zl[i], off);
+      if constexpr (MEMBERS) lse_merge(m_in[i], s_in[i], mio, sio);
+      lse_merge(m_ex[i], s_ex[i], meo, seo);
+    }
+    const int r = row0 + ty + 16 * i;
+    if (tx == 0 && r < R) {
+      const size_t o = (size_t)blockIdx.y * R + r;
+      if constexpr (MEMBERS) {
+        part[o] = m_in[i];
+        part[plane + o] = s_in[i];
+        part[2 * plane + o] = m_ex[i];
+        part[3 * plane + o] = s_ex[i];
+        part[4 * plane + o] = zl[i];
+      } else {
+        part[o] = m_ex[i];
+        part[plane + o] = s_ex[i];
+        part[2 * plane + o] = zl[i];
+      }
+    }
+  }
+}
+
+// d_table for D > MAX_D from the row splits' float32 partials [n_split][P][D]
+// (every slab's columns), summed in split order, with the l2norm VJP of
+// finish_dtable_row when the table is normalised: its dot product over the
+// whole row, then the row.  One warp per catalog row, two passes over D.
+template <typename T>
+__global__ void __launch_bounds__(NT) xent_slab_dtable_reduce(
+    const float* __restrict__ part, int n_split, const T* __restrict__ tab,
+    const float* __restrict__ nrm, int P, int D, int normalize,
+    T* __restrict__ dtab) {
+  const int col = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (col >= P) return;  // warp-uniform
+  const size_t base = (size_t)col * D, plane = (size_t)P * D;
+  auto gsum = [&](int k) {
+    float acc = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) acc += part[sp * plane + base + k];
+    return acc;
+  };
+  if (!normalize) {
+    for (int k = lane; k < D; k += 32) dtab[base + k] = from_f<T>(gsum(k));
+    return;
+  }
+  const float n = nrm[col];
+  const float live = n > NORM_EPS ? 1.f : 0.f;
+  float dot = 0.f;
+  for (int k = lane; k < D; k += 32)
+    dot = fmaf(gsum(k), to_f(tab[base + k]) / n, dot);
+  dot = warp_sum(dot);
+  for (int k = lane; k < D; k += 32) {
+    const float t = to_f(tab[base + k]) / n;
+    dtab[base + k] = from_f<T>((gsum(k) - dot * t * live) / n);
+  }
+}
+
 }  // namespace

@@ -6,6 +6,8 @@
 // z = scale * sr t^T (divided by the clamped row norms n when the table is
 // normalised):
 //   K1  _fwd_kernel  -> xent_table_norms + xent_fwd_partial + xent_fwd_merge
+//                       (xent_fwd_slab in place of the partial past
+//                       256 features)
 // Its backward pass, K2 (_bwd_kernel, xent.py:164), is xent_bwd.cu.
 //
 // The loss of every training step is  lse - z[label]  per row over the whole
@@ -40,9 +42,12 @@
 // global id of the table's first row: K1 compares col_offset + j with
 // n_valid and the labels) and labels (-1 matches no column), as the
 // catalog-sharded JAX path passes them (xent.py:293-309).  Any B >= 1,
-// P >= 1, 0 < D <= 256: with D % 4 == 0 and aligned arrays the tiles are
-// staged by cp.async, otherwise by plain loads.  Each entry point launches
-// on the given stream, does not synchronise and returns cudaGetLastError().
+// P >= 1, D >= 1: with D % 4 == 0 and aligned arrays the tiles are staged
+// by cp.async, otherwise by plain loads.  Up to D = MAX_D (256) the kernel
+// above runs; wider rows run xent_fwd_slab (fwd_slab_loop, tiles.cuh), which
+// sums each logits tile over feature slabs of at most 256.  Each entry point
+// launches on the given stream, does not synchronise and returns
+// cudaGetLastError().
 
 #include "tiles.cuh"
 
@@ -61,6 +66,19 @@ __global__ void __launch_bounds__(NT, 1) xent_fwd_partial(
     int vec, int tiles_per_split, float* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem[];
   fwd_tile_loop<T, false>(smem, sr, tab, nrm, labels, nullptr, B, B, P, D,
+                          0, n_valid, col_offset, scale, normalize, vec,
+                          tiles_per_split, part);
+}
+
+// K1 for D > MAX_D: the same partial over feature slabs (fwd_slab_loop)
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) xent_fwd_slab(
+    const T* __restrict__ sr, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels, int B,
+    int P, int D, int n_valid, int col_offset, float scale, int normalize,
+    int vec, int tiles_per_split, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fwd_slab_loop<T, false>(smem, sr, tab, nrm, labels, nullptr, B, B, P, D,
                           0, n_valid, col_offset, scale, normalize, vec,
                           tiles_per_split, part);
 }
@@ -88,10 +106,18 @@ __global__ void xent_fwd_merge(const float* __restrict__ m_p,
   loss[r] = l - zg;
 }
 
+// the partial kernel at width D (the slab kernel past MAX_D)
+template <typename T>
+const void* fwd_kernel(int D) {
+  return D > MAX_D ? (const void*)xent_fwd_slab<T>
+                   : (const void*)xent_fwd_partial<T>;
+}
+
 template <typename T>
 int set_fwd_smem(int D) {
-  const int smem = (int)fwd_smem<T, false>(D);
-  cudaFuncSetAttribute(xent_fwd_partial<T>,
+  const int smem = D > MAX_D ? (int)fwd_slab_smem<T, false>(D)
+                             : (int)fwd_smem<T, false>(D);
+  cudaFuncSetAttribute(fwd_kernel<T>(D),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return smem;
 }
@@ -102,10 +128,10 @@ int set_fwd_smem(int D) {
 template <typename T>
 int slots(int D, int* out) {
   const int smem = set_fwd_smem<T>(D);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], xent_fwd_partial<T>,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fwd_kernel<T>(D),
                                                 NT, smem);
   cudaFuncAttributes a;
-  cudaFuncGetAttributes(&a, xent_fwd_partial<T>);
+  cudaFuncGetAttributes(&a, fwd_kernel<T>(D));
   out[2] = a.numRegs;
   out[3] = (int)a.localSizeBytes;
   return (int)cudaGetLastError();
@@ -124,9 +150,14 @@ int fwd(const T* sr, const T* tab, const int* labels, int B, int P, int D,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   dim3 grid((B + TILE - 1) / TILE, n_split);
-  xent_fwd_partial<T><<<grid, NT, smem, stream>>>(
-      sr, tab, nrm, labels, B, P, D, n_valid, col_offset, scale, normalize,
-      vec, tiles_per_split, part);
+  if (D > MAX_D)
+    xent_fwd_slab<T><<<grid, NT, smem, stream>>>(
+        sr, tab, nrm, labels, B, P, D, n_valid, col_offset, scale, normalize,
+        vec, tiles_per_split, part);
+  else
+    xent_fwd_partial<T><<<grid, NT, smem, stream>>>(
+        sr, tab, nrm, labels, B, P, D, n_valid, col_offset, scale, normalize,
+        vec, tiles_per_split, part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t plane = (size_t)n_split * B;
   xent_fwd_merge<<<(B + NT - 1) / NT, NT, 0, stream>>>(
@@ -138,7 +169,9 @@ int fwd(const T* sr, const T* tab, const int* labels, int B, int P, int D,
 
 extern "C" {
 
-int srt_xent_max_d() { return MAX_D; }
+// feature slabs of K1-K4 at width D: 1 up to MAX_D, where the one-pass
+// kernels run, ceil(D / MAX_D) past it (the slab kernels)
+int srt_xent_slabs(int D) { return slab_count(D); }
 
 // out[0]: resident blocks per SM of K1's partial kernel at width D on the
 // current device; out[1]: its SM count; out[2]: the kernel's registers per

@@ -58,10 +58,20 @@
 // Interface.  srt_xent_bwd takes the grid the wrapper chose
 // (ops/xent.py:_bwd_grid) and its scratch; srt_xent_bwd_slots reports the
 // resident block slots of the two product kernels, their registers and
-// their local memory (spills).  Any B >= 1, P >= 1,
-// 0 < D <= 256: with D % 4 == 0 and aligned arrays the tiles are staged by
-// cp.async, otherwise by plain loads.  Each entry point launches on the
-// given stream, does not synchronise and returns cudaGetLastError().
+// their local memory (spills).  Any B >= 1, P >= 1, D >= 1: with
+// D % 4 == 0 and aligned arrays the tiles are staged by cp.async, otherwise
+// by plain loads.
+//
+// Past D = MAX_D (256) the slab kernels run (the slab path of tiles.cuh):
+// xent_bwd_dtable_slab and xent_bwd_dsr_slab add a z axis of feature slabs
+// to the grids above.  Each block recomputes the full-width dz tile (its
+// logits summed over every slab) and accumulates only its own slab of the
+// output features, so a thread's accumulators stay 8 x 8 at any width; the
+// logits are computed once per slab, not once per output.  d_table always
+// goes through float32 partials, and xent_slab_dtable_reduce sums them and
+// applies the l2norm VJP, whose dot product spans every slab.  Still no
+// atomics.  Each entry point launches on the given stream, does not
+// synchronise and returns cudaGetLastError().
 
 #include "tiles.cuh"
 
@@ -231,6 +241,206 @@ __global__ void __launch_bounds__(NT, 1) xent_bwd_dsr(
   }
 }
 
+// ---------------------------------------------------------------------------
+// d_table for D > MAX_D: grid = (catalog tiles, row splits, slabs).  For
+// each 64-row chunk of its split a block recomputes the dz tile of its
+// catalog tile over all D features, stages the chunk's slab blockIdx.z of
+// sr and accumulates that slab of G = dz^T sr (warp w owns catalog rows
+// 8 w .. 8 w + 7), written as the split's float32 partial.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) xent_bwd_dtable_slab(
+    const float* __restrict__ g, const T* __restrict__ sr,
+    const T* __restrict__ op, const int* __restrict__ labels,
+    const float* __restrict__ lse, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int vec, int chunks_per_split,
+    float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = slab_width(D), ld = tile_ld(sw);
+  T* C_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] t slab
+  T* A_s = C_s + TILE * ld;                            // [TILE][ld] sr slab
+  float* dz_s = reinterpret_cast<float*>(A_s + TILE * ld);  // [row][col]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int p0 = blockIdx.x * TILE;
+  const int n_chunks = (B + TILE - 1) / TILE;
+  const int c_begin = blockIdx.y * chunks_per_split;
+  const int c_end = min(n_chunks, c_begin + chunks_per_split);
+  const int k0 = blockIdx.z * sw, w = min(sw, D - k0);
+
+  float G[8][8] = {};
+  for (int c = c_begin; c < c_end; ++c) {
+    float S[4][4] = {};
+    slab_logits(S, A_s, C_s, ld, sr, c * TILE, B, op, p0, P, D, sw, vec);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = ty + 16 * i, r = c * TILE + rl;
+      const bool row_ok = r < B;
+      const int lbl = row_ok ? labels[r] : -1;
+      const float lse_r = row_ok ? lse[r] : 0.f;
+      const float g_r = row_ok ? g[r] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = tx + 16 * j;
+        dz_s[rl * LDZ + cl] =
+            dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid, lbl,
+                      lse_r, g_r, row_ok, scale);
+      }
+    }
+    stage_slab(A_s, ld, sr, c * TILE, B, D, k0, w, vec);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    rank_update<T, true>(G, dz_s, A_s, ld);
+    __syncthreads();  // A_s and dz_s are consumed
+  }
+
+  const int wp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = p0 + 8 * wp + i;
+    if (col < P)
+      store_slab8(part + ((size_t)blockIdx.y * P + col) * D + k0, G[i], w, D);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// d_sr for D > MAX_D: grid = (batch tiles, catalog splits, slabs).  For each
+// catalog tile of its split a block recomputes the dz tile of its 64 rows
+// over all D features, stages the tile's slab blockIdx.z of t and
+// accumulates that slab of dz t (warp w owns batch rows 8 w .. 8 w + 7),
+// written to its split's partial (d_sr itself when there is one split).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) xent_bwd_dsr_slab(
+    const float* __restrict__ g, const T* __restrict__ sr,
+    const T* __restrict__ op, const int* __restrict__ labels,
+    const float* __restrict__ lse, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int vec, int tiles_per_split,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = slab_width(D), ld = tile_ld(sw);
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr slab
+  T* C_s = A_s + TILE * ld;                            // [TILE][ld] t slab
+  float* dz_s = reinterpret_cast<float*>(C_s + TILE * ld);  // [col][row]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int k0 = blockIdx.z * sw, w = min(sw, D - k0);
+
+  int lbl[4];
+  float lse_r[4], g_r[4];
+  bool row_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    row_ok[i] = r < B;
+    lbl[i] = row_ok[i] ? labels[r] : -1;
+    lse_r[i] = row_ok[i] ? lse[r] : 0.f;
+    g_r[i] = row_ok[i] ? g[r] : 0.f;
+  }
+
+  float acc[8][8] = {};
+  for (int t = t_begin; t < t_end; ++t) {
+    const int p0 = t * TILE;
+    float S[4][4] = {};
+    slab_logits(S, A_s, C_s, ld, sr, row0, B, op, p0, P, D, sw, vec);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = tx + 16 * j;
+        dz_s[cl * LDZ + ty + 16 * i] =
+            dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid,
+                      lbl[i], lse_r[i], g_r[i], row_ok[i], scale);
+      }
+    stage_slab(C_s, ld, op, p0, P, D, k0, w, vec);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    rank_update<T, true>(acc, dz_s, C_s, ld);
+    __syncthreads();  // C_s and dz_s are consumed
+  }
+
+  const int wp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + 8 * wp + i;
+    if (r < B)
+      store_slab8(out + ((size_t)blockIdx.y * B + r) * D + k0, acc[i], w, D);
+  }
+}
+
+template <typename T>
+int set_slab_smem(int D) {
+  const int smem = (int)bwd_slab_smem<T>(D);
+  cudaFuncSetAttribute(xent_bwd_dtable_slab<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(xent_bwd_dsr_slab<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return smem;
+}
+
+// srt_xent_bwd_slots's numbers for the two slab kernels
+template <typename T>
+int slab_slots(int D, int* out) {
+  const int smem = set_slab_smem<T>(D);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], xent_bwd_dtable_slab<T>, NT, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1],
+                                                xent_bwd_dsr_slab<T>, NT, smem);
+  cudaFuncAttributes a;
+  cudaFuncGetAttributes(&a, xent_bwd_dtable_slab<T>);
+  out[3] = a.numRegs;
+  out[5] = (int)a.localSizeBytes;
+  cudaFuncGetAttributes(&a, xent_bwd_dsr_slab<T>);
+  out[4] = a.numRegs;
+  out[6] = (int)a.localSizeBytes;
+  return (int)cudaGetLastError();
+}
+
+// K2 for D > MAX_D: the grids of bwd with a z axis of slabs; dtab_part is
+// always used (the VJP needs the whole row), its reduce always runs
+template <typename T>
+int bwd_slab(const float* g, const T* sr, const T* tab, const int* labels,
+             const float* lse, int B, int P, int D, int n_valid,
+             int col_offset, float scale, int normalize, int vec,
+             int t_split, int chunks_per_split, int s_split,
+             int tiles_per_split, T* that, float* nrm, float* dtab_part,
+             float* dsr_part, float* dsr, T* dtab, cudaStream_t stream) {
+  const int smem = set_slab_smem<T>(D);
+  const int slabs = slab_count(D);
+  const T* op = tab;
+  cudaError_t err;
+  if (normalize) {
+    xent_bwd_normalize<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+        tab, P, D, that, nrm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    op = that;
+  }
+  const int n_tiles = (P + TILE - 1) / TILE, n_rows = (B + TILE - 1) / TILE;
+  xent_bwd_dtable_slab<T><<<dim3(n_tiles, t_split, slabs), NT, smem,
+                            stream>>>(g, sr, op, labels, lse, B, P, D,
+                                      n_valid, col_offset, scale, vec,
+                                      chunks_per_split, dtab_part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  xent_slab_dtable_reduce<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+      dtab_part, t_split, tab, nrm, P, D, normalize, dtab);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  float* out = s_split > 1 ? dsr_part : dsr;
+  xent_bwd_dsr_slab<T><<<dim3(n_rows, s_split, slabs), NT, smem, stream>>>(
+      g, sr, op, labels, lse, B, P, D, n_valid, col_offset, scale, vec,
+      tiles_per_split, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (s_split > 1) {
+    const int n = B * D;
+    xent_bwd_dsr_reduce<<<(n + NT - 1) / NT, NT, 0, stream>>>(dsr_part,
+                                                              s_split, n, dsr);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool HI>
 int set_smem(int D) {
   const int smem = (int)bwd_smem<T>(D);
@@ -308,7 +518,9 @@ int bwd_typed(const void* g, const void* sr, const void* tab,
               int vec, int t_split, int chunks_per_split, int s_split,
               int tiles_per_split, void* that, void* nrm, void* dtab_part,
               void* dsr_part, void* dsr, void* dtab, void* stream) {
-  auto f = ((D + 3) & ~3) > 128 ? bwd<T, true> : bwd<T, false>;
+  auto f = D > MAX_D                ? bwd_slab<T>
+           : ((D + 3) & ~3) > 128 ? bwd<T, true>
+                                  : bwd<T, false>;
   return f((const float*)g, (const T*)sr, (const T*)tab, (const int*)labels,
            (const float*)lse, B, P, D, n_valid, col_offset, scale, normalize,
            vec, t_split, chunks_per_split, s_split, tiles_per_split, (T*)that,
@@ -330,10 +542,12 @@ int srt_xent_bwd_tile() { return TILE; }
 // local memory bytes per thread
 int srt_xent_bwd_slots(int D, int is_bf16, int* out) {
   const bool hi = ((D + 3) & ~3) > 128;
-  const int err = is_bf16 ? (hi ? slots<__nv_bfloat16, true>(D, out)
-                                : slots<__nv_bfloat16, false>(D, out))
-                          : (hi ? slots<float, true>(D, out)
-                                : slots<float, false>(D, out));
+  const int err = D > MAX_D ? (is_bf16 ? slab_slots<__nv_bfloat16>(D, out)
+                                       : slab_slots<float>(D, out))
+                  : is_bf16 ? (hi ? slots<__nv_bfloat16, true>(D, out)
+                                  : slots<__nv_bfloat16, false>(D, out))
+                            : (hi ? slots<float, true>(D, out)
+                                  : slots<float, false>(D, out));
   if (err) return err;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -343,11 +557,11 @@ int srt_xent_bwd_slots(int D, int is_bf16, int* out) {
 
 // K2: d_sr [B, D] float32 and d_table [P, D] in the table's type.  Grid:
 // d_table over t_split row splits of chunks_per_split 64-row chunks, d_sr
-// over s_split catalog splits of tiles_per_split 64-row tiles.  Scratch:
-// that [P, D] (table's type) and nrm [P] float32 when normalize; dtab_part
-// [t_split, P, D] float32 when t_split > 1; dsr_part [s_split, B, D]
-// float32 when s_split > 1.  vec: D % 4 == 0 and every array aligned to
-// four elements.
+// over s_split catalog splits of tiles_per_split 64-row tiles (each times
+// srt_xent_slabs(D) slabs).  Scratch: that [P, D] (table's type) and nrm [P]
+// float32 when normalize; dtab_part [t_split, P, D] float32 when t_split > 1
+// or D > MAX_D; dsr_part [s_split, B, D] float32 when s_split > 1.  vec:
+// D % 4 == 0 and every array aligned to four elements.
 int srt_xent_bwd(const void* g, const void* sr, const void* tab,
                  const void* labels, const void* lse, int B, int P, int D,
                  int n_valid, int col_offset, float scale, int normalize,

@@ -10,6 +10,9 @@
 //                                          (+ xent_bwd_dtable_reduce)
 //                                          + xent_multi_bwd_dsr
 //                                          (+ xent_bwd_dsr_reduce)
+// and past 256 features the slab kernels (xent_multi_fwd_slab,
+// xent_multi_bwd_dtable_slab + xent_slab_dtable_reduce,
+// xent_multi_bwd_dsr_slab) in place of the partial and product kernels.
 //
 // The WSDM'22 paper head scores the session vector of every order k
 // against the whole catalog and splits the catalog, per example, into the
@@ -53,7 +56,7 @@
 //     bfloat16 is staged as bfloat16 and widened in registers.  K3's loop
 //     is fwd_tile_loop (tiles.cuh), which K1 runs without membership.
 //   * Membership as bits.  While a tile stages, four threads per row scan
-//     the row's iid list (global ids, -1 padded, at most MAX_NS) and OR a
+//     the row's iid list (global ids, -1 padded, any length) and OR a
 //     64-bit mask over the tile's 64 columns, so a column's test is a
 //     shift.  K4's six per-row inputs (gz, gin, gex, lse_in, lse_ex,
 //     label) sit in shared memory beside the masks, not in registers.
@@ -75,16 +78,20 @@
 // id of the table's first row: membership compares col_offset + j with the
 // global iids), and labels localised to the table (-1 matches no column).
 // The wrapper chooses the grids (ops/xent_multi.py) from
-// srt_xent_multi_slots.  Any K, B >= 1, P >= 1, 0 < D <= 256: with
+// srt_xent_multi_slots.  Any K, B >= 1, P >= 1, D >= 1, Ns >= 1: with
 // D % 4 == 0 and aligned arrays the tiles are staged by cp.async,
-// otherwise by plain loads.  Each entry point launches on the given
-// stream, does not synchronise and returns cudaGetLastError().
+// otherwise by plain loads.  Past D = MAX_D (256) the slab kernels run, as
+// K1's and K2's do (the slab path of tiles.cuh): xent_multi_fwd_slab
+// (fwd_slab_loop with membership), and xent_multi_bwd_dtable_slab and
+// xent_multi_bwd_dsr_slab, which recompute the full-width dz tile and
+// accumulate one slab of the output features each (the grid's z axis),
+// with xent_slab_dtable_reduce applying the l2norm VJP over the whole row.
+// Each entry point launches on the given stream, does not synchronise and
+// returns cudaGetLastError().
 
 #include "tiles.cuh"
 
 namespace {
-
-constexpr int MAX_NS = 256;  // longest iid list (session items) per row
 
 // ---------------------------------------------------------------------------
 // K3, forward: partial two-partition online log-sum-exp over one catalog
@@ -101,6 +108,20 @@ __global__ void __launch_bounds__(NT, 1) xent_multi_fwd_partial(
     int tiles_per_split, float* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem[];
   fwd_tile_loop<T, true>(smem, sr, tab, nrm, labels, iids, R, B, P, D, Ns,
+                         n_valid, col_offset, scale, normalize, vec,
+                         tiles_per_split, part);
+}
+
+// K3 for D > MAX_D: the same partial over feature slabs (fwd_slab_loop)
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) xent_multi_fwd_slab(
+    const T* __restrict__ sr, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int normalize, int vec,
+    int tiles_per_split, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fwd_slab_loop<T, true>(smem, sr, tab, nrm, labels, iids, R, B, P, D, Ns,
                          n_valid, col_offset, scale, normalize, vec,
                          tiles_per_split, part);
 }
@@ -329,10 +350,146 @@ __global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dsr(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4, d_table for D > MAX_D: grid = (catalog tiles, row splits, slabs).  As
+// xent_multi_bwd_dtable, with each chunk's dz tile from logits summed over
+// every slab, and the chunk's slab blockIdx.z of sr staged for the
+// accumulation of that slab of G, written as the split's float32 partial.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dtable_slab(
+    const float* __restrict__ g5, const T* __restrict__ sr,
+    const T* __restrict__ op, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int vec, int chunks_per_split,
+    float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = slab_width(D), ld = tile_ld(sw);
+  T* C_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] t slab
+  T* A_s = C_s + TILE * ld;                            // [TILE][ld] sr slab
+  float* dz_s = reinterpret_cast<float*>(A_s + TILE * ld);  // [row][col]
+  RowShared* rs = reinterpret_cast<RowShared*>(dz_s + TILE * LDZ);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int p0 = blockIdx.x * TILE;
+  const int n_chunks = (R + TILE - 1) / TILE;
+  const int c_begin = blockIdx.y * chunks_per_split;
+  const int c_end = min(n_chunks, c_begin + chunks_per_split);
+  const int k0 = blockIdx.z * sw, w = min(sw, D - k0);
+
+  float G[8][8] = {};
+  for (int c = c_begin; c < c_end; ++c) {
+    const int row0 = c * TILE;
+    row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
+    row_coefs(rs, g5, labels, row0, R, B);
+    float S[4][4] = {};
+    slab_logits(S, A_s, C_s, ld, sr, row0, R, op, p0, P, D, sw, vec);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = ty + 16 * i;
+      float dz[4];
+      dlogits_multi<T>(dz, S[i], rs, rl, row0 + rl < R, p0, P, n_valid,
+                       scale);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dz_s[rl * LDZ + tx + 16 * j] = dz[j];
+    }
+    stage_slab(A_s, ld, sr, row0, R, D, k0, w, vec);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    rank_update<T, true>(G, dz_s, A_s, ld);
+    __syncthreads();  // A_s, dz_s and the rows' inputs are consumed
+  }
+
+  const int wp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = p0 + 8 * wp + i;
+    if (col < P)
+      store_slab8(part + ((size_t)blockIdx.y * P + col) * D + k0, G[i], w, D);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4, d_sr for D > MAX_D: grid = (row tiles, catalog splits, slabs).  As
+// xent_multi_bwd_dsr, with each tile's dz from logits summed over every
+// slab, and the tile's slab blockIdx.z of t staged for the accumulation of
+// that slab of dz t.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dsr_slab(
+    const float* __restrict__ g5, const T* __restrict__ sr,
+    const T* __restrict__ op, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int vec, int tiles_per_split,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = slab_width(D), ld = tile_ld(sw);
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr slab
+  T* C_s = A_s + TILE * ld;                            // [TILE][ld] t slab
+  float* dz_s = reinterpret_cast<float*>(C_s + TILE * ld);  // [col][row]
+  RowShared* rs = reinterpret_cast<RowShared*>(dz_s + TILE * LDZ);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int k0 = blockIdx.z * sw, w = min(sw, D - k0);
+
+  row_coefs(rs, g5, labels, row0, R, B);
+  float acc[8][8] = {};
+  for (int t = t_begin; t < t_end; ++t) {
+    const int p0 = t * TILE;
+    row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
+    float S[4][4] = {};
+    slab_logits(S, A_s, C_s, ld, sr, row0, R, op, p0, P, D, sw, vec);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = ty + 16 * i;
+      float dz[4];
+      dlogits_multi<T>(dz, S[i], rs, rl, row0 + rl < R, p0, P, n_valid,
+                       scale);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dz_s[(tx + 16 * j) * LDZ + rl] = dz[j];
+    }
+    stage_slab(C_s, ld, op, p0, P, D, k0, w, vec);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    rank_update<T, true>(acc, dz_s, C_s, ld);
+    __syncthreads();  // C_s, dz_s and the masks are consumed
+  }
+
+  const int wp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + 8 * wp + i;
+    if (r < R)
+      store_slab8(out + ((size_t)blockIdx.y * R + r) * D + k0, acc[i], w, D);
+  }
+}
+
+// K3's partial kernel at width D (the slab kernel past MAX_D)
+template <typename T>
+const void* fwd_kernel(int D) {
+  return D > MAX_D ? (const void*)xent_multi_fwd_slab<T>
+                   : (const void*)xent_multi_fwd_partial<T>;
+}
+
 template <typename T>
 int set_fwd_smem(int D) {
-  const int smem = (int)fwd_smem<T, true>(D);
-  cudaFuncSetAttribute(xent_multi_fwd_partial<T>,
+  const int smem = D > MAX_D ? (int)fwd_slab_smem<T, true>(D)
+                             : (int)fwd_smem<T, true>(D);
+  cudaFuncSetAttribute(fwd_kernel<T>(D),
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return smem;
+}
+
+template <typename T>
+int set_bwd_slab_smem(int D) {
+  const int smem = (int)(bwd_slab_smem<T>(D) + sizeof(RowShared));
+  cudaFuncSetAttribute(xent_multi_bwd_dtable_slab<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(xent_multi_bwd_dsr_slab<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return smem;
 }
@@ -352,10 +509,15 @@ int set_bwd_smem(int D) {
 // their local memory bytes per thread, where spills go (out[7..9])
 template <typename T, bool HI>
 int slots(int D, int* out) {
-  const int fwd = set_fwd_smem<T>(D), bwd = set_bwd_smem<T, HI>(D);
-  const void* fns[3] = {(const void*)xent_multi_fwd_partial<T>,
-                        (const void*)xent_multi_bwd_dtable<T, HI>,
-                        (const void*)xent_multi_bwd_dsr<T, HI>};
+  const bool slab = D > MAX_D;
+  const int fwd = set_fwd_smem<T>(D);
+  const int bwd = slab ? set_bwd_slab_smem<T>(D) : set_bwd_smem<T, HI>(D);
+  const void* fns[3] = {
+      fwd_kernel<T>(D),
+      slab ? (const void*)xent_multi_bwd_dtable_slab<T>
+           : (const void*)xent_multi_bwd_dtable<T, HI>,
+      slab ? (const void*)xent_multi_bwd_dsr_slab<T>
+           : (const void*)xent_multi_bwd_dsr<T, HI>};
   const int smem[3] = {fwd, bwd, bwd};
   for (int k = 0; k < 3; ++k) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[k], fns[k], NT,
@@ -382,9 +544,14 @@ int fwd(const T* sr, const T* tab, const int* labels, const int* iids, int K,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   dim3 grid((R + TILE - 1) / TILE, n_split);
-  xent_multi_fwd_partial<T><<<grid, NT, smem, stream>>>(
-      sr, tab, nrm, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
-      normalize, vec, tiles_per_split, part);
+  if (D > MAX_D)
+    xent_multi_fwd_slab<T><<<grid, NT, smem, stream>>>(
+        sr, tab, nrm, labels, iids, R, B, P, D, Ns, n_valid, col_offset,
+        scale, normalize, vec, tiles_per_split, part);
+  else
+    xent_multi_fwd_partial<T><<<grid, NT, smem, stream>>>(
+        sr, tab, nrm, labels, iids, R, B, P, D, Ns, n_valid, col_offset,
+        scale, normalize, vec, tiles_per_split, part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   xent_multi_fwd_merge<<<(R + NT - 1) / NT, NT, 0, stream>>>(part, n_split,
                                                              R, out);
@@ -432,6 +599,49 @@ int bwd(const float* g5, const T* sr, const T* tab, const int* labels,
   return (int)cudaGetLastError();
 }
 
+// K4 for D > MAX_D: the grids of bwd with a z axis of slabs; dtab_part is
+// always used (the VJP needs the whole row), its reduce always runs
+template <typename T>
+int bwd_slab(const float* g5, const T* sr, const T* tab, const int* labels,
+             const int* iids, int K, int B, int P, int D, int Ns, int n_valid,
+             int col_offset, float scale, int normalize, int vec, int t_split,
+             int chunks_per_split, int s_split, int tiles_per_split, T* that,
+             float* nrm, float* dtab_part, float* dsr_part, float* dsr,
+             T* dtab, cudaStream_t stream) {
+  const int R = K * B;
+  const int smem = set_bwd_slab_smem<T>(D);
+  const int slabs = slab_count(D);
+  const T* op = tab;
+  cudaError_t err;
+  if (normalize) {
+    xent_bwd_normalize<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+        tab, P, D, that, nrm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    op = that;
+  }
+  const int n_tiles = (P + TILE - 1) / TILE, n_rows = (R + TILE - 1) / TILE;
+  xent_multi_bwd_dtable_slab<T><<<dim3(n_tiles, t_split, slabs), NT, smem,
+                                  stream>>>(
+      g5, sr, op, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
+      vec, chunks_per_split, dtab_part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  xent_slab_dtable_reduce<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+      dtab_part, t_split, tab, nrm, P, D, normalize, dtab);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  float* out = s_split > 1 ? dsr_part : dsr;
+  xent_multi_bwd_dsr_slab<T><<<dim3(n_rows, s_split, slabs), NT, smem,
+                               stream>>>(
+      g5, sr, op, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
+      vec, tiles_per_split, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (s_split > 1) {
+    const int n = R * D;
+    xent_bwd_dsr_reduce<<<(n + NT - 1) / NT, NT, 0, stream>>>(dsr_part,
+                                                              s_split, n, dsr);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int bwd_typed(const void* g5, const void* sr, const void* tab,
               const void* labels, const void* iids, int K, int B, int P,
@@ -440,7 +650,9 @@ int bwd_typed(const void* g5, const void* sr, const void* tab,
               int s_split, int tiles_per_split, void* that, void* nrm,
               void* dtab_part, void* dsr_part, void* dsr, void* dtab,
               void* stream) {
-  auto f = ((D + 3) & ~3) > 128 ? bwd<T, true> : bwd<T, false>;
+  auto f = D > MAX_D                ? bwd_slab<T>
+           : ((D + 3) & ~3) > 128 ? bwd<T, true>
+                                  : bwd<T, false>;
   return f((const float*)g5, (const T*)sr, (const T*)tab, (const int*)labels,
            (const int*)iids, K, B, P, D, Ns, n_valid, col_offset, scale,
            normalize, vec, t_split, chunks_per_split, s_split,
@@ -451,8 +663,6 @@ int bwd_typed(const void* g5, const void* sr, const void* tab,
 }  // namespace
 
 extern "C" {
-
-int srt_xent_multi_max_ns() { return MAX_NS; }
 
 // out[0..2]: resident blocks per SM of K3's partial kernel and K4's d_table
 // and d_sr kernels at width D on the current device; out[3]: its SM count;
@@ -498,8 +708,9 @@ int srt_xent_multi_fwd(const void* sr, const void* tab, const void* labels,
 // t_split row splits of chunks_per_split 64-row chunks, d_sr over s_split
 // catalog splits of tiles_per_split 64-row tiles.  Scratch: that [P, D]
 // (table's type) and nrm [P] float32 when normalize; dtab_part
-// [t_split, P, D] float32 when t_split > 1; dsr_part [s_split, K*B, D]
-// float32 when s_split > 1.
+// [t_split, P, D] float32 when t_split > 1 or D > MAX_D; dsr_part
+// [s_split, K*B, D] float32 when s_split > 1.  Past MAX_D each grid has a z
+// axis of srt_xent_slabs(D) slabs.
 int srt_xent_multi_bwd(const void* g5, const void* sr, const void* tab,
                        const void* labels, const void* iids, int K, int B,
                        int P, int D, int Ns, int n_valid, int col_offset,

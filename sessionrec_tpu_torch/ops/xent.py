@@ -16,6 +16,12 @@ hand-written kernels of ``csrc/xent.cu`` (K1) and ``csrc/xent_bwd.cu``
   ``d_table`` with the l2norm VJP folded in, on a grid that ``_bwd_grid``
   sizes to the card's resident block slots.
 
+Up to 256 features a row the kernels above run in one pass; past it
+(``--embedding-dim 512``) the same entry points run slab kernels that cut
+each row into feature slabs of at most 256 (``slabs``, the grids' slab
+axis in ``_fwd_grid`` / ``_bwd_grid``; ``csrc/tiles.cuh``): simple
+kernels, not yet tuned.
+
 Beside each kernel sits its plain PyTorch version (``_fwd_plain``,
 ``_bwd_plain``), the oracle: a wrapper takes it only for tensors on the
 CPU.  For CUDA tensors it launches the kernel or raises.  Logits and the
@@ -166,9 +172,10 @@ def _library():
         for name in ("srt_xent_fwd_slots", "srt_xent_bwd_slots"):
             getattr(lib, name).argtypes = [i, i, ctypes.POINTER(i)]
             getattr(lib, name).restype = i
-        for name in ("srt_xent_max_d", "srt_xent_bwd_tile"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
+        lib.srt_xent_bwd_tile.argtypes = []
+        lib.srt_xent_bwd_tile.restype = i
+        lib.srt_xent_slabs.argtypes = [i]
+        lib.srt_xent_slabs.restype = i
         _lib = lib
     return _lib
 
@@ -194,12 +201,8 @@ def _check(sr, table, labels, *vectors):
             raise ValueError(f"tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
-    B, D = sr.shape
-    if B == 0 or table.shape[0] == 0:
-        raise ValueError("empty batch or catalog")
-    if not 0 < D <= _library().srt_xent_max_d():
-        raise ValueError(f"feature width {D} not in (0, "
-                         f"{_library().srt_xent_max_d()}]")
+    if sr.shape[0] == 0 or table.shape[0] == 0 or sr.shape[1] == 0:
+        raise ValueError("empty batch, catalog or feature width")
 
 
 def _split(n, want):
@@ -209,26 +212,35 @@ def _split(n, want):
     return -(-n // per), per
 
 
-def _fwd_grid(B, P, slots, tile):
+def _fwd_grid(B, P, slots, tile, slabs=1):
     """K1's grid, and K2's d_sr's: ``rows`` batch tiles of ``tile`` rows
     times ``s_split`` catalog splits of ``s_per`` ``tile``-row catalog
-    tiles (``tiles`` in all).  The blocks fill at most ``slots`` (resident
-    blocks per SM times SMs), with one split when the row tiles alone
-    reach that."""
+    tiles (``tiles`` in all), times ``slabs`` feature slabs where the grid
+    has that axis (K2's slab kernels; K1 loops over its slabs).  The
+    blocks fill at most ``slots`` (resident blocks per SM times SMs), with
+    one split when the row tiles (times slabs) alone reach that."""
     tiles, rows = -(-P // tile), -(-B // tile)
-    s_split, s_per = _split(tiles, slots // rows)
+    s_split, s_per = _split(tiles, slots // (rows * slabs))
     return dict(tiles=tiles, rows=rows, s_split=s_split, s_per=s_per)
 
 
-def _bwd_grid(B, P, slots, tile):
+def _bwd_grid(B, P, slots, tile, slabs=1):
     """K2's grid.  d_table: ``tiles`` catalog tiles of ``tile`` rows times
     ``t_split`` row splits of ``t_per`` ``tile``-row chunks; d_sr:
     ``_fwd_grid``'s ``rows`` batch tiles times ``s_split`` catalog splits
-    of ``s_per`` tiles.  Each kernel's blocks fill at most ``slots``, with
-    one split when its tiles alone reach that."""
-    grid = _fwd_grid(B, P, slots, tile)
-    t_split, t_per = _split(grid["rows"], slots // grid["tiles"])
+    of ``s_per`` tiles; both times ``slabs`` feature slabs past 256
+    features.  Each kernel's blocks fill at most ``slots``, with one split
+    when its tiles (times slabs) alone reach that."""
+    grid = _fwd_grid(B, P, slots, tile, slabs)
+    t_split, t_per = _split(grid["rows"], slots // (grid["tiles"] * slabs))
     return dict(grid, t_split=t_split, t_per=t_per)
+
+
+def slabs(D):
+    """Feature slabs of K1-K4 at width ``D``: 1 up to 256 features, where
+    the one-pass kernels run; more past it, where the slab kernels sum each
+    logits tile over slabs of at most 256 (``csrc/tiles.cuh``)."""
+    return _library().srt_xent_slabs(D)
 
 
 _slots = {}
@@ -292,16 +304,17 @@ def _bwd_slots(device, D, dtype):
     return min(a[0], a[1]), a[2]
 
 
-def grid_shape(rows, P, per_sm, sms):
+def grid_shape(rows, P, per_sm, sms, n_slabs=1):
     """The blocks and splits of ``_bwd_grid`` over ``rows`` rows and a
     ``P``-row table with ``per_sm`` resident blocks on each of ``sms`` SMs:
-    the d_table-like kernel's (catalog tiles x row splits) and the d_sr-like
-    kernel's (row tiles x catalog splits)."""
-    grid = _bwd_grid(rows, P, per_sm * sms, _library().srt_xent_bwd_tile())
-    return dict(dtable_blocks=grid["tiles"] * grid["t_split"],
-                dsr_blocks=grid["rows"] * grid["s_split"],
+    the d_table-like kernel's (catalog tiles x row splits x slabs) and the
+    d_sr-like kernel's (row tiles x catalog splits x slabs)."""
+    grid = _bwd_grid(rows, P, per_sm * sms, _library().srt_xent_bwd_tile(),
+                     n_slabs)
+    return dict(dtable_blocks=grid["tiles"] * grid["t_split"] * n_slabs,
+                dsr_blocks=grid["rows"] * grid["s_split"] * n_slabs,
                 row_splits=grid["t_split"], catalog_splits=grid["s_split"],
-                resident_per_sm=per_sm)
+                slabs=n_slabs, resident_per_sm=per_sm)
 
 
 def bwd_launch_shape(sr, P):
@@ -312,7 +325,7 @@ def bwd_launch_shape(sr, P):
     (B, D), dev = sr.shape, sr.device
     per_sm, sms = _bwd_slots(dev, D, sr.dtype)
     a = _bwd_attrs(dev, D, sr.dtype)
-    return dict(grid_shape(B, P, per_sm, sms), sms=sms,
+    return dict(grid_shape(B, P, per_sm, sms, slabs(D)), sms=sms,
                 registers={"dtable": a[3], "dsr": a[4]},
                 local_bytes={"dtable": a[5], "dsr": a[6]})
 
@@ -332,14 +345,16 @@ def _ptr(t):
 def _bwd_scratch(table, rows, grid, normalize_table):
     """The float32 scratch of K2's and K4's backward over ``rows`` rows on
     ``grid``, None where unused: t (the table's type) and its norms when
-    the table is normalised, the row splits' d_table partials and the
-    catalog splits' d_sr partials when there are several."""
+    the table is normalised, the row splits' d_table partials when there
+    are several or the rows are cut into slabs (the l2norm VJP needs the
+    whole row), and the catalog splits' d_sr partials when there are
+    several."""
     (P, D), f32 = table.shape, dict(dtype=torch.float32, device=table.device)
     that = nrm = dtab_part = dsr_part = None
     if normalize_table:
         that = torch.empty_like(table)
         nrm = torch.empty(P, **f32)
-    if grid["t_split"] > 1:
+    if grid["t_split"] > 1 or slabs(D) > 1:
         dtab_part = torch.empty(grid["t_split"], P, D, **f32)
     if grid["s_split"] > 1:
         dsr_part = torch.empty(grid["s_split"], rows, D, **f32)
@@ -384,7 +399,7 @@ def _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset, *, scale,
     B, D = sr.shape
     P = table.shape[0]
     per_sm, sms = _bwd_slots(sr.device, D, sr.dtype)
-    grid = _bwd_grid(B, P, per_sm * sms, lib.srt_xent_bwd_tile())
+    grid = _bwd_grid(B, P, per_sm * sms, lib.srt_xent_bwd_tile(), slabs(D))
     scratch = _bwd_scratch(table, B, grid, normalize_table)
     dsr = torch.empty(B, D, dtype=torch.float32, device=sr.device)
     dtab = torch.empty_like(table)

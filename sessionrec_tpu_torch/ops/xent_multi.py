@@ -21,7 +21,10 @@ logits nor the ``[B, P]`` session mask exist in device memory:
 
 Both run on K2's tiles (``csrc/tiles.cuh``) over the ``K * B`` rows, on
 grids that ``ops/xent.py:_bwd_grid`` sizes to the card's resident block
-slots of their own kernels.
+slots of their own kernels; past 256 features, as K1/K2 do, on the slab
+kernels (``xent.slabs``).  Session item lists may be of any length (the
+paper head at ``--max-len`` above 256): the kernels scan each row's list
+while a catalog tile stages.
 
 The small ``[K, B]`` stats feed the plain-torch combiner
 (``combine_stats``: phi, alpha, fusion), whose gradients come from
@@ -165,8 +168,6 @@ def _library():
         lib.srt_xent_multi_bwd.restype = i
         lib.srt_xent_multi_slots.argtypes = [i, i, ctypes.POINTER(i)]
         lib.srt_xent_multi_slots.restype = i
-        lib.srt_xent_multi_max_ns.argtypes = []
-        lib.srt_xent_multi_max_ns.restype = i
         _lib = lib
     return _lib
 
@@ -181,10 +182,6 @@ def _check(sr3, table, labels, iids, *stats):
     if iids.dtype != torch.int32 or iids.dim() != 2 or iids.shape[0] != B:
         raise TypeError(f"iids must be int32 [B, Ns], got {iids.dtype} "
                         f"{tuple(iids.shape)}")
-    max_ns = _library().srt_xent_multi_max_ns()
-    if iids.shape[1] > max_ns:
-        raise ValueError(f"{iids.shape[1]} session items per row; the "
-                         f"kernels take at most {max_ns}")
     for t in (sr3, iids) + stats:
         if t.device != sr3.device:
             raise ValueError(f"tensors on {t.device} and {sr3.device}")
@@ -211,7 +208,8 @@ def _grid(device, R, P, D, dtype, k4):
     a = _attrs(device, D, dtype)
     per_sm = min(a[1], a[2]) if k4 else a[0]
     return xent._bwd_grid(R, P, per_sm * a[3],
-                          _library().srt_xent_bwd_tile())
+                          _library().srt_xent_bwd_tile(),
+                          xent.slabs(D) if k4 else 1)
 
 
 def multi_launch_shape(sr3, P):
@@ -225,7 +223,8 @@ def multi_launch_shape(sr3, P):
     return dict(k3=dict(blocks=k3["dsr_blocks"],
                         catalog_splits=k3["catalog_splits"],
                         resident_per_sm=a[0]),
-                k4=xent.grid_shape(K * B, P, min(a[1], a[2]), a[3]),
+                k4=xent.grid_shape(K * B, P, min(a[1], a[2]), a[3],
+                                   xent.slabs(D)),
                 sms=a[3],
                 registers={"fwd": a[4], "dtable": a[5], "dsr": a[6]},
                 local_bytes={"fwd": a[7], "dtable": a[8], "dsr": a[9]})

@@ -13,7 +13,9 @@ bfloat16 d_table are rounded.  K3 and K4 likewise: the five stats to
 1e-5 * max(1, |ref|) element by element, d_sr and d_table as K2, with
 d_table's rows hit only by session items a group of their own.  K1-K4
 also on a catalog shard, with the operands a (2, 2) mesh's losses give
-them (``ops/xent.py`` and ``ops/xent_multi.py`` ``_shard_operands``).
+them (``ops/xent.py`` and ``ops/xent_multi.py`` ``_shard_operands``), and
+past 256 features (the slab kernels: widths 258, 512, 513, 1000) and, for
+K3/K4, with 300 and 1,024 session items a row.
 """
 
 import numpy as np
@@ -110,7 +112,11 @@ def _assert_k1_close(got, s, t, lbl, n, col_offset, norm):
                                      (96, 16, 70, 64),
                                      (37, 30, 64, 60),
                                      (509, 132, 1, 1),
-                                     (8, 132, 70, 70)])
+                                     (8, 132, 70, 70),
+                                     (509, 258, 3584, 3429),
+                                     (64, 512, 1536, 1400),
+                                     (1, 513, 70, 64),
+                                     (37, 1000, 300, 290)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm", [True, False])
 def test_k1_matches_plain_at_edge_shapes(cuda, B, D, P, n, dtype, norm):
@@ -119,11 +125,12 @@ def test_k1_matches_plain_at_edge_shapes(cuda, B, D, P, n, dtype, norm):
     _assert_k1_close(got, s, t, lbl, n, 0, norm)
 
 
+@pytest.mark.parametrize("D", [256, 512])
 @pytest.mark.parametrize("norm", [True, False])
-def test_k1_matches_plain_on_a_catalog_shard(cuda, norm):
+def test_k1_matches_plain_on_a_catalog_shard(cuda, norm, D):
     """A shard of the table at a column offset: K1 compares the global
     columns with n_valid and the (global) labels."""
-    s, t, lbl = _k1_case(cuda, 300, 256, 3584, 3429, torch.float32)
+    s, t, lbl = _k1_case(cuda, 300, D, 3584, 3429, torch.float32)
     shard = t[1000:2600].contiguous()
     got = tx._fwd_cuda(s, shard, lbl, 2500, 1000, scale=12.0,
                        normalize_table=norm)
@@ -147,15 +154,16 @@ def _shard_operands(cuda, ops, labels):
     return lbl, n_valid, offset
 
 
+@pytest.mark.parametrize("D", [256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm", [True, False])
-def test_k2_matches_plain_on_a_catalog_shard(cuda, dtype, norm):
+def test_k2_matches_plain_on_a_catalog_shard(cuda, dtype, norm, D):
     """K2 on that shard with the mesh's operands (global labels the shard
     holds, -1 elsewhere; n_valid the shard's end in global ids; col_offset
     1,792) and the whole catalog's lse, as the mesh's backward calls it:
     its plain version's numbers, d_table by groups of rows, the rows past
     the last item exactly 0."""
-    s, t, lbl, g, lse = _k2_case(cuda, 256, 256, SHARD_P, SHARD_ITEMS, dtype,
+    s, t, lbl, g, lse = _k2_case(cuda, 256, D, SHARD_P, SHARD_ITEMS, dtype,
                                  norm)
     shard = t[SHARD_ROWS:].contiguous()
     lk, n_valid, offset = _shard_operands(cuda, tx, lbl)
@@ -170,11 +178,12 @@ def test_k2_matches_plain_on_a_catalog_shard(cuda, dtype, norm):
                      1e-3 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize("D", [256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P", [3584, 37888])
-def test_k1_is_deterministic(cuda, dtype, P):
+def test_k1_is_deterministic(cuda, dtype, P, D):
     """No atomics: two calls on the same inputs give the same bits."""
-    s, t, lbl = _k1_case(cuda, 512, 256, P, P - 100, dtype)
+    s, t, lbl = _k1_case(cuda, 512, D, P, P - 100, dtype)
     kw = dict(scale=12.0, normalize_table=True)
     first = tx._fwd_cuda(s, t, lbl, P - 100, 0, **kw)
     second = tx._fwd_cuda(s, t, lbl, P - 100, 0, **kw)
@@ -228,7 +237,11 @@ def _assert_k2_close(dsr, dtab, dsr_p, dtab_p, lbl, P, n, tol):
 @pytest.mark.parametrize("B,D,P,n", [(1, 256, 3584, 3429),
                                      (100, 100, 1000, 999),
                                      (509, 256, 4096, 4000),
-                                     (37, 30, 300, 290)])
+                                     (37, 30, 300, 290),
+                                     (509, 258, 3584, 3429),
+                                     (64, 512, 1536, 1400),
+                                     (1, 513, 70, 64),
+                                     (37, 1000, 300, 290)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm", [True, False])
 def test_k2_matches_plain_at_edge_shapes(cuda, B, D, P, n, dtype, norm):
@@ -241,12 +254,13 @@ def test_k2_matches_plain_at_edge_shapes(cuda, B, D, P, n, dtype, norm):
                      1e-3 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize("D", [256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P", [3584, 37888])
-def test_k2_is_deterministic(cuda, dtype, P):
+def test_k2_is_deterministic(cuda, dtype, P, D):
     """No atomics: two calls on the same inputs give the same bits, with
     several row splits (P = 3,584) and with one (P = 37,888)."""
-    s, t, lbl, g, lse = _k2_case(cuda, 512, 256, P, P - 100, dtype, True)
+    s, t, lbl, g, lse = _k2_case(cuda, 512, D, P, P - 100, dtype, True)
     kw = dict(scale=12.0, normalize_table=True)
     first = tx._bwd_cuda(g, s, t, lbl, lse, P - 100, 0, **kw)
     second = tx._bwd_cuda(g, s, t, lbl, lse, P - 100, 0, **kw)
@@ -280,10 +294,17 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
         tx._fwd_cuda(s, t, lbl.long(), 500, 0, **kw)
     with pytest.raises(ValueError):
         tx._fwd_cuda(s.t().contiguous().t(), t, lbl, 500, 0, **kw)
-    wide = torch.zeros(8, 512, device=cuda)
+    empty = torch.zeros(8, 0, device=cuda)
     with pytest.raises(ValueError):
-        tx._fwd_cuda(wide, torch.zeros(512, 512, device=cuda), lbl, 500, 0,
+        tx._fwd_cuda(empty, torch.zeros(512, 0, device=cuda), lbl, 500, 0,
                      **kw)
+
+
+def test_slab_count_is_one_up_to_256_features(cuda):
+    """The one-pass kernels up to 256 features, ceil(D / 256) slabs past
+    (csrc/tiles.cuh; the host layout tests/test_torch_wide.py covers)."""
+    assert [tx.slabs(D) for D in (1, 255, 256, 257, 512, 513, 1000)] == \
+        [1, 1, 1, 2, 2, 3, 4]
 
 
 def _multi_case(cuda, K, B, D, P, n, N, dtype, seed=11):
@@ -384,7 +405,11 @@ def _multi_edge_case(cuda, B, D, P, n, dtype, norm, K=3, N=19, seed=17):
                                      (96, 16, 70, 64),
                                      (37, 30, 64, 60),
                                      (509, 132, 1, 1),
-                                     (8, 132, 70, 70)])
+                                     (8, 132, 70, 70),
+                                     (509, 258, 3584, 3429),
+                                     (64, 512, 1536, 1400),
+                                     (1, 513, 70, 64),
+                                     (37, 1000, 300, 290)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm", [True, False])
 def test_multi_kernels_match_plain_at_edge_shapes(cuda, B, D, P, n, dtype,
@@ -400,14 +425,15 @@ def test_multi_kernels_match_plain_at_edge_shapes(cuda, B, D, P, n, dtype,
                      1e-3 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize("D", [256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm", [True, False])
-def test_multi_kernels_match_plain_on_a_catalog_shard(cuda, dtype, norm):
+def test_multi_kernels_match_plain_on_a_catalog_shard(cuda, dtype, norm, D):
     """K3 and K4 on rank (0, 1)'s shard with the mesh's operands (labels
     shifted into the shard, -1 elsewhere; n_valid its 1,637 real rows;
     col_offset 1,792 for the global session ids): their plain versions'
     numbers, K4 against the whole catalog's log-partitions."""
-    K, B, D, N = 3, 256, 256, 19
+    K, B, N = 3, 256, 19
     s, t, lbl, iids, g = _multi_case(cuda, K, B, D, SHARD_P, SHARD_ITEMS, N,
                                      dtype)
     kw = dict(scale=12.0, normalize_table=norm)
@@ -430,12 +456,13 @@ def test_multi_kernels_match_plain_on_a_catalog_shard(cuda, dtype, norm):
                      n_valid, 1e-3 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize("D", [256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P", [3584, 37888])
-def test_k4_is_deterministic(cuda, dtype, P):
+def test_k4_is_deterministic(cuda, dtype, P, D):
     """No atomics: two calls on the same inputs give the same bits, with
     several row splits (P = 3,584) and with one (P = 37,888)."""
-    s, t, lbl, iids, g, _, lse = _multi_edge_case(cuda, 512, 256, P, P - 100,
+    s, t, lbl, iids, g, _, lse = _multi_edge_case(cuda, 512, D, P, P - 100,
                                                   dtype, True)
     kw = dict(scale=12.0, normalize_table=True)
     first = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, P - 100, 0, **kw)
@@ -485,6 +512,23 @@ def test_multi_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         txm._fwd_cuda(s.transpose(1, 2).contiguous().transpose(1, 2), t,
                       lbl, iids, 500, 0, **kw)
-    long_list = torch.zeros(8, 300, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        txm._fwd_cuda(s, t, lbl, long_list, 500, 0, **kw)
+    other_rows = torch.zeros(9, 5, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        txm._fwd_cuda(s, t, lbl, other_rows, 500, 0, **kw)
+
+
+# session item lists past 256 (the paper head at --max-len above 256): the
+# membership scan walks any list, at the one-pass width and past it
+@pytest.mark.parametrize("N", [300, 1024])
+@pytest.mark.parametrize("D", [256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multi_kernels_match_plain_with_long_item_lists(cuda, N, D, dtype):
+    s, t, lbl, iids, g, want, lse = _multi_edge_case(
+        cuda, 512, D, 3584, 3429, dtype, True, N=N)
+    assert iids.shape[1] == N and int((iids >= 0).sum(1).max()) > 256
+    kw = dict(scale=12.0, normalize_table=True)
+    _assert_k3_close(txm._fwd_cuda(s, t, lbl, iids, 3429, 0, **kw), want)
+    dsr, dtab = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, 3429, 0, **kw)
+    dsr_p, dtab_p = txm._bwd_plain(*g, s, t, lbl, iids, *lse, 3429, 0, **kw)
+    _assert_k4_close(dsr, dtab, dsr_p, dtab_p, lbl, iids, 3584, 3429,
+                     1e-3 if dtype == torch.float32 else 1e-2)

@@ -399,3 +399,23 @@ def test_device_launches_count_each_replay():
      "vectorized_elementwise_kernel")])
 def test_trace_names_reduce_to_the_kernel(name, want):
     assert cs.kernel_base_name(name) == want
+
+
+def test_trace_counts_the_slab_kernels_as_their_wrappers_launches():
+    """Past 256 features a wrapper's main product is its slab kernel; the
+    trace counts it as the one-pass kernel is counted, bf16 apart."""
+    events = [("void (anonymous namespace)::xent_fwd_slab<float>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_bwd_dtable_slab"
+               "<__nv_bfloat16>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_slab_dtable_reduce"
+               "<float>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_multi_fwd_slab<float>(int)",
+               0, 1),
+              ("void (anonymous namespace)::xent_multi_bwd_dtable"
+               "<float, true>(int)", 0, 1)]
+    counts, bf16, n = cs.count_launches(events)
+    assert counts == dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=1,
+                          xent_multi_bwd=1)
+    assert bf16 == dict(xent_fwd=0, xent_bwd=1, xent_multi_fwd=0,
+                        xent_multi_bwd=0)
+    assert n == 5
