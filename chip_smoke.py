@@ -27,7 +27,10 @@ Phases, one JSON line each on stdout:
    (``k1_launch``), K2's (``k2_launch``) and K3's and K4's
    (``multi_launch``) at each timed shape: blocks, splits, resident
    blocks per SM, the product kernels' registers and local memory, and
-   each kernel's device time under ``torch.profiler``; K1 and K2 also at
+   each kernel's device time under ``torch.profiler`` with their sum
+   against the events time of the same calls (``trace``; the
+   ``kernel_time`` lines hold the library's the same way,
+   ``library_trace``); K1 and K2 also at
    each family path's rows, width, normalisation and scale on the path
    catalog, and in bf16 at the o1_bf16 path's shape, the raw table (the
    normalisation folded in, as the path calls them) against one
@@ -163,12 +166,15 @@ Phases, one JSON line each on stdout:
    4: staged by plain loads), 512 and 1,000, B 512 on the padded path
    catalog, float32 and bfloat16, normalised and not, the backward
    kernels twice with their bits repeated (``kernel_check`` /
-   ``multi_kernel_check`` lines with ``"wide": true``); K3/K4 with item
+   ``multi_kernel_check`` lines with ``"wide": true``); K2 and K4 at D 512
+   and 1,000 with the dz scratch cap lowered so that their catalog goes in
+   3 and 10 chunks (``"forced_chunks"``); K3/K4 with item
    lists of 300 and 1,024 ids at D 256 and 512 (``"long_items": true``);
    K1-K4 on the mesh's catalog shard (column offset 1,792) at D 512; and
    their times at D 512 on the path and north-star catalogs
    (``kernel_time``, ``k1_launch``, ``k2_launch``, ``multi_launch`` lines
-   with ``"D": 512``).
+   with ``"D": 512``; the launch lines split each call by kernel: dz, the
+   two products, the two reduces).
 
 12. raw clicks to a trained model — ``preprocess``: a gowalla-shaped log
    of 500,000 check-ins from ``--seed`` (``gowalla_log``), through
@@ -595,36 +601,69 @@ def time_ms(torch, fn, iters):
 
 
 def kernel_ms(torch, fn, calls):
-    """{kernel name: device ms per call} of the kernels ``fn`` launches,
-    from a ``torch.profiler`` trace of ``calls`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-    from sessionrec_tpu_torch.utils.profiling import profiled_device_events
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    """({kernel name: device ms per call} of the kernels ``fn`` launches,
+    seconds the trace was held open) from a ``torch.profiler`` trace of
+    ``calls`` calls.  The trace is held open ``TRACE_SETTLE_S`` around the
+    calls, as the path traces are, and traced again held open for each of
+    TRACE_RETRY_S in turn while some kernel's records are not a multiple
+    of ``calls`` (``records_complete``)."""
+    def run():
         for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+            fn()        # each call's output freed before the next
+
+    for settle in (TRACE_SETTLE_S,) + TRACE_RETRY_S:
+        events = traced_events(torch, run, settle)
+        if records_complete(events, calls):
+            break
     out = {}
-    for name, _, dur in profiled_device_events(prof):
+    for name, _, dur in events:
         name = name.replace("void ", "").replace("(anonymous namespace)::", "")
         name = name.split("(")[0]
         out[name] = out.get(name, 0.0) + dur / 1e3 / calls
-    return out
+    return out, settle
+
+
+def records_complete(events, calls):
+    """Whether a trace of ``calls`` calls of one function holds every
+    call's records: some, and each kernel's a multiple of ``calls``."""
+    names = [n for n, _, _ in events]
+    return bool(names) and all(names.count(n) % calls == 0
+                               for n in set(names))
+
+
+# a trace whose kernels sum to within this share of the CUDA-events time of
+# the same calls counts as complete
+TRACE_AGREE = 0.1
+
+
+def trace_coverage(kernel_sum_ms, events_ms):
+    """How a trace's per-call kernel sum compares with the events time of
+    the same calls: ``coverage`` their ratio, ``complete`` whether it is
+    within TRACE_AGREE of 1.  A trace that lost records shows as
+    incomplete, as does a call whose gaps between launches pass the
+    share."""
+    coverage = kernel_sum_ms / events_ms if events_ms > 0 else 0.0
+    return {"kernel_sum_ms": kernel_sum_ms, "events_ms": events_ms,
+            "coverage": coverage,
+            "complete": abs(coverage - 1.0) <= TRACE_AGREE}
 
 
 def emit_launch(torch, phase, shape, fn, calls, smi, **dims):
     """A launch line at ``dims``: the launch ``shape`` (blocks, splits,
     resident blocks per SM, registers and local memory of the product
-    kernels) and the device ms per call of each kernel that ``fn``
-    launches."""
-    emit({"phase": phase, **dims, **shape,
-          "kernel_ms": kernel_ms(torch, fn, calls), "card": smi})
+    kernels), the device ms per call of each kernel that ``fn`` launches,
+    and their sum against the events time of ``fn`` (``trace``)."""
+    events = time_ms(torch, fn, calls)
+    kms, settle = kernel_ms(torch, fn, calls)
+    emit({"phase": phase, **dims, **shape, "kernel_ms": kms,
+          "trace": dict(trace_coverage(sum(kms.values()), events),
+                        settle_s=settle), "card": smi})
 
 
 def library_kernel_ms(torch, fn, calls):
     """Device ms per call of the library yardstick ``fn``: the sum over the
     kernels it launches, from a ``torch.profiler`` trace."""
-    return sum(kernel_ms(torch, fn, calls).values())
+    return sum(kernel_ms(torch, fn, calls)[0].values())
 
 
 def bounds(n_bytes, n_ops, dname):
@@ -711,6 +750,8 @@ def xent_times(torch, xent, n_items, P, dtype, seed, smi, rows=B, dim=D,
     for name, r in res.items():
         emit({"phase": "kernel_time", "kernel": name, "items": n_items,
               **dims, "normalize_table": norm, "scale": scale, **r,
+              "library_trace": trace_coverage(r["library_kernel_ms"],
+                                              r["library_ms"]),
               "card": smi})
     emit_launch(torch, "k1_launch", xent.fwd_launch_shape(sr, P), k1,
                 iters, smi, **dims)
@@ -875,7 +916,10 @@ def multi_times(torch, xm, n_items, P, dtype, seed, smi, rows=B, dim=D,
     for name, r in res.items():
         emit({"phase": "kernel_time", "kernel": name, "items": n_items,
               "P": P, "K": K, "B": rows, "D": dim, "dtype": dname,
-              "normalize_table": True, **tags, **r, "card": smi})
+              "normalize_table": True, **tags, **r,
+              "library_trace": trace_coverage(r["library_kernel_ms"],
+                                              r["library_ms"]),
+              "card": smi})
     emit_launch(torch, "multi_launch", xm.multi_launch_shape(sr3, P),
                 lambda: (k3(), k4()), iters, smi, P=P, K=K, B=rows, D=dim,
                 dtype=dname, **tags)
@@ -933,14 +977,17 @@ PATHS = {
                               "expander.grus.0.w_ih"), steps=16),
 }
 
-# the kernels by which a trace counts each wrapper's launches: its main
-# product, launched once per wrapper call, up to 256 features and past
+# the kernels by which a trace counts each wrapper's launches, one per
+# wrapper call up to 256 features and past: the forward's main product; the
+# backward's d_table product, and past 256 features its finish kernel (the
+# slab path's dz kernel runs once a catalog chunk, its products are K2's
+# and K4's alike)
 TRACE_KERNEL = {"xent_fwd": ("xent_fwd_partial", "xent_fwd_slab"),
-                "xent_bwd": ("xent_bwd_dtable", "xent_bwd_dtable_slab"),
+                "xent_bwd": ("xent_bwd_dtable", "xent_bwd_finish_slab"),
                 "xent_multi_fwd": ("xent_multi_fwd_partial",
                                    "xent_multi_fwd_slab"),
                 "xent_multi_bwd": ("xent_multi_bwd_dtable",
-                                   "xent_multi_bwd_dtable_slab")}
+                                   "xent_multi_bwd_finish_slab")}
 
 
 def kernel_base_name(name):
@@ -957,19 +1004,26 @@ def kernel_base_name(name):
 # steps' worth in 2 of 5 traces, where 4 traces that waited 0.2 s lost
 # none
 TRACE_SETTLE_S = 0.5
+# the longer holds of kernel_ms's retraces: the device's records reach a
+# trace later as the process ages.  On an H100 the launch lines of this
+# script's first phases are complete at 0.5 s; late in the run the same
+# kind of trace loses some or all of its records at 0.5 s and keeps them
+# at 2 s (the launch lines' ``settle_s``).
+TRACE_RETRY_S = (2.0, 8.0)
 
 
-def traced_events(torch, fn):
+def traced_events(torch, fn, settle=TRACE_SETTLE_S):
     """(name, start us, duration us) of the device's work in a
-    ``torch.profiler`` trace of ``fn()``."""
+    ``torch.profiler`` trace of ``fn()``, held open ``settle`` seconds
+    before and after it."""
     from torch.profiler import ProfilerActivity, profile
     from sessionrec_tpu_torch.utils.profiling import profiled_device_events
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_SETTLE_S)
+        time.sleep(settle)
         fn()
         torch.cuda.synchronize()
-        time.sleep(TRACE_SETTLE_S)
+        time.sleep(settle)
     return profiled_device_events(prof)
 
 
@@ -2445,12 +2499,42 @@ def wide_check_cases(torch):
             for norm in (True, False)]
 
 
+# catalog tiles a chunk of K2's dz in the forced-chunk checks: 3 chunks
+# of the padded path catalog's 56 tiles (K4's 3 B rows: 10 chunks of 6)
+FORCED_CHUNK_TILES = 20
+
+
+def phase_forced_chunks(torch, xent, xm, seed):
+    """K2 and K4 at ``wide_check_cases``'s widths of 512 and 1,000 with the
+    dz scratch cap (``xent.DZ_SCRATCH_BYTES``) lowered to
+    FORCED_CHUNK_TILES of K2's catalog tiles, so both run their catalog in
+    3 or more chunks: against their plain versions, bits repeated
+    (``kernel_check`` / ``multi_kernel_check`` lines with
+    ``"forced_chunks"``, K2's or K4's chunk count).  The cap is restored
+    after."""
+    cap = xent.DZ_SCRATCH_BYTES
+    try:
+        for i, case in enumerate(c for c in wide_check_cases(torch)
+                                 if c[-1] >= WIDE_D):
+            _, P, dtype, _, rows, dim = case
+            esz = torch.empty((), dtype=dtype).element_size()
+            xent.DZ_SCRATCH_BYTES = FORCED_CHUNK_TILES * rows * 64 * esz
+            chunks = [xent.slab_bwd_plan(r, P, esz, 1, xent.slabs(dim))
+                      ["chunks"] for r in (rows, K * rows)]
+            check(min(chunks) >= 3, f"forced chunks {chunks} < 3")
+            xent_check(torch, xent, case, seed + i, forced_chunks=chunks[0])
+            multi_check(torch, xm, case, seed + i, forced_chunks=chunks[1])
+    finally:
+        xent.DZ_SCRATCH_BYTES = cap
+
+
 def phase_wide_checks(torch, xent, xm, seed):
     """K1-K4 against their plain versions past 256 features
-    (``wide_check_cases``, ``kernel_check`` / ``multi_kernel_check``
-    lines with ``"wide": true``); K3/K4 with LONG_NS session items a row at
-    D and WIDE_D (``"long_items": true``); and K1-K4 on a catalog shard
-    with its column offset at WIDE_D, float32, normalised.  The
+    (``wide_check_cases``, ``kernel_check`` / ``multi_kernel_check`` lines
+    with ``"wide": true``); K2 and K4 with their catalog in 3 or more
+    chunks (``phase_forced_chunks``); K3/K4 with LONG_NS session items a
+    row at D and WIDE_D (``"long_items": true``); and K1-K4 on a catalog
+    shard with its column offset at WIDE_D, float32, normalised.  The
     tolerances of the other checks; the backward kernels twice, their
     bits repeated."""
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
@@ -2458,6 +2542,7 @@ def phase_wide_checks(torch, xent, xm, seed):
     for i, case in enumerate(wide_check_cases(torch)):
         xent_check(torch, xent, case, seed + i, wide=True)
         multi_check(torch, xm, case, seed + i, wide=True)
+    phase_forced_chunks(torch, xent, xm, seed)
     for dim in (D, WIDE_D):
         for ns in LONG_NS:
             case = (PATH_ITEMS, pad_catalog(PATH_ITEMS), torch.float32, True,

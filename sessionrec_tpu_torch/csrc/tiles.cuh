@@ -2,8 +2,9 @@
 // (xent_multi.cu): asynchronous staging of 64-row tiles into shared
 // memory, register-tiled float32 products over them, the forward tile loop
 // that K1 and K3 share, and the kernels they share: the table normalised
-// (or its norms taken) once, and the row splits' d_table partials reduced
-// in a fixed order.
+// (or its norms taken) once, the row splits' d_table partials reduced in a
+// fixed order, and past 256 features the backward's two products over dz
+// and their chunk loop (the slab path, below).
 //
 // A staged tile keeps the operand's own type (float32 or bfloat16) and its
 // row-major layout, with a row stride of ld = round_up(D, 32) + 4
@@ -16,6 +17,8 @@
 // are the fastest of those timed on the H100 (PERF.md).
 
 #pragma once
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -137,25 +140,26 @@ __device__ __forceinline__ int lane_feature(int j) {
   return 4 * (threadIdx.x & 31) + (j & 3) + 128 * (j >> 2);
 }
 
-// acc[i][j] += sum_{k < TILE} X[k][8 w + i] * Y[k][lane_feature(j)] for
+// acc[i][j] += sum_{k < KN} X[k][8 w + i] * Y[k][lane_feature(j)] for
 // warp w: each warp owns 8 output rows, each lane 8 features (the upper
 // four only when HI, D > 128), so a step of k is 4 shared loads (the two X
-// loads a broadcast) for 64 FMAs.  X is a float32 [TILE][LDZ] tile, Y a
-// staged tile.  A lane whose features pass the tile's row reads in-row
-// columns instead; the caller stores no feature at or past D.
-template <typename T, bool HI>
-__device__ __forceinline__ void rank_update(float (&acc)[8][8],
-                                            const float* X, const T* Y,
-                                            int ld) {
+// loads a broadcast) for 64 FMAs.  X is a [KN][ldx] tile (float32, or the
+// operand type), Y a staged tile.  A lane whose features pass the tile's
+// row reads in-row columns instead; the caller stores no feature at or
+// past D.  UNROLL steps of k are unrolled.
+template <int KN, bool HI, int UNROLL, typename TX, typename T>
+__device__ __forceinline__ void rank_update_rows(float (&acc)[8][8],
+                                                 const TX* X, int ldx,
+                                                 const T* Y, int ld) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const float* x_p = X + 8 * w;
+  const TX* x_p = X + 8 * w;
   const T* y0_p = Y + min(4 * l, ld - 4);
   const T* y1_p = Y + min(4 * l + 128, ld - 4);
-#pragma unroll 8
-  for (int k = 0; k < TILE; ++k) {
+#pragma unroll (UNROLL)
+  for (int k = 0; k < KN; ++k) {
     float x0[4], x1[4], y0[4], y1[4];
-    load4(x0, x_p + k * LDZ);
-    load4(x1, x_p + k * LDZ + 4);
+    load4(x0, x_p + k * ldx);
+    load4(x1, x_p + k * ldx + 4);
     load4(y0, y0_p + k * ld);
     if (HI) load4(y1, y1_p + k * ld);
 #pragma unroll
@@ -171,6 +175,14 @@ __device__ __forceinline__ void rank_update(float (&acc)[8][8],
       }
     }
   }
+}
+
+// rank_update_rows over a float32 [TILE][LDZ] dz tile
+template <typename T, bool HI>
+__device__ __forceinline__ void rank_update(float (&acc)[8][8],
+                                            const float* X, const T* Y,
+                                            int ld) {
+  rank_update_rows<TILE, HI, 8>(acc, X, LDZ, Y, ld);
 }
 
 // one row of 8 accumulators per lane (features lane_feature(j)) to a
@@ -486,15 +498,39 @@ __global__ void __launch_bounds__(NT) xent_bwd_dtable_reduce(
 // ---------------------------------------------------------------------------
 // The slab path, for D > MAX_D.  A row of D features is cut into
 // slab_count(D) slabs of slab_width(D) features (the last one narrower, none
-// wider than MAX_D).  A block stages one slab of each operand tile at a time
-// into a [TILE][tile_ld(slab_width(D))] buffer, so its shared memory does not
-// grow with D, and a logits tile sums the products of all its slabs before
-// anything reads it (slab_logits).  The backward kernels take the slab of
-// their output features from the grid's z axis and recompute the full-width
-// dz tile in every slab's block; the l2norm VJP, which couples a table row's
-// features, is applied once every slab's partial is in
-// (xent_slab_dtable_reduce).  One buffer per operand, waited for whole: a
-// simple design, not yet a tuned one.
+// wider than MAX_D), so that a thread's 8 x 8 accumulators (8 features a
+// lane) cover one slab of an output row at any width.
+//
+// K1's and K3's forward stages one slab of each operand tile at a time into
+// a [TILE][tile_ld(slab_width(D))] buffer and sums each logits tile over
+// the slabs before anything reads it (slab_logits, fwd_slab_loop).
+//
+// K2's and K4's backward computes dz once, then runs three products (a
+// block per output slab that recomputed the full-width logits would run
+// 2 (slabs + 1) products of 2 R P D operations where the bound counts 3).
+// For each catalog chunk of at most the wrapper's scratch
+// cap (ops/xent.py:DZ_SCRATCH_BYTES), slab_bwd_chunks launches
+//   * the loss's dz kernel (xent_bwd_dz_slab, xent_multi_bwd_dz_slab): one
+//     block per (64-row tile, 64-row catalog tile) computes the logits once
+//     over all D features (dz_logits: k-chunks of KC features, two
+//     cp.async stages) and writes dz, rounded to the operand type as the
+//     JAX kernel feeds its matrix unit, to a [rows, chunk] scratch in that
+//     type: exact, and half the bytes in bfloat16;
+//   * xent_slab_dtable: dz^T sr, output tiles of 64 catalog rows x one slab,
+//     the R rows reduced in stages of KR, split over the grid's z axis so
+//     that the blocks fill the card; float32 partials [split][P][D];
+//   * xent_slab_dsr: dz t, output tiles of 64 rows x one slab, the chunk's
+//     catalog reduced in stages of KR, split over z; one float32 partial per
+//     split and chunk, summed in chunk and split order by
+//     xent_bwd_dsr_reduce.
+// Then the loss's finish kernel sums d_table's partials in split order and
+// applies the l2norm VJP, whose dot product spans every slab
+// (slab_dtable_finish).  Work: 3 * 2 R P D operations, as the bound counts; dz
+// adds 3 R P operand-type elements to the bytes moved (written once, read by
+// each product): about 8% of the bound at the north star.  Each product streams
+// both of its operands through two cp.async stages (the next stage lands while
+// the current one is used) and sizes its shared memory (93 KB in float32) for
+// two resident blocks per SM.  No atomics: the same inputs give the same bits.
 // ---------------------------------------------------------------------------
 
 __host__ __device__ __forceinline__ int slab_count(int D) {
@@ -513,19 +549,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// columns [k0, k0 + w) of rows [row0, row0 + TILE) of a row-major
+// columns [k0, k0 + w) of rows [row0, row0 + NR) of a row-major
 // [n_rows, D] array into dst (row stride ld), as columns [0, round_up(w,
 // 4)); rows at or past n_rows and columns at or past w read 0.  With vec
 // (D % 4 == 0 and the array aligned to four elements, so k0 + k is too)
 // every four elements of a live row go by one cp.async, to be waited for
 // with the group that the caller commits.
-template <typename T>
+template <int NR = TILE, typename T>
 __device__ __forceinline__ void stage_slab(T* dst, int ld,
                                            const T* __restrict__ src,
                                            int row0, int n_rows, int D,
                                            int k0, int w, bool vec) {
   const int q4 = (w + 3) >> 2;
-  for (int e = threadIdx.x; e < TILE * q4; e += NT) {
+  for (int e = threadIdx.x; e < NR * q4; e += NT) {
     const int r = e / q4, k = (e - r * q4) * 4;
     const int gr = row0 + r;
     T* d = dst + r * ld + k;
@@ -586,14 +622,6 @@ template <typename T, bool MEMBERS>
 size_t fwd_slab_smem(int D) {
   return (size_t)2 * TILE * tile_ld(slab_width(D)) * sizeof(T) +
          (MEMBERS ? TILE * sizeof(unsigned long long) : 0);
-}
-
-// shared memory of a slab-path backward block: two slab tiles and the dz
-// tile
-template <typename T>
-size_t bwd_slab_smem(int D) {
-  return (size_t)2 * TILE * tile_ld(slab_width(D)) * sizeof(T) +
-         (size_t)TILE * LDZ * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
@@ -715,12 +743,316 @@ __device__ __forceinline__ void fwd_slab_loop(
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The slab backward (see the slab path's note above).
+// ---------------------------------------------------------------------------
+
+constexpr int KC = 64;        // features of a k-chunk of dz_logits
+constexpr int KR = 32;        // reduction rows of a product stage
+constexpr int LDX = KR + 4;   // row stride of xent_slab_dsr's [TILE][KR] dz
+// elements of a product stage's dz tile: [KR][LDZ] (d_table) or [TILE][LDX]
+// (d_sr)
+constexpr int STAGE_X = KR * LDZ > TILE * LDX ? KR * LDZ : TILE * LDX;
+
+// shared memory of a dz block: two stages of a [TILE][KC] k-chunk of the
+// rows and of the catalog tile
+template <typename T>
+__host__ __device__ constexpr size_t dz_smem() {
+  return (size_t)4 * TILE * (KC + 4) * sizeof(T);
+}
+static_assert(KC + 4 == (KC + 31) / 32 * 32 + 4, "dz_smem: tile_ld(KC)");
+
+// shared memory of a product block: two stages of its dz tile and of KR
+// rows of its slab
+template <typename T>
+size_t slab_product_smem(int D) {
+  return (size_t)2 * (STAGE_X + KR * tile_ld(slab_width(D))) * sizeof(T);
+}
+
+// S = the 64 x 64 logits tile of rows [a0, a0 + TILE) of a [a_rows, D]
+// against rows [c0, c0 + TILE) of c [c_rows, D] over all D features, in
+// k-chunks of KC features through two stages of smem (dz_smem), the next
+// chunk arriving by cp.async while the current one is used
+// (product_logits's thread layout).  On return every thread is done
+// reading smem.
+template <typename T>
+__device__ __forceinline__ void dz_logits(float (&S)[4][4], T* smem,
+                                          const T* __restrict__ a, int a0,
+                                          int a_rows, const T* __restrict__ c,
+                                          int c0, int c_rows, int D,
+                                          bool vec) {
+  constexpr int ld = KC + 4;
+  const int n_k = (D + KC - 1) / KC;
+  auto stage = [&](int kc) {
+    T* A = smem + (kc & 1) * 2 * TILE * ld;
+    const int k0 = kc * KC, w = min(KC, D - k0);
+    stage_slab(A, ld, a, a0, a_rows, D, k0, w, vec);
+    stage_slab(A + TILE * ld, ld, c, c0, c_rows, D, k0, w, vec);
+  };
+  stage(0);
+  cp_async_commit();
+  for (int kc = 0; kc < n_k; ++kc) {
+    if (kc + 1 < n_k) stage(kc + 1);
+    cp_async_commit();
+    cp_async_wait_prev();  // this chunk has landed
+    __syncthreads();
+    const T* A = smem + (kc & 1) * 2 * TILE * ld;
+    product_logits(S, A, A + TILE * ld, ld, (min(KC, D - kc * KC) + 3) & ~3);
+    __syncthreads();  // the chunk is consumed
+  }
+}
+
+// rows [r0, r0 + NR) x columns [q0, q0 + NC) of the dz scratch (row stride
+// ldz; every element written, every four aligned) into dst (row stride
+// lds), by cp.async
+template <int NR, int NC, typename T>
+__device__ __forceinline__ void stage_dz(T* dst, int lds,
+                                         const T* __restrict__ dz, int ldz,
+                                         int r0, int q0) {
+  constexpr int Q = NC / 4;
+  for (int e = threadIdx.x; e < NR * Q; e += NT) {
+    const int r = e / Q, k = (e - r * Q) * 4;
+    copy4_async(dst + r * lds + k, dz + (size_t)(r0 + r) * ldz + q0 + k);
+  }
+}
+
+// two consecutive shared elements widened to float32
+__device__ __forceinline__ void load2(float (&x)[2], const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+}
+__device__ __forceinline__ void load2(float (&x)[2], const __nv_bfloat16* p) {
+  const float2 v =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  x[0] = v.x;
+  x[1] = v.y;
+}
+
+// acc[i][j] += sum_{k < KN} X[8 w + i][k] * Y[k][lane_feature(j)]: as
+// rank_update_rows with X stored [output row][k] (row stride ldx, even),
+// read two k at a time (8 broadcast loads for 2 steps of k), so a step of
+// k is 6 shared loads for 64 FMAs
+template <int KN, typename TX, typename T>
+__device__ __forceinline__ void rank_update_cols(float (&acc)[8][8],
+                                                 const TX* X, int ldx,
+                                                 const T* Y, int ld) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const TX* x_p = X + 8 * w * ldx;
+  const T* y0_p = Y + min(4 * l, ld - 4);
+  const T* y1_p = Y + min(4 * l + 128, ld - 4);
+#pragma unroll 1
+  for (int k = 0; k < KN; k += 2) {
+    float x[8][2];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) load2(x[i], x_p + i * ldx + k);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      float y0[4], y1[4];
+      load4(y0, y0_p + (k + kk) * ld);
+      load4(y1, y1_p + (k + kk) * ld);
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][v] = fmaf(x[i][kk], y0[v], acc[i][v]);
+          acc[i][v + 4] = fmaf(x[i][kk], y1[v], acc[i][v + 4]);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// d_table's partial: grid = (catalog tiles of the chunk, slabs, row
+// splits).  Block (x, y, z) owns catalog rows c0 + 64 x .. of the chunk that
+// starts at table row c0 and features slab y, and reduces the 64-row tiles
+// [z tiles_per_split, (z + 1) tiles_per_split) of the R rows in stages of KR:
+// dz [KR][64] from the scratch and sr's [KR] rows of the slab, double-
+// buffered; G = dz^T sr in registers (warp w owns catalog rows 8 w ..
+// 8 w + 7), written as split z's float32 partial [P][D].
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) xent_slab_dtable(
+    const T* __restrict__ dz, int ldz, const T* __restrict__ sr, int R, int P,
+    int D, int vec, int c0, int tiles_per_split, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = slab_width(D), ldy = tile_ld(sw);
+  const int stage_elems = STAGE_X + KR * ldy;
+  T* buf = reinterpret_cast<T*>(smem);
+  const int q0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.y * sw, w = min(sw, D - k0);
+  const int n_rows = (R + TILE - 1) / TILE;
+  const int r_begin = blockIdx.z * tiles_per_split * TILE;
+  const int r_end =
+      min(n_rows, (int)(blockIdx.z + 1) * tiles_per_split) * TILE;
+  const int n_steps = (r_end - r_begin) / KR;
+  auto stage = [&](int s) {
+    T* X = buf + (s & 1) * stage_elems;
+    const int r = r_begin + s * KR;
+    stage_dz<KR, TILE>(X, LDZ, dz, ldz, r, q0);
+    stage_slab<KR>(X + STAGE_X, ldy, sr, r, R, D, k0, w, vec);
+  };
+  stage(0);
+  cp_async_commit();
+  float G[8][8] = {};
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) stage(s + 1);
+    cp_async_commit();
+    cp_async_wait_prev();  // this stage has landed
+    __syncthreads();
+    const T* X = buf + (s & 1) * stage_elems;
+    rank_update_rows<KR, true, 4>(G, X, LDZ, X + STAGE_X, ldy);
+    __syncthreads();  // the stage is consumed
+  }
+  const int wp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = c0 + q0 + 8 * wp + i;
+    if (col < P)
+      store_slab8(part + ((size_t)blockIdx.z * P + col) * D + k0, G[i], w, D);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// d_sr's partial: grid = (64-row tiles of the R rows, slabs, catalog
+// splits).  Block (x, y, z) owns rows 64 x .. and features slab y, and
+// reduces the chunk's catalog tiles [z tiles_per_split, (z + 1)
+// tiles_per_split) (of n_tiles; the chunk starts at table row c0) in stages
+// of KR: dz [64][KR] from the scratch and t's [KR] rows of the slab,
+// double-buffered; dz t in registers (warp w owns rows 8 w .. 8 w + 7),
+// written to out [z][R][D].
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) xent_slab_dsr(
+    const T* __restrict__ dz, int ldz, const T* __restrict__ op, int R, int P,
+    int D, int vec, int c0, int n_tiles, int tiles_per_split,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = slab_width(D), ldy = tile_ld(sw);
+  const int stage_elems = STAGE_X + KR * ldy;
+  T* buf = reinterpret_cast<T*>(smem);
+  const int r0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.y * sw, w = min(sw, D - k0);
+  const int q_begin = blockIdx.z * tiles_per_split * TILE;
+  const int q_end =
+      min(n_tiles, (int)(blockIdx.z + 1) * tiles_per_split) * TILE;
+  const int n_steps = (q_end - q_begin) / KR;
+  auto stage = [&](int s) {
+    T* X = buf + (s & 1) * stage_elems;
+    const int q = q_begin + s * KR;
+    stage_dz<TILE, KR>(X, LDX, dz, ldz, r0, q);
+    stage_slab<KR>(X + STAGE_X, ldy, op, c0 + q, P, D, k0, w, vec);
+  };
+  stage(0);
+  cp_async_commit();
+  float acc[8][8] = {};
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) stage(s + 1);
+    cp_async_commit();
+    cp_async_wait_prev();  // this stage has landed
+    __syncthreads();
+    const T* X = buf + (s & 1) * stage_elems;
+    rank_update_cols<KR>(acc, X, LDX, X + STAGE_X, ldy);
+    __syncthreads();  // the stage is consumed
+  }
+  const int wp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + 8 * wp + i;
+    if (r < R)
+      store_slab8(out + ((size_t)blockIdx.z * R + r) * D + k0, acc[i], w, D);
+  }
+}
+
+// resident blocks per SM, registers and local memory bytes per thread of
+// kernel fn with smem bytes of dynamic shared memory (set as its maximum)
+inline void kernel_attrs(const void* fn, int smem, int* blocks, int* regs,
+                         int* local) {
+  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem);
+  cudaFuncAttributes a;
+  cudaFuncGetAttributes(&a, fn);
+  *regs = a.numRegs;
+  *local = (int)a.localSizeBytes;
+}
+
+template <typename T>
+int set_product_smem(int D) {
+  const int smem = (int)slab_product_smem<T>(D);
+  cudaFuncSetAttribute(xent_slab_dtable<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(xent_slab_dsr<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return smem;
+}
+
+// the two product kernels' numbers at width D: blocks[k], regs[k], local[k]
+// of xent_slab_dtable (k = 0) and xent_slab_dsr (k = 1)
+template <typename T>
+int slab_product_attrs(int D, int* blocks, int* regs, int* local) {
+  const int smem = (int)slab_product_smem<T>(D);
+  kernel_attrs((const void*)xent_slab_dtable<T>, smem, &blocks[0], &regs[0],
+               &local[0]);
+  kernel_attrs((const void*)xent_slab_dsr<T>, smem, &blocks[1], &regs[1],
+               &local[1]);
+  return (int)cudaGetLastError();
+}
+
+// The chunk loop of the slab backward.  The catalog's n_tiles 64-row tiles
+// go in chunks of chunk_tiles; for each chunk, launch_dz(c0, tiles, ldz)
+// writes its dz into dz [rows * 64][ldz = chunk_tiles * 64], then
+// xent_slab_dtable writes the chunk's catalog rows of dtab_part [t_split]
+// [P][D] (row splits of t_per tiles) and xent_slab_dsr its d_sr partials,
+// ceil(tiles / s_per) of them, after the earlier chunks' in dsr_part
+// [parts][R][D] (into dsr itself when the whole catalog makes one).  Last,
+// xent_bwd_dsr_reduce sums the partials in chunk and split order.
+// ops/xent.py:slab_bwd_plan chooses the numbers and the scratch.
+template <typename T, typename LaunchDz>
+int slab_bwd_chunks(LaunchDz launch_dz, const T* sr, const T* op, int R,
+                    int P, int D, int vec, int chunk_tiles, int t_split,
+                    int t_per, int s_per, T* dz, float* dtab_part,
+                    float* dsr_part, float* dsr, cudaStream_t stream) {
+  const int n_tiles = (P + TILE - 1) / TILE, n_rows = (R + TILE - 1) / TILE;
+  const int slabs = slab_count(D), ldz = chunk_tiles * TILE;
+  const int smem = set_product_smem<T>(D);
+  int parts = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += chunk_tiles)
+    parts += (std::min(chunk_tiles, n_tiles - t0) + s_per - 1) / s_per;
+  float* out = parts > 1 ? dsr_part : dsr;
+  cudaError_t err;
+  int part = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += chunk_tiles) {
+    const int tiles = std::min(chunk_tiles, n_tiles - t0), c0 = t0 * TILE;
+    const int e = launch_dz(c0, tiles, ldz);
+    if (e) return e;
+    xent_slab_dtable<T><<<dim3(tiles, slabs, t_split), NT, smem, stream>>>(
+        dz, ldz, sr, R, P, D, vec, c0, t_per, dtab_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int splits = (tiles + s_per - 1) / s_per;
+    xent_slab_dsr<T><<<dim3(n_rows, slabs, splits), NT, smem, stream>>>(
+        dz, ldz, op, R, P, D, vec, c0, tiles, s_per,
+        out + (size_t)part * R * D);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    part += splits;
+  }
+  if (parts > 1) {
+    const int n = R * D;
+    xent_bwd_dsr_reduce<<<(n + NT - 1) / NT, NT, 0, stream>>>(dsr_part,
+                                                              parts, n, dsr);
+  }
+  return (int)cudaGetLastError();
+}
+
 // d_table for D > MAX_D from the row splits' float32 partials [n_split][P][D]
 // (every slab's columns), summed in split order, with the l2norm VJP of
 // finish_dtable_row when the table is normalised: its dot product over the
-// whole row, then the row.  One warp per catalog row, two passes over D.
+// whole row, then the row.  One warp per catalog row, two passes over D;
+// each loss's finish kernel (xent_bwd_finish_slab, xent_multi_bwd_finish_slab)
+// runs it once a call.
 template <typename T>
-__global__ void __launch_bounds__(NT) xent_slab_dtable_reduce(
+__device__ __forceinline__ void slab_dtable_finish(
     const float* __restrict__ part, int n_split, const T* __restrict__ tab,
     const float* __restrict__ nrm, int P, int D, int normalize,
     T* __restrict__ dtab) {

@@ -62,16 +62,32 @@
 // D % 4 == 0 and aligned arrays the tiles are staged by cp.async, otherwise
 // by plain loads.
 //
-// Past D = MAX_D (256) the slab kernels run (the slab path of tiles.cuh):
-// xent_bwd_dtable_slab and xent_bwd_dsr_slab add a z axis of feature slabs
-// to the grids above.  Each block recomputes the full-width dz tile (its
-// logits summed over every slab) and accumulates only its own slab of the
-// output features, so a thread's accumulators stay 8 x 8 at any width; the
-// logits are computed once per slab, not once per output.  d_table always
-// goes through float32 partials, and xent_slab_dtable_reduce sums them and
-// applies the l2norm VJP, whose dot product spans every slab.  Still no
-// atomics.  Each entry point launches on the given stream, does not
-// synchronise and returns cudaGetLastError().
+// Past D = MAX_D (256) features srt_xent_bwd_slab runs the slab path of
+// tiles.cuh.  A thread's 8 x 8 accumulators cover one slab of at most 256
+// features of an output row, and a block per output slab that recomputed
+// the full-width logits would run 2 (slabs + 1) products of 2 B P D
+// operations where the bound counts 3.  It is bound by operations as
+// above: at D = 512, B = 512 and the north-star catalog (37,888 rows)
+// 3 * 2 B P D = 59.6 GFLOP, 0.88 ms at the FP32 peak.  The design computes
+// dz once and runs three products, 3 * 2 B P D operations in all:
+//   * xent_bwd_dz_slab: one block per (64-row batch tile, 64-row catalog
+//     tile) computes its logits tile once over all D features, staged in
+//     k-chunks of 64 features through two cp.async stages, and writes dz,
+//     rounded to the operand type by dlogit, to a [B, P] scratch in that
+//     type (exact).  The scratch is capped (ops/xent.py:DZ_SCRATCH_BYTES);
+//     a larger catalog goes in chunks, each chunk's dz, then its products.
+//   * xent_slab_dtable (dz^T sr) and xent_slab_dsr (dz t), tiles.cuh's
+//     register-tiled products shared with K4: 8 x 8 accumulators a thread,
+//     the reduction axis streamed through two cp.async stages, shared
+//     memory sized for two resident blocks per SM, their grids split over
+//     the reduction axis to fill the card.
+//   * xent_bwd_dsr_reduce sums d_sr's partials in chunk and split order;
+//     xent_bwd_finish_slab sums d_table's row splits in order and applies
+//     the l2norm VJP over the whole row.
+// dz adds only bytes: written once and read by each product, 3 B P
+// elements, 233 MB in float32 at the north star (0.07 ms at 3.35 TB/s, 8%
+// of the bound).  Still no atomics.  Each entry point launches on the given
+// stream, does not synchronise and returns cudaGetLastError().
 
 #include "tiles.cuh"
 
@@ -242,175 +258,74 @@ __global__ void __launch_bounds__(NT, 1) xent_bwd_dsr(
 }
 
 // ---------------------------------------------------------------------------
-// d_table for D > MAX_D: grid = (catalog tiles, row splits, slabs).  For
-// each 64-row chunk of its split a block recomputes the dz tile of its
-// catalog tile over all D features, stages the chunk's slab blockIdx.z of
-// sr and accumulates that slab of G = dz^T sr (warp w owns catalog rows
-// 8 w .. 8 w + 7), written as the split's float32 partial.
+// dz for D > MAX_D: grid = (64-row batch tiles, 64-row catalog tiles of the
+// chunk that starts at table row c0).  A block computes its logits tile once
+// over all D features (dz_logits) and writes its dz tile, rounded to the
+// operand type, to dz [rows * 64][ldz] at the chunk's columns; rows past B
+// and columns past P get 0.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) xent_bwd_dtable_slab(
+__global__ void __launch_bounds__(NT, 2) xent_bwd_dz_slab(
     const float* __restrict__ g, const T* __restrict__ sr,
     const T* __restrict__ op, const int* __restrict__ labels,
     const float* __restrict__ lse, int B, int P, int D, int n_valid,
-    int col_offset, float scale, int vec, int chunks_per_split,
-    float* __restrict__ part) {
+    int col_offset, float scale, int vec, int c0, int ldz,
+    T* __restrict__ dz) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int sw = slab_width(D), ld = tile_ld(sw);
-  T* C_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] t slab
-  T* A_s = C_s + TILE * ld;                            // [TILE][ld] sr slab
-  float* dz_s = reinterpret_cast<float*>(A_s + TILE * ld);  // [row][col]
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int p0 = blockIdx.x * TILE;
-  const int n_chunks = (B + TILE - 1) / TILE;
-  const int c_begin = blockIdx.y * chunks_per_split;
-  const int c_end = min(n_chunks, c_begin + chunks_per_split);
-  const int k0 = blockIdx.z * sw, w = min(sw, D - k0);
-
-  float G[8][8] = {};
-  for (int c = c_begin; c < c_end; ++c) {
-    float S[4][4] = {};
-    slab_logits(S, A_s, C_s, ld, sr, c * TILE, B, op, p0, P, D, sw, vec);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty + 16 * i, r = c * TILE + rl;
-      const bool row_ok = r < B;
-      const int lbl = row_ok ? labels[r] : -1;
-      const float lse_r = row_ok ? lse[r] : 0.f;
-      const float g_r = row_ok ? g[r] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        dz_s[rl * LDZ + cl] =
-            dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid, lbl,
-                      lse_r, g_r, row_ok, scale);
-      }
-    }
-    stage_slab(A_s, ld, sr, c * TILE, B, D, k0, w, vec);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    rank_update<T, true>(G, dz_s, A_s, ld);
-    __syncthreads();  // A_s and dz_s are consumed
-  }
-
-  const int wp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int col = p0 + 8 * wp + i;
-    if (col < P)
-      store_slab8(part + ((size_t)blockIdx.y * P + col) * D + k0, G[i], w, D);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// d_sr for D > MAX_D: grid = (batch tiles, catalog splits, slabs).  For each
-// catalog tile of its split a block recomputes the dz tile of its 64 rows
-// over all D features, stages the tile's slab blockIdx.z of t and
-// accumulates that slab of dz t (warp w owns batch rows 8 w .. 8 w + 7),
-// written to its split's partial (d_sr itself when there is one split).
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT, 1) xent_bwd_dsr_slab(
-    const float* __restrict__ g, const T* __restrict__ sr,
-    const T* __restrict__ op, const int* __restrict__ labels,
-    const float* __restrict__ lse, int B, int P, int D, int n_valid,
-    int col_offset, float scale, int vec, int tiles_per_split,
-    float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int sw = slab_width(D), ld = tile_ld(sw);
-  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr slab
-  T* C_s = A_s + TILE * ld;                            // [TILE][ld] t slab
-  float* dz_s = reinterpret_cast<float*>(C_s + TILE * ld);  // [col][row]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * TILE;
-  const int n_tiles = (P + TILE - 1) / TILE;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  const int k0 = blockIdx.z * sw, w = min(sw, D - k0);
-
-  int lbl[4];
-  float lse_r[4], g_r[4];
-  bool row_ok[4];
+  const int row0 = blockIdx.x * TILE, q0 = blockIdx.y * TILE;
+  const int p0 = c0 + q0;
+  float S[4][4] = {};
+  dz_logits(S, reinterpret_cast<T*>(smem), sr, row0, B, op, p0, P, D, vec);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty + 16 * i;
-    row_ok[i] = r < B;
-    lbl[i] = row_ok[i] ? labels[r] : -1;
-    lse_r[i] = row_ok[i] ? lse[r] : 0.f;
-    g_r[i] = row_ok[i] ? g[r] : 0.f;
-  }
-
-  float acc[8][8] = {};
-  for (int t = t_begin; t < t_end; ++t) {
-    const int p0 = t * TILE;
-    float S[4][4] = {};
-    slab_logits(S, A_s, C_s, ld, sr, row0, B, op, p0, P, D, sw, vec);
+    const bool row_ok = r < B;
+    const int lbl = row_ok ? labels[r] : -1;
+    const float lse_r = row_ok ? lse[r] : 0.f;
+    const float g_r = row_ok ? g[r] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        dz_s[cl * LDZ + ty + 16 * i] =
-            dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid,
-                      lbl[i], lse_r[i], g_r[i], row_ok[i], scale);
-      }
-    stage_slab(C_s, ld, op, p0, P, D, k0, w, vec);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    rank_update<T, true>(acc, dz_s, C_s, ld);
-    __syncthreads();  // C_s and dz_s are consumed
-  }
-
-  const int wp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + 8 * wp + i;
-    if (r < B)
-      store_slab8(out + ((size_t)blockIdx.y * B + r) * D + k0, acc[i], w, D);
+    for (int j = 0; j < 4; ++j) {
+      const int cl = tx + 16 * j;
+      dz[(size_t)r * ldz + q0 + cl] = from_f<T>(
+          dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid, lbl,
+                    lse_r, g_r, row_ok, scale));
+    }
   }
 }
 
+// d_table for D > MAX_D: the row splits' partials summed, the l2norm VJP
+// (slab_dtable_finish); launched once a call
 template <typename T>
-int set_slab_smem(int D) {
-  const int smem = (int)bwd_slab_smem<T>(D);
-  cudaFuncSetAttribute(xent_bwd_dtable_slab<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(xent_bwd_dsr_slab<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return smem;
+__global__ void __launch_bounds__(NT) xent_bwd_finish_slab(
+    const float* __restrict__ part, int n_split, const T* __restrict__ tab,
+    const float* __restrict__ nrm, int P, int D, int normalize,
+    T* __restrict__ dtab) {
+  slab_dtable_finish<T>(part, n_split, tab, nrm, P, D, normalize, dtab);
 }
 
-// srt_xent_bwd_slots's numbers for the two slab kernels
+// srt_xent_bwd_slots's numbers for the two product kernels of the slab path
 template <typename T>
 int slab_slots(int D, int* out) {
-  const int smem = set_slab_smem<T>(D);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], xent_bwd_dtable_slab<T>, NT, smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1],
-                                                xent_bwd_dsr_slab<T>, NT, smem);
-  cudaFuncAttributes a;
-  cudaFuncGetAttributes(&a, xent_bwd_dtable_slab<T>);
-  out[3] = a.numRegs;
-  out[5] = (int)a.localSizeBytes;
-  cudaFuncGetAttributes(&a, xent_bwd_dsr_slab<T>);
-  out[4] = a.numRegs;
-  out[6] = (int)a.localSizeBytes;
-  return (int)cudaGetLastError();
+  int blocks[2], regs[2], local[2];
+  const int err = slab_product_attrs<T>(D, blocks, regs, local);
+  for (int k = 0; k < 2; ++k) {
+    out[k] = blocks[k];
+    out[3 + k] = regs[k];
+    out[5 + k] = local[k];
+  }
+  return err;
 }
 
-// K2 for D > MAX_D: the grids of bwd with a z axis of slabs; dtab_part is
-// always used (the VJP needs the whole row), its reduce always runs
+// K2 for D > MAX_D: t normalised once, then per catalog chunk dz and the
+// two products (slab_bwd_chunks), then d_table finished
 template <typename T>
 int bwd_slab(const float* g, const T* sr, const T* tab, const int* labels,
              const float* lse, int B, int P, int D, int n_valid,
              int col_offset, float scale, int normalize, int vec,
-             int t_split, int chunks_per_split, int s_split,
-             int tiles_per_split, T* that, float* nrm, float* dtab_part,
-             float* dsr_part, float* dsr, T* dtab, cudaStream_t stream) {
-  const int smem = set_slab_smem<T>(D);
-  const int slabs = slab_count(D);
+             int chunk_tiles, int t_split, int t_per, int s_per, T* that,
+             float* nrm, T* dz, float* dtab_part, float* dsr_part,
+             float* dsr, T* dtab, cudaStream_t stream) {
   const T* op = tab;
   cudaError_t err;
   if (normalize) {
@@ -419,25 +334,22 @@ int bwd_slab(const float* g, const T* sr, const T* tab, const int* labels,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     op = that;
   }
-  const int n_tiles = (P + TILE - 1) / TILE, n_rows = (B + TILE - 1) / TILE;
-  xent_bwd_dtable_slab<T><<<dim3(n_tiles, t_split, slabs), NT, smem,
-                            stream>>>(g, sr, op, labels, lse, B, P, D,
-                                      n_valid, col_offset, scale, vec,
-                                      chunks_per_split, dtab_part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  xent_slab_dtable_reduce<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+  const int smem = (int)dz_smem<T>();
+  cudaFuncSetAttribute(xent_bwd_dz_slab<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int n_rows = (B + TILE - 1) / TILE;
+  auto launch_dz = [&](int c0, int tiles, int ldz) {
+    xent_bwd_dz_slab<T><<<dim3(n_rows, tiles), NT, smem, stream>>>(
+        g, sr, op, labels, lse, B, P, D, n_valid, col_offset, scale, vec, c0,
+        ldz, dz);
+    return (int)cudaGetLastError();
+  };
+  const int e = slab_bwd_chunks<T>(launch_dz, sr, op, B, P, D, vec,
+                                   chunk_tiles, t_split, t_per, s_per, dz,
+                                   dtab_part, dsr_part, dsr, stream);
+  if (e) return e;
+  xent_bwd_finish_slab<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
       dtab_part, t_split, tab, nrm, P, D, normalize, dtab);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  float* out = s_split > 1 ? dsr_part : dsr;
-  xent_bwd_dsr_slab<T><<<dim3(n_rows, s_split, slabs), NT, smem, stream>>>(
-      g, sr, op, labels, lse, B, P, D, n_valid, col_offset, scale, vec,
-      tiles_per_split, out);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (s_split > 1) {
-    const int n = B * D;
-    xent_bwd_dsr_reduce<<<(n + NT - 1) / NT, NT, 0, stream>>>(dsr_part,
-                                                              s_split, n, dsr);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -518,9 +430,7 @@ int bwd_typed(const void* g, const void* sr, const void* tab,
               int vec, int t_split, int chunks_per_split, int s_split,
               int tiles_per_split, void* that, void* nrm, void* dtab_part,
               void* dsr_part, void* dsr, void* dtab, void* stream) {
-  auto f = D > MAX_D                ? bwd_slab<T>
-           : ((D + 3) & ~3) > 128 ? bwd<T, true>
-                                  : bwd<T, false>;
+  auto f = ((D + 3) & ~3) > 128 ? bwd<T, true> : bwd<T, false>;
   return f((const float*)g, (const T*)sr, (const T*)tab, (const int*)labels,
            (const float*)lse, B, P, D, n_valid, col_offset, scale, normalize,
            vec, t_split, chunks_per_split, s_split, tiles_per_split, (T*)that,
@@ -555,13 +465,13 @@ int srt_xent_bwd_slots(int D, int is_bf16, int* out) {
   return (int)cudaGetLastError();
 }
 
-// K2: d_sr [B, D] float32 and d_table [P, D] in the table's type.  Grid:
-// d_table over t_split row splits of chunks_per_split 64-row chunks, d_sr
-// over s_split catalog splits of tiles_per_split 64-row tiles (each times
-// srt_xent_slabs(D) slabs).  Scratch: that [P, D] (table's type) and nrm [P]
-// float32 when normalize; dtab_part [t_split, P, D] float32 when t_split > 1
-// or D > MAX_D; dsr_part [s_split, B, D] float32 when s_split > 1.  vec:
-// D % 4 == 0 and every array aligned to four elements.
+// K2 up to MAX_D features: d_sr [B, D] float32 and d_table [P, D] in the
+// table's type.  Grid: d_table over t_split row splits of chunks_per_split
+// 64-row chunks, d_sr over s_split catalog splits of tiles_per_split 64-row
+// tiles.  Scratch: that [P, D] (table's type) and nrm [P] float32 when
+// normalize; dtab_part [t_split, P, D] float32 when t_split > 1; dsr_part
+// [s_split, B, D] float32 when s_split > 1.  vec: D % 4 == 0 and every
+// array aligned to four elements.  Past MAX_D: srt_xent_bwd_slab.
 int srt_xent_bwd(const void* g, const void* sr, const void* tab,
                  const void* labels, const void* lse, int B, int P, int D,
                  int n_valid, int col_offset, float scale, int normalize,
@@ -569,11 +479,58 @@ int srt_xent_bwd(const void* g, const void* sr, const void* tab,
                  int s_split, int tiles_per_split, void* that, void* nrm,
                  void* dtab_part, void* dsr_part, void* dsr, void* dtab,
                  void* stream) {
+  if (D > MAX_D) return (int)cudaErrorInvalidValue;
   auto f = is_bf16 ? bwd_typed<__nv_bfloat16> : bwd_typed<float>;
   return f(g, sr, tab, labels, lse, B, P, D, n_valid, col_offset, scale,
            normalize, vec, t_split, chunks_per_split, s_split,
            tiles_per_split, that, nrm, dtab_part, dsr_part, dsr, dtab,
            stream);
+}
+
+// K2 past MAX_D features: the same outputs through dz and three products
+// (tiles.cuh's slab path).  The catalog goes in chunks of chunk_tiles 64-row
+// tiles; d_table's product over t_split row splits of t_per 64-row tiles,
+// d_sr's over catalog splits of s_per tiles of each chunk.  Scratch: that
+// and nrm as srt_xent_bwd's; dz [round_up(B, 64), chunk_tiles * 64] in the
+// table's type; dtab_part [t_split, P, D] float32; dsr_part [parts, B, D]
+// float32 with parts the sum over chunks of ceil(tiles / s_per), when it
+// is more than 1 (ops/xent.py:slab_bwd_plan).
+int srt_xent_bwd_slab(const void* g, const void* sr, const void* tab,
+                      const void* labels, const void* lse, int B, int P,
+                      int D, int n_valid, int col_offset, float scale,
+                      int normalize, int is_bf16, int vec, int chunk_tiles,
+                      int t_split, int t_per, int s_per, void* that,
+                      void* nrm, void* dz, void* dtab_part, void* dsr_part,
+                      void* dsr, void* dtab, void* stream) {
+  if (D <= MAX_D) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return bwd_slab((const float*)g, (const __nv_bfloat16*)sr,
+                    (const __nv_bfloat16*)tab, (const int*)labels,
+                    (const float*)lse, B, P, D, n_valid, col_offset, scale,
+                    normalize, vec, chunk_tiles, t_split, t_per, s_per,
+                    (__nv_bfloat16*)that, (float*)nrm, (__nv_bfloat16*)dz,
+                    (float*)dtab_part, (float*)dsr_part, (float*)dsr,
+                    (__nv_bfloat16*)dtab, (cudaStream_t)stream);
+  return bwd_slab((const float*)g, (const float*)sr, (const float*)tab,
+                  (const int*)labels, (const float*)lse, B, P, D, n_valid,
+                  col_offset, scale, normalize, vec, chunk_tiles, t_split,
+                  t_per, s_per, (float*)that, (float*)nrm, (float*)dz,
+                  (float*)dtab_part, (float*)dsr_part, (float*)dsr,
+                  (float*)dtab, (cudaStream_t)stream);
+}
+
+// out[0]: resident blocks per SM of K2's dz kernel past MAX_D features
+// (xent_bwd_dz_slab) on the current device; out[1], out[2]: its registers
+// and local memory bytes per thread
+int srt_xent_bwd_dz_slots(int D, int is_bf16, int* out) {
+  (void)D;
+  if (is_bf16)
+    kernel_attrs((const void*)xent_bwd_dz_slab<__nv_bfloat16>,
+                 (int)dz_smem<__nv_bfloat16>(), &out[0], &out[1], &out[2]);
+  else
+    kernel_attrs((const void*)xent_bwd_dz_slab<float>, (int)dz_smem<float>(),
+                 &out[0], &out[1], &out[2]);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -10,9 +10,10 @@
 //                                          (+ xent_bwd_dtable_reduce)
 //                                          + xent_multi_bwd_dsr
 //                                          (+ xent_bwd_dsr_reduce)
-// and past 256 features the slab kernels (xent_multi_fwd_slab,
-// xent_multi_bwd_dtable_slab + xent_slab_dtable_reduce,
-// xent_multi_bwd_dsr_slab) in place of the partial and product kernels.
+// and past 256 features the slab path of tiles.cuh: K3 xent_multi_fwd_slab
+// in place of the partial kernel; K4 xent_multi_bwd_dz_slab (dz once) +
+// xent_slab_dtable + xent_slab_dsr (+ xent_bwd_dsr_reduce) +
+// xent_multi_bwd_finish_slab in place of the product kernels.
 //
 // The WSDM'22 paper head scores the session vector of every order k
 // against the whole catalog and splits the catalog, per example, into the
@@ -80,14 +81,23 @@
 // The wrapper chooses the grids (ops/xent_multi.py) from
 // srt_xent_multi_slots.  Any K, B >= 1, P >= 1, D >= 1, Ns >= 1: with
 // D % 4 == 0 and aligned arrays the tiles are staged by cp.async,
-// otherwise by plain loads.  Past D = MAX_D (256) the slab kernels run, as
-// K1's and K2's do (the slab path of tiles.cuh): xent_multi_fwd_slab
-// (fwd_slab_loop with membership), and xent_multi_bwd_dtable_slab and
-// xent_multi_bwd_dsr_slab, which recompute the full-width dz tile and
-// accumulate one slab of the output features each (the grid's z axis),
-// with xent_slab_dtable_reduce applying the l2norm VJP over the whole row.
-// Each entry point launches on the given stream, does not synchronise and
-// returns cudaGetLastError().
+// otherwise by plain loads.  Past D = MAX_D (256) K3 runs
+// xent_multi_fwd_slab (fwd_slab_loop with membership), and K4
+// srt_xent_multi_bwd_slab, the slab path of tiles.cuh as K2 runs it
+// (xent_bwd.cu): dz once, where a block per output slab that recomputed
+// the full-width logits would run 2 (slabs + 1) products of 2 R P D
+// operations and the bound counts 3 (at D = 512, R = 1,536 and the north
+// star, 3 * 2 R P D = 178.9 GFLOP, 2.64 ms at the FP32 peak).
+// xent_multi_bwd_dz_slab builds a block's masks and row inputs while its
+// first k-chunk stages, computes its logits tile once over all D features
+// and writes dz (dlogits_multi, rounded to the operand type) to the
+// chunk's [R, P] scratch; K2's two products (xent_slab_dtable,
+// xent_slab_dsr) run over it, and xent_multi_bwd_finish_slab applies the
+// l2norm VJP over the whole row.  3 * 2 R P D operations in all; dz adds
+// 3 R P elements to the bytes moved (699 MB in float32 at the north star,
+// 0.21 ms at 3.35 TB/s, 8% of the bound), in one chunk up to
+// DZ_SCRATCH_BYTES (ops/xent.py).  Each entry point launches on the given
+// stream, does not synchronise and returns cudaGetLastError().
 
 #include "tiles.cuh"
 
@@ -351,121 +361,54 @@ __global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dsr(
 }
 
 // ---------------------------------------------------------------------------
-// K4, d_table for D > MAX_D: grid = (catalog tiles, row splits, slabs).  As
-// xent_multi_bwd_dtable, with each chunk's dz tile from logits summed over
-// every slab, and the chunk's slab blockIdx.z of sr staged for the
-// accumulation of that slab of G, written as the split's float32 partial.
+// K4, dz for D > MAX_D: grid = (64-row tiles of the R rows, 64-row catalog
+// tiles of the chunk that starts at table row c0).  A block builds its rows'
+// masks and inputs while the first k-chunk stages, computes its logits tile
+// once over all D features (dz_logits) and writes its dz tile, rounded to
+// the operand type, to dz [rows * 64][ldz] at the chunk's columns; rows
+// past R and columns past P get 0.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dtable_slab(
+__global__ void __launch_bounds__(NT, 2) xent_multi_bwd_dz_slab(
     const float* __restrict__ g5, const T* __restrict__ sr,
     const T* __restrict__ op, const int* __restrict__ labels,
     const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
-    int n_valid, int col_offset, float scale, int vec, int chunks_per_split,
-    float* __restrict__ part) {
+    int n_valid, int col_offset, float scale, int vec, int c0, int ldz,
+    T* __restrict__ dz) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int sw = slab_width(D), ld = tile_ld(sw);
-  T* C_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] t slab
-  T* A_s = C_s + TILE * ld;                            // [TILE][ld] sr slab
-  float* dz_s = reinterpret_cast<float*>(A_s + TILE * ld);  // [row][col]
-  RowShared* rs = reinterpret_cast<RowShared*>(dz_s + TILE * LDZ);
+  RowShared* rs = reinterpret_cast<RowShared*>(smem + dz_smem<T>());
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int p0 = blockIdx.x * TILE;
-  const int n_chunks = (R + TILE - 1) / TILE;
-  const int c_begin = blockIdx.y * chunks_per_split;
-  const int c_end = min(n_chunks, c_begin + chunks_per_split);
-  const int k0 = blockIdx.z * sw, w = min(sw, D - k0);
-
-  float G[8][8] = {};
-  for (int c = c_begin; c < c_end; ++c) {
-    const int row0 = c * TILE;
-    row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
-    row_coefs(rs, g5, labels, row0, R, B);
-    float S[4][4] = {};
-    slab_logits(S, A_s, C_s, ld, sr, row0, R, op, p0, P, D, sw, vec);
+  const int row0 = blockIdx.x * TILE, q0 = blockIdx.y * TILE;
+  const int p0 = c0 + q0;
+  row_coefs(rs, g5, labels, row0, R, B);
+  row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
+  float S[4][4] = {};
+  // its first barrier publishes the masks and inputs
+  dz_logits(S, reinterpret_cast<T*>(smem), sr, row0, R, op, p0, P, D, vec);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty + 16 * i;
-      float dz[4];
-      dlogits_multi<T>(dz, S[i], rs, rl, row0 + rl < R, p0, P, n_valid,
-                       scale);
+  for (int i = 0; i < 4; ++i) {
+    const int rl = ty + 16 * i;
+    float d[4];
+    dlogits_multi<T>(d, S[i], rs, rl, row0 + rl < R, p0, P, n_valid, scale);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dz_s[rl * LDZ + tx + 16 * j] = dz[j];
-    }
-    stage_slab(A_s, ld, sr, row0, R, D, k0, w, vec);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    rank_update<T, true>(G, dz_s, A_s, ld);
-    __syncthreads();  // A_s, dz_s and the rows' inputs are consumed
-  }
-
-  const int wp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int col = p0 + 8 * wp + i;
-    if (col < P)
-      store_slab8(part + ((size_t)blockIdx.y * P + col) * D + k0, G[i], w, D);
+    for (int j = 0; j < 4; ++j)
+      dz[(size_t)(row0 + rl) * ldz + q0 + tx + 16 * j] = from_f<T>(d[j]);
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4, d_sr for D > MAX_D: grid = (row tiles, catalog splits, slabs).  As
-// xent_multi_bwd_dsr, with each tile's dz from logits summed over every
-// slab, and the tile's slab blockIdx.z of t staged for the accumulation of
-// that slab of dz t.
-// ---------------------------------------------------------------------------
+// K4's d_table for D > MAX_D: the row splits' partials summed, the l2norm
+// VJP (slab_dtable_finish); launched once a call
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dsr_slab(
-    const float* __restrict__ g5, const T* __restrict__ sr,
-    const T* __restrict__ op, const int* __restrict__ labels,
-    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
-    int n_valid, int col_offset, float scale, int vec, int tiles_per_split,
-    float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int sw = slab_width(D), ld = tile_ld(sw);
-  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr slab
-  T* C_s = A_s + TILE * ld;                            // [TILE][ld] t slab
-  float* dz_s = reinterpret_cast<float*>(C_s + TILE * ld);  // [col][row]
-  RowShared* rs = reinterpret_cast<RowShared*>(dz_s + TILE * LDZ);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * TILE;
-  const int n_tiles = (P + TILE - 1) / TILE;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  const int k0 = blockIdx.z * sw, w = min(sw, D - k0);
+__global__ void __launch_bounds__(NT) xent_multi_bwd_finish_slab(
+    const float* __restrict__ part, int n_split, const T* __restrict__ tab,
+    const float* __restrict__ nrm, int P, int D, int normalize,
+    T* __restrict__ dtab) {
+  slab_dtable_finish<T>(part, n_split, tab, nrm, P, D, normalize, dtab);
+}
 
-  row_coefs(rs, g5, labels, row0, R, B);
-  float acc[8][8] = {};
-  for (int t = t_begin; t < t_end; ++t) {
-    const int p0 = t * TILE;
-    row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
-    float S[4][4] = {};
-    slab_logits(S, A_s, C_s, ld, sr, row0, R, op, p0, P, D, sw, vec);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty + 16 * i;
-      float dz[4];
-      dlogits_multi<T>(dz, S[i], rs, rl, row0 + rl < R, p0, P, n_valid,
-                       scale);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dz_s[(tx + 16 * j) * LDZ + rl] = dz[j];
-    }
-    stage_slab(C_s, ld, op, p0, P, D, k0, w, vec);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    rank_update<T, true>(acc, dz_s, C_s, ld);
-    __syncthreads();  // C_s, dz_s and the masks are consumed
-  }
-
-  const int wp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + 8 * wp + i;
-    if (r < R)
-      store_slab8(out + ((size_t)blockIdx.y * R + r) * D + k0, acc[i], w, D);
-  }
+template <typename T>
+constexpr size_t dz_multi_smem() {
+  return dz_smem<T>() + sizeof(RowShared);
 }
 
 // K3's partial kernel at width D (the slab kernel past MAX_D)
@@ -484,16 +427,6 @@ int set_fwd_smem(int D) {
   return smem;
 }
 
-template <typename T>
-int set_bwd_slab_smem(int D) {
-  const int smem = (int)(bwd_slab_smem<T>(D) + sizeof(RowShared));
-  cudaFuncSetAttribute(xent_multi_bwd_dtable_slab<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(xent_multi_bwd_dsr_slab<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return smem;
-}
-
 template <typename T, bool HI>
 int set_bwd_smem(int D) {
   const int smem = (int)bwd_multi_smem<T>(D);
@@ -505,27 +438,37 @@ int set_bwd_smem(int D) {
 }
 
 // resident blocks per SM of the three product kernels (K3's partial, K4's
-// d_table and d_sr: out[0..2]), their registers per thread (out[4..6]) and
-// their local memory bytes per thread, where spills go (out[7..9])
+// d_table and d_sr, past MAX_D its two slab products: out[0..2]), their
+// registers per thread (out[4..6]) and their local memory bytes per thread,
+// where spills go (out[7..9])
 template <typename T, bool HI>
 int slots(int D, int* out) {
-  const bool slab = D > MAX_D;
   const int fwd = set_fwd_smem<T>(D);
-  const int bwd = slab ? set_bwd_slab_smem<T>(D) : set_bwd_smem<T, HI>(D);
-  const void* fns[3] = {
-      fwd_kernel<T>(D),
-      slab ? (const void*)xent_multi_bwd_dtable_slab<T>
-           : (const void*)xent_multi_bwd_dtable<T, HI>,
-      slab ? (const void*)xent_multi_bwd_dsr_slab<T>
-           : (const void*)xent_multi_bwd_dsr<T, HI>};
-  const int smem[3] = {fwd, bwd, bwd};
-  for (int k = 0; k < 3; ++k) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[k], fns[k], NT,
-                                                  smem[k]);
-    cudaFuncAttributes a;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fwd_kernel<T>(D), NT,
+                                                fwd);
+  cudaFuncAttributes a;
+  cudaFuncGetAttributes(&a, fwd_kernel<T>(D));
+  out[4] = a.numRegs;
+  out[7] = (int)a.localSizeBytes;
+  if (D > MAX_D) {
+    int blocks[2], regs[2], local[2];
+    slab_product_attrs<T>(D, blocks, regs, local);
+    for (int k = 0; k < 2; ++k) {
+      out[1 + k] = blocks[k];
+      out[5 + k] = regs[k];
+      out[8 + k] = local[k];
+    }
+    return (int)cudaGetLastError();
+  }
+  const int bwd = set_bwd_smem<T, HI>(D);
+  const void* fns[2] = {(const void*)xent_multi_bwd_dtable<T, HI>,
+                        (const void*)xent_multi_bwd_dsr<T, HI>};
+  for (int k = 0; k < 2; ++k) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1 + k], fns[k], NT,
+                                                  bwd);
     cudaFuncGetAttributes(&a, fns[k]);
-    out[4 + k] = a.numRegs;
-    out[7 + k] = (int)a.localSizeBytes;
+    out[5 + k] = a.numRegs;
+    out[8 + k] = (int)a.localSizeBytes;
   }
   return (int)cudaGetLastError();
 }
@@ -599,18 +542,16 @@ int bwd(const float* g5, const T* sr, const T* tab, const int* labels,
   return (int)cudaGetLastError();
 }
 
-// K4 for D > MAX_D: the grids of bwd with a z axis of slabs; dtab_part is
-// always used (the VJP needs the whole row), its reduce always runs
+// K4 for D > MAX_D: t normalised once, then per catalog chunk dz and the
+// two products (slab_bwd_chunks), then d_table finished
 template <typename T>
 int bwd_slab(const float* g5, const T* sr, const T* tab, const int* labels,
              const int* iids, int K, int B, int P, int D, int Ns, int n_valid,
-             int col_offset, float scale, int normalize, int vec, int t_split,
-             int chunks_per_split, int s_split, int tiles_per_split, T* that,
-             float* nrm, float* dtab_part, float* dsr_part, float* dsr,
-             T* dtab, cudaStream_t stream) {
+             int col_offset, float scale, int normalize, int vec,
+             int chunk_tiles, int t_split, int t_per, int s_per, T* that,
+             float* nrm, T* dz, float* dtab_part, float* dsr_part,
+             float* dsr, T* dtab, cudaStream_t stream) {
   const int R = K * B;
-  const int smem = set_bwd_slab_smem<T>(D);
-  const int slabs = slab_count(D);
   const T* op = tab;
   cudaError_t err;
   if (normalize) {
@@ -619,26 +560,23 @@ int bwd_slab(const float* g5, const T* sr, const T* tab, const int* labels,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     op = that;
   }
-  const int n_tiles = (P + TILE - 1) / TILE, n_rows = (R + TILE - 1) / TILE;
-  xent_multi_bwd_dtable_slab<T><<<dim3(n_tiles, t_split, slabs), NT, smem,
-                                  stream>>>(
-      g5, sr, op, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
-      vec, chunks_per_split, dtab_part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  xent_slab_dtable_reduce<T><<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
-      dtab_part, t_split, tab, nrm, P, D, normalize, dtab);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  float* out = s_split > 1 ? dsr_part : dsr;
-  xent_multi_bwd_dsr_slab<T><<<dim3(n_rows, s_split, slabs), NT, smem,
-                               stream>>>(
-      g5, sr, op, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
-      vec, tiles_per_split, out);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (s_split > 1) {
-    const int n = R * D;
-    xent_bwd_dsr_reduce<<<(n + NT - 1) / NT, NT, 0, stream>>>(dsr_part,
-                                                              s_split, n, dsr);
-  }
+  const int smem = (int)dz_multi_smem<T>();
+  cudaFuncSetAttribute(xent_multi_bwd_dz_slab<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int n_rows = (R + TILE - 1) / TILE;
+  auto launch_dz = [&](int c0, int tiles, int ldz) {
+    xent_multi_bwd_dz_slab<T><<<dim3(n_rows, tiles), NT, smem, stream>>>(
+        g5, sr, op, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
+        vec, c0, ldz, dz);
+    return (int)cudaGetLastError();
+  };
+  const int e = slab_bwd_chunks<T>(launch_dz, sr, op, R, P, D, vec,
+                                   chunk_tiles, t_split, t_per, s_per, dz,
+                                   dtab_part, dsr_part, dsr, stream);
+  if (e) return e;
+  xent_multi_bwd_finish_slab<T>
+      <<<(P + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+          dtab_part, t_split, tab, nrm, P, D, normalize, dtab);
   return (int)cudaGetLastError();
 }
 
@@ -650,9 +588,7 @@ int bwd_typed(const void* g5, const void* sr, const void* tab,
               int s_split, int tiles_per_split, void* that, void* nrm,
               void* dtab_part, void* dsr_part, void* dsr, void* dtab,
               void* stream) {
-  auto f = D > MAX_D                ? bwd_slab<T>
-           : ((D + 3) & ~3) > 128 ? bwd<T, true>
-                                  : bwd<T, false>;
+  auto f = ((D + 3) & ~3) > 128 ? bwd<T, true> : bwd<T, false>;
   return f((const float*)g5, (const T*)sr, (const T*)tab, (const int*)labels,
            (const int*)iids, K, B, P, D, Ns, n_valid, col_offset, scale,
            normalize, vec, t_split, chunks_per_split, s_split,
@@ -665,7 +601,8 @@ int bwd_typed(const void* g5, const void* sr, const void* tab,
 extern "C" {
 
 // out[0..2]: resident blocks per SM of K3's partial kernel and K4's d_table
-// and d_sr kernels at width D on the current device; out[3]: its SM count;
+// and d_sr kernels (past MAX_D the slab products) at width D on the current
+// device; out[3]: its SM count;
 // out[4..6]: the three kernels' registers per thread; out[7..9]: their
 // local memory bytes per thread
 int srt_xent_multi_slots(int D, int is_bf16, int* out) {
@@ -703,14 +640,13 @@ int srt_xent_multi_fwd(const void* sr, const void* tab, const void* labels,
              (float*)part, (float*)out, (cudaStream_t)stream);
 }
 
-// K4: d_sr [K*B, D] float32 and d_table [P, D] in the table's type from
-// g5 [5][K*B] = (gz, gin, gex, lse_in, lse_ex).  Grid: d_table over
-// t_split row splits of chunks_per_split 64-row chunks, d_sr over s_split
-// catalog splits of tiles_per_split 64-row tiles.  Scratch: that [P, D]
-// (table's type) and nrm [P] float32 when normalize; dtab_part
-// [t_split, P, D] float32 when t_split > 1 or D > MAX_D; dsr_part
-// [s_split, K*B, D] float32 when s_split > 1.  Past MAX_D each grid has a z
-// axis of srt_xent_slabs(D) slabs.
+// K4 up to MAX_D features: d_sr [K*B, D] float32 and d_table [P, D] in the
+// table's type from g5 [5][K*B] = (gz, gin, gex, lse_in, lse_ex).  Grid:
+// d_table over t_split row splits of chunks_per_split 64-row chunks, d_sr
+// over s_split catalog splits of tiles_per_split 64-row tiles.  Scratch:
+// that [P, D] (table's type) and nrm [P] float32 when normalize; dtab_part
+// [t_split, P, D] float32 when t_split > 1; dsr_part [s_split, K*B, D]
+// float32 when s_split > 1.  Past MAX_D: srt_xent_multi_bwd_slab.
 int srt_xent_multi_bwd(const void* g5, const void* sr, const void* tab,
                        const void* labels, const void* iids, int K, int B,
                        int P, int D, int Ns, int n_valid, int col_offset,
@@ -719,11 +655,57 @@ int srt_xent_multi_bwd(const void* g5, const void* sr, const void* tab,
                        int tiles_per_split, void* that, void* nrm,
                        void* dtab_part, void* dsr_part, void* dsr,
                        void* dtab, void* stream) {
+  if (D > MAX_D) return (int)cudaErrorInvalidValue;
   auto f = is_bf16 ? bwd_typed<__nv_bfloat16> : bwd_typed<float>;
   return f(g5, sr, tab, labels, iids, K, B, P, D, Ns, n_valid, col_offset,
            scale, normalize, vec, t_split, chunks_per_split, s_split,
            tiles_per_split, that, nrm, dtab_part, dsr_part, dsr, dtab,
            stream);
+}
+
+// K4 past MAX_D features: the same outputs through dz and three products
+// over the K*B rows (tiles.cuh's slab path), with srt_xent_bwd_slab's plan
+// and scratch (dz [round_up(K*B, 64), chunk_tiles * 64], dsr_part [parts,
+// K*B, D]).
+int srt_xent_multi_bwd_slab(const void* g5, const void* sr, const void* tab,
+                            const void* labels, const void* iids, int K,
+                            int B, int P, int D, int Ns, int n_valid,
+                            int col_offset, float scale, int normalize,
+                            int is_bf16, int vec, int chunk_tiles,
+                            int t_split, int t_per, int s_per, void* that,
+                            void* nrm, void* dz, void* dtab_part,
+                            void* dsr_part, void* dsr, void* dtab,
+                            void* stream) {
+  if (D <= MAX_D) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return bwd_slab((const float*)g5, (const __nv_bfloat16*)sr,
+                    (const __nv_bfloat16*)tab, (const int*)labels,
+                    (const int*)iids, K, B, P, D, Ns, n_valid, col_offset,
+                    scale, normalize, vec, chunk_tiles, t_split, t_per, s_per,
+                    (__nv_bfloat16*)that, (float*)nrm, (__nv_bfloat16*)dz,
+                    (float*)dtab_part, (float*)dsr_part, (float*)dsr,
+                    (__nv_bfloat16*)dtab, (cudaStream_t)stream);
+  return bwd_slab((const float*)g5, (const float*)sr, (const float*)tab,
+                  (const int*)labels, (const int*)iids, K, B, P, D, Ns,
+                  n_valid, col_offset, scale, normalize, vec, chunk_tiles,
+                  t_split, t_per, s_per, (float*)that, (float*)nrm,
+                  (float*)dz, (float*)dtab_part, (float*)dsr_part,
+                  (float*)dsr, (float*)dtab, (cudaStream_t)stream);
+}
+
+// out[0]: resident blocks per SM of K4's dz kernel past MAX_D features
+// (xent_multi_bwd_dz_slab) on the current device; out[1], out[2]: its
+// registers and local memory bytes per thread
+int srt_xent_multi_dz_slots(int D, int is_bf16, int* out) {
+  (void)D;
+  if (is_bf16)
+    kernel_attrs((const void*)xent_multi_bwd_dz_slab<__nv_bfloat16>,
+                 (int)dz_multi_smem<__nv_bfloat16>(), &out[0], &out[1],
+                 &out[2]);
+  else
+    kernel_attrs((const void*)xent_multi_bwd_dz_slab<float>,
+                 (int)dz_multi_smem<float>(), &out[0], &out[1], &out[2]);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

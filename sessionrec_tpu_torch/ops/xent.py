@@ -17,10 +17,11 @@ hand-written kernels of ``csrc/xent.cu`` (K1) and ``csrc/xent_bwd.cu``
   sizes to the card's resident block slots.
 
 Up to 256 features a row the kernels above run in one pass; past it
-(``--embedding-dim 512``) the same entry points run slab kernels that cut
-each row into feature slabs of at most 256 (``slabs``, the grids' slab
-axis in ``_fwd_grid`` / ``_bwd_grid``; ``csrc/tiles.cuh``): simple
-kernels, not yet tuned.
+(``--embedding-dim 512``) the same wrappers run the slab path of
+``csrc/tiles.cuh``, which cuts each row into feature slabs of at most 256
+(``slabs``): K1 sums each logits tile over the slabs; K2 computes dz once
+per catalog chunk into a scratch of at most ``DZ_SCRATCH_BYTES``, then
+d_table's and d_sr's products over it (``slab_bwd_plan``).
 
 Beside each kernel sits its plain PyTorch version (``_fwd_plain``,
 ``_bwd_plain``), the oracle: a wrapper takes it only for tensors on the
@@ -169,7 +170,12 @@ def _library():
                                      i, i, i, i, i, i, vp, vp, vp, vp, vp,
                                      vp, vp]
         lib.srt_xent_bwd.restype = i
-        for name in ("srt_xent_fwd_slots", "srt_xent_bwd_slots"):
+        lib.srt_xent_bwd_slab.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i,
+                                          f, i, i, i, i, i, i, i, vp, vp, vp,
+                                          vp, vp, vp, vp, vp]
+        lib.srt_xent_bwd_slab.restype = i
+        for name in ("srt_xent_fwd_slots", "srt_xent_bwd_slots",
+                     "srt_xent_bwd_dz_slots"):
             getattr(lib, name).argtypes = [i, i, ctypes.POINTER(i)]
             getattr(lib, name).restype = i
         lib.srt_xent_bwd_tile.argtypes = []
@@ -212,34 +218,72 @@ def _split(n, want):
     return -(-n // per), per
 
 
-def _fwd_grid(B, P, slots, tile, slabs=1):
+def _fwd_grid(B, P, slots, tile):
     """K1's grid, and K2's d_sr's: ``rows`` batch tiles of ``tile`` rows
     times ``s_split`` catalog splits of ``s_per`` ``tile``-row catalog
-    tiles (``tiles`` in all), times ``slabs`` feature slabs where the grid
-    has that axis (K2's slab kernels; K1 loops over its slabs).  The
-    blocks fill at most ``slots`` (resident blocks per SM times SMs), with
-    one split when the row tiles (times slabs) alone reach that."""
+    tiles (``tiles`` in all).  The blocks fill at most ``slots`` (resident
+    blocks per SM times SMs), with one split when the row tiles alone reach
+    that."""
     tiles, rows = -(-P // tile), -(-B // tile)
-    s_split, s_per = _split(tiles, slots // (rows * slabs))
+    s_split, s_per = _split(tiles, slots // rows)
     return dict(tiles=tiles, rows=rows, s_split=s_split, s_per=s_per)
 
 
-def _bwd_grid(B, P, slots, tile, slabs=1):
-    """K2's grid.  d_table: ``tiles`` catalog tiles of ``tile`` rows times
-    ``t_split`` row splits of ``t_per`` ``tile``-row chunks; d_sr:
-    ``_fwd_grid``'s ``rows`` batch tiles times ``s_split`` catalog splits
-    of ``s_per`` tiles; both times ``slabs`` feature slabs past 256
-    features.  Each kernel's blocks fill at most ``slots``, with one split
-    when its tiles (times slabs) alone reach that."""
-    grid = _fwd_grid(B, P, slots, tile, slabs)
-    t_split, t_per = _split(grid["rows"], slots // (grid["tiles"] * slabs))
+def _bwd_grid(B, P, slots, tile):
+    """K2's grid up to 256 features.  d_table: ``tiles`` catalog tiles of
+    ``tile`` rows times ``t_split`` row splits of ``t_per`` ``tile``-row
+    chunks; d_sr: ``_fwd_grid``'s ``rows`` batch tiles times ``s_split``
+    catalog splits of ``s_per`` tiles.  Each kernel's blocks fill at most
+    ``slots``, with one split when its tiles alone reach that."""
+    grid = _fwd_grid(B, P, slots, tile)
+    t_split, t_per = _split(grid["rows"], slots // grid["tiles"])
     return dict(grid, t_split=t_split, t_per=t_per)
+
+
+# the most bytes of the slab backward's dz scratch (csrc/tiles.cuh): one
+# catalog chunk's dz, [round_up(R, 64), chunk] in the operand type.  256 MiB
+# holds K4's 1,536 rows against the north-star catalog (37,888 rows) in
+# float32 in one chunk; larger catalogs go in several.
+DZ_SCRATCH_BYTES = 256 << 20
+_MAX_GRID_Y = 65535          # CUDA's limit on a grid's y extent
+
+
+def slab_bwd_plan(R, P, esz, slots, n_slabs, tile=64):
+    """K2's and K4's plan past 256 features (``csrc/tiles.cuh``'s
+    ``slab_bwd_chunks``), over ``R`` rows against a ``P``-row table of
+    ``esz``-byte elements with ``slots`` resident product blocks:
+
+    * ``chunk`` catalog tiles of ``tile`` rows a chunk (``chunks`` of them,
+      the last one shorter), as many as keep the dz scratch ``dz_shape``
+      (``rows`` row tiles by ``chunk`` tiles, padded to whole tiles) within
+      ``DZ_SCRATCH_BYTES``;
+    * d_table's product: a chunk's tiles times ``n_slabs`` slabs times
+      ``t_split`` row splits of ``t_per`` row tiles;
+    * d_sr's product: ``rows`` row tiles times ``n_slabs`` times
+      ``s_split`` catalog splits of ``s_per`` tiles of a full chunk
+      (``ceil(tiles / s_per)`` of the last one), ``dsr_parts`` partials in
+      all.
+
+    A full chunk's products fill at most ``slots`` blocks, with one split
+    when their output tiles alone reach that."""
+    rows, tiles = -(-R // tile), -(-P // tile)
+    chunk = max(1, min(tiles, _MAX_GRID_Y,
+                       DZ_SCRATCH_BYTES // (rows * tile * tile * esz)))
+    chunks = -(-tiles // chunk)
+    t_split, t_per = _split(rows, slots // (chunk * n_slabs))
+    s_split, s_per = _split(chunk, slots // (rows * n_slabs))
+    last = tiles - (chunks - 1) * chunk
+    return dict(rows=rows, tiles=tiles, chunk=chunk, chunks=chunks,
+                slabs=n_slabs, t_split=t_split, t_per=t_per,
+                s_split=s_split, s_per=s_per,
+                dsr_parts=(chunks - 1) * s_split + -(-last // s_per),
+                dz_shape=(rows * tile, chunk * tile))
 
 
 def slabs(D):
     """Feature slabs of K1-K4 at width ``D``: 1 up to 256 features, where
-    the one-pass kernels run; more past it, where the slab kernels sum each
-    logits tile over slabs of at most 256 (``csrc/tiles.cuh``)."""
+    the one-pass kernels run; more past it, where the slab path runs
+    (``csrc/tiles.cuh``)."""
     return _library().srt_xent_slabs(D)
 
 
@@ -291,9 +335,9 @@ def fwd_launch_shape(sr, P):
 
 def _bwd_attrs(device, D, dtype):
     """``srt_xent_bwd_slots``'s seven numbers for ``device``: resident
-    blocks per SM of the d_table and d_sr product kernels at width ``D``,
-    the SM count, the two kernels' registers and local memory bytes per
-    thread."""
+    blocks per SM of the d_table and d_sr product kernels at width ``D``
+    (past 256 features the slab path's products), the SM count, the two
+    kernels' registers and local memory bytes per thread."""
     return slots_query(_library().srt_xent_bwd_slots, 7, device, D, dtype)
 
 
@@ -304,30 +348,53 @@ def _bwd_slots(device, D, dtype):
     return min(a[0], a[1]), a[2]
 
 
-def grid_shape(rows, P, per_sm, sms, n_slabs=1):
+def grid_shape(rows, P, per_sm, sms):
     """The blocks and splits of ``_bwd_grid`` over ``rows`` rows and a
     ``P``-row table with ``per_sm`` resident blocks on each of ``sms`` SMs:
-    the d_table-like kernel's (catalog tiles x row splits x slabs) and the
-    d_sr-like kernel's (row tiles x catalog splits x slabs)."""
-    grid = _bwd_grid(rows, P, per_sm * sms, _library().srt_xent_bwd_tile(),
-                     n_slabs)
-    return dict(dtable_blocks=grid["tiles"] * grid["t_split"] * n_slabs,
-                dsr_blocks=grid["rows"] * grid["s_split"] * n_slabs,
+    the d_table-like kernel's (catalog tiles x row splits) and the
+    d_sr-like kernel's (row tiles x catalog splits)."""
+    grid = _bwd_grid(rows, P, per_sm * sms, _library().srt_xent_bwd_tile())
+    return dict(dtable_blocks=grid["tiles"] * grid["t_split"],
+                dsr_blocks=grid["rows"] * grid["s_split"],
                 row_splits=grid["t_split"], catalog_splits=grid["s_split"],
-                slabs=n_slabs, resident_per_sm=per_sm)
+                slabs=1, resident_per_sm=per_sm)
+
+
+def slab_grid_shape(rows, P, esz, per_sm, sms, n_slabs):
+    """``slab_bwd_plan``'s blocks over ``rows`` rows and a ``P``-row table
+    with ``per_sm`` resident product blocks on each of ``sms`` SMs: the dz
+    kernel's, d_table's product's and d_sr's over all chunks, the chunks,
+    the splits (d_sr's partials in all) and the dz scratch in MiB."""
+    plan = slab_bwd_plan(rows, P, esz, per_sm * sms, n_slabs,
+                         _library().srt_xent_bwd_tile())
+    return dict(dz_blocks=plan["rows"] * plan["tiles"],
+                dtable_blocks=plan["tiles"] * n_slabs * plan["t_split"],
+                dsr_blocks=plan["rows"] * n_slabs * plan["dsr_parts"],
+                chunks=plan["chunks"], row_splits=plan["t_split"],
+                catalog_splits=plan["dsr_parts"], slabs=n_slabs,
+                resident_per_sm=per_sm,
+                dz_mib=plan["dz_shape"][0] * plan["dz_shape"][1] * esz
+                / 2**20)
 
 
 def bwd_launch_shape(sr, P):
     """K2's launch for ``sr`` against a ``P``-row table: blocks of each
     product kernel, row and catalog splits, resident blocks per SM, and
     each product kernel's registers and local memory (spill) bytes per
-    thread."""
+    thread; past 256 features the dz kernel's too, and the chunks."""
     (B, D), dev = sr.shape, sr.device
     per_sm, sms = _bwd_slots(dev, D, sr.dtype)
     a = _bwd_attrs(dev, D, sr.dtype)
-    return dict(grid_shape(B, P, per_sm, sms, slabs(D)), sms=sms,
-                registers={"dtable": a[3], "dsr": a[4]},
-                local_bytes={"dtable": a[5], "dsr": a[6]})
+    regs, local = {"dtable": a[3], "dsr": a[4]}, {"dtable": a[5], "dsr": a[6]}
+    if slabs(D) == 1:
+        shape = grid_shape(B, P, per_sm, sms)
+    else:
+        dz = slots_query(_library().srt_xent_bwd_dz_slots, 3, dev, D,
+                         sr.dtype)
+        shape = dict(slab_grid_shape(B, P, sr.element_size(), per_sm, sms,
+                                     slabs(D)), dz_resident_per_sm=dz[0])
+        regs["dz"], local["dz"] = dz[1], dz[2]
+    return dict(shape, sms=sms, registers=regs, local_bytes=local)
 
 
 def _vec(sr, table):
@@ -342,23 +409,40 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _table_scratch(table, normalize_table):
+    """t (the table's type) and its float32 norms when the table is
+    normalised, else (None, None)."""
+    if not normalize_table:
+        return None, None
+    return torch.empty_like(table), torch.empty(
+        table.shape[0], dtype=torch.float32, device=table.device)
+
+
 def _bwd_scratch(table, rows, grid, normalize_table):
-    """The float32 scratch of K2's and K4's backward over ``rows`` rows on
-    ``grid``, None where unused: t (the table's type) and its norms when
-    the table is normalised, the row splits' d_table partials when there
-    are several or the rows are cut into slabs (the l2norm VJP needs the
-    whole row), and the catalog splits' d_sr partials when there are
-    several."""
+    """The scratch of K2's and K4's backward up to 256 features over
+    ``rows`` rows on ``grid``, None where unused: ``_table_scratch``, the
+    row splits' float32 d_table partials and the catalog splits' float32
+    d_sr partials, each when there are several."""
     (P, D), f32 = table.shape, dict(dtype=torch.float32, device=table.device)
-    that = nrm = dtab_part = dsr_part = None
-    if normalize_table:
-        that = torch.empty_like(table)
-        nrm = torch.empty(P, **f32)
-    if grid["t_split"] > 1 or slabs(D) > 1:
+    dtab_part = dsr_part = None
+    if grid["t_split"] > 1:
         dtab_part = torch.empty(grid["t_split"], P, D, **f32)
     if grid["s_split"] > 1:
         dsr_part = torch.empty(grid["s_split"], rows, D, **f32)
-    return that, nrm, dtab_part, dsr_part
+    return (*_table_scratch(table, normalize_table), dtab_part, dsr_part)
+
+
+def slab_bwd_scratch(table, rows, plan, normalize_table):
+    """The scratch of K2's and K4's backward past 256 features over
+    ``rows`` rows on ``plan`` (``slab_bwd_plan``): ``_table_scratch``, the
+    dz scratch in the table's type, d_table's float32 partials and, when
+    there are several, d_sr's."""
+    (P, D), f32 = table.shape, dict(dtype=torch.float32, device=table.device)
+    dz = torch.empty(plan["dz_shape"], dtype=table.dtype, device=table.device)
+    dtab_part = torch.empty(plan["t_split"], P, D, **f32)
+    dsr_part = (torch.empty(plan["dsr_parts"], rows, D, **f32)
+                if plan["dsr_parts"] > 1 else None)
+    return (*_table_scratch(table, normalize_table), dz, dtab_part, dsr_part)
 
 
 def _raise_on(err, what):
@@ -399,18 +483,28 @@ def _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset, *, scale,
     B, D = sr.shape
     P = table.shape[0]
     per_sm, sms = _bwd_slots(sr.device, D, sr.dtype)
-    grid = _bwd_grid(B, P, per_sm * sms, lib.srt_xent_bwd_tile(), slabs(D))
-    scratch = _bwd_scratch(table, B, grid, normalize_table)
     dsr = torch.empty(B, D, dtype=torch.float32, device=sr.device)
     dtab = torch.empty_like(table)
     stream = torch.cuda.current_stream(sr.device).cuda_stream
-    err = lib.srt_xent_bwd(
-        g.data_ptr(), sr.data_ptr(), table.data_ptr(), labels.data_ptr(),
-        lse.data_ptr(), B, P, D, int(n_valid), int(col_offset),
-        float(scale), int(normalize_table), int(sr.dtype == torch.bfloat16),
-        _vec(sr, table), grid["t_split"], grid["t_per"], grid["s_split"],
-        grid["s_per"], *map(_ptr, scratch), dsr.data_ptr(), dtab.data_ptr(),
-        stream)
+    args = (g.data_ptr(), sr.data_ptr(), table.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), B, P, D, int(n_valid), int(col_offset),
+            float(scale), int(normalize_table),
+            int(sr.dtype == torch.bfloat16), _vec(sr, table))
+    if slabs(D) == 1:
+        grid = _bwd_grid(B, P, per_sm * sms, lib.srt_xent_bwd_tile())
+        scratch = _bwd_scratch(table, B, grid, normalize_table)
+        err = lib.srt_xent_bwd(
+            *args, grid["t_split"], grid["t_per"], grid["s_split"],
+            grid["s_per"], *map(_ptr, scratch), dsr.data_ptr(),
+            dtab.data_ptr(), stream)
+    else:
+        plan = slab_bwd_plan(B, P, sr.element_size(), per_sm * sms,
+                             slabs(D), lib.srt_xent_bwd_tile())
+        scratch = slab_bwd_scratch(table, B, plan, normalize_table)
+        err = lib.srt_xent_bwd_slab(
+            *args, plan["chunk"], plan["t_split"], plan["t_per"],
+            plan["s_per"], *map(_ptr, scratch), dsr.data_ptr(),
+            dtab.data_ptr(), stream)
     _raise_on(err, "xent_bwd launch")
     bwd_launches += 1
     return dsr, dtab

@@ -22,9 +22,10 @@ logits nor the ``[B, P]`` session mask exist in device memory:
 Both run on K2's tiles (``csrc/tiles.cuh``) over the ``K * B`` rows, on
 grids that ``ops/xent.py:_bwd_grid`` sizes to the card's resident block
 slots of their own kernels; past 256 features, as K1/K2 do, on the slab
-kernels (``xent.slabs``).  Session item lists may be of any length (the
-paper head at ``--max-len`` above 256): the kernels scan each row's list
-while a catalog tile stages.
+path (``xent.slabs``): K4 computes dz once per catalog chunk and runs K2's
+two slab products over it (``xent.slab_bwd_plan``).  Session item lists
+may be of any length (the paper head at ``--max-len`` above 256): the
+kernels scan each row's list while a catalog tile stages.
 
 The small ``[K, B]`` stats feed the plain-torch combiner
 (``combine_stats``: phi, alpha, fusion), whose gradients come from
@@ -166,8 +167,14 @@ def _library():
                                            i, i, f, i, i, i, i, i, i, i, vp,
                                            vp, vp, vp, vp, vp, vp]
         lib.srt_xent_multi_bwd.restype = i
-        lib.srt_xent_multi_slots.argtypes = [i, i, ctypes.POINTER(i)]
-        lib.srt_xent_multi_slots.restype = i
+        lib.srt_xent_multi_bwd_slab.argtypes = [vp, vp, vp, vp, vp, i, i, i,
+                                                i, i, i, i, f, i, i, i, i, i,
+                                                i, i, vp, vp, vp, vp, vp, vp,
+                                                vp, vp]
+        lib.srt_xent_multi_bwd_slab.restype = i
+        for name in ("srt_xent_multi_slots", "srt_xent_multi_dz_slots"):
+            getattr(lib, name).argtypes = [i, i, ctypes.POINTER(i)]
+            getattr(lib, name).restype = i
         _lib = lib
     return _lib
 
@@ -196,38 +203,46 @@ def _check(sr3, table, labels, iids, *stats):
 def _attrs(device, D, dtype):
     """``srt_xent_multi_slots``'s ten numbers for ``device``: resident
     blocks per SM of K3's partial kernel and K4's d_table and d_sr kernels
-    at width ``D``, the SM count, the three kernels' registers and local
-    memory bytes per thread."""
+    at width ``D`` (past 256 features the slab path's products), the SM
+    count, the three kernels' registers and local memory bytes per
+    thread."""
     return xent.slots_query(_library().srt_xent_multi_slots, 10, device, D,
                             dtype)
 
 
 def _grid(device, R, P, D, dtype, k4):
-    """``xent._bwd_grid`` over the ``R = K * B`` rows for K4 (``k4``; the
-    fewer resident blocks of its two product kernels) or K3."""
+    """``xent._bwd_grid`` over the ``R = K * B`` rows for K4 up to 256
+    features (``k4``; the fewer resident blocks of its two product kernels)
+    or K3."""
     a = _attrs(device, D, dtype)
     per_sm = min(a[1], a[2]) if k4 else a[0]
     return xent._bwd_grid(R, P, per_sm * a[3],
-                          _library().srt_xent_bwd_tile(),
-                          xent.slabs(D) if k4 else 1)
+                          _library().srt_xent_bwd_tile())
 
 
 def multi_launch_shape(sr3, P):
     """K3's and K4's launches for ``sr3 [K, B, D]`` against a ``P``-row
     table: blocks, splits and resident blocks per SM of each, and each
-    product kernel's registers and local memory (spill) bytes per
-    thread."""
+    product kernel's registers and local memory (spill) bytes per thread;
+    past 256 features K4's dz kernel's too, and its chunks."""
     (K, B, D), dev = sr3.shape, sr3.device
     a = _attrs(dev, D, sr3.dtype)
     k3 = xent.grid_shape(K * B, P, a[0], a[3])
+    regs = {"fwd": a[4], "dtable": a[5], "dsr": a[6]}
+    local = {"fwd": a[7], "dtable": a[8], "dsr": a[9]}
+    if xent.slabs(D) == 1:
+        k4 = xent.grid_shape(K * B, P, min(a[1], a[2]), a[3])
+    else:
+        dz = xent.slots_query(_library().srt_xent_multi_dz_slots, 3, dev, D,
+                              sr3.dtype)
+        k4 = dict(xent.slab_grid_shape(K * B, P, sr3.element_size(),
+                                       min(a[1], a[2]), a[3], xent.slabs(D)),
+                  dz_resident_per_sm=dz[0])
+        regs["dz"], local["dz"] = dz[1], dz[2]
     return dict(k3=dict(blocks=k3["dsr_blocks"],
                         catalog_splits=k3["catalog_splits"],
                         resident_per_sm=a[0]),
-                k4=xent.grid_shape(K * B, P, min(a[1], a[2]), a[3],
-                                   xent.slabs(D)),
-                sms=a[3],
-                registers={"fwd": a[4], "dtable": a[5], "dsr": a[6]},
-                local_bytes={"fwd": a[7], "dtable": a[8], "dsr": a[9]})
+                k4=k4, sms=a[3], registers=regs, local_bytes=local)
 
 
 def _fwd_cuda(sr3, table, labels, iids, n_valid, col_offset, *, scale,
@@ -263,18 +278,31 @@ def _bwd_cuda(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
     lib = _library()
     K, B, D = sr3.shape
     P = table.shape[0]
-    grid = _grid(sr3.device, K * B, P, D, sr3.dtype, k4=True)
-    scratch = xent._bwd_scratch(table, K * B, grid, normalize_table)
     dsr = torch.empty(K, B, D, dtype=torch.float32, device=sr3.device)
     dtab = torch.empty_like(table)
     stream = torch.cuda.current_stream(sr3.device).cuda_stream
-    err = lib.srt_xent_multi_bwd(
-        g5.data_ptr(), sr3.data_ptr(), table.data_ptr(), labels.data_ptr(),
-        iids.data_ptr(), K, B, P, D, iids.shape[1], int(n_valid),
-        int(col_offset), float(scale), int(normalize_table),
-        int(sr3.dtype == torch.bfloat16), xent._vec(sr3, table),
-        grid["t_split"], grid["t_per"], grid["s_split"], grid["s_per"],
-        *map(xent._ptr, scratch), dsr.data_ptr(), dtab.data_ptr(), stream)
+    args = (g5.data_ptr(), sr3.data_ptr(), table.data_ptr(),
+            labels.data_ptr(), iids.data_ptr(), K, B, P, D, iids.shape[1],
+            int(n_valid), int(col_offset), float(scale),
+            int(normalize_table), int(sr3.dtype == torch.bfloat16),
+            xent._vec(sr3, table))
+    if xent.slabs(D) == 1:
+        grid = _grid(sr3.device, K * B, P, D, sr3.dtype, k4=True)
+        scratch = xent._bwd_scratch(table, K * B, grid, normalize_table)
+        err = lib.srt_xent_multi_bwd(
+            *args, grid["t_split"], grid["t_per"], grid["s_split"],
+            grid["s_per"], *map(xent._ptr, scratch), dsr.data_ptr(),
+            dtab.data_ptr(), stream)
+    else:
+        a = _attrs(sr3.device, D, sr3.dtype)
+        plan = xent.slab_bwd_plan(K * B, P, sr3.element_size(),
+                                  min(a[1], a[2]) * a[3], xent.slabs(D),
+                                  lib.srt_xent_bwd_tile())
+        scratch = xent.slab_bwd_scratch(table, K * B, plan, normalize_table)
+        err = lib.srt_xent_multi_bwd_slab(
+            *args, plan["chunk"], plan["t_split"], plan["t_per"],
+            plan["s_per"], *map(xent._ptr, scratch), dsr.data_ptr(),
+            dtab.data_ptr(), stream)
     xent._raise_on(err, "xent_multi_bwd launch")
     bwd_launches += 1
     return dsr, dtab

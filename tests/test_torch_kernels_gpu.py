@@ -532,3 +532,48 @@ def test_multi_kernels_match_plain_with_long_item_lists(cuda, N, D, dtype):
     dsr_p, dtab_p = txm._bwd_plain(*g, s, t, lbl, iids, *lse, 3429, 0, **kw)
     _assert_k4_close(dsr, dtab, dsr_p, dtab_p, lbl, iids, 3584, 3429,
                      1e-3 if dtype == torch.float32 else 1e-2)
+
+
+# K2 and K4 past 256 features with the dz scratch cap lowered to 8 of K2's
+# catalog tiles: K2's 24 tiles go in 3 chunks, K4's (3 x 128 rows) in 12
+@pytest.mark.parametrize("D", [512, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+def test_slab_backward_in_catalog_chunks(cuda, monkeypatch, D, dtype, norm):
+    B, P, n = 128, 1536, 1400
+    esz = torch.empty((), dtype=dtype).element_size()
+    monkeypatch.setattr(tx, "DZ_SCRATCH_BYTES", 8 * B * 64 * esz)
+    assert [tx.slab_bwd_plan(r, P, esz, 1, 2)["chunks"]
+            for r in (B, 3 * B)] == [3, 12]
+    kw = dict(scale=12.0, normalize_table=norm)
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    s, t, lbl, g, lse = _k2_case(cuda, B, D, P, n, dtype, norm)
+    first = tx._bwd_cuda(g, s, t, lbl, lse, n, 0, **kw)
+    second = tx._bwd_cuda(g, s, t, lbl, lse, n, 0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _assert_k2_close(*first, *tx._bwd_plain(g, s, t, lbl, lse, n, **kw),
+                     lbl, P, n, tol)
+    s, t, lbl, iids, g, _, lse = _multi_edge_case(cuda, B, D, P, n, dtype,
+                                                  norm)
+    first = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, n, 0, **kw)
+    second = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, n, 0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _assert_k4_close(*first, *txm._bwd_plain(*g, s, t, lbl, iids, *lse, n,
+                                             0, **kw),
+                     lbl, iids, P, n, tol)
+
+
+@pytest.mark.parametrize("D", [258, 512, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_slab_kernels_spill_nothing(cuda, D, dtype):
+    """K2's and K4's dz kernels and the two products past 256 features keep
+    everything in registers (at most 255 a thread, no local memory), and
+    the products fit two blocks on an SM."""
+    s = torch.zeros(512, D, device=cuda, dtype=dtype)
+    for shape in (tx.bwd_launch_shape(s, 3584),
+                  txm.multi_launch_shape(s.expand(3, 512, D), 3584)):
+        for k in ("dz", "dtable", "dsr"):
+            assert shape["registers"][k] <= 255
+            assert shape["local_bytes"][k] == 0
+    k2 = tx.bwd_launch_shape(s, 3584)
+    assert k2["resident_per_sm"] >= 2 and k2["dz_resident_per_sm"] >= 2

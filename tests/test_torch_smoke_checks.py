@@ -402,12 +402,17 @@ def test_trace_names_reduce_to_the_kernel(name, want):
 
 
 def test_trace_counts_the_slab_kernels_as_their_wrappers_launches():
-    """Past 256 features a wrapper's main product is its slab kernel; the
-    trace counts it as the one-pass kernel is counted, bf16 apart."""
+    """Past 256 features a forward wrapper's main product is its slab
+    kernel and a backward wrapper's once-a-call kernel its finish kernel;
+    the trace counts each as the one-pass kernel is counted, bf16 apart,
+    and neither the dz kernels (one a catalog chunk) nor the products K2
+    and K4 share."""
     events = [("void (anonymous namespace)::xent_fwd_slab<float>(int)", 0, 1),
-              ("void (anonymous namespace)::xent_bwd_dtable_slab"
+              ("void (anonymous namespace)::xent_bwd_finish_slab"
                "<__nv_bfloat16>(int)", 0, 1),
-              ("void (anonymous namespace)::xent_slab_dtable_reduce"
+              ("void (anonymous namespace)::xent_bwd_dz_slab"
+               "<__nv_bfloat16>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_slab_dtable"
                "<float>(int)", 0, 1),
               ("void (anonymous namespace)::xent_multi_fwd_slab<float>(int)",
                0, 1),
@@ -418,4 +423,32 @@ def test_trace_counts_the_slab_kernels_as_their_wrappers_launches():
                           xent_multi_bwd=1)
     assert bf16 == dict(xent_fwd=0, xent_bwd=1, xent_multi_fwd=0,
                         xent_multi_bwd=0)
-    assert n == 5
+    assert n == 6
+
+
+@pytest.mark.parametrize("kernel_sum,events,coverage,complete", [
+    (0.99, 1.0, 0.99, True),           # the gaps between launches
+    (0.9, 1.0, 0.9, True),             # at the share
+    (0.2846, 0.9852, 0.2888754, False),  # a trace that lost records
+    (1.2, 1.0, 1.2, False),            # more kernel time than the calls'
+    (0.5, 0.0, 0.0, False)])           # no events time
+def test_trace_coverage_flags_a_trace_that_lost_records(kernel_sum, events,
+                                                        coverage, complete):
+    got = cs.trace_coverage(kernel_sum, events)
+    assert got["coverage"] == pytest.approx(coverage, abs=1e-6)
+    assert got["complete"] is complete
+    assert (got["kernel_sum_ms"], got["events_ms"]) == (kernel_sum, events)
+
+
+@pytest.mark.parametrize("counts,complete", [
+    ({"k2_dz": 30, "xent_slab_dtable": 10, "Memset (Device)": 10}, True),
+    ({"xent_fwd_slab": 3, "xent_fwd_merge": 10}, False),    # records lost
+    ({}, False),                                           # none at all
+    ({"xent_fwd_slab": 20, "xent_fwd_merge": 20}, True)])  # 2 a call
+def test_a_trace_missing_records_is_retraced(counts, complete):
+    """kernel_ms traces again, held open longer, unless every kernel's
+    records of 10 calls are a multiple of 10 (a chunked dz kernel launches
+    once a chunk)."""
+    events = [(name, 0.0, 1.0) for name, n in counts.items()
+              for _ in range(n)]
+    assert cs.records_complete(events, 10) is complete

@@ -6,9 +6,10 @@ tests/test_torch_xent.py and tests/test_torch_xent_multi.py run them, at
 D = 512 and, for K3/K4, with 300 session items a row; MSGIFSR's order-1
 head and the paper head at embedding_dim 512 against the JAX heads (loss
 and every gradient, atol 5e-5, as tests/test_torch_model.py); and the
-slab grid of the kernels' wide path (csrc/tiles.cuh: slab_count,
-slab_width; ops/xent.py: _fwd_grid, _bwd_grid with a slab axis), which is
-host arithmetic.  The slab kernels themselves run on the card
+host arithmetic of the kernels' wide path: the feature slabs
+(csrc/tiles.cuh: slab_count, slab_width) and K2's and K4's backward plan
+(ops/xent.py:slab_bwd_plan, as csrc/tiles.cuh:slab_bwd_chunks walks it).
+The slab kernels themselves run on the card
 (tests/test_torch_kernels_gpu.py, chip_smoke.py).
 
 Tolerances: values rtol/atol 1e-5, gradients rtol 1e-3 / atol 2e-4, those
@@ -164,47 +165,109 @@ def test_slabs_cover_every_feature_once(D):
     assert all(0 < w <= MAX_D and k0 % 4 == 0 for k0, w in slabs)
 
 
+def plan_blocks(plan):
+    """The blocks of csrc/tiles.cuh:slab_bwd_chunks on ``plan``, chunk by
+    chunk: d_table's product as ((catalog tile, slab, row split), row
+    tiles it reduces), d_sr's as ((partial, row tile, slab), catalog tiles
+    it reduces), and the chunks' catalog tiles."""
+    dtable, dsr, chunks, part = [], [], [], 0
+    n, chunk = plan["slabs"], plan["chunk"]
+    for t0 in range(0, plan["tiles"], chunk):
+        tiles = min(chunk, plan["tiles"] - t0)
+        chunks.append(range(t0, t0 + tiles))
+        dtable += [((t0 + x, y, z),
+                    range(z * plan["t_per"],
+                          min(plan["rows"], (z + 1) * plan["t_per"])))
+                   for x in range(tiles) for y in range(n)
+                   for z in range(plan["t_split"])]
+        splits = -(-tiles // plan["s_per"])
+        dsr += [((part + z, x, y),
+                 range(t0 + z * plan["s_per"],
+                       t0 + min(tiles, (z + 1) * plan["s_per"])))
+                for x in range(plan["rows"]) for y in range(n)
+                for z in range(splits)]
+        part += splits
+    return dtable, dsr, chunks, part
+
+
+def dz_bytes(plan, esz):
+    return plan["dz_shape"][0] * plan["dz_shape"][1] * esz
+
+
 @pytest.mark.parametrize("D", [258, 512, 1000])
 @pytest.mark.parametrize("B,P", [(512, 3584), (512, 37888), (509, 37484),
                                  (1, 70)])
 @pytest.mark.parametrize("slots", [132, 264, 1])
 def test_slab_grid_covers_every_block_once(D, B, P, slots):
-    """K2's and K4's slab grids (ops/xent.py:_bwd_grid with a slab axis):
-    every (catalog tile, row chunk, slab) of d_table and every (row tile,
-    catalog tile, slab) of d_sr in exactly one block, no split empty, one
-    wave of blocks at most unless one split alone passes it (K1's and
-    K3's grids loop over the slabs inside a block and keep no slab
-    axis)."""
+    """K2's (R = B rows) and K4's (R = 3 B) backward plan past 256 features
+    (ops/xent.py:slab_bwd_plan), float32 and bfloat16: the chunks cover
+    each catalog tile, so each catalog row, once; every output tile of
+    both products lands in exactly one block, whose splits together reduce
+    every row tile (d_table) or catalog tile (d_sr) once; no split is
+    empty; a full chunk's products fill one wave of blocks at most unless
+    one split alone passes it; the dz scratch stays within
+    DZ_SCRATCH_BYTES, also for K4's rows at P = 2^20."""
     n = len(slab_layout(D))
-    grid = tx._bwd_grid(B, P, slots, 64, n)
-    tiles, rows = -(-P // 64), -(-B // 64)
-    assert (grid["tiles"], grid["rows"]) == (tiles, rows)
-    dtable = [(t, c, z) for t in range(tiles) for s in range(grid["t_split"])
-              for c in range(s * grid["t_per"],
-                             min(rows, (s + 1) * grid["t_per"]))
-              for z in range(n)]
-    assert sorted(dtable) == [(t, c, z) for t in range(tiles)
-                              for c in range(rows) for z in range(n)]
-    dsr = [(r, t, z) for r in range(rows) for s in range(grid["s_split"])
-           for t in range(s * grid["s_per"],
-                          min(tiles, (s + 1) * grid["s_per"]))
-           for z in range(n)]
-    assert sorted(dsr) == [(r, t, z) for r in range(rows)
-                           for t in range(tiles) for z in range(n)]
-    assert all(s * grid["t_per"] < rows for s in range(grid["t_split"]))
-    assert all(s * grid["s_per"] < tiles for s in range(grid["s_split"]))
-    if grid["t_split"] > 1:
-        assert tiles * grid["t_split"] * n <= slots
-    if grid["s_split"] > 1:
-        assert rows * grid["s_split"] * n <= slots
+    for R in (B, 3 * B):
+        for esz in (4, 2):
+            plan = tx.slab_bwd_plan(R, P, esz, slots, n)
+            rows, tiles = -(-R // 64), -(-P // 64)
+            assert (plan["rows"], plan["tiles"]) == (rows, tiles)
+            dtable, dsr, chunks, parts = plan_blocks(plan)
+            assert [t for c in chunks for t in c] == list(range(tiles))
+            assert len(chunks) == plan["chunks"]
+            assert (tiles - 1) * 64 < P <= tiles * 64
+            assert parts == plan["dsr_parts"]
+            assert dz_bytes(plan, esz) <= tx.DZ_SCRATCH_BYTES
+            assert plan["dz_shape"] == (rows * 64, plan["chunk"] * 64)
+            assert plan["chunk"] <= 65535
+            for blocks, outs, reduced in (
+                    (dtable, [(t, y) for t in range(tiles)
+                              for y in range(n)], rows),
+                    (dsr, [(x, y) for x in range(rows) for y in range(n)],
+                     tiles)):
+                keys = [k for k, _ in blocks]
+                assert len(set(keys)) == len(keys)
+                assert all(len(r) > 0 for _, r in blocks)
+                cover = {o: [] for o in outs}
+                for (a, b, c), r in blocks:
+                    # d_table: (tile, slab) of (tile, slab, split);
+                    # d_sr: (row tile, slab) of (part, row tile, slab)
+                    cover[(a, b) if blocks is dtable else (b, c)] += list(r)
+                assert all(sorted(v) == list(range(reduced))
+                           for v in cover.values())
+            if plan["t_split"] > 1:
+                assert plan["chunk"] * n * plan["t_split"] <= slots
+            if plan["s_split"] > 1:
+                assert rows * n * plan["s_split"] <= slots
+    big = tx.slab_bwd_plan(3 * B, 2 ** 20, 4, slots, n)
+    assert dz_bytes(big, 4) <= tx.DZ_SCRATCH_BYTES
+    assert big["chunks"] * big["chunk"] >= big["tiles"] > \
+        (big["chunks"] - 1) * big["chunk"]
 
 
 def test_slab_grid_on_the_path_and_north_star_catalogs():
-    # 132 SMs, one resident slab block each, 2 slabs at D = 512: d_table's
-    # 56 path tiles take one row split (112 blocks), d_sr's 8 row tiles 8
-    # catalog splits (128 blocks); at the north star both take one split
-    # of d_table (1,184 blocks) and 8 of d_sr
-    assert tx._bwd_grid(512, 3584, 132, 64, 2) == dict(
-        tiles=56, t_split=1, t_per=8, rows=8, s_split=8, s_per=7)
-    assert tx._bwd_grid(512, 37888, 132, 64, 2) == dict(
-        tiles=592, t_split=1, t_per=8, rows=8, s_split=8, s_per=74)
+    # 132 SMs with two resident product blocks each, 2 slabs at D = 512,
+    # float32.  K2 (512 rows): the path's 56 tiles in one chunk, d_table
+    # 112 tiles x 2 row splits, d_sr 16 x 14 catalog splits; the north
+    # star's 592 in one chunk of 37,888 columns (77.6 MB of dz), d_table
+    # one split, d_sr 16.  K4 (1,536 rows): d_sr 48 x 5 splits; at the
+    # north star one chunk of 232.8 MB; at P = 2^20, 25 chunks of 682 tiles
+    # and 121 d_sr partials.
+    assert tx.slab_bwd_plan(512, 3584, 4, 264, 2) == dict(
+        rows=8, tiles=56, chunk=56, chunks=1, slabs=2, t_split=2, t_per=4,
+        s_split=14, s_per=4, dsr_parts=14, dz_shape=(512, 3584))
+    assert tx.slab_bwd_plan(512, 37888, 4, 264, 2) == dict(
+        rows=8, tiles=592, chunk=592, chunks=1, slabs=2, t_split=1,
+        t_per=8, s_split=16, s_per=37, dsr_parts=16, dz_shape=(512, 37888))
+    assert tx.slab_bwd_plan(1536, 3584, 4, 264, 2) == dict(
+        rows=24, tiles=56, chunk=56, chunks=1, slabs=2, t_split=2,
+        t_per=12, s_split=5, s_per=12, dsr_parts=5, dz_shape=(1536, 3584))
+    assert tx.slab_bwd_plan(1536, 37888, 4, 264, 2) == dict(
+        rows=24, tiles=592, chunk=592, chunks=1, slabs=2, t_split=1,
+        t_per=24, s_split=5, s_per=119, dsr_parts=5,
+        dz_shape=(1536, 37888))
+    assert tx.slab_bwd_plan(1536, 2 ** 20, 4, 264, 2) == dict(
+        rows=24, tiles=16384, chunk=682, chunks=25, slabs=2, t_split=1,
+        t_per=24, s_split=5, s_per=137, dsr_parts=121,
+        dz_shape=(1536, 43648))
