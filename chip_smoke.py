@@ -13,20 +13,22 @@ Phases, one JSON line each on stdout:
    including a masked row, a zero-norm and a large-norm table row, plus
    one ragged case of B=509 rows on the unpadded 37,484-row catalog, and
    the SRGNN/NISER and LESSR paths' shapes (B=128, D=64 and B=512, D=32)
-   on both catalogs, padded and not, float32, normalised and not; K2 runs
-   twice on every case and must give the same bits both times; then K3
+   on both catalogs, padded and not, float32, normalised and not; K1 and
+   K2 run twice on every case and must give the same bits both times; then K3
    (xent_multi_fwd) and K4 (xent_multi_bwd) at K=3 orders of the D=256
    rows, with session item lists of up to 19 ids (-1 padded), a row with
    none, labels inside and outside the session, and the cotangents of the
    paper head's loss, plus the ragged batch on the unpadded north-star
-   catalog; K4 too runs twice on every case and must repeat its bits.
+   catalog; K3 and K4 too run twice on every case and must repeat their
+   bits.
    Then time each kernel, its plain version and the PyTorch expression of
    the same function (``library_ms``, a yardstick the port never calls,
    timed by CUDA events; ``library_kernel_ms``, its device time under
    ``torch.profiler``, summed over its kernels), with K1's launch shape
    (``k1_launch``), K2's (``k2_launch``) and K3's and K4's
    (``multi_launch``) at each timed shape: blocks, splits, resident
-   blocks per SM, the product kernels' registers and local memory, and
+   blocks per SM, the product kernels' registers and local memory, K1's
+   and K3's shared memory and staging stages (``ring_stages``), and
    each kernel's device time under ``torch.profiler`` with their sum
    against the events time of the same calls (``trace``; the
    ``kernel_time`` lines hold the library's the same way,
@@ -58,7 +60,12 @@ Phases, one JSON line each on stdout:
    sees no kernels inside replays).  The loss must be finite and fall,
    HR@20 and MRR@20 finite, and one batch's loss and gradients must
    agree with the plain-PyTorch path on the CPU from the same parameters
-   (``path_vs_cpu``).
+   (``path_vs_cpu``), and every ``torch.relu`` input to RELU_GAP of its
+   call's largest (``relu_gap``); at an input that takes the other branch
+   on the card (``relu_flips``, so a tie within RELU_GAP of 0) the card
+   may instead agree with the CPU run again with the other branch there
+   (``at_ties``), and a failing check adds ``plain_on_card``: the same
+   gradients with K1-K4's plain versions run on the card.
    Then ``o1_serve``: ``train.pt`` is deleted and the parameters alone
    restore into a fresh model, bit for bit; ``recommend`` over the test
    split's full sessions at batch 512 and k 20 gives the CPU's ids at
@@ -257,6 +264,13 @@ TOPK = 20                                  # serving's k
 SCORE_TIE = 1e-5     # adjacent CPU scores closer than this may swap ids
 SCORE_ATOL = 1e-4    # card against CPU serving scores
 SUMS_ATOL = 1e-6     # eval graph against the eager sweep, (hit, mrr, n)
+# float32 paths, card against CPU: every ``torch.relu`` input (MSGIFSR's
+# REnorm gate) to RELU_GAP of its call's largest CPU magnitude.  On an
+# H100 the gate's inputs differ by up to 1.11e-6 of it (paper_wide,
+# PERF.md section 6); a wrong gate layer, bf16 weights or one input moved,
+# by more than 9x RELU_GAP (tests/test_torch_smoke_checks.py).  An input
+# that close to 0 is a tie, whose two branches are both right
+RELU_GAP = 1e-5
 # bf16 paths, card against CPU: both run every layer in bf16, rounding
 # each op's output (8 mantissa bits), in another order.  Serving scores
 # are held to BF16_SCORE of each row's largest magnitude, ids where the
@@ -418,6 +432,7 @@ def xent_check(torch, xent, case, seed, **tags):
                                      rows=rows, dim=dim)
     kw = dict(scale=SCALE, normalize_table=norm)
     loss_k, lse_k = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
+    loss_k2, lse_k2 = xent._fwd_cuda(sr, tab, labels, n_items, 0, **kw)
     m, s, zl = xent._fwd_plain(sr, tab, labels, n_items, 0, **kw)
     lse_p = xent._finish_lse(m, s)
     loss_p = lse_p - zl
@@ -437,14 +452,16 @@ def xent_check(torch, xent, case, seed, **tags):
     # others, and rows with no label carry only the softmax term
     dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol)
     same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
+    same_fwd = torch.equal(loss_k, loss_k2) and torch.equal(lse_k, lse_k2)
     row = {"phase": "kernel_check", "items": n_items, "P": P,
            "B": rows, "D": dim, "dtype": dname, "normalize_table": norm,
            **tags, "fwd_max_abs_err": e_fwd, "dsr_max_abs_err": e_dsr,
            "fwd_tol": fwd_tol, "dsr_tol": dsr_tol, "dtable_err_tol": dtab,
+           "k1_repeat_bit_identical": same_fwd,
            "k2_repeat_bit_identical": same}
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (loss_k, lse_k, dsr_k, dtab_k))
-    row["ok"] = (finite and same and e_fwd <= row["fwd_tol"]
+    row["ok"] = (finite and same and same_fwd and e_fwd <= row["fwd_tol"]
                  and e_dsr <= row["dsr_tol"]
                  and all(e <= t for e, t in dtab.values()))
     emit(row)
@@ -535,6 +552,7 @@ def multi_check(torch, xm, case, seed, ns=NS, **tags):
         torch, xm, n_items, P, dtype, seed, norm, rows=rows, dim=dim, ns=ns)
     kw = dict(scale=SCALE, normalize_table=norm)
     got = xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
+    got2 = xm._fwd_cuda(sr3, tab, labels, iids, n_items, 0, **kw)
     want = xm._fwd_plain(sr3, tab, labels, iids, n_items, 0, **kw)
     dsr_k, dtab_k = xm._bwd_cuda(*cot, sr3, tab, labels, iids, *lse,
                                  n_items, 0, **kw)
@@ -550,15 +568,17 @@ def multi_check(torch, xm, case, seed, ns=NS, **tags):
     e_dsr, dsr_tol = dsr_errors(dsr_k, dsr_p, tol)
     dtab = dtable_errors(torch, dtab_k, dtab_p, labels, n_items, tol, iids)
     same = torch.equal(dsr_k, dsr_k2) and torch.equal(dtab_k, dtab_k2)
+    same_fwd = all(torch.equal(a, b) for a, b in zip(got, got2))
     row = {"phase": "multi_kernel_check", "items": n_items, "P": P,
            "K": K, "B": rows, "D": dim, "Ns": ns, "dtype": dname,
            "normalize_table": norm, **tags, "stats_err_tol": stats,
            "stats_max_abs_err": e_fwd,
            "dsr_max_abs_err": e_dsr, "dsr_tol": dsr_tol,
-           "dtable_err_tol": dtab, "k4_repeat_bit_identical": same}
+           "dtable_err_tol": dtab, "k3_repeat_bit_identical": same_fwd,
+           "k4_repeat_bit_identical": same}
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (*got[1::2], dsr_k, dtab_k))
-    row["ok"] = (finite and same
+    row["ok"] = (finite and same and same_fwd
                  and all(e <= t for e, t in stats.values())
                  and e_dsr <= row["dsr_tol"]
                  and all(e <= t for e, t in dtab.values()))
@@ -1222,21 +1242,107 @@ def grad_or_zeros(torch, p):
     return p.grad if p.grad is not None else torch.zeros_like(p)
 
 
-def vs_cpu(torch, model, batch, grads):
-    """({what: max abs err}, ok): one training forward and backward of
-    ``batch`` through the kernels against the plain path on the CPU, from
-    a copy taken before it: the loss to rtol 1e-4, each parameter of
-    ``grads``' gradient to 1e-3 of its largest magnitude, and each buffer
-    (LESSR's running BatchNorm statistics, which the forward updates) to
-    1e-5 of max(1, its largest magnitude)."""
-    from sessionrec_tpu_torch.train.runner import make_loss
-    cpu_model = copy.deepcopy(model).to("cpu")
-    for m in (model, cpu_model):
-        m.zero_grad(set_to_none=True)
-    loss_gpu = make_loss(model, batch, None)
-    loss_gpu.backward()
-    loss_cpu = make_loss(cpu_model, batch.to("cpu"), None)
-    loss_cpu.backward()
+class relu_inputs:
+    """``torch.relu`` made to keep a copy of each call's input on the CPU,
+    in call order (``inputs``), and to compute as before."""
+
+    def __init__(self, torch):
+        self.torch, self.inputs = torch, []
+
+    def __call__(self, x):
+        self.inputs.append(x.detach().float().cpu())
+        return self.relu(x)
+
+    def __enter__(self):
+        self.relu, self.torch.relu = self.torch.relu, self
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.relu = self.relu
+
+
+def relu_flips(first, second):
+    """[inputs, the largest relative]: the ``relu_inputs`` of two runs of
+    one model whose sign (> 0) differs, and the largest magnitude among
+    them, either run's, over its call's largest input in ``first``."""
+    n, worst = 0, 0.0
+    for a, b in zip(first, second):
+        flip = (a > 0) != (b > 0)
+        if bool(flip.any()):
+            n += int(flip.sum())
+            top = max(float(a.abs().max()), 1e-30)
+            worst = max(worst, float(a[flip].abs().max()) / top,
+                        float(b[flip].abs().max()) / top)
+    return [n, worst]
+
+
+def relu_gap(first, second):
+    """The largest gap between two runs' ``relu_inputs``, each call's over
+    its largest magnitude in ``second``: NaN where an input is NaN, inf
+    where the calls or their shapes differ."""
+    if len(first) != len(second) or any(a.shape != b.shape
+                                        for a, b in zip(first, second)):
+        return math.inf
+    worst = 0.0
+    for a, b in zip(first, second):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if math.isnan(rel):
+            return rel
+        worst = max(worst, rel)
+    return worst
+
+
+class relu_branches:
+    """``torch.relu`` made to take, in its k-th call, the other branch at
+    the inputs where ``flip[k]`` is True: ``x - relu(x)``, 0 for an input
+    > 0 and the input itself otherwise (their gradients likewise)."""
+
+    def __init__(self, torch, flip):
+        self.torch, self.flip, self.calls = torch, flip, 0
+
+    def __call__(self, x):
+        y = self.relu(x)
+        flip = self.flip[self.calls]
+        self.calls += 1
+        return self.torch.where(flip, x - y, y)
+
+    def __enter__(self):
+        self.relu, self.torch.relu = self.torch.relu, self
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.relu = self.relu
+
+
+class plain_kernels:
+    """K1-K4's wrappers made to run their plain versions on CUDA tensors
+    too (``vs_cpu``'s witness where it fails; launches no kernel)."""
+
+    def __enter__(self):
+        from sessionrec_tpu_torch.ops import xent
+        from sessionrec_tpu_torch.ops import xent_multi as xm
+
+        def k1(sr, table, labels, n_valid, col_offset, **kw):
+            m, s, zl = xent._fwd_plain(sr, table, labels, n_valid,
+                                       col_offset, **kw)
+            lse = xent._finish_lse(m, s)
+            return lse - zl, lse
+
+        self.saved = [(mod, mod._fwd_cuda, mod._bwd_cuda)
+                      for mod in (xent, xm)]
+        xent._fwd_cuda, xent._bwd_cuda = k1, xent._bwd_plain
+        xm._fwd_cuda, xm._bwd_cuda = xm._fwd_plain, xm._bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fwd, bwd in self.saved:
+            mod._fwd_cuda, mod._bwd_cuda = fwd, bwd
+
+
+def held_to_cpu(torch, model, cpu_model, loss_gpu, loss_cpu, grads):
+    """({what: max abs err}, ok) of ``vs_cpu``'s bars: the loss to rtol
+    1e-4, each parameter of ``grads``' gradient to 1e-3 of its largest
+    magnitude on the CPU, each buffer to 1e-5 of max(1, its largest)."""
     errs = {"loss": abs(float(loss_gpu.detach()) - float(loss_cpu.detach()))}
     ok = errs["loss"] <= 1e-4 * abs(float(loss_cpu.detach()))
     gpu_p, cpu_p = dict(model.named_parameters()), \
@@ -1250,6 +1356,61 @@ def vs_cpu(torch, model, batch, grads):
         errs[bname] = max_err(t.cpu(), cpu_b[bname])
         ok = ok and errs[bname] <= 1e-5 * max(
             1.0, float(cpu_b[bname].abs().max()))
+    return errs, ok
+
+
+def vs_cpu(torch, model, batch, grads):
+    """({what: max abs err}, ok): one training forward and backward of
+    ``batch`` through the kernels against the plain path on the CPU, from
+    a copy taken before it, to ``held_to_cpu``'s bars, and every
+    ``torch.relu`` input to RELU_GAP (``relu_gap``).  ``relu_flips``: the
+    inputs whose sign differs between the card and the CPU, so within
+    RELU_GAP of 0.  Where they exist and the CPU's own branches miss the
+    bars, the CPU runs again from the copy with the other branch at those
+    inputs (``relu_branches``), and the card must meet the bars against
+    that run (``at_ties``).  Where the check fails, ``plain_on_card``
+    holds each of ``grads``' [error against the CPU's last run, error
+    against the kernels' run] of the same forward and backward on the
+    card through K1-K4's plain versions (``plain_kernels``): a gap that
+    they share is not the kernels'."""
+    from sessionrec_tpu_torch.train.runner import make_loss
+    model.zero_grad(set_to_none=True)
+    start = copy.deepcopy(model).to("cpu")
+
+    def on_cpu(relu):
+        cpu_model = copy.deepcopy(start)
+        with relu:
+            loss = make_loss(cpu_model, batch.to("cpu"), None)
+        loss.backward()
+        return cpu_model, loss
+
+    with relu_inputs(torch) as card:
+        loss_gpu = make_loss(model, batch, None)
+    loss_gpu.backward()
+    cpu = relu_inputs(torch)
+    cpu_model, loss_cpu = on_cpu(cpu)
+    errs, ok = held_to_cpu(torch, model, cpu_model, loss_gpu, loss_cpu, grads)
+    gap = relu_gap(card.inputs, cpu.inputs)
+    errs.update(relu_gap=gap, relu_flips=relu_flips(card.inputs, cpu.inputs))
+    within = gap <= RELU_GAP
+    if within and errs["relu_flips"][0] and not ok:
+        flip = [(a > 0) != (b > 0) for a, b in zip(card.inputs, cpu.inputs)]
+        cpu_model, loss_cpu = on_cpu(relu_branches(torch, flip))
+        errs["at_ties"], ok = held_to_cpu(torch, model, cpu_model, loss_gpu,
+                                          loss_cpu, grads)
+    ok = ok and within
+    if not ok:
+        gpu_p, cpu_p = dict(model.named_parameters()), \
+            dict(cpu_model.named_parameters())
+        kern = {p: grad_or_zeros(torch, gpu_p[p]).cpu() for p in grads}
+        model.zero_grad(set_to_none=True)
+        with plain_kernels():
+            make_loss(model, batch, None).backward()
+        errs["plain_on_card"] = plain = {}
+        for p in grads:
+            g = grad_or_zeros(torch, gpu_p[p]).cpu()
+            plain[p] = [max_err(g, grad_or_zeros(torch, cpu_p[p])),
+                        max_err(g, kern[p])]
     return errs, ok
 
 
@@ -2535,8 +2696,8 @@ def phase_wide_checks(torch, xent, xm, seed):
     chunks (``phase_forced_chunks``); K3/K4 with LONG_NS session items a
     row at D and WIDE_D (``"long_items": true``); and K1-K4 on a catalog
     shard with its column offset at WIDE_D, float32, normalised.  The
-    tolerances of the other checks; the backward kernels twice, their
-    bits repeated."""
+    tolerances of the other checks; the kernels twice, their bits
+    repeated (the shard checks repeat the backward's)."""
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
     t0 = time.perf_counter()
     for i, case in enumerate(wide_check_cases(torch)):

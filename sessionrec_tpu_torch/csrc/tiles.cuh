@@ -55,9 +55,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// wait until at most one committed group of this thread is in flight
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four consecutive shared elements widened to float32
@@ -308,7 +309,7 @@ __device__ __forceinline__ void fwd_tile_loop(
     cp_async_commit();
     if constexpr (MEMBERS)
       row_masks(mask_s, iids, row0, R, B, Ns, col_offset + p0);
-    cp_async_wait_prev();  // this tile (and the rows) have landed
+    cp_async_wait<1>();  // this tile (and the rows) have landed
     __syncthreads();
     float S[4][4] = {};
     product_logits(S, A_s, C, ld, D4);
@@ -496,14 +497,19 @@ __global__ void __launch_bounds__(NT) xent_bwd_dtable_reduce(
 }
 
 // ---------------------------------------------------------------------------
-// The slab path, for D > MAX_D.  A row of D features is cut into
-// slab_count(D) slabs of slab_width(D) features (the last one narrower, none
-// wider than MAX_D), so that a thread's 8 x 8 accumulators (8 features a
-// lane) cover one slab of an output row at any width.
+// The slab path, for D > MAX_D.  The backward's products cut a row of D
+// features into slab_count(D) slabs of slab_width(D) features (the last one
+// narrower, none wider than MAX_D), so that a thread's 8 x 8 accumulators
+// (8 features a lane) cover one slab of an output row at any width; the
+// logits go over all D features in k-chunks of KC.
 //
-// K1's and K3's forward stages one slab of each operand tile at a time into
-// a [TILE][tile_ld(slab_width(D))] buffer and sums each logits tile over
-// the slabs before anything reads it (slab_logits, fwd_slab_loop).
+// K1's and K3's forward (fwd_slab_loop) walks its catalog split's (catalog
+// tile, k-chunk of KC features) pairs as one stream through a ring of
+// FWD_STAGES shared-memory stages: each chunk of the rows and of the tile
+// is issued by cp.async FWD_STAGES - 1 chunks ahead of its product, also
+// across catalog tiles, so a tile's epilogue (the online log-sum-exp) runs
+// while the next tile's first chunks land.  The ring (104 KB in float32)
+// leaves room for two resident blocks an SM.
 //
 // K2's and K4's backward computes dz once, then runs three products (a
 // block per output slab that recomputed the full-width logits would run
@@ -544,11 +550,6 @@ __host__ __device__ __forceinline__ int slab_width(int D) {
   return ((D + n - 1) / n + 3) & ~3;
 }
 
-// wait until every committed group of this thread has landed
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // columns [k0, k0 + w) of rows [row0, row0 + NR) of a row-major
 // [n_rows, D] array into dst (row stride ld), as columns [0, round_up(w,
 // 4)); rows at or past n_rows and columns at or past w read 0.  With vec
@@ -576,29 +577,6 @@ __device__ __forceinline__ void stage_slab(T* dst, int ld,
   }
 }
 
-// S += the 64 x 64 logits tile of rows [a0, a0 + TILE) of a [a_rows, D]
-// against rows [c0, c0 + TILE) of c [c_rows, D] over all D features, one
-// slab at a time through A_s and C_s (product_logits's thread layout).  On
-// return every thread is done reading A_s and C_s.
-template <typename T>
-__device__ __forceinline__ void slab_logits(float (&S)[4][4], T* A_s, T* C_s,
-                                            int ld, const T* __restrict__ a,
-                                            int a0, int a_rows,
-                                            const T* __restrict__ c, int c0,
-                                            int c_rows, int D, int sw,
-                                            bool vec) {
-  for (int k0 = 0; k0 < D; k0 += sw) {
-    const int w = min(sw, D - k0);
-    stage_slab(A_s, ld, a, a0, a_rows, D, k0, w, vec);
-    stage_slab(C_s, ld, c, c0, c_rows, D, k0, w, vec);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    product_logits(S, A_s, C_s, ld, (w + 3) & ~3);
-    __syncthreads();
-  }
-}
-
 // the slab of rank_update's accumulators of one row (features
 // lane_feature(j) of a slab w wide) to row, which points at the slab's first
 // feature in a float32 row of D; four at a time where D % 4 == 0 (then w and
@@ -616,18 +594,57 @@ __device__ __forceinline__ void store_slab8(float* row, const float (&v)[8],
   }
 }
 
-// shared memory of a slab-path forward block: a slab of the rows and one
-// of a catalog tile and, with MEMBERS, the rows' masks
+constexpr int KC = 64;              // features of a k-chunk
+constexpr int LDK = KC + 4;         // row stride of a staged k-chunk
+constexpr int CHUNK = 2 * TILE * LDK;  // elements of a chunk stage
+static_assert(LDK == (KC + 31) / 32 * 32 + 4, "LDK: tile_ld(KC)");
+
+// k-chunk kc (features [kc KC, kc KC + KC) of D) of rows [a0, a0 + TILE) of
+// a [a_rows, D] into dst's first [TILE][LDK] and of rows [c0, c0 + TILE) of
+// c [c_rows, D] into the second, by cp.async where vec (stage_slab)
+template <typename T>
+__device__ __forceinline__ void stage_chunk(T* dst, const T* __restrict__ a,
+                                            int a0, int a_rows,
+                                            const T* __restrict__ c, int c0,
+                                            int c_rows, int D, int kc,
+                                            bool vec) {
+  const int k0 = kc * KC, w = min(KC, D - k0);
+  stage_slab(dst, LDK, a, a0, a_rows, D, k0, w, vec);
+  stage_slab(dst + TILE * LDK, LDK, c, c0, c_rows, D, k0, w, vec);
+}
+
+// product_logits over the staged k-chunk kc of D at stage A
+template <typename T>
+__device__ __forceinline__ void chunk_logits(float (&S)[4][4], const T* A,
+                                             int D, int kc) {
+  product_logits(S, A, A + TILE * LDK, LDK, (min(KC, D - kc * KC) + 3) & ~3);
+}
+
+// ring stages of the slab forward's chunk stream: three keep two chunks in
+// flight behind the one in use, and 3 x 34,816 bytes in float32 let two
+// blocks share an SM's 228 KB
+constexpr int FWD_STAGES = 3;
+
+// shared memory of a slab-path forward block: the chunk ring and, with
+// MEMBERS, the rows' masks
 template <typename T, bool MEMBERS>
-size_t fwd_slab_smem(int D) {
-  return (size_t)2 * TILE * tile_ld(slab_width(D)) * sizeof(T) +
+constexpr size_t fwd_slab_smem() {
+  return (size_t)FWD_STAGES * CHUNK * sizeof(T) +
          (MEMBERS ? TILE * sizeof(unsigned long long) : 0);
 }
 
 // ---------------------------------------------------------------------------
 // fwd_tile_loop for D > MAX_D: the same partial online log-sum-exp over one
-// catalog split and the same outputs, with each 64 x 64 logits tile summed
-// over the slabs (the rows' slab is staged again for every catalog tile).
+// catalog split and the same outputs.  The split's (catalog tile, k-chunk)
+// pairs, chunk q = (tile t_begin + q / n_k, k-chunk q % n_k), form one
+// stream through the ring: chunk q + FWD_STAGES - 1 is issued as soon as
+// chunk q has landed and the stage it overwrites is consumed (one
+// __syncthreads a chunk), before chunk q's product; each 64 x 64 logits
+// tile sums its chunks in ascending k (product_logits, the same fmaf chain
+// per logit as one pass over D), then its epilogue runs while the next
+// tile's chunks land.  With MEMBERS the tile's masks are built during its
+// first chunk and read after its last (n_k >= 2 past MAX_D, so a barrier
+// lies between).
 // ---------------------------------------------------------------------------
 template <typename T, bool MEMBERS>
 __device__ __forceinline__ void fwd_slab_loop(
@@ -636,18 +653,30 @@ __device__ __forceinline__ void fwd_slab_loop(
     const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
     int n_valid, int col_offset, float scale, int normalize, int vec,
     int tiles_per_split, float* __restrict__ part) {
-  const int sw = slab_width(D), ld = tile_ld(sw);
-  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] rows
-  T* C_s = A_s + TILE * ld;                            // [TILE][ld] table
-  unsigned long long* mask_s =
-      reinterpret_cast<unsigned long long*>(C_s + TILE * ld);  // [TILE]
+  T* ring = reinterpret_cast<T*>(smem);            // [FWD_STAGES][CHUNK]
+  unsigned long long* mask_s = reinterpret_cast<unsigned long long*>(
+      ring + FWD_STAGES * CHUNK);                  // [TILE]
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int row0 = blockIdx.x * TILE;
   const int n_tiles = (P + TILE - 1) / TILE;
   const int t_begin = blockIdx.y * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int n_k = (D + KC - 1) / KC;
+  const int n_chunks = (t_end - t_begin) * n_k;
   const int shift = MEMBERS ? 0 : col_offset;
   n_valid -= shift;
+
+  // chunk q into its stage, one commit group a chunk (empty past the end)
+  auto issue = [&](int q) {
+    if (q < n_chunks) {
+      const int t = q / n_k;
+      stage_chunk(ring + (q % FWD_STAGES) * CHUNK, sr, row0, R, tab,
+                  (t_begin + t) * TILE, P, D, q - t * n_k, vec);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int q = 0; q < FWD_STAGES - 1; ++q) issue(q);
 
   int lbl[4];
   float m_in[4], s_in[4], m_ex[4], s_ex[4], zl[4];
@@ -659,12 +688,18 @@ __device__ __forceinline__ void fwd_slab_loop(
     s_in[i] = s_ex[i] = zl[i] = 0.f;
   }
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int p0 = t * TILE;
-    if constexpr (MEMBERS)
-      row_masks(mask_s, iids, row0, R, B, Ns, col_offset + p0);
-    float S[4][4] = {};
-    slab_logits(S, A_s, C_s, ld, sr, row0, R, tab, p0, P, D, sw, vec);
+  float S[4][4] = {};
+  int kc = 0, p0 = t_begin * TILE;  // chunk q's k-chunk and catalog tile
+  for (int q = 0; q < n_chunks; ++q) {
+    cp_async_wait<FWD_STAGES - 2>();  // this thread's copies of chunk q
+    __syncthreads();  // everyone's; and chunk q - 1's stage is consumed
+    issue(q + FWD_STAGES - 1);
+    if constexpr (MEMBERS) {
+      if (kc == 0) row_masks(mask_s, iids, row0, R, B, Ns, col_offset + p0);
+    }
+    chunk_logits(S, ring + (q % FWD_STAGES) * CHUNK, D, kc);
+    if (++kc < n_k) continue;
+
     float n[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -682,6 +717,7 @@ __device__ __forceinline__ void fwd_slab_loop(
         const int c = tx + 16 * j;
         const int col = p0 + c;
         float v = scale * S[i][j];
+        S[i][j] = 0.f;
         if (normalize) v = v / n[j];
         const bool in_table = col < P;
         if (!in_table || col >= n_valid) v = NEG_INF;
@@ -706,7 +742,8 @@ __device__ __forceinline__ void fwd_slab_loop(
       m_in[i] = mi;
       m_ex[i] = me;
     }
-    if constexpr (MEMBERS) __syncthreads();  // the masks are consumed
+    kc = 0;
+    p0 += TILE;
   }
 
   const size_t plane = (size_t)gridDim.y * R;
@@ -748,20 +785,17 @@ __device__ __forceinline__ void fwd_slab_loop(
 // The slab backward (see the slab path's note above).
 // ---------------------------------------------------------------------------
 
-constexpr int KC = 64;        // features of a k-chunk of dz_logits
 constexpr int KR = 32;        // reduction rows of a product stage
 constexpr int LDX = KR + 4;   // row stride of xent_slab_dsr's [TILE][KR] dz
 // elements of a product stage's dz tile: [KR][LDZ] (d_table) or [TILE][LDX]
 // (d_sr)
 constexpr int STAGE_X = KR * LDZ > TILE * LDX ? KR * LDZ : TILE * LDX;
 
-// shared memory of a dz block: two stages of a [TILE][KC] k-chunk of the
-// rows and of the catalog tile
+// shared memory of a dz block: two chunk stages
 template <typename T>
 __host__ __device__ constexpr size_t dz_smem() {
-  return (size_t)4 * TILE * (KC + 4) * sizeof(T);
+  return (size_t)2 * CHUNK * sizeof(T);
 }
-static_assert(KC + 4 == (KC + 31) / 32 * 32 + 4, "dz_smem: tile_ld(KC)");
 
 // shared memory of a product block: two stages of its dz tile and of KR
 // rows of its slab
@@ -772,33 +806,26 @@ size_t slab_product_smem(int D) {
 
 // S = the 64 x 64 logits tile of rows [a0, a0 + TILE) of a [a_rows, D]
 // against rows [c0, c0 + TILE) of c [c_rows, D] over all D features, in
-// k-chunks of KC features through two stages of smem (dz_smem), the next
-// chunk arriving by cp.async while the current one is used
-// (product_logits's thread layout).  On return every thread is done
-// reading smem.
+// k-chunks through two stages of smem (dz_smem), the next chunk arriving
+// by cp.async while the current one is used (product_logits's thread
+// layout).  On return every thread is done reading smem.
 template <typename T>
 __device__ __forceinline__ void dz_logits(float (&S)[4][4], T* smem,
                                           const T* __restrict__ a, int a0,
                                           int a_rows, const T* __restrict__ c,
                                           int c0, int c_rows, int D,
                                           bool vec) {
-  constexpr int ld = KC + 4;
   const int n_k = (D + KC - 1) / KC;
-  auto stage = [&](int kc) {
-    T* A = smem + (kc & 1) * 2 * TILE * ld;
-    const int k0 = kc * KC, w = min(KC, D - k0);
-    stage_slab(A, ld, a, a0, a_rows, D, k0, w, vec);
-    stage_slab(A + TILE * ld, ld, c, c0, c_rows, D, k0, w, vec);
-  };
-  stage(0);
+  stage_chunk(smem, a, a0, a_rows, c, c0, c_rows, D, 0, vec);
   cp_async_commit();
   for (int kc = 0; kc < n_k; ++kc) {
-    if (kc + 1 < n_k) stage(kc + 1);
+    if (kc + 1 < n_k)
+      stage_chunk(smem + ((kc + 1) & 1) * CHUNK, a, a0, a_rows, c, c0,
+                  c_rows, D, kc + 1, vec);
     cp_async_commit();
-    cp_async_wait_prev();  // this chunk has landed
+    cp_async_wait<1>();  // this chunk has landed
     __syncthreads();
-    const T* A = smem + (kc & 1) * 2 * TILE * ld;
-    product_logits(S, A, A + TILE * ld, ld, (min(KC, D - kc * KC) + 3) & ~3);
+    chunk_logits(S, smem + (kc & 1) * CHUNK, D, kc);
     __syncthreads();  // the chunk is consumed
   }
 }
@@ -899,7 +926,7 @@ __global__ void __launch_bounds__(NT, 2) xent_slab_dtable(
   for (int s = 0; s < n_steps; ++s) {
     if (s + 1 < n_steps) stage(s + 1);
     cp_async_commit();
-    cp_async_wait_prev();  // this stage has landed
+    cp_async_wait<1>();  // this stage has landed
     __syncthreads();
     const T* X = buf + (s & 1) * stage_elems;
     rank_update_rows<KR, true, 4>(G, X, LDZ, X + STAGE_X, ldy);
@@ -950,7 +977,7 @@ __global__ void __launch_bounds__(NT, 2) xent_slab_dsr(
   for (int s = 0; s < n_steps; ++s) {
     if (s + 1 < n_steps) stage(s + 1);
     cp_async_commit();
-    cp_async_wait_prev();  // this stage has landed
+    cp_async_wait<1>();  // this stage has landed
     __syncthreads();
     const T* X = buf + (s & 1) * stage_elems;
     rank_update_cols<KR>(acc, X, LDX, X + STAGE_X, ldy);

@@ -45,7 +45,8 @@
 // P >= 1, D >= 1: with D % 4 == 0 and aligned arrays the tiles are staged
 // by cp.async, otherwise by plain loads.  Up to D = MAX_D (256) the kernel
 // above runs; wider rows run xent_fwd_slab (fwd_slab_loop, tiles.cuh), which
-// sums each logits tile over feature slabs of at most 256.  Each entry point
+// streams the split's catalog tiles in k-chunks of 64 features through a
+// ring of three cp.async stages, two blocks an SM.  Each entry point
 // launches on the given stream, does not synchronise and returns
 // cudaGetLastError().
 
@@ -70,9 +71,10 @@ __global__ void __launch_bounds__(NT, 1) xent_fwd_partial(
                           tiles_per_split, part);
 }
 
-// K1 for D > MAX_D: the same partial over feature slabs (fwd_slab_loop)
+// K1 for D > MAX_D: the same partial, its (catalog tile, k-chunk) pairs
+// one pipelined stream (fwd_slab_loop), two blocks an SM
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) xent_fwd_slab(
+__global__ void __launch_bounds__(NT, 2) xent_fwd_slab(
     const T* __restrict__ sr, const T* __restrict__ tab,
     const float* __restrict__ nrm, const int* __restrict__ labels, int B,
     int P, int D, int n_valid, int col_offset, float scale, int normalize,
@@ -115,7 +117,7 @@ const void* fwd_kernel(int D) {
 
 template <typename T>
 int set_fwd_smem(int D) {
-  const int smem = D > MAX_D ? (int)fwd_slab_smem<T, false>(D)
+  const int smem = D > MAX_D ? (int)fwd_slab_smem<T, false>()
                              : (int)fwd_smem<T, false>(D);
   cudaFuncSetAttribute(fwd_kernel<T>(D),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -123,17 +125,16 @@ int set_fwd_smem(int D) {
 }
 
 // resident blocks per SM of the partial kernel (out[0]), its registers per
-// thread (out[2]) and its local memory bytes per thread, where spills go
-// (out[3])
+// thread (out[2]), its local memory bytes per thread, where spills go
+// (out[3]), its dynamic shared memory bytes (out[4]) and the stages its
+// staging pipelines (out[5]: the table tiles' two buffers up to MAX_D, the
+// chunk ring past it)
 template <typename T>
 int slots(int D, int* out) {
   const int smem = set_fwd_smem<T>(D);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fwd_kernel<T>(D),
-                                                NT, smem);
-  cudaFuncAttributes a;
-  cudaFuncGetAttributes(&a, fwd_kernel<T>(D));
-  out[2] = a.numRegs;
-  out[3] = (int)a.localSizeBytes;
+  kernel_attrs(fwd_kernel<T>(D), smem, &out[0], &out[2], &out[3]);
+  out[4] = smem;
+  out[5] = D > MAX_D ? FWD_STAGES : 2;
   return (int)cudaGetLastError();
 }
 
@@ -175,7 +176,8 @@ int srt_xent_slabs(int D) { return slab_count(D); }
 
 // out[0]: resident blocks per SM of K1's partial kernel at width D on the
 // current device; out[1]: its SM count; out[2]: the kernel's registers per
-// thread; out[3]: its local memory bytes per thread
+// thread; out[3]: its local memory bytes per thread; out[4]: its dynamic
+// shared memory bytes; out[5]: its staging stages
 int srt_xent_fwd_slots(int D, int is_bf16, int* out) {
   const int err = is_bf16 ? slots<__nv_bfloat16>(D, out) : slots<float>(D, out);
   if (err) return err;

@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(NT, 1) xent_bwd_dtable(
       stage_tile(A_s + (buf ^ 1) * TILE * ld, ld, sr, (c + 1) * TILE, B, D,
                  vec);
     cp_async_commit();
-    cp_async_wait_prev();  // this chunk (and the tile) have landed
+    cp_async_wait<1>();  // this chunk (and the tile) have landed
     __syncthreads();
     float S[4][4] = {};
     product_logits(S, A, C_s, ld, D4);
@@ -230,7 +230,7 @@ __global__ void __launch_bounds__(NT, 1) xent_bwd_dsr(
       stage_tile(C_s + (buf ^ 1) * TILE * ld, ld, op, (t + 1) * TILE, P, D,
                  vec);
     cp_async_commit();
-    cp_async_wait_prev();  // this tile (and the rows) have landed
+    cp_async_wait<1>();  // this tile (and the rows) have landed
     __syncthreads();
     float S[4][4] = {};
     product_logits(S, A_s, C, ld, D4);

@@ -82,7 +82,9 @@
 // srt_xent_multi_slots.  Any K, B >= 1, P >= 1, D >= 1, Ns >= 1: with
 // D % 4 == 0 and aligned arrays the tiles are staged by cp.async,
 // otherwise by plain loads.  Past D = MAX_D (256) K3 runs
-// xent_multi_fwd_slab (fwd_slab_loop with membership), and K4
+// xent_multi_fwd_slab (fwd_slab_loop with membership: the split's catalog
+// tiles in k-chunks of 64 features through a ring of three cp.async
+// stages, two blocks an SM), and K4
 // srt_xent_multi_bwd_slab, the slab path of tiles.cuh as K2 runs it
 // (xent_bwd.cu): dz once, where a block per output slab that recomputed
 // the full-width logits would run 2 (slabs + 1) products of 2 R P D
@@ -122,9 +124,10 @@ __global__ void __launch_bounds__(NT, 1) xent_multi_fwd_partial(
                          tiles_per_split, part);
 }
 
-// K3 for D > MAX_D: the same partial over feature slabs (fwd_slab_loop)
+// K3 for D > MAX_D: the same partial, its (catalog tile, k-chunk) pairs
+// one pipelined stream (fwd_slab_loop), two blocks an SM
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) xent_multi_fwd_slab(
+__global__ void __launch_bounds__(NT, 2) xent_multi_fwd_slab(
     const T* __restrict__ sr, const T* __restrict__ tab,
     const float* __restrict__ nrm, const int* __restrict__ labels,
     const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
@@ -262,7 +265,7 @@ __global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dtable(
     cp_async_commit();
     row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
     row_coefs(rs, g5, labels, row0, R, B);
-    cp_async_wait_prev();  // this chunk (and the tile) have landed
+    cp_async_wait<1>();  // this chunk (and the tile) have landed
     __syncthreads();
     float S[4][4] = {};
     product_logits(S, A, C_s, ld, D4);
@@ -334,7 +337,7 @@ __global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dsr(
                  vec);
     cp_async_commit();
     row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
-    cp_async_wait_prev();  // this tile (and the rows) have landed
+    cp_async_wait<1>();  // this tile (and the rows) have landed
     __syncthreads();
     float S[4][4] = {};
     product_logits(S, A_s, C, ld, D4);
@@ -420,7 +423,7 @@ const void* fwd_kernel(int D) {
 
 template <typename T>
 int set_fwd_smem(int D) {
-  const int smem = D > MAX_D ? (int)fwd_slab_smem<T, true>(D)
+  const int smem = D > MAX_D ? (int)fwd_slab_smem<T, true>()
                              : (int)fwd_smem<T, true>(D);
   cudaFuncSetAttribute(fwd_kernel<T>(D),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -440,16 +443,15 @@ int set_bwd_smem(int D) {
 // resident blocks per SM of the three product kernels (K3's partial, K4's
 // d_table and d_sr, past MAX_D its two slab products: out[0..2]), their
 // registers per thread (out[4..6]) and their local memory bytes per thread,
-// where spills go (out[7..9])
+// where spills go (out[7..9]); K3's dynamic shared memory bytes (out[10])
+// and the stages its staging pipelines (out[11]: the table tiles' two
+// buffers up to MAX_D, the chunk ring past it)
 template <typename T, bool HI>
 int slots(int D, int* out) {
   const int fwd = set_fwd_smem<T>(D);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fwd_kernel<T>(D), NT,
-                                                fwd);
-  cudaFuncAttributes a;
-  cudaFuncGetAttributes(&a, fwd_kernel<T>(D));
-  out[4] = a.numRegs;
-  out[7] = (int)a.localSizeBytes;
+  kernel_attrs(fwd_kernel<T>(D), fwd, &out[0], &out[4], &out[7]);
+  out[10] = fwd;
+  out[11] = D > MAX_D ? FWD_STAGES : 2;
   if (D > MAX_D) {
     int blocks[2], regs[2], local[2];
     slab_product_attrs<T>(D, blocks, regs, local);
@@ -463,13 +465,8 @@ int slots(int D, int* out) {
   const int bwd = set_bwd_smem<T, HI>(D);
   const void* fns[2] = {(const void*)xent_multi_bwd_dtable<T, HI>,
                         (const void*)xent_multi_bwd_dsr<T, HI>};
-  for (int k = 0; k < 2; ++k) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1 + k], fns[k], NT,
-                                                  bwd);
-    cudaFuncGetAttributes(&a, fns[k]);
-    out[5 + k] = a.numRegs;
-    out[8 + k] = (int)a.localSizeBytes;
-  }
+  for (int k = 0; k < 2; ++k)
+    kernel_attrs(fns[k], bwd, &out[1 + k], &out[5 + k], &out[8 + k]);
   return (int)cudaGetLastError();
 }
 
@@ -604,7 +601,8 @@ extern "C" {
 // and d_sr kernels (past MAX_D the slab products) at width D on the current
 // device; out[3]: its SM count;
 // out[4..6]: the three kernels' registers per thread; out[7..9]: their
-// local memory bytes per thread
+// local memory bytes per thread; out[10], out[11]: K3's dynamic shared
+// memory bytes and staging stages
 int srt_xent_multi_slots(int D, int is_bf16, int* out) {
   const bool hi = ((D + 3) & ~3) > 128;
   const int err = is_bf16 ? (hi ? slots<__nv_bfloat16, true>(D, out)

@@ -18,10 +18,11 @@ hand-written kernels of ``csrc/xent.cu`` (K1) and ``csrc/xent_bwd.cu``
 
 Up to 256 features a row the kernels above run in one pass; past it
 (``--embedding-dim 512``) the same wrappers run the slab path of
-``csrc/tiles.cuh``, which cuts each row into feature slabs of at most 256
-(``slabs``): K1 sums each logits tile over the slabs; K2 computes dz once
-per catalog chunk into a scratch of at most ``DZ_SCRATCH_BYTES``, then
-d_table's and d_sr's products over it (``slab_bwd_plan``).
+``csrc/tiles.cuh``: K1 streams its split's catalog tiles in k-chunks of
+64 features through a ring of cp.async stages; K2 computes dz once per
+catalog chunk into a scratch of at most ``DZ_SCRATCH_BYTES``, then
+d_table's and d_sr's products over it in feature slabs of at most 256
+(``slabs``, ``slab_bwd_plan``).
 
 Beside each kernel sits its plain PyTorch version (``_fwd_plain``,
 ``_bwd_plain``), the oracle: a wrapper takes it only for tensors on the
@@ -306,10 +307,11 @@ def slots_query(fn, n, device, D, dtype):
 
 
 def _fwd_attrs(device, D, dtype):
-    """``srt_xent_fwd_slots``'s four numbers for ``device``: resident blocks
+    """``srt_xent_fwd_slots``'s six numbers for ``device``: resident blocks
     per SM of K1's partial kernel at width ``D``, the SM count, its
-    registers and local memory bytes per thread."""
-    return slots_query(_library().srt_xent_fwd_slots, 4, device, D, dtype)
+    registers and local memory bytes per thread, its dynamic shared memory
+    bytes and the stages its staging pipelines."""
+    return slots_query(_library().srt_xent_fwd_slots, 6, device, D, dtype)
 
 
 def _fwd_launch_grid(device, B, P, D, dtype):
@@ -323,14 +325,15 @@ def fwd_launch_shape(sr, P):
     """K1's launch for ``sr`` against a ``P``-row table: blocks, row tiles,
     catalog splits and tiles per split, resident blocks per SM, SMs, and
     the partial kernel's registers and local memory (spill) bytes per
-    thread."""
+    thread, its shared memory bytes and its staging stages (past 256
+    features the chunk ring's)."""
     (B, D), dev = sr.shape, sr.device
-    per_sm, sms, regs, local = _fwd_attrs(dev, D, sr.dtype)
+    per_sm, sms, regs, local, smem, stages = _fwd_attrs(dev, D, sr.dtype)
     grid = _fwd_launch_grid(dev, B, P, D, sr.dtype)
     return dict(blocks=grid["rows"] * grid["s_split"], row_tiles=grid["rows"],
                 catalog_splits=grid["s_split"], tiles_per_split=grid["s_per"],
                 resident_per_sm=per_sm, sms=sms, registers=regs,
-                local_bytes=local)
+                local_bytes=local, smem_bytes=smem, ring_stages=stages)
 
 
 def _bwd_attrs(device, D, dtype):

@@ -190,17 +190,27 @@ def test_k1_is_deterministic(cuda, dtype, P, D):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("D", [256, 258, 512, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_forward_kernels_spill_nothing(cuda, dtype):
+def test_forward_kernels_spill_nothing(cuda, dtype, D):
     """K1's and K3's partial kernels keep everything in registers at the
-    path's width: no local memory, and the grid of K1's own slots."""
-    s = torch.zeros(512, 256, device=cuda, dtype=dtype)
+    path's width and past 256 features: no local memory, and grids of
+    their own slots.  Past 256 the chunk ring's kernels fit two blocks on
+    an SM in float32 (bfloat16: what the query reports), so their grids
+    take twice the blocks."""
+    s = torch.zeros(512, D, device=cuda, dtype=dtype)
+    least = 2 if D > 256 and dtype == torch.float32 else 1
     k1 = tx.fwd_launch_shape(s, 3584)
-    assert k1["local_bytes"] == 0 and k1["resident_per_sm"] >= 1
+    assert k1["local_bytes"] == 0 and k1["resident_per_sm"] >= least
     assert k1["blocks"] == k1["row_tiles"] * k1["catalog_splits"] <= \
         k1["resident_per_sm"] * k1["sms"]
-    k3 = txm.multi_launch_shape(s.expand(3, 512, 256), 3584)
-    assert k3["local_bytes"]["fwd"] == 0
+    multi = txm.multi_launch_shape(s.expand(3, 512, D), 3584)
+    k3 = multi["k3"]
+    assert multi["local_bytes"]["fwd"] == 0 and k3["resident_per_sm"] >= least
+    assert k3["blocks"] <= k3["resident_per_sm"] * multi["sms"]
+    if D > 256:
+        assert k1["ring_stages"] == k3["ring_stages"] >= 2
+        assert k1["registers"] <= 128 and multi["registers"]["fwd"] <= 128
 
 
 def _k2_case(cuda, B, D, P, n, dtype, norm, seed=13):
@@ -467,6 +477,20 @@ def test_k4_is_deterministic(cuda, dtype, P, D):
     kw = dict(scale=12.0, normalize_table=True)
     first = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, P - 100, 0, **kw)
     second = txm._bwd_cuda(*g, s, t, lbl, iids, *lse, P - 100, 0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("D", [256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [3584, 37888])
+def test_k3_is_deterministic(cuda, dtype, P, D):
+    """No atomics: two calls on the same inputs give the same bits, past
+    256 features through the chunk ring too, on both catalogs' splits."""
+    s, t, lbl, iids, _, _, _ = _multi_edge_case(cuda, 512, D, P, P - 100,
+                                                dtype, True)
+    kw = dict(scale=12.0, normalize_table=True)
+    first = txm._fwd_cuda(s, t, lbl, iids, P - 100, 0, **kw)
+    second = txm._fwd_cuda(s, t, lbl, iids, P - 100, 0, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 

@@ -452,3 +452,224 @@ def test_a_trace_missing_records_is_retraced(counts, complete):
     events = [(name, 0.0, 1.0) for name, n in counts.items()
               for _ in range(n)]
     assert cs.records_complete(events, 10) is complete
+
+
+# The launch lines' fields of K1's and K3's forward past 256 features:
+# the slots queries' shared bytes and ring stages reach ``k1_launch`` and
+# ``multi_launch``, beside the grid that two blocks an SM give.  The
+# queries' numbers at D 512, float32, on 132 SMs stand in for the card.
+
+K1_SLOTS = (2, 132, 96, 0, 104448, 3)
+MULTI_SLOTS = (2, 1, 2, 132, 120, 128, 122, 0, 0, 0, 104448, 3)
+
+
+class _Library:
+    @staticmethod
+    def srt_xent_bwd_tile():
+        return 64
+
+    @staticmethod
+    def srt_xent_slabs(D):
+        return -(-D // 256)
+
+    srt_xent_multi_dz_slots = None
+
+
+@pytest.fixture
+def slots(monkeypatch):
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    monkeypatch.setattr(xent, "_library", lambda: _Library)
+    monkeypatch.setattr(xm, "_library", lambda: _Library)
+    monkeypatch.setattr(xent, "_fwd_attrs", lambda dev, D, dt: K1_SLOTS)
+    monkeypatch.setattr(xm, "_attrs", lambda dev, D, dt: MULTI_SLOTS)
+    monkeypatch.setattr(xent, "slots_query", lambda *a: (2, 92, 0))
+    return xm
+
+
+def test_k1_launch_line_carries_the_ring(slots):
+    shape = xent.fwd_launch_shape(torch.zeros(512, 512), 3584)
+    assert shape == dict(blocks=224, row_tiles=8, catalog_splits=28,
+                         tiles_per_split=2, resident_per_sm=2, sms=132,
+                         registers=96, local_bytes=0, smem_bytes=104448,
+                         ring_stages=3)
+
+
+def test_k3_launch_line_carries_the_ring(slots):
+    shape = slots.multi_launch_shape(torch.zeros(3, 512, 512), 3584)
+    assert shape["k3"] == dict(blocks=240, catalog_splits=10,
+                               resident_per_sm=2, smem_bytes=104448,
+                               ring_stages=3)
+    assert shape["registers"]["fwd"] == 120 and shape["sms"] == 132
+    assert shape["local_bytes"]["fwd"] == 0
+
+
+# vs_cpu's readings: the ``torch.relu`` inputs whose sign parts the card
+# and the CPU (not checked), and, where the check fails, the same
+# gradients through K1-K4's plain versions on the card.
+
+def test_relu_inputs_record_without_changing_the_result():
+    x = torch.tensor([[0.5, -1.862645e-09, -0.25, 1.0]], requires_grad=True)
+    relu = torch.relu
+    with cs.relu_inputs(torch) as rec:
+        y = torch.relu(x)
+    assert torch.relu is relu                      # restored on exit
+    y.sum().backward()
+    assert y.tolist() == [[0.5, 0.0, 0.0, 1.0]]
+    assert x.grad.tolist() == [[1.0, 0.0, 0.0, 1.0]]
+    assert len(rec.inputs) == 1 and torch.equal(rec.inputs[0], x.detach())
+
+
+def test_relu_flips_count_the_inputs_that_change_sign():
+    card = [torch.tensor([0.5, -1.862645e-09, -0.25, 1.0])]
+    cpu = [torch.tensor([0.5, 1.490116e-08, -0.25, 1.0])]
+    n, worst = cs.relu_flips(card, cpu)
+    assert n == 1 and worst == pytest.approx(1.490116e-08)
+    assert cs.relu_flips(card, card) == [0, 0.0]
+
+
+def test_plain_kernels_stand_in_for_the_wrappers_and_restore_them():
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    kernels = (xent._fwd_cuda, xent._bwd_cuda, xm._fwd_cuda, xm._bwd_cuda)
+    sr, tab, labels, _ = cs.make_inputs(torch, N_ITEMS, pad_catalog(N_ITEMS),
+                                        torch.float32, seed=1, dev="cpu")
+    kw = dict(scale=cs.SCALE, normalize_table=True)
+    with cs.plain_kernels():
+        got = xent._fwd_cuda(sr, tab, labels, N_ITEMS, 0, **kw)
+        assert xm._fwd_cuda is xm._fwd_plain
+        assert xent._bwd_cuda is xent._bwd_plain
+    want = xent.xent_fwd(sr, tab, labels, N_ITEMS, 0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (xent._fwd_cuda, xent._bwd_cuda, xm._fwd_cuda,
+            xm._bwd_cuda) == kernels
+
+
+def _paper_head():
+    from sessionrec_tpu_torch.data.loader import BatchLoader
+    from sessionrec_tpu_torch.models import MSGIFSR
+    model = MSGIFSR(500, 8, 1, order=3, extra=True, fusion=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    sessions = [[1, 2, 3], [4, 5], [6, 7, 8, 9]] * 10
+    batch = next(iter(BatchLoader(sessions, "ccs", 16, 9, order=3,
+                                  prefetch=0))).to("cpu")
+    return model, batch
+
+
+def test_vs_cpu_runs_the_paper_head_on_one_device():
+    """The whole check with both sides on the CPU: no error, no flip."""
+    model, batch = _paper_head()
+    errs, ok = cs.vs_cpu(torch, model, batch,
+                         ("embedding", "sc_sr.0.l1.weight"))
+    assert ok and errs["relu_flips"] == [0, 0.0]
+    assert "plain_on_card" not in errs
+    assert errs["sc_sr.0.l1.weight"] == 0.0 and errs["loss"] == 0.0
+
+
+def test_vs_cpu_adds_the_plain_witness_where_it_fails(monkeypatch):
+    """A failing check (every error read as 1) reruns the gradients
+    through the plain versions and reports each beside the CPU's."""
+    model, batch = _paper_head()
+    monkeypatch.setattr(cs, "max_err", lambda a, b: 1.0)
+    grads = ("embedding", "sc_sr.0.l1.weight")
+    errs, ok = cs.vs_cpu(torch, model, batch, grads)
+    assert not ok and errs["plain_on_card"] == {g: [1.0, 1.0] for g in grads}
+
+
+# The gate's ties: every ``torch.relu`` input agrees to RELU_GAP of its
+# call's largest (``relu_gap``); at an input within it that changes sign,
+# the card may agree with the CPU's other branch (``relu_branches``).  A
+# hook on the "card" model's gate layer (the CPU's copy runs without it)
+# stands in for the card's rounding, or for a wrong layer.
+
+@pytest.mark.parametrize("second, gap", [
+    ([0.5, -1e-9, -0.25, 1.0], 0.0),
+    ([0.5, 1e-6, -0.25, 1.0], pytest.approx(1e-6 + 1e-9)),
+    ([0.5, -1e-9, -0.25, 2.0], pytest.approx(0.5)),
+    ([0.5, -1e-9, -0.25], float("inf")),
+])
+def test_relu_gap_reads_each_call_against_its_largest(second, gap):
+    first = [torch.tensor([0.5, -1e-9, -0.25, 1.0])]
+    assert cs.relu_gap(first, [torch.tensor(second)]) == gap
+    assert cs.relu_gap(first, first + first) == float("inf")
+
+
+def test_relu_gap_fails_where_an_input_is_nan():
+    a = torch.tensor([float("nan"), 0.5, -1.0])
+    ok = torch.tensor([0.1, 0.5, -1.0])
+    for first, second in (([a], [a.clone()]), ([ok, a], [ok, ok])):
+        assert not cs.relu_gap(first, second) <= cs.RELU_GAP
+
+
+def test_relu_branches_take_the_other_branch_where_flipped():
+    x = torch.tensor([[0.5, 1.5e-8, -2e-9, -0.25]], requires_grad=True)
+    flip = [torch.tensor([[False, True, True, False]])]
+    with cs.relu_branches(torch, flip) as rb:
+        y = torch.relu(x)
+    assert torch.relu is rb.relu and rb.calls == 1
+    y.sum().backward()
+    assert y.tolist() == [[0.5, 0.0, pytest.approx(-2e-9), 0.0]]
+    assert x.grad.tolist() == [[1.0, 0.0, 1.0, 0.0]]
+
+
+def _card_hook(model, change):
+    """``change(input, output)`` on ``model``'s gate layer alone: the copy
+    that ``vs_cpu`` takes for the CPU shares the hook but not the layer."""
+    gate = model.sc_sr[0].l1
+    gate.register_forward_hook(
+        lambda mod, inp, out: change(inp[0], out) if mod is gate else None)
+
+
+def _gate_inputs(model, batch):
+    from sessionrec_tpu_torch.train.runner import make_loss
+    with cs.relu_inputs(torch) as rec:
+        make_loss(model, batch, None)
+    (x,) = rec.inputs
+    return x
+
+
+def test_vs_cpu_holds_the_card_to_the_other_branch_at_a_tie():
+    """One gate input set to +d on the CPU and -d on the "card", d = 1e-6
+    of the largest: the CPU's own branch misses the gradient bar, the
+    other branch there meets it, and the check passes."""
+    model, batch = _paper_head()
+    x = _gate_inputs(model, batch)
+    i = int(x.abs().flatten().argmin())
+    d = 1e-6 * float(x.abs().max())
+    with torch.no_grad():
+        model.sc_sr[0].l1.bias[i % x.shape[-1]] += d - x.flatten()[i]
+    assert float(_gate_inputs(model, batch).flatten()[i]) > 0.5 * d
+
+    def flip_one(inp, out):
+        out = out.clone()
+        out.view(-1)[i] -= 2 * d
+        return out
+
+    _card_hook(model, flip_one)
+    grads = ("embedding", "sc_sr.0.l1.weight")
+    errs, ok = cs.vs_cpu(torch, model, batch, grads)
+    assert ok and errs["relu_flips"][0] == 1
+    assert errs["relu_gap"] <= cs.RELU_GAP
+    own = errs["sc_sr.0.l1.weight"]
+    assert own > 1e-3 * float(model.sc_sr[0].l1.weight.grad.abs().max())
+    assert errs["at_ties"]["sc_sr.0.l1.weight"] <= 1e-6 * own
+    assert "plain_on_card" not in errs
+
+
+@pytest.mark.parametrize("wrong", ["bf16_weights", "one_input_off"])
+def test_vs_cpu_refuses_a_wrong_gate_layer(wrong):
+    """A gate layer with bf16-rounded weights, or one input moved by 10x
+    RELU_GAP of the largest, on the "card" alone: the gap shows it."""
+    model, batch = _paper_head()
+    top = float(_gate_inputs(model, batch).abs().max())
+
+    def change(inp, out):
+        if wrong == "bf16_weights":
+            w = model.sc_sr[0].l1.weight.bfloat16().float()
+            return torch.nn.functional.linear(inp, w, model.sc_sr[0].l1.bias)
+        out = out.clone()
+        out.view(-1)[0] += 10 * cs.RELU_GAP * top
+        return out
+
+    _card_hook(model, change)
+    errs, ok = cs.vs_cpu(torch, model, batch, ("sc_sr.0.l1.weight",))
+    assert not ok and errs["relu_gap"] > 9 * cs.RELU_GAP
+    assert "plain_on_card" in errs

@@ -269,6 +269,17 @@ def test_fwd_grid_on_the_path_and_north_star_catalogs():
         tiles=592, rows=8, s_split=33, s_per=18)
 
 
+def test_k3_fwd_grid_at_two_blocks_an_sm():
+    # K3 past 256 features: the chunk ring's two blocks a SM on 132 SMs
+    # over K * B = 1,536 rows (24 row tiles): 10 catalog splits of 6 tiles
+    # on the path, 11 of 54 at the north star
+    for P, s_split, s_per in ((3584, 10, 6), (37888, 11, 54)):
+        grid = tx._bwd_grid(1536, P, 264, 64)
+        assert (grid["rows"], grid["s_split"], grid["s_per"]) == \
+            (24, s_split, s_per)
+        assert grid["rows"] * grid["s_split"] <= 264
+
+
 def test_bwd_grid_on_the_path_and_north_star_catalogs():
     # 132 SMs, one resident block each: the path catalog's 56 tiles take 2
     # row splits, the north star's 592 tiles one; d_sr's 8 row tiles take
