@@ -999,11 +999,13 @@ PATHS = {
 
 # the kernels by which a trace counts each wrapper's launches, one per
 # wrapper call up to 256 features and past: the forward's main product; the
-# backward's d_table product, and past 256 features its finish kernel (the
-# slab path's dz kernel runs once a catalog chunk, its products are K2's
-# and K4's alike)
+# backward's d_table product (K2's in bfloat16 on the tensor cores,
+# xent_bwd_dtable_tc), and past 256 features its finish kernel (the slab
+# path's dz kernel runs once a catalog chunk, its products are K2's and
+# K4's alike)
 TRACE_KERNEL = {"xent_fwd": ("xent_fwd_partial", "xent_fwd_slab"),
-                "xent_bwd": ("xent_bwd_dtable", "xent_bwd_finish_slab"),
+                "xent_bwd": ("xent_bwd_dtable", "xent_bwd_dtable_tc",
+                             "xent_bwd_finish_slab"),
                 "xent_multi_fwd": ("xent_multi_fwd_partial",
                                    "xent_multi_fwd_slab"),
                 "xent_multi_bwd": ("xent_multi_bwd_dtable",

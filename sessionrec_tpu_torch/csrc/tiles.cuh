@@ -6,19 +6,29 @@
 // fixed order, and past 256 features the backward's two products over dz
 // and their chunk loop (the slab path, below).
 //
-// A staged tile keeps the operand's own type (float32 or bfloat16) and its
-// row-major layout, with a row stride of ld = round_up(D, 32) + 4
-// elements.  A thread reads four consecutive elements of a row with one
-// shared load (16 bytes in float32, 8 in bfloat16) and widens them to
+// float32 runs on the FMA pipes.  A staged tile keeps the operand's own
+// type and its row-major layout, with a row stride of ld = round_up(D, 32)
+// + 4 elements.  A thread reads four consecutive elements of a row with
+// one shared load (16 bytes in float32, 8 in bfloat16) and widens them to
 // float32 in registers.  That stride puts the rows that the lanes of one
 // load phase read on distinct banks (16 bytes apart modulo 128 in float32,
 // 8 or 72 apart in bfloat16), and lets cp.async copy four elements of a
 // row straight into place, with no transpose.  The products' unroll depths
 // are the fastest of those timed on the H100 (PERF.md).
+//
+// bfloat16 up to MAX_D features runs on the tensor cores: K1's and K3's
+// forward tile loop and K2's two product kernels multiply with
+// mma.sync m16n8k16 (bf16 x bf16 products, exact in float32, summed in
+// float32), fed from shared memory by ldmatrix, on tiles of their own
+// stride (the tensor-core section below).  K4 and the slab path past
+// MAX_D stay on the FMA pipes in both types.
 
 #pragma once
 
+#include <stdint.h>
+
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -239,11 +249,241 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
   m = mn;
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores, up to MAX_D features.  A staged bfloat16
+// tile has the row stride tc_ld(D) = round_up(D, 16) + 8 elements: rows
+// start on 16 bytes, so a row goes by 16-byte cp.async copies and each
+// 8 x 8 piece of an ldmatrix is eight 16-byte rows; the stride is an odd
+// multiple of 16 bytes modulo 128, so those eight rows fall on eight
+// distinct bank groups (conflict-free, also transposed); and features from
+// D up to round_up(D, 16) read 0, so a k step of 16 never passes the row.
+// Products run mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: both
+// operands of the logits are K-contiguous (plain ldmatrix.x4), the
+// accumulations' operands are read transposed where they are stored
+// N-contiguous (ldmatrix.x4.trans).  A fragment's float32 accumulators:
+// lane l holds rows l / 4 and l / 4 + 8 of its 16 x 8 piece, columns
+// 2 (l % 4) + {0, 1}.
+// ---------------------------------------------------------------------------
+
+// bfloat16 runs on the tensor cores (float32 on the FMA pipes)
+template <typename T>
+constexpr bool tc_type = std::is_same<T, __nv_bfloat16>::value;
+
+// whether K1's, K2's and K3's product kernels at width D in type T run on
+// the tensor cores (bfloat16 up to MAX_D)
+template <typename T>
+constexpr bool on_tensor_cores(int D) {
+  return tc_type<T> && D <= MAX_D;
+}
+
+// resident blocks per SM that a D <= MAX_D kernel's launch bounds ask for:
+// two for the tensor-core kernels, one on the FMA pipes
+template <typename T>
+constexpr int tile_blocks() {
+  return tc_type<T> ? 2 : 1;
+}
+
+// features a tensor-core k loop runs over: D rounded up to 16
+__host__ __device__ __forceinline__ int tc_kp(int D) {
+  return (D + 15) & ~15;
+}
+
+// row stride, in elements, of a staged bfloat16 [TILE, D] tensor-core tile
+__host__ __device__ __forceinline__ int tc_ld(int D) { return tc_kp(D) + 8; }
+
+constexpr int LDZB = TILE + 8;  // row stride of the bfloat16 dz tile
+
+// whether 16-byte cp.async copies may stage bfloat16 rows of a and b: vec
+// (D % 4 == 0, both aligned to four elements), D % 8 == 0 and both aligned
+// to 16 bytes
+inline int tc_vec(int vec, int D, const void* a, const void* b) {
+  return vec && D % 8 == 0 && (uintptr_t)a % 16 == 0 &&
+         (uintptr_t)b % 16 == 0;
+}
+
+// eight consecutive bfloat16 elements, global to shared, asynchronously
+__device__ __forceinline__ void copy8_async(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// rows [row0, row0 + TILE) of a row-major bfloat16 [n_rows, D] array into
+// dst (row stride tc_ld(D)), columns [0, round_up(D, 16)), eight elements
+// a piece.  With vec (tc_vec) every piece of a live row within D goes by
+// one cp.async, to be waited for with the group that the caller commits;
+// otherwise by plain loads.  Rows at or past n_rows and columns at or past
+// D read 0.
+__device__ __forceinline__ void stage_tile_tc(
+    __nv_bfloat16* dst, int ld, const __nv_bfloat16* __restrict__ src,
+    int row0, int n_rows, int D, bool vec) {
+  const int q8 = tc_kp(D) >> 3;  // eight-element pieces per row
+  for (int e = threadIdx.x; e < TILE * q8; e += NT) {
+    const int r = e / q8, k = (e - r * q8) * 8;
+    const int gr = row0 + r;
+    __nv_bfloat16* d = dst + r * ld + k;
+    if (gr >= n_rows || k >= D) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec) {
+      copy8_async(d, src + (size_t)gr * D + k);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 8; ++v)
+        d[v] = k + v < D ? src[(size_t)gr * D + k + v]
+                         : from_f<__nv_bfloat16>(0.f);
+    }
+  }
+}
+
+// four 8 x 8 pieces of 16-bit elements from shared memory, one a register
+// (lane l reads its pieces' rows at p; lanes 8 i .. 8 i + 7 address piece
+// i), as they are (ldsm_x4) or transposed (ldsm_x4_t)
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b for a 16 x 16 bfloat16 A fragment, a 16 x 8 B fragment (b0, b1)
+// and a 16 x 8 float32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// S = A C^T, the 64 x 64 logits tile of staged bfloat16 rows A [TILE][ld]
+// and C [TILE][ld] over k < kp (round_up(D, 16)), on the tensor cores.
+// The 8 warps split the tile 4 (rows) x 2 (columns): warp w computes rows
+// 16 (w >> 1) .. + 16 against columns 32 (w & 1) .. + 32, four n8
+// fragments, so lane l holds S[f][e] at row 16 (w >> 1) + l / 4 + 8 (e / 2)
+// and column 32 (w & 1) + 8 f + 2 (l % 4) + e % 2.  A k step is one
+// ldmatrix.x4 of A, two of C and four mma.
+__device__ __forceinline__ void product_logits_tc(float (&S)[4][4],
+                                                  const __nv_bfloat16* A,
+                                                  const __nv_bfloat16* C,
+                                                  int ld, int kp) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int lr = l & 7, l8 = (l >> 3) & 1, l16 = l >> 4;
+  // A's pieces: rows +0 / +8 (l8), k +0 / +8 (l16); C's: columns +0 / +8
+  // (l16: the n8 fragment), k +0 / +8 (l8)
+  const __nv_bfloat16* a_p = A + (16 * (w >> 1) + lr + 8 * l8) * ld + 8 * l16;
+  const __nv_bfloat16* c_p = C + (32 * (w & 1) + lr + 8 * l16) * ld + 8 * l8;
+#pragma unroll 4
+  for (int k = 0; k < kp; k += 16) {
+    unsigned a[4], b0[4], b1[4];
+    ldsm_x4(a, a_p + k);
+    ldsm_x4(b0, c_p + k);            // fragments 0, 1
+    ldsm_x4(b1, c_p + 16 * ld + k);  // fragments 2, 3
+    mma_bf16(S[0], a, b0[0], b0[1]);
+    mma_bf16(S[1], a, b0[2], b0[3]);
+    mma_bf16(S[2], a, b1[0], b1[1]);
+    mma_bf16(S[3], a, b1[2], b1[3]);
+  }
+}
+
+// acc[i][2 j + h] += the 64-deep sums of the products X Y for output rows
+// 32 (w >> 2) + 16 i .. + 16 and features 16 p + 8 h .. + 8 of feature pair
+// p = (w & 3) + 4 j, for the pairs p < np (round_up(D, 16) / 16): the 8
+// warps split a 64 x round_up(D, 16) output 2 (rows) x 4 (interleaved
+// feature pairs).  XT: the A operand is X^T, X stored [k][row] (d_table's
+// dz^T), read by ldmatrix.x4.trans; otherwise X is stored [row][k] (d_sr's
+// dz), read by ldmatrix.x4.  Y is stored [k][feature] (a staged tile), read
+// by ldmatrix.x4.trans, one feature pair a load.  A k step is 2 + NPW
+// loads for 4 NPW mma.
+template <int NPW, bool XT>
+__device__ __forceinline__ void rank_update_tc(float (&acc)[2][2 * NPW][4],
+                                               const __nv_bfloat16* X,
+                                               int ldx,
+                                               const __nv_bfloat16* Y,
+                                               int ldy, int np) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int m0 = 32 * (w >> 2), wn = w & 3;
+  const int lr = l & 7, l8 = (l >> 3) & 1, l16 = l >> 4;
+  // X's pieces: rows +0 / +8 (l8), k +0 / +8 (l16); Y's: k +0 / +8 (l8),
+  // features +0 / +8 (l16: the n8 fragment)
+  const __nv_bfloat16* x_p = XT ? X + (lr + 8 * l16) * ldx + m0 + 8 * l8
+                                : X + (m0 + lr + 8 * l8) * ldx + 8 * l16;
+  const __nv_bfloat16* y_p = Y + (lr + 8 * l8) * ldy + 16 * wn + 8 * l16;
+#pragma unroll
+  for (int k = 0; k < TILE; k += 16) {
+    unsigned a[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (XT)
+        ldsm_x4_t(a[i], x_p + k * ldx + 16 * i);
+      else
+        ldsm_x4(a[i], x_p + 16 * i * ldx + k);
+    }
+#pragma unroll
+    for (int j = 0; j < NPW; ++j) {
+      if (wn + 4 * j < np) {  // warp-uniform
+        unsigned b[4];
+        ldsm_x4_t(b, y_p + k * ldy + 64 * j);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * j], a[i], b[0], b[1]);
+          mma_bf16(acc[i][2 * j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// rank_update_tc's accumulators to a float32 [TILE][ldo] tile in shared
+// memory (ldo even), features of the pairs p < np
+template <int NPW>
+__device__ __forceinline__ void store_acc_tc(float* out, int ldo,
+                                             const float (&acc)[2][2 * NPW][4],
+                                             int np) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int m = 32 * (w >> 2) + (l >> 2), wn = w & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NPW; ++j) {
+      if (wn + 4 * j >= np) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float(&c)[4] = acc[i][2 * j + h];
+        float* o = out + (m + 16 * i) * ldo + 16 * (wn + 4 * j) + 8 * h +
+                   2 * (l & 3);
+        *reinterpret_cast<float2*>(o) = make_float2(c[0], c[1]);
+        *reinterpret_cast<float2*>(o + 8 * ldo) = make_float2(c[2], c[3]);
+      }
+    }
+}
+
+// a row of a float32 tile in shared memory in rank_update's lane layout:
+// v[j] = row[lane_feature(j)] for the features below D, else 0
+__device__ __forceinline__ void load_row8(float (&v)[8], const float* row,
+                                          int D) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = lane_feature(j);
+    v[j] = d < D ? row[d] : 0.f;
+  }
+}
+
 // shared memory of a forward block: the rows, two catalog tiles and, with
-// MEMBERS, the rows' masks
+// MEMBERS, the rows' masks (bfloat16 at the tensor cores' stride)
 template <typename T, bool MEMBERS>
 size_t fwd_smem(int D) {
-  return (size_t)3 * TILE * tile_ld(D) * sizeof(T) +
+  const int ld = tc_type<T> ? tc_ld(D) : tile_ld(D);
+  return (size_t)3 * TILE * ld * sizeof(T) +
          (MEMBERS ? TILE * sizeof(unsigned long long) : 0);
 }
 
@@ -252,11 +492,15 @@ size_t fwd_smem(int D) {
 // partial online log-sum-exp over one catalog split.  grid = (row tiles,
 // catalog splits) over the R rows of sr, row r taking label r % B (and,
 // with MEMBERS, iid list r % B).  A block stages its 64 rows once and
-// streams the raw table tiles of its split (double-buffered); thread (ty,
-// tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of each 64 x 64
-// logits tile, scales each logit by scale / n[col] in registers when the
-// table is normalised, and keeps its own running stats per row, merged
-// over the row's 16 threads by shuffles at the end.
+// streams the raw table tiles of its split (double-buffered), scales each
+// logit by scale / n[col] in registers when the table is normalised, and
+// keeps its own running stats per row.  float32 (fwd_tile_loop_fma):
+// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of
+// each 64 x 64 logits tile, its stats merged over the row's 16 threads by
+// shuffles at the end.  bfloat16 (fwd_tile_loop_tc): the tile from
+// product_logits_tc, a thread's two rows and eight columns a tile; its
+// stats merged over the quad by shuffles, then over the row's two column
+// warps through shared memory, at the end.
 //   MEMBERS: a row's session columns go to (m_in, s_in), the others to
 //     (m_ex, s_ex); part holds [5][n_split][R] floats: m_in, s_in, m_ex,
 //     s_ex, zl.  Columns are compared locally with n_valid and the labels.
@@ -266,7 +510,7 @@ size_t fwd_smem(int D) {
 //     does), so n_valid and the labels are shifted by col_offset.
 // ---------------------------------------------------------------------------
 template <typename T, bool MEMBERS>
-__device__ __forceinline__ void fwd_tile_loop(
+__device__ __forceinline__ void fwd_tile_loop_fma(
     unsigned char* smem, const T* __restrict__ sr, const T* __restrict__ tab,
     const float* __restrict__ nrm, const int* __restrict__ labels,
     const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
@@ -393,11 +637,195 @@ __device__ __forceinline__ void fwd_tile_loop(
   }
 }
 
+// fwd_tile_loop in bfloat16: the same partials, the logits on the tensor
+// cores.  Lane l of warp w owns rows rb = 16 (w >> 1) + l / 4 and rb + 8 of
+// each tile and its columns cb + 8 f + {0, 1} (f < 4), cb = 32 (w & 1) +
+// 2 (l % 4); the row's other columns lie with the quad's three other lanes
+// and with warp w ^ 1.
+template <bool MEMBERS>
+__device__ __forceinline__ void fwd_tile_loop_tc(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ sr,
+    const __nv_bfloat16* __restrict__ tab, const float* __restrict__ nrm,
+    const int* __restrict__ labels, const int* __restrict__ iids, int R,
+    int B, int P, int D, int Ns, int n_valid, int col_offset, float scale,
+    int normalize, int vec, int tiles_per_split, float* __restrict__ part) {
+  typedef __nv_bfloat16 T;
+  const int ld = tc_ld(D), kp = tc_kp(D);
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr rows
+  T* C_s = A_s + TILE * ld;                            // [2][TILE][ld] table
+  unsigned long long* mask_s =
+      reinterpret_cast<unsigned long long*>(C_s + 2 * TILE * ld);  // [TILE]
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int rb = 16 * (w >> 1) + (l >> 2), cb = 32 * (w & 1) + 2 * (l & 3);
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int shift = MEMBERS ? 0 : col_offset;
+  n_valid -= shift;
+
+  stage_tile_tc(A_s, ld, sr, row0, R, D, vec);
+  stage_tile_tc(C_s, ld, tab, t_begin * TILE, P, D, vec);
+  cp_async_commit();
+
+  int lbl[2];
+  float m_in[2], s_in[2], m_ex[2], s_ex[2], zl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rb + 8 * h;
+    lbl[h] = r < R ? labels[r % B] - shift : -1;
+    m_in[h] = m_ex[h] = NEG_INF;
+    s_in[h] = s_ex[h] = zl[h] = 0.f;
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const T* C = C_s + buf * TILE * ld;
+    const int p0 = t * TILE;
+    if (t + 1 < t_end)
+      stage_tile_tc(C_s + (buf ^ 1) * TILE * ld, ld, tab, (t + 1) * TILE, P,
+                    D, vec);
+    cp_async_commit();
+    if constexpr (MEMBERS)
+      row_masks(mask_s, iids, row0, R, B, Ns, col_offset + p0);
+    cp_async_wait<1>();  // this tile (and the rows) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits_tc(S, A_s, C, ld, kp);
+    float n[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = p0 + cb + 8 * (q >> 1) + (q & 1);
+      n[q] = normalize && col < P ? nrm[col] : 1.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned long long bits = MEMBERS ? mask_s[rb + 8 * h] : 0ull;
+      float z[8];
+      bool mem[8];
+      float t_in = NEG_INF, t_ex = NEG_INF;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c = cb + 8 * (q >> 1) + (q & 1);
+        const int col = p0 + c;
+        float v = scale * S[q >> 1][2 * h + (q & 1)];
+        if (normalize) v = v / n[q];
+        const bool in_table = col < P;
+        if (!in_table || col >= n_valid) v = NEG_INF;
+        if (in_table && col == lbl[h]) zl[h] += v;
+        mem[q] = MEMBERS && ((bits >> c) & 1ull);
+        z[q] = v;
+        if (mem[q]) t_in = fmaxf(t_in, v);
+        else t_ex = fmaxf(t_ex, v);
+      }
+      const float mi = fmaxf(m_in[h], t_in), me = fmaxf(m_ex[h], t_ex);
+      // guards: exp(NEG_INF - NEG_INF) on a partition still empty
+      const float si = fmaxf(mi, NEG_INF * 0.5f);
+      const float se = fmaxf(me, NEG_INF * 0.5f);
+      float acc_in = s_in[h] * expf(m_in[h] - si);
+      float acc_ex = s_ex[h] * expf(m_ex[h] - se);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (mem[q]) acc_in += expf(z[q] - si);
+        else acc_ex += expf(z[q] - se);
+      }
+      s_in[h] = acc_in;
+      s_ex[h] = acc_ex;
+      m_in[h] = mi;
+      m_ex[h] = me;
+    }
+    __syncthreads();  // C and the masks are consumed
+  }
+
+  // merge each row's partials over its quad (shuffles), then warp w ^ 1's
+  // into warp w's (w even) through shared memory, which the tiles held
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      float mio = 0.f, sio = 0.f;
+      if constexpr (MEMBERS) {
+        mio = __shfl_xor_sync(FULL, m_in[h], off);
+        sio = __shfl_xor_sync(FULL, s_in[h], off);
+      }
+      const float meo = __shfl_xor_sync(FULL, m_ex[h], off);
+      const float seo = __shfl_xor_sync(FULL, s_ex[h], off);
+      zl[h] += __shfl_xor_sync(FULL, zl[h], off);
+      if constexpr (MEMBERS) lse_merge(m_in[h], s_in[h], mio, sio);
+      lse_merge(m_ex[h], s_ex[h], meo, seo);
+    }
+  }
+  cp_async_wait<0>();
+  float* red = reinterpret_cast<float*>(smem);  // [5][TILE]
+  const bool quad_head = (l & 3) == 0;
+  if ((w & 1) && quad_head) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = rb + 8 * h;
+      red[i] = m_in[h];
+      red[TILE + i] = s_in[h];
+      red[2 * TILE + i] = m_ex[h];
+      red[3 * TILE + i] = s_ex[h];
+      red[4 * TILE + i] = zl[h];
+    }
+  }
+  __syncthreads();
+  if ((w & 1) || !quad_head) return;
+  const size_t plane = (size_t)gridDim.y * R;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = rb + 8 * h, r = row0 + i;
+    if constexpr (MEMBERS) lse_merge(m_in[h], s_in[h], red[i], red[TILE + i]);
+    lse_merge(m_ex[h], s_ex[h], red[2 * TILE + i], red[3 * TILE + i]);
+    zl[h] += red[4 * TILE + i];
+    if (r < R) {
+      const size_t o = (size_t)blockIdx.y * R + r;
+      if constexpr (MEMBERS) {
+        part[o] = m_in[h];
+        part[plane + o] = s_in[h];
+        part[2 * plane + o] = m_ex[h];
+        part[3 * plane + o] = s_ex[h];
+        part[4 * plane + o] = zl[h];
+      } else {
+        part[o] = m_ex[h];
+        part[plane + o] = s_ex[h];
+        part[2 * plane + o] = zl[h];
+      }
+    }
+  }
+}
+
+// K1's and K3's forward tile loop: bfloat16 on the tensor cores, float32
+// on the FMA pipes
+template <typename T, bool MEMBERS>
+__device__ __forceinline__ void fwd_tile_loop(
+    unsigned char* smem, const T* __restrict__ sr, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int normalize, int vec,
+    int tiles_per_split, float* __restrict__ part) {
+  if constexpr (tc_type<T>)
+    fwd_tile_loop_tc<MEMBERS>(smem, sr, tab, nrm, labels, iids, R, B, P, D,
+                              Ns, n_valid, col_offset, scale, normalize, vec,
+                              tiles_per_split, part);
+  else
+    fwd_tile_loop_fma<T, MEMBERS>(smem, sr, tab, nrm, labels, iids, R, B, P,
+                                  D, Ns, n_valid, col_offset, scale,
+                                  normalize, vec, tiles_per_split, part);
+}
+
 // the three 64-row tiles and the dz tile of one block
 template <typename T>
 size_t bwd_smem(int D) {
   return (size_t)3 * TILE * tile_ld(D) * sizeof(T) +
          (size_t)TILE * LDZ * sizeof(float);
+}
+
+// K2's on the tensor cores: three bfloat16 tiles at their stride and the
+// bfloat16 dz tile (which, with the tiles, later holds the float32
+// [TILE][tc_kp(D) + 8] output tile)
+inline size_t bwd_tc_smem(int D) {
+  return (size_t)(3 * TILE * tc_ld(D) + TILE * LDZB) * sizeof(__nv_bfloat16);
 }
 
 // max(||row||, eps) of a row of D elements, on every lane of a warp

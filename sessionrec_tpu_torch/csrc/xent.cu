@@ -17,21 +17,29 @@
 //
 // What bounds it.  2*B*P*D operations on (B + P)*D elements: at the main
 // path's shapes (B = 512, D = 256, P = 3,584 to 37,888) about 256
-// operations a float32 byte (512 a bfloat16 byte), far above the card's 20
-// (67 TFLOP/s over 3.35 TB/s), so it is bound by operations, on the FP32
-// FMA pipes (TF32 would change the numerics; bfloat16 is widened and
-// multiplied in float32 too).
+// operations a float32 byte, far above the card's 20 (67 TFLOP/s over
+// 3.35 TB/s), and 512 a bfloat16 byte, above its 295 (989 TFLOP/s on the
+// tensor cores), so it is bound by operations: float32 on the FP32 FMA
+// pipes (TF32 would change the numerics), bfloat16 up to MAX_D features on
+// the tensor cores (bf16 x bf16 products are exact in float32, so only the
+// order of the float32 sums differs from the FMA loop's).
 //
 // What the design does about it (K3's tiles, tiles.cuh):
 //   * One tile loop for K1 and K3: fwd_tile_loop without membership, so
 //     every live column goes to the one (m, s) pair.
 //   * The norms are taken once per call (xent_table_norms), not in every
 //     block that stages a table tile (B / 64 times per table row).
-//   * Register-tiled products: a 64 x 64 logits tile is 4 x 4 outputs a
-//     thread, 8 vector shared loads per 64 FMAs (product_logits).
+//   * float32: register-tiled products, a 64 x 64 logits tile 4 x 4
+//     outputs a thread, 8 vector shared loads per 64 FMAs (product_logits).
+//   * bfloat16: the tile on the tensor cores (product_logits_tc:
+//     mma.sync m16n8k16, float32 sums, operands by ldmatrix), a warp's 16
+//     rows x 32 columns; the online log-sum-exp in the fragments' layout
+//     (a lane's two rows and eight columns a tile), merged over the quad
+//     and the two column warps once at the end; 99 KB of tiles at D = 256,
+//     two blocks an SM.
 //   * Asynchronous, double-buffered staging: the block's 64 rows once, the
-//     next table tile by cp.async while the current one is used, bfloat16
-//     staged as bfloat16 and widened in registers.
+//     next table tile by cp.async while the current one is used (float32
+//     four elements a copy, bfloat16 eight at its own tile stride).
 //   * A grid from K1's own resident slots (srt_xent_fwd_slots;
 //     ops/xent.py:_fwd_grid): 64-row batch tiles times catalog splits,
 //     each split writing a partial (m, s, zl) per row; xent_fwd_merge
@@ -60,7 +68,7 @@ namespace {
 // part holds [3][n_split][B] floats: m, s, zl.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) xent_fwd_partial(
+__global__ void __launch_bounds__(NT, tile_blocks<T>()) xent_fwd_partial(
     const T* __restrict__ sr, const T* __restrict__ tab,
     const float* __restrict__ nrm, const int* __restrict__ labels, int B,
     int P, int D, int n_valid, int col_offset, float scale, int normalize,
@@ -126,15 +134,17 @@ int set_fwd_smem(int D) {
 
 // resident blocks per SM of the partial kernel (out[0]), its registers per
 // thread (out[2]), its local memory bytes per thread, where spills go
-// (out[3]), its dynamic shared memory bytes (out[4]) and the stages its
+// (out[3]), its dynamic shared memory bytes (out[4]), the stages its
 // staging pipelines (out[5]: the table tiles' two buffers up to MAX_D, the
-// chunk ring past it)
+// chunk ring past it) and whether its product runs on the tensor cores
+// (out[6])
 template <typename T>
 int slots(int D, int* out) {
   const int smem = set_fwd_smem<T>(D);
   kernel_attrs(fwd_kernel<T>(D), smem, &out[0], &out[2], &out[3]);
   out[4] = smem;
   out[5] = D > MAX_D ? FWD_STAGES : 2;
+  out[6] = on_tensor_cores<T>(D);
   return (int)cudaGetLastError();
 }
 
@@ -150,6 +160,7 @@ int fwd(const T* sr, const T* tab, const int* labels, int B, int P, int D,
         tab, P, D, nrm);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
+  if (on_tensor_cores<T>(D)) vec = tc_vec(vec, D, sr, tab);
   dim3 grid((B + TILE - 1) / TILE, n_split);
   if (D > MAX_D)
     xent_fwd_slab<T><<<grid, NT, smem, stream>>>(
@@ -177,7 +188,9 @@ int srt_xent_slabs(int D) { return slab_count(D); }
 // out[0]: resident blocks per SM of K1's partial kernel at width D on the
 // current device; out[1]: its SM count; out[2]: the kernel's registers per
 // thread; out[3]: its local memory bytes per thread; out[4]: its dynamic
-// shared memory bytes; out[5]: its staging stages
+// shared memory bytes; out[5]: its staging stages; out[6]: 1 where its
+// product runs on the tensor cores (bfloat16 up to MAX_D), 0 on the FMA
+// pipes
 int srt_xent_fwd_slots(int D, int is_bf16, int* out) {
   const int err = is_bf16 ? slots<__nv_bfloat16>(D, out) : slots<float>(D, out);
   if (err) return err;

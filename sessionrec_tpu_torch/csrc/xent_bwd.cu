@@ -16,12 +16,14 @@
 // What bounds it.  3 * 2*B*P*D operations are counted (the logits, d_sr,
 // d_table) on (B + 2 P) * D elements: at B = 512, D = 256 about 770
 // operations a float32 byte, far above the card's 20 (67 TFLOP/s over
-// 3.35 TB/s), so it is bound by operations, on the FP32 FMA pipes (TF32
-// would change the numerics).  Four products are performed: the logits are
-// recomputed once for each output.  One pass for both outputs would need
-// either a cross-block sum of a [B, D] partial per catalog tile (310 MB at
-// the north-star catalog of 37,888 rows) or atomics, which give up
-// determinism; so the kernel's ceiling is 75% of its bound.
+// 3.35 TB/s), and 1,540 a bfloat16 byte, far above its 295 (989 TFLOP/s
+// on the tensor cores), so it is bound by operations: float32 on the FP32
+// FMA pipes (TF32 would change the numerics), bfloat16 up to MAX_D
+// features on the tensor cores.  Four products are performed: the logits
+// are recomputed once for each output.  One pass for both outputs would
+// need either a cross-block sum of a [B, D] partial per catalog tile
+// (310 MB at the north-star catalog of 37,888 rows) or atomics, which give
+// up determinism; so the kernel's ceiling is 75% of its bound.
 //
 // What the design does about it:
 //   * The table is normalised once.  xent_bwd_normalize writes t and the
@@ -29,19 +31,31 @@
 //     normalise a tile again (the first design re-normalised every tile in
 //     every block that staged it).  It, finish_dtable_row and
 //     xent_bwd_dtable_reduce live in tiles.cuh, shared with K4.
-//   * Register-tiled products (tiles.cuh).  A 64 x 64 logits tile is 4 x 4
-//     outputs a thread, 8 shared loads of four elements per 64 FMAs; the
-//     accumulations d_table += dz^T sr and d_sr += dz t are 8 x 8 outputs
-//     a thread (a warp's 8 rows, a lane's 8 features), 4 loads per 64
-//     FMAs.  Tiles stay row-major with a padded stride, so every read is
+//   * float32: register-tiled products (tiles.cuh).  A 64 x 64 logits tile
+//     is 4 x 4 outputs a thread, 8 shared loads of four elements per 64
+//     FMAs; the accumulations d_table += dz^T sr and d_sr += dz t are 8 x 8
+//     outputs a thread (a warp's 8 rows, a lane's 8 features), 4 loads per
+//     64 FMAs.  Tiles stay row-major with a padded stride, so every read is
 //     four consecutive elements and the lanes of a phase hit distinct
 //     banks; dz goes to shared memory as [row][col] for d_table and as
 //     [col][row] for d_sr, so each accumulation reads it along its own
 //     reduction axis.
-//   * Asynchronous, double-buffered staging.  Tiles arrive by cp.async,
-//     four elements a copy (16 bytes in float32, 8 in bfloat16), and the
+//   * bfloat16 up to MAX_D: all three products on the tensor cores
+//     (xent_bwd_dtable_tc, xent_bwd_dsr_tc; mma.sync m16n8k16, float32
+//     sums).  The logits tile comes from product_logits_tc (a warp's 16 x
+//     32 of it); dz, rounded to bfloat16 as the JAX kernel feeds its matrix
+//     unit (exact), goes to shared memory as bfloat16 [row][col], half the
+//     float32 tile; d_table += dz^T sr reads both operands by
+//     ldmatrix.x4.trans, d_sr += dz t reads dz by ldmatrix.x4 and t by
+//     ldmatrix.x4.trans (rank_update_tc: a warp's 32 rows x four feature
+//     pairs, 64 float32 accumulators a lane).  The accumulators go through
+//     shared memory to the float32 partials' and d_table's stores.  Their
+//     tiles (tc_ld stride, 16-byte cp.async) and their dz tile take 108 KB
+//     at D = 256, so two blocks share an SM.
+//   * Asynchronous, double-buffered staging.  Tiles arrive by cp.async
+//     (float32 four elements, bfloat16 eight, 16 bytes a copy), and the
 //     next tile of the streamed operand loads while the current one is
-//     used.  bfloat16 is staged as bfloat16 and widened in registers.
+//     used.
 //   * A grid that fills the card.  xent_bwd_dtable is parallel over
 //     64-row catalog tiles and over row splits, with tiles x splits at
 //     most the resident block slots (the wrapper reads them from
@@ -51,7 +65,8 @@
 //     (G - (G . t) t [n > eps]) / n once, after the sum (the VJP is linear
 //     in G); with one split the product kernel writes d_table itself.
 //     xent_bwd_dsr is parallel over 64-row batch tiles and catalog splits,
-//     and xent_bwd_dsr_reduce sums its partials in a fixed order.
+//     and xent_bwd_dsr_reduce sums its partials in a fixed order.  The
+//     bfloat16 kernels size the same grids from their own slots.
 //   * Deterministic: no atomics; two calls on the same inputs give the
 //     same bits.
 //
@@ -59,8 +74,9 @@
 // (ops/xent.py:_bwd_grid) and its scratch; srt_xent_bwd_slots reports the
 // resident block slots of the two product kernels, their registers and
 // their local memory (spills).  Any B >= 1, P >= 1, D >= 1: with
-// D % 4 == 0 and aligned arrays the tiles are staged by cp.async, otherwise
-// by plain loads.
+// D % 4 == 0 and aligned arrays the tiles are staged by cp.async (bfloat16
+// up to MAX_D: D % 8 == 0 and 16-byte aligned arrays), otherwise by plain
+// loads.
 //
 // Past D = MAX_D (256) features srt_xent_bwd_slab runs the slab path of
 // tiles.cuh.  A thread's 8 x 8 accumulators cover one slab of at most 256
@@ -258,6 +274,180 @@ __global__ void __launch_bounds__(NT, 1) xent_bwd_dsr(
 }
 
 // ---------------------------------------------------------------------------
+// The two product kernels in bfloat16 up to MAX_D, on the tensor cores: the
+// grids, staging order and outputs of xent_bwd_dtable and xent_bwd_dsr.
+// Each logits tile's dz goes to dz_s [row][col] as bfloat16 (dz_tile_tc);
+// rank_update_tc's accumulators go through shared memory (the tiles', once
+// consumed) to the rows' stores, a warp's 8 rows in the FMA kernels' lane
+// layout.  NPW: feature pairs a warp (4 past 128 features, else 2).
+// ---------------------------------------------------------------------------
+
+// dz of the logits tile S (product_logits_tc's layout) of batch rows
+// [r0, r0 + TILE) and catalog columns [p0, p0 + TILE), by dlogit, into
+// dz_s [TILE][LDZB] as bfloat16 pairs: lane l of warp w takes rows rb =
+// 16 (w >> 1) + l / 4 and rb + 8, columns cb + 8 f + {0, 1} (f < 4), cb =
+// 32 (w & 1) + 2 (l % 4).  The rows' inputs are read again each tile (L1
+// hits), not held across it: with 64 accumulators a lane, two blocks an SM
+// leave no registers for them.
+__device__ __forceinline__ void dz_tile_tc(
+    __nv_bfloat16* dz_s, const float (&S)[4][4], const float* __restrict__ g,
+    const int* __restrict__ labels, const float* __restrict__ lse, int r0,
+    int B, int p0, int P, int n_valid, int col_offset, float scale) {
+  typedef __nv_bfloat16 T;
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int rb = 16 * (w >> 1) + (l >> 2), cb = 32 * (w & 1) + 2 * (l & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = rb + 8 * h, r = r0 + rl;
+    const bool row_ok = r < B;
+    const int lbl = row_ok ? labels[r] : -1;
+    const float lse_r = row_ok ? lse[r] : 0.f;
+    const float g_r = row_ok ? g[r] : 0.f;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int cl = cb + 8 * f;
+      const float d0 = dlogit<T>(scale * S[f][2 * h], p0 + cl, P, col_offset,
+                                 n_valid, lbl, lse_r, g_r, row_ok, scale);
+      const float d1 = dlogit<T>(scale * S[f][2 * h + 1], p0 + cl + 1, P,
+                                 col_offset, n_valid, lbl, lse_r, g_r, row_ok,
+                                 scale);
+      *reinterpret_cast<__nv_bfloat162*>(dz_s + rl * LDZB + cl) =
+          __floats2bfloat162_rn(d0, d1);
+    }
+  }
+}
+template <typename T, bool HI>
+__global__ void __launch_bounds__(NT, tile_blocks<T>()) xent_bwd_dtable_tc(
+    const float* __restrict__ g, const T* __restrict__ sr,
+    const T* __restrict__ op, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const float* __restrict__ lse, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int normalize, int vec,
+    int chunks_per_split, float* __restrict__ part, T* __restrict__ dtab) {
+  static_assert(tc_type<T>, "the tensor-core kernels take bfloat16");
+  constexpr int NPW = HI ? 4 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tc_ld(D), kp = tc_kp(D), np = kp / 16;
+  T* C_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] t rows
+  T* A_s = C_s + TILE * ld;                            // [2][TILE][ld] sr
+  T* dz_s = A_s + 2 * TILE * ld;                       // [TILE][LDZB]
+  const int w = threadIdx.x >> 5;
+  const int p0 = blockIdx.x * TILE;
+  const int n_chunks = (B + TILE - 1) / TILE;
+  const int c_begin = blockIdx.y * chunks_per_split;
+  const int c_end = min(n_chunks, c_begin + chunks_per_split);
+
+  stage_tile_tc(C_s, ld, op, p0, P, D, vec);
+  stage_tile_tc(A_s, ld, sr, c_begin * TILE, B, D, vec);
+  cp_async_commit();
+
+  float G[2][2 * NPW][4] = {};
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = (c - c_begin) & 1;
+    const T* A = A_s + buf * TILE * ld;
+    if (c + 1 < c_end)
+      stage_tile_tc(A_s + (buf ^ 1) * TILE * ld, ld, sr, (c + 1) * TILE, B,
+                    D, vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk (and the tile) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits_tc(S, A, C_s, ld, kp);
+    dz_tile_tc(dz_s, S, g, labels, lse, c * TILE, B, p0, P, n_valid,
+               col_offset, scale);
+    __syncthreads();
+    rank_update_tc<NPW, true>(G, dz_s, LDZB, A, ld, np);
+    __syncthreads();  // A and dz_s are consumed
+  }
+
+  cp_async_wait<0>();
+  float* G_s = reinterpret_cast<float*>(smem);         // [TILE][kp + 8]
+  store_acc_tc<NPW>(G_s, kp + 8, G, np);
+  __syncthreads();
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int col = p0 + 8 * w + i;
+    if (col >= P) continue;  // warp-uniform
+    float gs[8];
+    load_row8(gs, G_s + (8 * w + i) * (kp + 8), D);
+    if (part)
+      store_row8(part + ((size_t)blockIdx.y * P + col) * D, gs, D);
+    else
+      finish_dtable_row<T>(gs, col, tab, nrm, D, normalize, dtab);
+  }
+}
+
+template <typename T, bool HI>
+__global__ void __launch_bounds__(NT, tile_blocks<T>()) xent_bwd_dsr_tc(
+    const float* __restrict__ g, const T* __restrict__ sr,
+    const T* __restrict__ op, const int* __restrict__ labels,
+    const float* __restrict__ lse, int B, int P, int D, int n_valid,
+    int col_offset, float scale, int vec, int tiles_per_split,
+    float* __restrict__ out) {
+  static_assert(tc_type<T>, "the tensor-core kernels take bfloat16");
+  constexpr int NPW = HI ? 4 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tc_ld(D), kp = tc_kp(D), np = kp / 16;
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr rows
+  T* C_s = A_s + TILE * ld;                            // [2][TILE][ld] t
+  T* dz_s = C_s + 2 * TILE * ld;                       // [TILE][LDZB]
+  const int w = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  stage_tile_tc(A_s, ld, sr, row0, B, D, vec);
+  stage_tile_tc(C_s, ld, op, t_begin * TILE, P, D, vec);
+  cp_async_commit();
+
+  float acc[2][2 * NPW][4] = {};
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const T* C = C_s + buf * TILE * ld;
+    if (t + 1 < t_end)
+      stage_tile_tc(C_s + (buf ^ 1) * TILE * ld, ld, op, (t + 1) * TILE, P,
+                    D, vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and the rows) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits_tc(S, A_s, C, ld, kp);
+    dz_tile_tc(dz_s, S, g, labels, lse, row0, B, t * TILE, P, n_valid,
+               col_offset, scale);
+    __syncthreads();
+    rank_update_tc<NPW, false>(acc, dz_s, LDZB, C, ld, np);
+    __syncthreads();  // C and dz_s are consumed
+  }
+
+  cp_async_wait<0>();
+  float* acc_s = reinterpret_cast<float*>(smem);       // [TILE][kp + 8]
+  store_acc_tc<NPW>(acc_s, kp + 8, acc, np);
+  __syncthreads();
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + 8 * w + i;
+    if (r >= B) continue;  // warp-uniform
+    float v[8];
+    load_row8(v, acc_s + (8 * w + i) * (kp + 8), D);
+    store_row8(out + ((size_t)blockIdx.y * B + r) * D, v, D);
+  }
+}
+
+// K2's two product kernels at D <= MAX_D in type T: on the tensor cores in
+// bfloat16, on the FMA pipes in float32
+template <typename T, bool HI>
+auto dtable_kernel() {
+  if constexpr (tc_type<T>) return xent_bwd_dtable_tc<T, HI>;
+  else return xent_bwd_dtable<T, HI>;
+}
+template <typename T, bool HI>
+auto dsr_kernel() {
+  if constexpr (tc_type<T>) return xent_bwd_dsr_tc<T, HI>;
+  else return xent_bwd_dsr<T, HI>;
+}
+
+// ---------------------------------------------------------------------------
 // dz for D > MAX_D: grid = (64-row batch tiles, 64-row catalog tiles of the
 // chunk that starts at table row c0).  A block computes its logits tile once
 // over all D features (dz_logits) and writes its dz tile, rounded to the
@@ -355,10 +545,10 @@ int bwd_slab(const float* g, const T* sr, const T* tab, const int* labels,
 
 template <typename T, bool HI>
 int set_smem(int D) {
-  const int smem = (int)bwd_smem<T>(D);
-  cudaFuncSetAttribute(xent_bwd_dtable<T, HI>,
+  const int smem = tc_type<T> ? (int)bwd_tc_smem(D) : (int)bwd_smem<T>(D);
+  cudaFuncSetAttribute(dtable_kernel<T, HI>(),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(xent_bwd_dsr<T, HI>,
+  cudaFuncSetAttribute(dsr_kernel<T, HI>(),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return smem;
 }
@@ -370,14 +560,14 @@ template <typename T, bool HI>
 int slots(int D, int* out) {
   const int smem = set_smem<T, HI>(D);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], xent_bwd_dtable<T, HI>, NT, smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1],
-                                                xent_bwd_dsr<T, HI>, NT, smem);
+      &out[0], dtable_kernel<T, HI>(), NT, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], dsr_kernel<T, HI>(),
+                                                NT, smem);
   cudaFuncAttributes a;
-  cudaFuncGetAttributes(&a, xent_bwd_dtable<T, HI>);
+  cudaFuncGetAttributes(&a, dtable_kernel<T, HI>());
   out[3] = a.numRegs;
   out[5] = (int)a.localSizeBytes;
-  cudaFuncGetAttributes(&a, xent_bwd_dsr<T, HI>);
+  cudaFuncGetAttributes(&a, dsr_kernel<T, HI>());
   out[4] = a.numRegs;
   out[6] = (int)a.localSizeBytes;
   return (int)cudaGetLastError();
@@ -399,9 +589,12 @@ int bwd(const float* g, const T* sr, const T* tab, const int* labels,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     op = that;
   }
+  if (tc_type<T>) vec = tc_vec(vec, D, sr, op);
   const int n_tiles = (P + TILE - 1) / TILE, n_rows = (B + TILE - 1) / TILE;
   float* part = t_split > 1 ? dtab_part : nullptr;
-  xent_bwd_dtable<T, HI><<<dim3(n_tiles, t_split), NT, smem, stream>>>(
+  const auto dtable = dtable_kernel<T, HI>();
+  const auto dsr_product = dsr_kernel<T, HI>();
+  dtable<<<dim3(n_tiles, t_split), NT, smem, stream>>>(
       g, sr, op, tab, nrm, labels, lse, B, P, D, n_valid, col_offset, scale,
       normalize, vec, chunks_per_split, part, dtab);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -411,7 +604,7 @@ int bwd(const float* g, const T* sr, const T* tab, const int* labels,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   float* out = s_split > 1 ? dsr_part : dsr;
-  xent_bwd_dsr<T, HI><<<dim3(n_rows, s_split), NT, smem, stream>>>(
+  dsr_product<<<dim3(n_rows, s_split), NT, smem, stream>>>(
       g, sr, op, labels, lse, B, P, D, n_valid, col_offset, scale, vec,
       tiles_per_split, out);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -449,8 +642,11 @@ int srt_xent_bwd_tile() { return TILE; }
 // out[0], out[1]: resident blocks per SM of the d_table and d_sr product
 // kernels at width D on the current device; out[2]: its SM count; out[3],
 // out[4]: the two kernels' registers per thread; out[5], out[6]: their
-// local memory bytes per thread
+// local memory bytes per thread; out[7]: 1 where they run on the tensor
+// cores (bfloat16 up to MAX_D), 0 on the FMA pipes
 int srt_xent_bwd_slots(int D, int is_bf16, int* out) {
+  out[7] = is_bf16 ? on_tensor_cores<__nv_bfloat16>(D)
+                   : on_tensor_cores<float>(D);
   const bool hi = ((D + 3) & ~3) > 128;
   const int err = D > MAX_D ? (is_bf16 ? slab_slots<__nv_bfloat16>(D, out)
                                        : slab_slots<float>(D, out))

@@ -36,7 +36,9 @@
 // (K = 3, B = 512, D = 256, P = 3,584 to 37,888) about 770 operations a
 // float32 byte, far above the card's 20 (67 TFLOP/s over 3.35 TB/s), so
 // both are bound by operations, on the FP32 FMA pipes (TF32 would change
-// the numerics).  K4 performs four products where its bound counts three
+// the numerics); K3 in bfloat16 up to MAX_D features runs its products on
+// the tensor cores (K1's loop, below), K4 stays on the FMA pipes in both
+// types.  K4 performs four products where its bound counts three
 // (the logits are recomputed for each output, as in K2, xent_bwd.cu), so
 // its ceiling is 75% of its bound.
 //
@@ -54,8 +56,11 @@
 //     memory as [row][col] for d_table and as [col][row] for d_sr.
 //   * Asynchronous, double-buffered staging: the streamed operand's next
 //     64-row tile arrives by cp.async while the current one is used;
-//     bfloat16 is staged as bfloat16 and widened in registers.  K3's loop
-//     is fwd_tile_loop (tiles.cuh), which K1 runs without membership.
+//     bfloat16 is staged as bfloat16 and widened in registers, except in
+//     K3 up to MAX_D.  K3's loop is fwd_tile_loop (tiles.cuh), which K1
+//     runs without membership: in bfloat16 its logits come from the tensor
+//     cores (product_logits_tc) and a row's membership bits are read at
+//     its fragment's columns; two blocks an SM.
 //   * Membership as bits.  While a tile stages, four threads per row scan
 //     the row's iid list (global ids, -1 padded, any length) and OR a
 //     64-bit mask over the tile's 64 columns, so a column's test is a
@@ -112,7 +117,8 @@ namespace {
 // s_ex, zl.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) xent_multi_fwd_partial(
+__global__ void __launch_bounds__(NT, tile_blocks<T>())
+    xent_multi_fwd_partial(
     const T* __restrict__ sr, const T* __restrict__ tab,
     const float* __restrict__ nrm, const int* __restrict__ labels,
     const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
@@ -443,15 +449,17 @@ int set_bwd_smem(int D) {
 // resident blocks per SM of the three product kernels (K3's partial, K4's
 // d_table and d_sr, past MAX_D its two slab products: out[0..2]), their
 // registers per thread (out[4..6]) and their local memory bytes per thread,
-// where spills go (out[7..9]); K3's dynamic shared memory bytes (out[10])
-// and the stages its staging pipelines (out[11]: the table tiles' two
-// buffers up to MAX_D, the chunk ring past it)
+// where spills go (out[7..9]); K3's dynamic shared memory bytes (out[10]),
+// the stages its staging pipelines (out[11]: the table tiles' two buffers
+// up to MAX_D, the chunk ring past it) and whether its product runs on the
+// tensor cores (out[12]; K4's products stay on the FMA pipes)
 template <typename T, bool HI>
 int slots(int D, int* out) {
   const int fwd = set_fwd_smem<T>(D);
   kernel_attrs(fwd_kernel<T>(D), fwd, &out[0], &out[4], &out[7]);
   out[10] = fwd;
   out[11] = D > MAX_D ? FWD_STAGES : 2;
+  out[12] = on_tensor_cores<T>(D);
   if (D > MAX_D) {
     int blocks[2], regs[2], local[2];
     slab_product_attrs<T>(D, blocks, regs, local);
@@ -483,6 +491,7 @@ int fwd(const T* sr, const T* tab, const int* labels, const int* iids, int K,
         tab, P, D, nrm);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
+  if (on_tensor_cores<T>(D)) vec = tc_vec(vec, D, sr, tab);
   dim3 grid((R + TILE - 1) / TILE, n_split);
   if (D > MAX_D)
     xent_multi_fwd_slab<T><<<grid, NT, smem, stream>>>(
@@ -602,7 +611,8 @@ extern "C" {
 // device; out[3]: its SM count;
 // out[4..6]: the three kernels' registers per thread; out[7..9]: their
 // local memory bytes per thread; out[10], out[11]: K3's dynamic shared
-// memory bytes and staging stages
+// memory bytes and staging stages; out[12]: 1 where K3's product runs on
+// the tensor cores (bfloat16 up to MAX_D), 0 on the FMA pipes
 int srt_xent_multi_slots(int D, int is_bf16, int* out) {
   const bool hi = ((D + 3) & ~3) > 128;
   const int err = is_bf16 ? (hi ? slots<__nv_bfloat16, true>(D, out)

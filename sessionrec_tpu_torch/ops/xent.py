@@ -16,6 +16,10 @@ hand-written kernels of ``csrc/xent.cu`` (K1) and ``csrc/xent_bwd.cu``
   ``d_table`` with the l2norm VJP folded in, on a grid that ``_bwd_grid``
   sizes to the card's resident block slots.
 
+In bfloat16 up to 256 features both kernels multiply on the tensor cores
+(``mma.sync`` m16n8k16, float32 sums; ``product`` in their launch
+shapes), in float32 on the FMA pipes.
+
 Up to 256 features a row the kernels above run in one pass; past it
 (``--embedding-dim 512``) the same wrappers run the slab path of
 ``csrc/tiles.cuh``: K1 streams its split's catalog tiles in k-chunks of
@@ -306,12 +310,20 @@ def slots_query(fn, n, device, D, dtype):
     return _slots[key]
 
 
+def product(on_tensor_cores):
+    """The name a launch line gives a product kernel's arithmetic: bfloat16
+    up to 256 features runs on the tensor cores (``mma.sync``), the rest on
+    the FMA pipes."""
+    return "tensor_core" if on_tensor_cores else "fma"
+
+
 def _fwd_attrs(device, D, dtype):
-    """``srt_xent_fwd_slots``'s six numbers for ``device``: resident blocks
-    per SM of K1's partial kernel at width ``D``, the SM count, its
+    """``srt_xent_fwd_slots``'s seven numbers for ``device``: resident
+    blocks per SM of K1's partial kernel at width ``D``, the SM count, its
     registers and local memory bytes per thread, its dynamic shared memory
-    bytes and the stages its staging pipelines."""
-    return slots_query(_library().srt_xent_fwd_slots, 6, device, D, dtype)
+    bytes, the stages its staging pipelines and whether it runs on the
+    tensor cores."""
+    return slots_query(_library().srt_xent_fwd_slots, 7, device, D, dtype)
 
 
 def _fwd_launch_grid(device, B, P, D, dtype):
@@ -325,23 +337,26 @@ def fwd_launch_shape(sr, P):
     """K1's launch for ``sr`` against a ``P``-row table: blocks, row tiles,
     catalog splits and tiles per split, resident blocks per SM, SMs, and
     the partial kernel's registers and local memory (spill) bytes per
-    thread, its shared memory bytes and its staging stages (past 256
-    features the chunk ring's)."""
+    thread, its shared memory bytes, its staging stages (past 256
+    features the chunk ring's) and its ``product``."""
     (B, D), dev = sr.shape, sr.device
-    per_sm, sms, regs, local, smem, stages = _fwd_attrs(dev, D, sr.dtype)
+    per_sm, sms, regs, local, smem, stages, tc = _fwd_attrs(dev, D,
+                                                            sr.dtype)
     grid = _fwd_launch_grid(dev, B, P, D, sr.dtype)
     return dict(blocks=grid["rows"] * grid["s_split"], row_tiles=grid["rows"],
                 catalog_splits=grid["s_split"], tiles_per_split=grid["s_per"],
                 resident_per_sm=per_sm, sms=sms, registers=regs,
-                local_bytes=local, smem_bytes=smem, ring_stages=stages)
+                local_bytes=local, smem_bytes=smem, ring_stages=stages,
+                product=product(tc))
 
 
 def _bwd_attrs(device, D, dtype):
-    """``srt_xent_bwd_slots``'s seven numbers for ``device``: resident
+    """``srt_xent_bwd_slots``'s eight numbers for ``device``: resident
     blocks per SM of the d_table and d_sr product kernels at width ``D``
     (past 256 features the slab path's products), the SM count, the two
-    kernels' registers and local memory bytes per thread."""
-    return slots_query(_library().srt_xent_bwd_slots, 7, device, D, dtype)
+    kernels' registers and local memory bytes per thread, and whether they
+    run on the tensor cores."""
+    return slots_query(_library().srt_xent_bwd_slots, 8, device, D, dtype)
 
 
 def _bwd_slots(device, D, dtype):
@@ -384,7 +399,8 @@ def bwd_launch_shape(sr, P):
     """K2's launch for ``sr`` against a ``P``-row table: blocks of each
     product kernel, row and catalog splits, resident blocks per SM, and
     each product kernel's registers and local memory (spill) bytes per
-    thread; past 256 features the dz kernel's too, and the chunks."""
+    thread and their ``product``; past 256 features the dz kernel's too,
+    and the chunks."""
     (B, D), dev = sr.shape, sr.device
     per_sm, sms = _bwd_slots(dev, D, sr.dtype)
     a = _bwd_attrs(dev, D, sr.dtype)
@@ -397,7 +413,8 @@ def bwd_launch_shape(sr, P):
         shape = dict(slab_grid_shape(B, P, sr.element_size(), per_sm, sms,
                                      slabs(D)), dz_resident_per_sm=dz[0])
         regs["dz"], local["dz"] = dz[1], dz[2]
-    return dict(shape, sms=sms, registers=regs, local_bytes=local)
+    return dict(shape, sms=sms, registers=regs, local_bytes=local,
+                product=product(a[7]))
 
 
 def _vec(sr, table):

@@ -201,12 +201,13 @@ def _check(sr3, table, labels, iids, *stats):
 
 
 def _attrs(device, D, dtype):
-    """``srt_xent_multi_slots``'s twelve numbers for ``device``: resident
+    """``srt_xent_multi_slots``'s thirteen numbers for ``device``: resident
     blocks per SM of K3's partial kernel and K4's d_table and d_sr kernels
     at width ``D`` (past 256 features the slab path's products), the SM
     count, the three kernels' registers and local memory bytes per thread,
-    and K3's dynamic shared memory bytes and staging stages."""
-    return xent.slots_query(_library().srt_xent_multi_slots, 12, device, D,
+    and K3's dynamic shared memory bytes, staging stages and whether it
+    runs on the tensor cores."""
+    return xent.slots_query(_library().srt_xent_multi_slots, 13, device, D,
                             dtype)
 
 
@@ -223,9 +224,10 @@ def _grid(device, R, P, D, dtype, k4):
 def multi_launch_shape(sr3, P):
     """K3's and K4's launches for ``sr3 [K, B, D]`` against a ``P``-row
     table: blocks, splits and resident blocks per SM of each (K3's shared
-    memory bytes and staging stages too), and each product kernel's
-    registers and local memory (spill) bytes per thread; past 256 features
-    K4's dz kernel's too, and its chunks."""
+    memory bytes and staging stages too), each one's ``product`` (K4's on
+    the FMA pipes), and each product kernel's registers and local memory
+    (spill) bytes per thread; past 256 features K4's dz kernel's too, and
+    its chunks."""
     (K, B, D), dev = sr3.shape, sr3.device
     a = _attrs(dev, D, sr3.dtype)
     k3 = xent.grid_shape(K * B, P, a[0], a[3])
@@ -243,8 +245,9 @@ def multi_launch_shape(sr3, P):
     return dict(k3=dict(blocks=k3["dsr_blocks"],
                         catalog_splits=k3["catalog_splits"],
                         resident_per_sm=a[0], smem_bytes=a[10],
-                        ring_stages=a[11]),
-                k4=k4, sms=a[3], registers=regs, local_bytes=local)
+                        ring_stages=a[11], product=xent.product(a[12])),
+                k4=dict(k4, product=xent.product(False)), sms=a[3],
+                registers=regs, local_bytes=local)
 
 
 def _fwd_cuda(sr3, table, labels, iids, n_valid, col_offset, *, scale,

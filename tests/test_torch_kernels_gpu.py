@@ -106,11 +106,16 @@ def _assert_k1_close(got, s, t, lbl, n, col_offset, norm):
 
 # K1's tiles are 64 batch rows and 64 catalog rows: one row, a ragged
 # batch, widths that are not multiples of 4 (plain loads, not cp.async) or
-# of 32, catalogs of one row, one tile, one tile and a few rows
+# of 32, catalogs of one row, one tile, one tile and a few rows; in
+# bfloat16 the tensor cores' k steps of 16 at widths 16, 30, 32 (LESSR's),
+# 64 (SRGNN's), 100, 132 and 256
 @pytest.mark.parametrize("B,D,P,n", [(1, 256, 3584, 3429),
                                      (509, 256, 3584, 3429),
                                      (96, 16, 70, 64),
                                      (37, 30, 64, 60),
+                                     (130, 32, 300, 290),
+                                     (200, 64, 1000, 999),
+                                     (100, 100, 1000, 999),
                                      (509, 132, 1, 1),
                                      (8, 132, 70, 70),
                                      (509, 258, 3584, 3429),
@@ -243,11 +248,16 @@ def _assert_k2_close(dsr, dtab, dsr_p, dtab_p, lbl, P, n, tol):
 # K2's tiles are 64 rows of the batch and of the catalog: one row, a
 # ragged batch, a width that is not a multiple of 32 and one that is not a
 # multiple of 4 (staged by plain loads, not cp.async), catalogs that end
-# inside a tile and inside a split
+# inside a tile and inside a split; in bfloat16 the tensor cores' widths
+# as K1's
 @pytest.mark.parametrize("B,D,P,n", [(1, 256, 3584, 3429),
                                      (100, 100, 1000, 999),
                                      (509, 256, 4096, 4000),
                                      (37, 30, 300, 290),
+                                     (130, 32, 300, 290),
+                                     (200, 64, 1000, 999),
+                                     (96, 16, 70, 64),
+                                     (8, 132, 70, 64),
                                      (509, 258, 3584, 3429),
                                      (64, 512, 1536, 1400),
                                      (1, 513, 70, 64),
@@ -585,6 +595,46 @@ def test_slab_backward_in_catalog_chunks(cuda, monkeypatch, D, dtype, norm):
     _assert_k4_close(*first, *txm._bwd_plain(*g, s, t, lbl, iids, *lse, n,
                                              0, **kw),
                      lbl, iids, P, n, tol)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_tensor_core_kernels_take_rows_off_16_byte_alignment(cuda, D):
+    """bfloat16 rows that start 8 bytes off 16 (four-element aligned, so
+    the wrapper's vec holds) go by plain loads, not 16-byte cp.async."""
+    B, P, n = 100, 1000, 999
+    s, t, lbl = _k1_case(cuda, B, D, P, n, torch.bfloat16)
+    buf = torch.empty(B * D + 4, device=cuda, dtype=torch.bfloat16)
+    off = buf[4:].view(B, D)
+    off.copy_(s)
+    assert off.data_ptr() % 16 == 8 and off.is_contiguous()
+    got = tx._fwd_cuda(off, t, lbl, n, 0, scale=12.0, normalize_table=True)
+    _assert_k1_close(got, s, t, lbl, n, 0, True)
+    g = torch.full((B,), 1.0 / B, device=cuda)
+    kw = dict(scale=12.0, normalize_table=True)
+    dsr, dtab = tx._bwd_cuda(g, off, t, lbl, got[1], n, 0, **kw)
+    dsr_p, dtab_p = tx._bwd_plain(g, s, t, lbl, got[1], n, **kw)
+    _assert_k2_close(dsr, dtab, dsr_p, dtab_p, lbl, P, n, 1e-2)
+
+
+@pytest.mark.parametrize("D", [16, 30, 64, 132, 256])
+def test_tensor_core_kernels_spill_nothing(cuda, D):
+    """In bfloat16 up to 256 features K1's, K2's and K3's product kernels
+    run on the tensor cores and keep everything in registers (no local
+    memory), two blocks an SM; float32 stays on the FMA pipes, and so does
+    K4."""
+    s = torch.zeros(512, D, device=cuda, dtype=torch.bfloat16)
+    k1, k2 = tx.fwd_launch_shape(s, 3584), tx.bwd_launch_shape(s, 3584)
+    multi = txm.multi_launch_shape(s.expand(3, 512, D), 3584)
+    assert k1["product"] == k2["product"] == multi["k3"]["product"] == \
+        "tensor_core"
+    assert multi["k4"]["product"] == "fma"
+    assert k1["local_bytes"] == multi["local_bytes"]["fwd"] == 0
+    assert k2["local_bytes"] == {"dtable": 0, "dsr": 0}
+    assert k1["resident_per_sm"] >= 2 and k2["resident_per_sm"] >= 2
+    assert multi["k3"]["resident_per_sm"] >= 2
+    f32 = torch.zeros(512, D, device=cuda)
+    assert tx.fwd_launch_shape(f32, 3584)["product"] == \
+        tx.bwd_launch_shape(f32, 3584)["product"] == "fma"
 
 
 @pytest.mark.parametrize("D", [258, 512, 1000])

@@ -395,6 +395,8 @@ def test_device_launches_count_each_replay():
     ("void (anonymous namespace)::xent_bwd_dtable<__nv_bfloat16, true>(int)",
      "xent_bwd_dtable"),
     ("xent_bwd_dtable_reduce<float>", "xent_bwd_dtable_reduce"),
+    ("void (anonymous namespace)::xent_bwd_dtable_tc<__nv_bfloat16, true>"
+     "(float const*, int)", "xent_bwd_dtable_tc"),
     ("void at::native::vectorized_elementwise_kernel<4, F>(int, F)",
      "vectorized_elementwise_kernel")])
 def test_trace_names_reduce_to_the_kernel(name, want):
@@ -424,6 +426,25 @@ def test_trace_counts_the_slab_kernels_as_their_wrappers_launches():
     assert bf16 == dict(xent_fwd=0, xent_bwd=1, xent_multi_fwd=0,
                         xent_multi_bwd=0)
     assert n == 6
+
+
+def test_trace_counts_the_tensor_core_kernels_as_their_wrappers_launches():
+    """In bfloat16 up to 256 features K2's d_table product is
+    xent_bwd_dtable_tc, counted as one xent_bwd launch of its bfloat16
+    instantiation; K1's and K3's keep their partial kernels' names.  The
+    d_sr product (xent_bwd_dsr_tc) counts nothing."""
+    events = [("void (anonymous namespace)::xent_fwd_partial"
+               "<__nv_bfloat16>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_bwd_dtable_tc"
+               "<__nv_bfloat16, true>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_bwd_dsr_tc"
+               "<__nv_bfloat16, true>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_multi_fwd_partial"
+               "<__nv_bfloat16>(int)", 0, 1)]
+    counts, bf16, n = cs.count_launches(events)
+    want = dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=1, xent_multi_bwd=0)
+    assert counts == bf16 == want
+    assert n == 4
 
 
 @pytest.mark.parametrize("kernel_sum,events,coverage,complete", [
@@ -457,10 +478,11 @@ def test_a_trace_missing_records_is_retraced(counts, complete):
 # The launch lines' fields of K1's and K3's forward past 256 features:
 # the slots queries' shared bytes and ring stages reach ``k1_launch`` and
 # ``multi_launch``, beside the grid that two blocks an SM give.  The
-# queries' numbers at D 512, float32, on 132 SMs stand in for the card.
+# queries' numbers at D 512, float32, on 132 SMs stand in for the card
+# (the last of each: the forward product is not on the tensor cores).
 
-K1_SLOTS = (2, 132, 96, 0, 104448, 3)
-MULTI_SLOTS = (2, 1, 2, 132, 120, 128, 122, 0, 0, 0, 104448, 3)
+K1_SLOTS = (2, 132, 96, 0, 104448, 3, 0)
+MULTI_SLOTS = (2, 1, 2, 132, 120, 128, 122, 0, 0, 0, 104448, 3, 0)
 
 
 class _Library:
@@ -491,16 +513,150 @@ def test_k1_launch_line_carries_the_ring(slots):
     assert shape == dict(blocks=224, row_tiles=8, catalog_splits=28,
                          tiles_per_split=2, resident_per_sm=2, sms=132,
                          registers=96, local_bytes=0, smem_bytes=104448,
-                         ring_stages=3)
+                         ring_stages=3, product="fma")
 
 
 def test_k3_launch_line_carries_the_ring(slots):
     shape = slots.multi_launch_shape(torch.zeros(3, 512, 512), 3584)
     assert shape["k3"] == dict(blocks=240, catalog_splits=10,
                                resident_per_sm=2, smem_bytes=104448,
-                               ring_stages=3)
+                               ring_stages=3, product="fma")
     assert shape["registers"]["fwd"] == 120 and shape["sms"] == 132
     assert shape["local_bytes"]["fwd"] == 0
+
+
+# The launch lines name each product kernel's arithmetic, as the slots
+# queries report it: up to 256 features bfloat16 runs on the tensor cores,
+# float32 on the FMA pipes; K4 stays on them in both.  The queries'
+# numbers at D 256 on 132 SMs (two blocks an SM in bfloat16) stand in for
+# the card.
+
+def _d256_slots(monkeypatch, dtype):
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    tc = int(dtype == torch.bfloat16)
+    per_sm = 1 + tc
+    monkeypatch.setattr(xent, "_library", lambda: _Library)
+    monkeypatch.setattr(xm, "_library", lambda: _Library)
+    monkeypatch.setattr(xent, "_fwd_attrs", lambda dev, D, dt: (
+        per_sm, 132, 80, 0, 101376, 2, tc))
+    monkeypatch.setattr(xent, "_bwd_attrs", lambda dev, D, dt: (
+        per_sm, per_sm, 132, 120, 120, 0, 0, tc))
+    monkeypatch.setattr(xm, "_attrs", lambda dev, D, dt: (
+        per_sm, 1, 1, 132, 80, 128, 122, 0, 0, 0, 101888, 2, tc))
+    return xm
+
+
+@pytest.mark.parametrize("dtype,product", [(torch.bfloat16, "tensor_core"),
+                                           (torch.float32, "fma")])
+def test_k1_k2_launch_lines_name_the_product(monkeypatch, dtype, product):
+    xm = _d256_slots(monkeypatch, dtype)
+    sr = torch.zeros(512, 256, dtype=dtype)
+    k1, k2 = xent.fwd_launch_shape(sr, 3584), xent.bwd_launch_shape(sr, 3584)
+    assert k1["product"] == k2["product"] == product
+    assert k1["resident_per_sm"] == k2["resident_per_sm"] == \
+        (2 if product == "tensor_core" else 1)
+    multi = xm.multi_launch_shape(sr.expand(3, 512, 256), 3584)
+    assert multi["k3"]["product"] == product
+    assert multi["k4"]["product"] == "fma"
+
+
+# Mutants of the tensor-core kernels' likeliest faults, in bfloat16 at
+# widths whose k loop ends in a partial step of 16 (D 30, 100, 132): a K1
+# or K2 whose k loop stops at round_down(D, 16), so the tail's features are
+# never multiplied, and a K1 whose quad merge loses one lane's partial
+# (lane 4 g + 3 holds columns 6 and 7 of every 8 of the tile, so those
+# columns drop out of lse and the label's logit).  chip_smoke's bfloat16
+# checks must fail each; the same arithmetic on all the logits passes them.
+
+TAIL_DIMS = (30, 100, 132)
+BF16_ITEMS, BF16_P = 600, 640
+
+
+def _bf16_case(dim, seed=11):
+    sr, tab, labels, g = cs.make_inputs(torch, BF16_ITEMS, BF16_P,
+                                        torch.bfloat16, seed=seed, dev="cpu",
+                                        rows=96, dim=dim)
+    return sr, tab, labels, g, dict(scale=cs.SCALE, normalize_table=True)
+
+
+def _k1_logits(sr, tab, keep):
+    """K1's logits over the first ``keep`` features, each divided by its
+    column's norm over all of them (xent_table_norms)."""
+    t = tab.float()
+    n = torch.clamp(torch.linalg.vector_norm(t, dim=1), min=1e-12)
+    return cs.SCALE * (sr.float()[:, :keep] @ t[:, :keep].T) / n
+
+
+def _k1_from_logits(z, labels, kept=None):
+    """K1's (loss, lse) from its logits, the columns where ``kept`` is
+    False left out of both."""
+    col = torch.arange(z.shape[1])[None, :]
+    live = col < BF16_ITEMS if kept is None else (col < BF16_ITEMS) & kept
+    z = torch.where(live, z, -1e30)
+    zl = torch.where(live & (col == labels.long()[:, None]), z, 0.0).sum(1)
+    lse = torch.logsumexp(z, 1)
+    return lse - zl, lse
+
+
+def _k2_from_logits(z, g, sr, tab, labels, lse):
+    """K2's (d_sr, d_table) from its logits z, normalised table (the
+    arithmetic of ``xent._bwd_plain`` past the logits)."""
+    that, tmm, n = xent._operand(tab, True)
+    col = torch.arange(tab.shape[0])[None, :]
+    p = torch.where(col < BF16_ITEMS, torch.exp(z - lse[:, None]), 0.0)
+    onehot = (col == labels.long()[:, None]).float()
+    dz = ((p - onehot) * (cs.SCALE * g)[:, None]).to(tab.dtype).float()
+    gtab = dz.T @ sr.float()
+    gdot = torch.sum(gtab * that, dim=1, keepdim=True)
+    gtab = (gtab - gdot * that * (n > 1e-12).float()) / n
+    return dz @ tmm, gtab.to(tab.dtype)
+
+
+def _k2_fails(got, want, labels):
+    tol = cs.TOL[("bwd", "bfloat16")]
+    e_dsr, dsr_tol = cs.dsr_errors(got[0], want[0], tol)
+    groups = cs.dtable_errors(torch, got[1], want[1], labels, BF16_ITEMS, tol)
+    return e_dsr > dsr_tol or any(e > t for e, t in groups.values())
+
+
+@pytest.mark.parametrize("dim", TAIL_DIMS)
+def test_fwd_check_fails_a_k1_that_drops_the_k_tail(dim):
+    sr, tab, labels, _, kw = _bf16_case(dim)
+    want = xent.xent_fwd(sr, tab, labels, BF16_ITEMS, **kw)
+    tol = cs.TOL[("fwd", "bfloat16")]
+    full = _k1_from_logits(_k1_logits(sr, tab, dim), labels)
+    err, bound = cs.fwd_errors(full, want, tol)
+    assert err <= bound
+    tail = _k1_from_logits(_k1_logits(sr, tab, dim // 16 * 16), labels)
+    err, bound = cs.fwd_errors(tail, want, tol)
+    assert err > bound
+
+
+@pytest.mark.parametrize("dim", TAIL_DIMS)
+def test_fwd_check_fails_a_k1_whose_quad_merge_loses_a_lane(dim):
+    sr, tab, labels, _, kw = _bf16_case(dim, seed=12)
+    want = xent.xent_fwd(sr, tab, labels, BF16_ITEMS, **kw)
+    z = _k1_logits(sr, tab, dim)
+    lost = torch.arange(BF16_P)[None, :] % 8 >= 6
+    err, bound = cs.fwd_errors(_k1_from_logits(z, labels, ~lost), want,
+                               cs.TOL[("fwd", "bfloat16")])
+    assert err > bound
+
+
+@pytest.mark.parametrize("dim", TAIL_DIMS)
+def test_bwd_check_fails_a_k2_that_drops_the_k_tail(dim):
+    sr, tab, labels, g, kw = _bf16_case(dim, seed=13)
+    _, lse = xent.xent_fwd(sr, tab, labels, BF16_ITEMS, **kw)
+    want = xent.xent_bwd(g, sr, tab, labels, lse, BF16_ITEMS, **kw)
+    tmm = xent._operand(tab, True)[1]
+
+    def logits(keep):
+        return cs.SCALE * (sr.float()[:, :keep] @ tmm[:, :keep].T)
+
+    assert not _k2_fails(_k2_from_logits(logits(dim), g, sr, tab, labels,
+                                         lse), want, labels)
+    assert _k2_fails(_k2_from_logits(logits(dim // 16 * 16), g, sr, tab,
+                                     labels, lse), want, labels)
 
 
 # vs_cpu's readings: the ``torch.relu`` inputs whose sign parts the card

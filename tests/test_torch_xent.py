@@ -288,3 +288,46 @@ def test_bwd_grid_on_the_path_and_north_star_catalogs():
         tiles=56, t_split=2, t_per=4, rows=8, s_split=14, s_per=4)
     assert tx._bwd_grid(512, 37888, 132, 64) == dict(
         tiles=592, t_split=1, t_per=8, rows=8, s_split=16, s_per=37)
+
+
+# bfloat16 up to 256 features: the tensor-core kernels' launch bounds ask
+# for two resident blocks an SM, so on 132 SMs the grids fill 264 slots.
+# A stub of the slots queries (two blocks an SM, tensor cores) stands in
+# for the card; the launch shapes take their grids from it.
+
+class _Library:
+    @staticmethod
+    def srt_xent_bwd_tile():
+        return 64
+
+    @staticmethod
+    def srt_xent_slabs(D):
+        return -(-D // 256)
+
+
+@pytest.mark.parametrize("P,k1,k2", [
+    (3584, dict(blocks=224, catalog_splits=28, tiles_per_split=2),
+     dict(dtable_blocks=224, dsr_blocks=224, row_splits=4,
+          catalog_splits=28)),
+    (37888, dict(blocks=264, catalog_splits=33, tiles_per_split=18),
+     dict(dtable_blocks=592, dsr_blocks=264, row_splits=1,
+          catalog_splits=33))])
+def test_bf16_grids_at_two_blocks_an_sm(monkeypatch, P, k1, k2):
+    monkeypatch.setattr(tx, "_library", lambda: _Library)
+    monkeypatch.setattr(tx, "_fwd_attrs", lambda dev, D, dt: (
+        2, 132, 80, 0, 101376, 2, 1))
+    monkeypatch.setattr(tx, "_bwd_attrs", lambda dev, D, dt: (
+        2, 2, 132, 120, 120, 0, 0, 1))
+    sr = torch.zeros(512, 256, dtype=torch.bfloat16)
+    fwd, bwd = tx.fwd_launch_shape(sr, P), tx.bwd_launch_shape(sr, P)
+    assert {k: fwd[k] for k in k1} == k1
+    assert fwd["row_tiles"] == 8 and fwd["blocks"] <= 264
+    assert {k: bwd[k] for k in k2} == k2
+    assert bwd["resident_per_sm"] == 2 and bwd["slabs"] == 1
+    assert fwd["product"] == bwd["product"] == "tensor_core"
+    # the same grids as the arithmetic on 264 slots, twice the one-block
+    # grid's slots on the path catalog
+    assert tx._fwd_grid(512, P, 264, 64)["s_split"] == k1["catalog_splits"]
+    if P == 3584:
+        assert tx._fwd_grid(512, P, 132, 64)["s_split"] * 2 == \
+            k1["catalog_splits"]
