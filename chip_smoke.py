@@ -999,16 +999,17 @@ PATHS = {
 
 # the kernels by which a trace counts each wrapper's launches, one per
 # wrapper call up to 256 features and past: the forward's main product; the
-# backward's d_table product (K2's in bfloat16 on the tensor cores,
-# xent_bwd_dtable_tc), and past 256 features its finish kernel (the slab
-# path's dz kernel runs once a catalog chunk, its products are K2's and
-# K4's alike)
+# backward's d_table product (K2's and K4's in bfloat16 on the tensor
+# cores, xent_bwd_dtable_tc and xent_multi_bwd_dtable_tc), and past 256
+# features its finish kernel (the slab path's dz kernel runs once a catalog
+# chunk, its products are K2's and K4's alike)
 TRACE_KERNEL = {"xent_fwd": ("xent_fwd_partial", "xent_fwd_slab"),
                 "xent_bwd": ("xent_bwd_dtable", "xent_bwd_dtable_tc",
                              "xent_bwd_finish_slab"),
                 "xent_multi_fwd": ("xent_multi_fwd_partial",
                                    "xent_multi_fwd_slab"),
                 "xent_multi_bwd": ("xent_multi_bwd_dtable",
+                                   "xent_multi_bwd_dtable_tc",
                                    "xent_multi_bwd_finish_slab")}
 
 
@@ -2716,18 +2717,18 @@ def phase_wide_checks(torch, xent, xm, seed):
     emit({"phase": "wide_checks", "seconds": time.perf_counter() - t0})
 
 
-def phase_wide_times(torch, xent, xm, seed, smi):
+def phase_wide_times(torch, xent, xm, seed, smi, dtypes=None):
     """K1-K4 timed at WIDE_D: B rows (K orders of them for K3/K4) against
-    the padded path and north-star catalogs, float32, normalised
-    (``kernel_time`` lines with ``"D": 512``)."""
+    the padded path and north-star catalogs, in each of ``dtypes`` (float32
+    alone by default), normalised (``kernel_time`` lines with ``"D":
+    512``)."""
     from sessionrec_tpu_torch.ops.scoring import pad_catalog
     t0 = time.perf_counter()
-    for n_items in CATALOGS:
-        P = pad_catalog(n_items)
-        xent_times(torch, xent, n_items, P, torch.float32, seed, smi,
-                   dim=WIDE_D)
-        multi_times(torch, xm, n_items, P, torch.float32, seed, smi,
-                    dim=WIDE_D)
+    for dtype in dtypes or (torch.float32,):
+        for n_items in CATALOGS:
+            P = pad_catalog(n_items)
+            xent_times(torch, xent, n_items, P, dtype, seed, smi, dim=WIDE_D)
+            multi_times(torch, xm, n_items, P, dtype, seed, smi, dim=WIDE_D)
     emit({"phase": "wide_times", "seconds": time.perf_counter() - t0})
 
 

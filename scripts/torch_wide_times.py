@@ -15,8 +15,8 @@ largest kernels).  The sets:
 
 * ``wide`` (D 512): ``chip_smoke.phase_wide_times`` (``kernel_time``,
   ``k1_launch``, ``k2_launch`` and ``multi_launch`` lines at D 512 on the
-  path and north-star catalogs, float32); paths ``o1_wide``,
-  ``paper_wide``.
+  path and north-star catalogs, float32 and bfloat16: the slab kernels in
+  both types); paths ``o1_wide``, ``paper_wide``.
 * ``d256`` (D 256, B 512, scale 12, normalised): ``phase_kernel_times``
   (K1/K2 on both catalogs in float32 and bfloat16),
   ``phase_bf16_path_times`` (K1/K2 at the o1_bf16 path's shape) and
@@ -59,7 +59,8 @@ def main(argv=None):
              "library": cuda_build.build_library().name})
     xm._library()
     if args.set == "wide":
-        cs.phase_wide_times(torch, xent, xm, args.seed, smi)
+        cs.phase_wide_times(torch, xent, xm, args.seed, smi,
+                            (torch.float32, torch.bfloat16))
     else:
         cs.phase_kernel_times(torch, xent, args.seed, smi)
         cs.phase_bf16_path_times(torch, xent, args.seed, smi)

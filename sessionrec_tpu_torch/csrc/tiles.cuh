@@ -17,11 +17,11 @@
 // are the fastest of those timed on the H100 (PERF.md).
 //
 // bfloat16 up to MAX_D features runs on the tensor cores: K1's and K3's
-// forward tile loop and K2's two product kernels multiply with
+// forward tile loop and K2's and K4's product kernels multiply with
 // mma.sync m16n8k16 (bf16 x bf16 products, exact in float32, summed in
 // float32), fed from shared memory by ldmatrix, on tiles of their own
-// stride (the tensor-core section below).  K4 and the slab path past
-// MAX_D stay on the FMA pipes in both types.
+// stride (the tensor-core section below).  The slab path past MAX_D
+// stays on the FMA pipes in both types.
 
 #pragma once
 
@@ -269,8 +269,8 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
 template <typename T>
 constexpr bool tc_type = std::is_same<T, __nv_bfloat16>::value;
 
-// whether K1's, K2's and K3's product kernels at width D in type T run on
-// the tensor cores (bfloat16 up to MAX_D)
+// whether K1's to K4's product kernels at width D in type T run on the
+// tensor cores (bfloat16 up to MAX_D)
 template <typename T>
 constexpr bool on_tensor_cores(int D) {
   return tc_type<T> && D <= MAX_D;

@@ -9,7 +9,8 @@
 //                                          + xent_multi_bwd_dtable
 //                                          (+ xent_bwd_dtable_reduce)
 //                                          + xent_multi_bwd_dsr
-//                                          (+ xent_bwd_dsr_reduce)
+//                                          (+ xent_bwd_dsr_reduce),
+//                                          in bfloat16 the _tc kernels
 // and past 256 features the slab path of tiles.cuh: K3 xent_multi_fwd_slab
 // in place of the partial kernel; K4 xent_multi_bwd_dz_slab (dz once) +
 // xent_slab_dtable + xent_slab_dsr (+ xent_bwd_dsr_reduce) +
@@ -34,13 +35,14 @@
 // What bounds it.  K3 performs 2*R*P*D operations and K4 three times as
 // many (R = K*B rows) on (R + P)*D elements: at the paper path's shapes
 // (K = 3, B = 512, D = 256, P = 3,584 to 37,888) about 770 operations a
-// float32 byte, far above the card's 20 (67 TFLOP/s over 3.35 TB/s), so
-// both are bound by operations, on the FP32 FMA pipes (TF32 would change
-// the numerics); K3 in bfloat16 up to MAX_D features runs its products on
-// the tensor cores (K1's loop, below), K4 stays on the FMA pipes in both
-// types.  K4 performs four products where its bound counts three
-// (the logits are recomputed for each output, as in K2, xent_bwd.cu), so
-// its ceiling is 75% of its bound.
+// float32 byte, far above the card's 20 (67 TFLOP/s over 3.35 TB/s), and
+// 1,540 a bfloat16 byte, far above its 295 (989 TFLOP/s on the tensor
+// cores), so both are bound by operations: float32 on the FP32 FMA pipes
+// (TF32 would change the numerics), bfloat16 up to MAX_D features on the
+// tensor cores (K3 through K1's loop, K4 through K2's products, below).
+// K4 performs four products where its bound counts three (the logits are
+// recomputed for each output, as in K2, xent_bwd.cu), so its ceiling is
+// 75% of its bound.
 //
 // What the design does about it (K2's tiles, tiles.cuh):
 //   * K folds into the row axis.  sr3 [K, B, D] is read as R = K*B rows,
@@ -50,17 +52,27 @@
 //     (xent_table_norms) and divides each logit by its column's; K4 streams
 //     t from xent_bwd_normalize, as K2 does.  The first design normalised
 //     every catalog tile again in every block that staged it.
-//   * Register-tiled products: a 64 x 64 logits tile is 4 x 4 outputs a
-//     thread (product_logits); K4's accumulations d_table += dz^T sr and
-//     d_sr += dz t are 8 x 8 a thread (rank_update), with dz in shared
-//     memory as [row][col] for d_table and as [col][row] for d_sr.
+//   * float32: register-tiled products.  A 64 x 64 logits tile is 4 x 4
+//     outputs a thread (product_logits); K4's accumulations d_table +=
+//     dz^T sr and d_sr += dz t are 8 x 8 a thread (rank_update), with dz
+//     in shared memory as [row][col] for d_table and as [col][row] for
+//     d_sr.
+//   * bfloat16 up to MAX_D: every product on the tensor cores (mma.sync
+//     m16n8k16 from ldmatrix, float32 sums, tiles of stride round_up(D,
+//     16) + 8).  K3's loop is fwd_tile_loop (tiles.cuh), which K1 runs
+//     without membership: its logits come from product_logits_tc and a
+//     row's membership bits are read at its fragment's columns.  K4's
+//     xent_multi_bwd_dtable_tc and xent_multi_bwd_dsr_tc are K2's tensor-
+//     core products over the R rows: the logits tile from
+//     product_logits_tc, its dz (dz_multi_tile_tc: each column of a lane's
+//     pair with its own membership bit, the row's inputs read from shared
+//     memory each tile) rounded to bfloat16 as the JAX kernel feeds its
+//     matrix unit (exact) into a bfloat16 [row][col] tile, and
+//     rank_update_tc's accumulations.  Their tiles, dz tile and rows'
+//     inputs take 110 KB at D = 256: two blocks an SM, as K3's.
 //   * Asynchronous, double-buffered staging: the streamed operand's next
-//     64-row tile arrives by cp.async while the current one is used;
-//     bfloat16 is staged as bfloat16 and widened in registers, except in
-//     K3 up to MAX_D.  K3's loop is fwd_tile_loop (tiles.cuh), which K1
-//     runs without membership: in bfloat16 its logits come from the tensor
-//     cores (product_logits_tc) and a row's membership bits are read at
-//     its fragment's columns; two blocks an SM.
+//     64-row tile arrives by cp.async while the current one is used
+//     (float32 four elements, bfloat16 eight, 16 bytes a copy).
 //   * Membership as bits.  While a tile stages, four threads per row scan
 //     the row's iid list (global ids, -1 padded, any length) and OR a
 //     64-bit mask over the tile's 64 columns, so a column's test is a
@@ -85,7 +97,8 @@
 // global iids), and labels localised to the table (-1 matches no column).
 // The wrapper chooses the grids (ops/xent_multi.py) from
 // srt_xent_multi_slots.  Any K, B >= 1, P >= 1, D >= 1, Ns >= 1: with
-// D % 4 == 0 and aligned arrays the tiles are staged by cp.async,
+// D % 4 == 0 and aligned arrays the tiles are staged by cp.async
+// (bfloat16 up to MAX_D: D % 8 == 0 and 16-byte aligned arrays),
 // otherwise by plain loads.  Past D = MAX_D (256) K3 runs
 // xent_multi_fwd_slab (fwd_slab_loop with membership: the split's catalog
 // tiles in k-chunks of 64 features through a ring of three cp.async
@@ -193,9 +206,38 @@ __device__ __forceinline__ void row_coefs(RowShared* rs,
   rs->lbl[i] = ok ? labels[r % B] : -1;
 }
 
+// one row's inputs, read from RowShared where a tile's dz needs them
+struct RowIn {
+  float gz, gin, gex, lin, lex;
+  int lbl;
+  unsigned long long bits;
+};
+
+__device__ __forceinline__ RowIn row_in(const RowShared* rs, int i) {
+  return {rs->coef[0][i], rs->coef[1][i], rs->coef[2][i], rs->coef[3][i],
+          rs->coef[4][i], rs->lbl[i],     rs->mask[i]};
+}
+
+// dz of one logit S at tile column c (local column col) of a row with
+// inputs in: p_in on member & live columns, p_ex on the other live ones,
+// the label's one-hot; 0 on rows past R and columns past P
+template <typename T>
+__device__ __forceinline__ float dlogit_multi(float S, int c, int col,
+                                              const RowIn& in, bool row_ok,
+                                              int P, int n_valid,
+                                              float scale) {
+  float acc = 0.f;
+  if (col < n_valid) {
+    const bool member = (in.bits >> c) & 1ull;
+    acc = (member ? in.gin : in.gex) *
+          expf(scale * S - (member ? in.lin : in.lex));
+  }
+  if (col == in.lbl) acc += in.gz;
+  return row_ok && col < P ? round_op<T>(acc * scale) : 0.f;
+}
+
 // dz of tile row i at its four columns tx + 16 j (j < 4) of a tile that
-// starts at local column p0, from the logits S[j] of that row; 0 on rows
-// past R and columns past P
+// starts at local column p0, from the logits S[j] of that row
 template <typename T>
 __device__ __forceinline__ void dlogits_multi(float (&dz)[4],
                                               const float (&S)[4],
@@ -203,29 +245,52 @@ __device__ __forceinline__ void dlogits_multi(float (&dz)[4],
                                               bool row_ok, int p0, int P,
                                               int n_valid, float scale) {
   const int tx = threadIdx.x & 15;
-  const float gz = rs->coef[0][i], gin = rs->coef[1][i];
-  const float gex = rs->coef[2][i], lin = rs->coef[3][i];
-  const float lex = rs->coef[4][i];
-  const int lbl = rs->lbl[i];
-  const unsigned long long bits = rs->mask[i];
+  const RowIn in = row_in(rs, i);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int c = tx + 16 * j, col = p0 + c;
-    float acc = 0.f;
-    if (col < n_valid) {
-      const bool member = (bits >> c) & 1ull;
-      acc = (member ? gin : gex) * expf(scale * S[j] - (member ? lin : lex));
-    }
-    if (col == lbl) acc += gz;
-    dz[j] = row_ok && col < P ? round_op<T>(acc * scale) : 0.f;
+    const int c = tx + 16 * j;
+    dz[j] = dlogit_multi<T>(S[j], c, p0 + c, in, row_ok, P, n_valid, scale);
   }
 }
 
-// shared memory of a K4 block: K2's three tiles and dz tile, and the rows'
-// masks and inputs
+// dz of the logits tile S (product_logits_tc's layout) of rows [r0, r0 +
+// TILE) of the R and catalog columns [p0, p0 + TILE), into dz_s
+// [TILE][LDZB] as bfloat16 pairs, in K2's lane mapping (xent_bwd.cu,
+// dz_tile_tc): lane l of warp w takes rows rb = 16 (w >> 1) + l / 4 and
+// rb + 8, columns cb + 8 f + {0, 1} (f < 4), cb = 32 (w & 1) + 2 (l % 4).
+// Each row's inputs come from RowShared each tile, not from registers, and
+// each column of a pair takes its own membership bit.
+__device__ __forceinline__ void dz_multi_tile_tc(__nv_bfloat16* dz_s,
+                                                 const float (&S)[4][4],
+                                                 const RowShared* rs, int r0,
+                                                 int R, int p0, int P,
+                                                 int n_valid, float scale) {
+  typedef __nv_bfloat16 T;
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int rb = 16 * (w >> 1) + (l >> 2), cb = 32 * (w & 1) + 2 * (l & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = rb + 8 * h;
+    const bool row_ok = r0 + rl < R;
+    const RowIn in = row_in(rs, rl);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int cl = cb + 8 * f;
+      const float d0 = dlogit_multi<T>(S[f][2 * h], cl, p0 + cl, in, row_ok,
+                                       P, n_valid, scale);
+      const float d1 = dlogit_multi<T>(S[f][2 * h + 1], cl + 1, p0 + cl + 1,
+                                       in, row_ok, P, n_valid, scale);
+      *reinterpret_cast<__nv_bfloat162*>(dz_s + rl * LDZB + cl) =
+          __floats2bfloat162_rn(d0, d1);
+    }
+  }
+}
+
+// shared memory of a K4 block: K2's three tiles and dz tile (at the tensor
+// cores' stride in bfloat16), and the rows' masks and inputs
 template <typename T>
 size_t bwd_multi_smem(int D) {
-  return bwd_smem<T>(D) + sizeof(RowShared);
+  return (tc_type<T> ? bwd_tc_smem(D) : bwd_smem<T>(D)) + sizeof(RowShared);
 }
 
 // ---------------------------------------------------------------------------
@@ -370,6 +435,155 @@ __global__ void __launch_bounds__(NT, 1) xent_multi_bwd_dsr(
 }
 
 // ---------------------------------------------------------------------------
+// K4's two product kernels in bfloat16 up to MAX_D, on the tensor cores:
+// the grids, staging order and outputs of xent_multi_bwd_dtable and
+// xent_multi_bwd_dsr, and K2's products (xent_bwd.cu, xent_bwd_dtable_tc
+// and xent_bwd_dsr_tc).  Each logits tile comes from product_logits_tc,
+// its dz (dz_multi_tile_tc, from the rows' masks and inputs in RowShared)
+// goes to dz_s [row][col] as bfloat16, and rank_update_tc accumulates;
+// the accumulators go through shared memory (the tiles', once consumed)
+// to the rows' stores.  NPW: feature pairs a warp (4 past 128 features,
+// else 2).
+// ---------------------------------------------------------------------------
+template <typename T, bool HI>
+__global__ void __launch_bounds__(NT, tile_blocks<T>())
+    xent_multi_bwd_dtable_tc(
+    const float* __restrict__ g5, const T* __restrict__ sr,
+    const T* __restrict__ op, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int normalize, int vec,
+    int chunks_per_split, float* __restrict__ part, T* __restrict__ dtab) {
+  static_assert(tc_type<T>, "the tensor-core kernels take bfloat16");
+  constexpr int NPW = HI ? 4 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tc_ld(D), kp = tc_kp(D), np = kp / 16;
+  T* C_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] t rows
+  T* A_s = C_s + TILE * ld;                            // [2][TILE][ld] sr
+  T* dz_s = A_s + 2 * TILE * ld;                       // [TILE][LDZB]
+  RowShared* rs = reinterpret_cast<RowShared*>(dz_s + TILE * LDZB);
+  const int w = threadIdx.x >> 5;
+  const int p0 = blockIdx.x * TILE;
+  const int n_chunks = (R + TILE - 1) / TILE;
+  const int c_begin = blockIdx.y * chunks_per_split;
+  const int c_end = min(n_chunks, c_begin + chunks_per_split);
+
+  stage_tile_tc(C_s, ld, op, p0, P, D, vec);
+  stage_tile_tc(A_s, ld, sr, c_begin * TILE, R, D, vec);
+  cp_async_commit();
+
+  float G[2][2 * NPW][4] = {};
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = (c - c_begin) & 1;
+    const T* A = A_s + buf * TILE * ld;
+    const int row0 = c * TILE;
+    if (c + 1 < c_end)
+      stage_tile_tc(A_s + (buf ^ 1) * TILE * ld, ld, sr, (c + 1) * TILE, R,
+                    D, vec);
+    cp_async_commit();
+    row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
+    row_coefs(rs, g5, labels, row0, R, B);
+    cp_async_wait<1>();  // this chunk (and the tile) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits_tc(S, A, C_s, ld, kp);
+    dz_multi_tile_tc(dz_s, S, rs, row0, R, p0, P, n_valid, scale);
+    __syncthreads();
+    rank_update_tc<NPW, true>(G, dz_s, LDZB, A, ld, np);
+    __syncthreads();  // A, dz_s and the rows' inputs are consumed
+  }
+
+  cp_async_wait<0>();
+  float* G_s = reinterpret_cast<float*>(smem);         // [TILE][kp + 8]
+  store_acc_tc<NPW>(G_s, kp + 8, G, np);
+  __syncthreads();
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int col = p0 + 8 * w + i;
+    if (col >= P) continue;  // warp-uniform
+    float gs[8];
+    load_row8(gs, G_s + (8 * w + i) * (kp + 8), D);
+    if (part)
+      store_row8(part + ((size_t)blockIdx.y * P + col) * D, gs, D);
+    else
+      finish_dtable_row<T>(gs, col, tab, nrm, D, normalize, dtab);
+  }
+}
+
+template <typename T, bool HI>
+__global__ void __launch_bounds__(NT, tile_blocks<T>()) xent_multi_bwd_dsr_tc(
+    const float* __restrict__ g5, const T* __restrict__ sr,
+    const T* __restrict__ op, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int vec, int tiles_per_split,
+    float* __restrict__ out) {
+  static_assert(tc_type<T>, "the tensor-core kernels take bfloat16");
+  constexpr int NPW = HI ? 4 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tc_ld(D), kp = tc_kp(D), np = kp / 16;
+  T* A_s = reinterpret_cast<T*>(smem);                 // [TILE][ld] sr rows
+  T* C_s = A_s + TILE * ld;                            // [2][TILE][ld] t
+  T* dz_s = C_s + 2 * TILE * ld;                       // [TILE][LDZB]
+  RowShared* rs = reinterpret_cast<RowShared*>(dz_s + TILE * LDZB);
+  const int w = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  stage_tile_tc(A_s, ld, sr, row0, R, D, vec);
+  stage_tile_tc(C_s, ld, op, t_begin * TILE, P, D, vec);
+  cp_async_commit();
+  row_coefs(rs, g5, labels, row0, R, B);
+
+  float acc[2][2 * NPW][4] = {};
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const T* C = C_s + buf * TILE * ld;
+    const int p0 = t * TILE;
+    if (t + 1 < t_end)
+      stage_tile_tc(C_s + (buf ^ 1) * TILE * ld, ld, op, (t + 1) * TILE, P,
+                    D, vec);
+    cp_async_commit();
+    row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
+    cp_async_wait<1>();  // this tile (and the rows) have landed
+    __syncthreads();
+    float S[4][4] = {};
+    product_logits_tc(S, A_s, C, ld, kp);
+    dz_multi_tile_tc(dz_s, S, rs, row0, R, p0, P, n_valid, scale);
+    __syncthreads();
+    rank_update_tc<NPW, false>(acc, dz_s, LDZB, C, ld, np);
+    __syncthreads();  // C, dz_s and the masks are consumed
+  }
+
+  cp_async_wait<0>();
+  float* acc_s = reinterpret_cast<float*>(smem);       // [TILE][kp + 8]
+  store_acc_tc<NPW>(acc_s, kp + 8, acc, np);
+  __syncthreads();
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + 8 * w + i;
+    if (r >= R) continue;  // warp-uniform
+    float v[8];
+    load_row8(v, acc_s + (8 * w + i) * (kp + 8), D);
+    store_row8(out + ((size_t)blockIdx.y * R + r) * D, v, D);
+  }
+}
+
+// K4's two product kernels at D <= MAX_D in type T: on the tensor cores in
+// bfloat16, on the FMA pipes in float32
+template <typename T, bool HI>
+auto dtable_kernel() {
+  if constexpr (tc_type<T>) return xent_multi_bwd_dtable_tc<T, HI>;
+  else return xent_multi_bwd_dtable<T, HI>;
+}
+template <typename T, bool HI>
+auto dsr_kernel() {
+  if constexpr (tc_type<T>) return xent_multi_bwd_dsr_tc<T, HI>;
+  else return xent_multi_bwd_dsr<T, HI>;
+}
+
+// ---------------------------------------------------------------------------
 // K4, dz for D > MAX_D: grid = (64-row tiles of the R rows, 64-row catalog
 // tiles of the chunk that starts at table row c0).  A block builds its rows'
 // masks and inputs while the first k-chunk stages, computes its logits tile
@@ -439,9 +653,9 @@ int set_fwd_smem(int D) {
 template <typename T, bool HI>
 int set_bwd_smem(int D) {
   const int smem = (int)bwd_multi_smem<T>(D);
-  cudaFuncSetAttribute(xent_multi_bwd_dtable<T, HI>,
+  cudaFuncSetAttribute(dtable_kernel<T, HI>(),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(xent_multi_bwd_dsr<T, HI>,
+  cudaFuncSetAttribute(dsr_kernel<T, HI>(),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return smem;
 }
@@ -451,15 +665,15 @@ int set_bwd_smem(int D) {
 // registers per thread (out[4..6]) and their local memory bytes per thread,
 // where spills go (out[7..9]); K3's dynamic shared memory bytes (out[10]),
 // the stages its staging pipelines (out[11]: the table tiles' two buffers
-// up to MAX_D, the chunk ring past it) and whether its product runs on the
-// tensor cores (out[12]; K4's products stay on the FMA pipes)
+// up to MAX_D, the chunk ring past it), and whether K3's product (out[12])
+// and K4's (out[13]) run on the tensor cores
 template <typename T, bool HI>
 int slots(int D, int* out) {
   const int fwd = set_fwd_smem<T>(D);
   kernel_attrs(fwd_kernel<T>(D), fwd, &out[0], &out[4], &out[7]);
   out[10] = fwd;
   out[11] = D > MAX_D ? FWD_STAGES : 2;
-  out[12] = on_tensor_cores<T>(D);
+  out[12] = out[13] = on_tensor_cores<T>(D);
   if (D > MAX_D) {
     int blocks[2], regs[2], local[2];
     slab_product_attrs<T>(D, blocks, regs, local);
@@ -471,8 +685,8 @@ int slots(int D, int* out) {
     return (int)cudaGetLastError();
   }
   const int bwd = set_bwd_smem<T, HI>(D);
-  const void* fns[2] = {(const void*)xent_multi_bwd_dtable<T, HI>,
-                        (const void*)xent_multi_bwd_dsr<T, HI>};
+  const void* fns[2] = {(const void*)dtable_kernel<T, HI>(),
+                        (const void*)dsr_kernel<T, HI>()};
   for (int k = 0; k < 2; ++k)
     kernel_attrs(fns[k], bwd, &out[1 + k], &out[5 + k], &out[8 + k]);
   return (int)cudaGetLastError();
@@ -524,9 +738,12 @@ int bwd(const float* g5, const T* sr, const T* tab, const int* labels,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     op = that;
   }
+  if (tc_type<T>) vec = tc_vec(vec, D, sr, op);
   const int n_tiles = (P + TILE - 1) / TILE, n_rows = (R + TILE - 1) / TILE;
   float* part = t_split > 1 ? dtab_part : nullptr;
-  xent_multi_bwd_dtable<T, HI><<<dim3(n_tiles, t_split), NT, smem, stream>>>(
+  const auto dtable = dtable_kernel<T, HI>();
+  const auto dsr_product = dsr_kernel<T, HI>();
+  dtable<<<dim3(n_tiles, t_split), NT, smem, stream>>>(
       g5, sr, op, tab, nrm, labels, iids, R, B, P, D, Ns, n_valid,
       col_offset, scale, normalize, vec, chunks_per_split, part, dtab);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -536,7 +753,7 @@ int bwd(const float* g5, const T* sr, const T* tab, const int* labels,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   float* out = s_split > 1 ? dsr_part : dsr;
-  xent_multi_bwd_dsr<T, HI><<<dim3(n_rows, s_split), NT, smem, stream>>>(
+  dsr_product<<<dim3(n_rows, s_split), NT, smem, stream>>>(
       g5, sr, op, labels, iids, R, B, P, D, Ns, n_valid, col_offset, scale,
       vec, tiles_per_split, out);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -611,8 +828,9 @@ extern "C" {
 // device; out[3]: its SM count;
 // out[4..6]: the three kernels' registers per thread; out[7..9]: their
 // local memory bytes per thread; out[10], out[11]: K3's dynamic shared
-// memory bytes and staging stages; out[12]: 1 where K3's product runs on
-// the tensor cores (bfloat16 up to MAX_D), 0 on the FMA pipes
+// memory bytes and staging stages; out[12], out[13]: 1 where K3's and
+// K4's products run on the tensor cores (bfloat16 up to MAX_D), 0 on the
+// FMA pipes
 int srt_xent_multi_slots(int D, int is_bf16, int* out) {
   const bool hi = ((D + 3) & ~3) > 128;
   const int err = is_bf16 ? (hi ? slots<__nv_bfloat16, true>(D, out)

@@ -21,7 +21,9 @@ logits nor the ``[B, P]`` session mask exist in device memory:
 
 Both run on K2's tiles (``csrc/tiles.cuh``) over the ``K * B`` rows, on
 grids that ``ops/xent.py:_bwd_grid`` sizes to the card's resident block
-slots of their own kernels; past 256 features, as K1/K2 do, on the slab
+slots of their own kernels; in bfloat16 up to 256 features their products
+run on the tensor cores (``mma.sync``, float32 sums), as K1's and K2's do;
+past 256 features, as K1/K2 do, on the slab
 path (``xent.slabs``): K4 computes dz once per catalog chunk and runs K2's
 two slab products over it (``xent.slab_bwd_plan``).  Session item lists
 may be of any length (the paper head at ``--max-len`` above 256): the
@@ -201,20 +203,21 @@ def _check(sr3, table, labels, iids, *stats):
 
 
 def _attrs(device, D, dtype):
-    """``srt_xent_multi_slots``'s thirteen numbers for ``device``: resident
+    """``srt_xent_multi_slots``'s fourteen numbers for ``device``: resident
     blocks per SM of K3's partial kernel and K4's d_table and d_sr kernels
-    at width ``D`` (past 256 features the slab path's products), the SM
-    count, the three kernels' registers and local memory bytes per thread,
-    and K3's dynamic shared memory bytes, staging stages and whether it
-    runs on the tensor cores."""
-    return xent.slots_query(_library().srt_xent_multi_slots, 13, device, D,
+    at width ``D`` (past 256 features the slab path's products; in bfloat16
+    up to it K4's tensor-core kernels), the SM count, the three kernels'
+    registers and local memory bytes per thread, K3's dynamic shared memory
+    bytes and staging stages, and whether K3's and K4's products run on
+    the tensor cores."""
+    return xent.slots_query(_library().srt_xent_multi_slots, 14, device, D,
                             dtype)
 
 
 def _grid(device, R, P, D, dtype, k4):
     """``xent._bwd_grid`` over the ``R = K * B`` rows for K4 up to 256
-    features (``k4``; the fewer resident blocks of its two product kernels)
-    or K3."""
+    features (``k4``; the fewer resident blocks of the two product kernels
+    that run at ``dtype``: on the tensor cores in bfloat16) or K3."""
     a = _attrs(device, D, dtype)
     per_sm = min(a[1], a[2]) if k4 else a[0]
     return xent._bwd_grid(R, P, per_sm * a[3],
@@ -224,10 +227,10 @@ def _grid(device, R, P, D, dtype, k4):
 def multi_launch_shape(sr3, P):
     """K3's and K4's launches for ``sr3 [K, B, D]`` against a ``P``-row
     table: blocks, splits and resident blocks per SM of each (K3's shared
-    memory bytes and staging stages too), each one's ``product`` (K4's on
-    the FMA pipes), and each product kernel's registers and local memory
-    (spill) bytes per thread; past 256 features K4's dz kernel's too, and
-    its chunks."""
+    memory bytes and staging stages too), each one's ``product`` (both on
+    the tensor cores in bfloat16 up to 256 features), and each product
+    kernel's registers and local memory (spill) bytes per thread; past 256
+    features K4's dz kernel's too, and its chunks."""
     (K, B, D), dev = sr3.shape, sr3.device
     a = _attrs(dev, D, sr3.dtype)
     k3 = xent.grid_shape(K * B, P, a[0], a[3])
@@ -246,7 +249,7 @@ def multi_launch_shape(sr3, P):
                         catalog_splits=k3["catalog_splits"],
                         resident_per_sm=a[0], smem_bytes=a[10],
                         ring_stages=a[11], product=xent.product(a[12])),
-                k4=dict(k4, product=xent.product(False)), sms=a[3],
+                k4=dict(k4, product=xent.product(a[13])), sms=a[3],
                 registers=regs, local_bytes=local)
 
 

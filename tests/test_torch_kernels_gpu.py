@@ -419,9 +419,12 @@ def _multi_edge_case(cuda, B, D, P, n, dtype, norm, K=3, N=19, seed=17):
 # K3/K4's tiles are 64 of the K * B rows and 64 catalog rows: one batch row
 # (3 rows), a ragged batch (1,527 rows), widths that are not multiples of
 # 4 (plain loads, not cp.async) or of 32, at most 128 (one half of the
-# accumulators), catalogs of one row, one tile, one tile and a few rows
+# accumulators; in bfloat16 two or four feature pairs a warp at 32 and 64),
+# catalogs of one row, one tile, one tile and a few rows
 @pytest.mark.parametrize("B,D,P,n", [(1, 256, 3584, 3429),
                                      (509, 256, 3584, 3429),
+                                     (509, 32, 640, 600),
+                                     (96, 64, 3584, 3429),
                                      (96, 16, 70, 64),
                                      (37, 30, 64, 60),
                                      (509, 132, 1, 1),
@@ -600,7 +603,8 @@ def test_slab_backward_in_catalog_chunks(cuda, monkeypatch, D, dtype, norm):
 @pytest.mark.parametrize("D", [64, 256])
 def test_tensor_core_kernels_take_rows_off_16_byte_alignment(cuda, D):
     """bfloat16 rows that start 8 bytes off 16 (four-element aligned, so
-    the wrapper's vec holds) go by plain loads, not 16-byte cp.async."""
+    the wrapper's vec holds) go by plain loads, not 16-byte cp.async: K1
+    and K2, and K4 with its K * B rows."""
     B, P, n = 100, 1000, 999
     s, t, lbl = _k1_case(cuda, B, D, P, n, torch.bfloat16)
     buf = torch.empty(B * D + 4, device=cuda, dtype=torch.bfloat16)
@@ -614,27 +618,38 @@ def test_tensor_core_kernels_take_rows_off_16_byte_alignment(cuda, D):
     dsr, dtab = tx._bwd_cuda(g, off, t, lbl, got[1], n, 0, **kw)
     dsr_p, dtab_p = tx._bwd_plain(g, s, t, lbl, got[1], n, **kw)
     _assert_k2_close(dsr, dtab, dsr_p, dtab_p, lbl, P, n, 1e-2)
+    s3, t, lbl, iids, g3, _, lse = _multi_edge_case(cuda, B, D, P, n,
+                                                    torch.bfloat16, True)
+    buf = torch.empty(s3.numel() + 4, device=cuda, dtype=torch.bfloat16)
+    off3 = buf[4:].view(s3.shape)
+    off3.copy_(s3)
+    assert off3.data_ptr() % 16 == 8 and off3.is_contiguous()
+    dsr, dtab = txm._bwd_cuda(*g3, off3, t, lbl, iids, *lse, n, 0, **kw)
+    dsr_p, dtab_p = txm._bwd_plain(*g3, s3, t, lbl, iids, *lse, n, 0, **kw)
+    _assert_k4_close(dsr, dtab, dsr_p, dtab_p, lbl, iids, P, n, 1e-2)
 
 
 @pytest.mark.parametrize("D", [16, 30, 64, 132, 256])
 def test_tensor_core_kernels_spill_nothing(cuda, D):
-    """In bfloat16 up to 256 features K1's, K2's and K3's product kernels
-    run on the tensor cores and keep everything in registers (no local
-    memory), two blocks an SM; float32 stays on the FMA pipes, and so does
-    K4."""
+    """In bfloat16 up to 256 features K1's, K2's, K3's and K4's product
+    kernels run on the tensor cores and keep everything in registers (no
+    local memory), two blocks an SM; float32 stays on the FMA pipes."""
     s = torch.zeros(512, D, device=cuda, dtype=torch.bfloat16)
     k1, k2 = tx.fwd_launch_shape(s, 3584), tx.bwd_launch_shape(s, 3584)
     multi = txm.multi_launch_shape(s.expand(3, 512, D), 3584)
     assert k1["product"] == k2["product"] == multi["k3"]["product"] == \
-        "tensor_core"
-    assert multi["k4"]["product"] == "fma"
+        multi["k4"]["product"] == "tensor_core"
     assert k1["local_bytes"] == multi["local_bytes"]["fwd"] == 0
     assert k2["local_bytes"] == {"dtable": 0, "dsr": 0}
+    assert multi["local_bytes"]["dtable"] == multi["local_bytes"]["dsr"] == 0
     assert k1["resident_per_sm"] >= 2 and k2["resident_per_sm"] >= 2
     assert multi["k3"]["resident_per_sm"] >= 2
+    assert multi["k4"]["resident_per_sm"] >= 2
     f32 = torch.zeros(512, D, device=cuda)
     assert tx.fwd_launch_shape(f32, 3584)["product"] == \
         tx.bwd_launch_shape(f32, 3584)["product"] == "fma"
+    f32_multi = txm.multi_launch_shape(f32.expand(3, 512, D), 3584)
+    assert f32_multi["k3"]["product"] == f32_multi["k4"]["product"] == "fma"
 
 
 @pytest.mark.parametrize("D", [258, 512, 1000])

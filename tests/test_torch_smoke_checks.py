@@ -429,10 +429,11 @@ def test_trace_counts_the_slab_kernels_as_their_wrappers_launches():
 
 
 def test_trace_counts_the_tensor_core_kernels_as_their_wrappers_launches():
-    """In bfloat16 up to 256 features K2's d_table product is
-    xent_bwd_dtable_tc, counted as one xent_bwd launch of its bfloat16
-    instantiation; K1's and K3's keep their partial kernels' names.  The
-    d_sr product (xent_bwd_dsr_tc) counts nothing."""
+    """In bfloat16 up to 256 features K2's and K4's d_table products are
+    xent_bwd_dtable_tc and xent_multi_bwd_dtable_tc, each counted as one
+    launch of its wrapper's bfloat16 instantiation; K1's and K3's keep
+    their partial kernels' names.  The d_sr products (xent_bwd_dsr_tc,
+    xent_multi_bwd_dsr_tc) count nothing."""
     events = [("void (anonymous namespace)::xent_fwd_partial"
                "<__nv_bfloat16>(int)", 0, 1),
               ("void (anonymous namespace)::xent_bwd_dtable_tc"
@@ -440,11 +441,15 @@ def test_trace_counts_the_tensor_core_kernels_as_their_wrappers_launches():
               ("void (anonymous namespace)::xent_bwd_dsr_tc"
                "<__nv_bfloat16, true>(int)", 0, 1),
               ("void (anonymous namespace)::xent_multi_fwd_partial"
-               "<__nv_bfloat16>(int)", 0, 1)]
+               "<__nv_bfloat16>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_multi_bwd_dtable_tc"
+               "<__nv_bfloat16, true>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_multi_bwd_dsr_tc"
+               "<__nv_bfloat16, true>(int)", 0, 1)]
     counts, bf16, n = cs.count_launches(events)
-    want = dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=1, xent_multi_bwd=0)
+    want = dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=1, xent_multi_bwd=1)
     assert counts == bf16 == want
-    assert n == 4
+    assert n == 6
 
 
 @pytest.mark.parametrize("kernel_sum,events,coverage,complete", [
@@ -482,7 +487,7 @@ def test_a_trace_missing_records_is_retraced(counts, complete):
 # (the last of each: the forward product is not on the tensor cores).
 
 K1_SLOTS = (2, 132, 96, 0, 104448, 3, 0)
-MULTI_SLOTS = (2, 1, 2, 132, 120, 128, 122, 0, 0, 0, 104448, 3, 0)
+MULTI_SLOTS = (2, 1, 2, 132, 120, 128, 122, 0, 0, 0, 104448, 3, 0, 0)
 
 
 class _Library:
@@ -527,9 +532,8 @@ def test_k3_launch_line_carries_the_ring(slots):
 
 # The launch lines name each product kernel's arithmetic, as the slots
 # queries report it: up to 256 features bfloat16 runs on the tensor cores,
-# float32 on the FMA pipes; K4 stays on them in both.  The queries'
-# numbers at D 256 on 132 SMs (two blocks an SM in bfloat16) stand in for
-# the card.
+# float32 on the FMA pipes, K1 to K4 alike.  The queries' numbers at D 256
+# on 132 SMs (two blocks an SM in bfloat16) stand in for the card.
 
 def _d256_slots(monkeypatch, dtype):
     from sessionrec_tpu_torch.ops import xent_multi as xm
@@ -542,7 +546,8 @@ def _d256_slots(monkeypatch, dtype):
     monkeypatch.setattr(xent, "_bwd_attrs", lambda dev, D, dt: (
         per_sm, per_sm, 132, 120, 120, 0, 0, tc))
     monkeypatch.setattr(xm, "_attrs", lambda dev, D, dt: (
-        per_sm, 1, 1, 132, 80, 128, 122, 0, 0, 0, 101888, 2, tc))
+        per_sm, per_sm, per_sm, 132, 80, 128, 122, 0, 0, 0, 101888, 2, tc,
+        tc))
     return xm
 
 
@@ -557,7 +562,30 @@ def test_k1_k2_launch_lines_name_the_product(monkeypatch, dtype, product):
         (2 if product == "tensor_core" else 1)
     multi = xm.multi_launch_shape(sr.expand(3, 512, 256), 3584)
     assert multi["k3"]["product"] == product
-    assert multi["k4"]["product"] == "fma"
+    assert multi["k4"]["product"] == product
+
+
+# K4's grid up to 256 features comes from its own product kernels' slots:
+# in bfloat16 the tensor-core kernels' two blocks an SM (264 slots on 132
+# SMs), in float32 the FMA kernels' one.  Over the paper path's 1,536 rows
+# (24 row tiles) and 3,584 catalog rows (56 tiles): d_table 56 tiles x 4
+# row splits of 6 row tiles, d_sr 24 row tiles x 10 catalog splits of 6
+# tiles in bfloat16; 2 splits of 12 and 5 of 12 in float32.
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, dict(t_split=4, t_per=6, s_split=10, s_per=6,
+                          dtable_blocks=224, dsr_blocks=240, per_sm=2)),
+    (torch.float32, dict(t_split=2, t_per=12, s_split=5, s_per=12,
+                         dtable_blocks=112, dsr_blocks=120, per_sm=1))])
+def test_k4_grid_follows_its_own_kernels_slots(monkeypatch, dtype, want):
+    xm = _d256_slots(monkeypatch, dtype)
+    grid = xm._grid(None, 3 * 512, 3584, 256, dtype, k4=True)
+    assert {k: grid[k] for k in ("t_split", "t_per", "s_split", "s_per")} \
+        == {k: want[k] for k in ("t_split", "t_per", "s_split", "s_per")}
+    k4 = xm.multi_launch_shape(torch.zeros(3, 512, 256, dtype=dtype),
+                               3584)["k4"]
+    assert (k4["dtable_blocks"], k4["dsr_blocks"], k4["resident_per_sm"]) \
+        == (want["dtable_blocks"], want["dsr_blocks"], want["per_sm"])
+    assert k4["dtable_blocks"] <= 132 * want["per_sm"] >= k4["dsr_blocks"]
 
 
 # Mutants of the tensor-core kernels' likeliest faults, in bfloat16 at
@@ -657,6 +685,99 @@ def test_bwd_check_fails_a_k2_that_drops_the_k_tail(dim):
                                          lse), want, labels)
     assert _k2_fails(_k2_from_logits(logits(dim // 16 * 16), g, sr, tab,
                                      labels, lse), want, labels)
+
+
+# K4's mutants on the tensor cores, in bfloat16 at the same widths, against
+# chip_smoke's K4 checks (d_sr, and d_table by group with the session rows
+# their own): a K4 whose k loop stops at round_down(D, 16); one whose dz
+# epilogue gives both columns of a lane's pair (2 j, 2 j + 1) the first
+# one's membership bit; one whose row fold takes every order's row inputs
+# (gz, gin, gex, lse_in, lse_ex) from order 0.  The same arithmetic on all
+# the logits, the right bits and rows passes them.
+
+def _k4_case(dim, seed):
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    sr3, tab, labels, iids, cot, lse = cs.make_multi_inputs(
+        torch, xm, BF16_ITEMS, BF16_P, torch.bfloat16, seed, dev="cpu",
+        rows=96, dim=dim)
+    want = xm.xent_multi_bwd(*cot, sr3, tab, labels, iids, *lse, BF16_ITEMS,
+                             scale=cs.SCALE, normalize_table=True)
+    return xm, sr3, tab, labels, iids, cot, lse, want
+
+
+def _k4_from_logits(z, member, cot, lse, sr3, tab, labels):
+    """K4's (d_sr, d_table) from its logits z [K, B, P] and membership
+    [B, P], normalised table (the arithmetic of ``xent_multi._bwd_plain``
+    past the logits)."""
+    that, tmm, n = xent._operand(tab, True)
+    col = torch.arange(tab.shape[0])
+    live = (col < BF16_ITEMS)[None, None, :]
+    onehot = (col[None, :] == labels.long()[:, None])[None].float()
+    gz, gin, gex = (c[..., None] for c in cot)
+    lin, lex = (torch.clamp(x, min=-1e30 * 0.5)[..., None] for x in lse)
+    p_in = torch.where(member[None] & live, torch.exp(z - lin), 0.0)
+    p_ex = torch.where(~member[None] & live, torch.exp(z - lex), 0.0)
+    dz = ((gin * p_in + gex * p_ex + gz * onehot) * cs.SCALE) \
+        .to(tab.dtype).float()
+    K, B, D = sr3.shape
+    gtab = dz.reshape(K * B, -1).T @ sr3.float().reshape(K * B, D)
+    gdot = torch.sum(gtab * that, dim=1, keepdim=True)
+    gtab = (gtab - gdot * that * (n > 1e-12).float()) / n
+    return dz @ tmm, gtab.to(tab.dtype)
+
+
+def _k4_fails(got, want, labels, iids):
+    tol = cs.TOL[("bwd", "bfloat16")]
+    e_dsr, dsr_tol = cs.dsr_errors(got[0], want[0], tol)
+    groups = cs.dtable_errors(torch, got[1], want[1], labels, BF16_ITEMS,
+                              tol, iids)
+    return e_dsr > dsr_tol or any(e > t for e, t in groups.values())
+
+
+def _k4_logits(sr3, tab, keep):
+    tmm = xent._operand(tab, True)[1]
+    return cs.SCALE * (sr3.float()[..., :keep] @ tmm[:, :keep].T)
+
+
+@pytest.mark.parametrize("dim", TAIL_DIMS)
+def test_bwd_check_fails_a_k4_that_drops_the_k_tail(dim):
+    xm, sr3, tab, labels, iids, cot, lse, want = _k4_case(dim, 14)
+    member = xm._member(iids, BF16_P, 0)
+    full = _k4_from_logits(_k4_logits(sr3, tab, dim), member, cot, lse, sr3,
+                           tab, labels)
+    assert not _k4_fails(full, want, labels, iids)
+    tail = _k4_from_logits(_k4_logits(sr3, tab, dim // 16 * 16), member, cot,
+                           lse, sr3, tab, labels)
+    assert _k4_fails(tail, want, labels, iids)
+
+
+@pytest.mark.parametrize("dim", TAIL_DIMS)
+def test_bwd_check_fails_a_k4_that_shares_a_pairs_membership_bit(dim):
+    xm, sr3, tab, labels, iids, cot, lse, want = _k4_case(dim, 15)
+    member = xm._member(iids, BF16_P, 0)
+    shared = member.clone()
+    shared[:, 1::2] = member[:, 0::2]
+    # a session item at an odd column whose even neighbour is not one: the
+    # mutant scores it in the "ex" partition
+    assert bool((member[:, 1::2] & ~member[:, 0::2]).any())
+    z = _k4_logits(sr3, tab, dim)
+    assert not _k4_fails(_k4_from_logits(z, member, cot, lse, sr3, tab,
+                                         labels), want, labels, iids)
+    assert _k4_fails(_k4_from_logits(z, shared, cot, lse, sr3, tab, labels),
+                     want, labels, iids)
+
+
+@pytest.mark.parametrize("dim", TAIL_DIMS)
+def test_bwd_check_fails_a_k4_that_folds_every_order_onto_order_0(dim):
+    xm, sr3, tab, labels, iids, cot, lse, want = _k4_case(dim, 16)
+    member = xm._member(iids, BF16_P, 0)
+    z = _k4_logits(sr3, tab, dim)
+    assert not _k4_fails(_k4_from_logits(z, member, cot, lse, sr3, tab,
+                                         labels), want, labels, iids)
+    first = [c[:1].expand_as(c) for c in cot]
+    first_lse = [x[:1].expand_as(x) for x in lse]
+    assert _k4_fails(_k4_from_logits(z, member, first, first_lse, sr3, tab,
+                                     labels), want, labels, iids)
 
 
 # vs_cpu's readings: the ``torch.relu`` inputs whose sign parts the card
