@@ -193,7 +193,10 @@ Phases, one JSON line each on stdout:
    step, K3/K4 never, ``*_vs_cpu``, serving and eval against the CPU and
    the eager sweep, 8 graph steps against 8 plain ones).  ``o1_wide`` and
    ``paper_wide``: the o1 and paper heads at ``--embedding-dim 512`` on
-   datasets/sample, 16 and 8 steps, the same way but without serving.
+   datasets/sample, 16 and 8 steps, the same way but without serving;
+   ``o1_wide_bf16``: the o1 head at 512 in full bfloat16, 16 steps, the
+   same way (K1's and K2's slab kernels on the tensor cores, counted in
+   the trace as their bfloat16 instantiations, ``vs_cpu_bf16``).
    ``late_seconds`` gives each of these phases' seconds.
 
 Then the ``{"kernels": [...]}`` line (each kernel's ``mesh_launches``
@@ -259,7 +262,8 @@ EVENT_KEYS = {"train": ["ts", "kind", "step", "epoch", "loss",
 SHORT = {"path": "o1", "paper": "paper", "srgnn": "srgnn", "niser": "niser",
          "lessr": "lessr", "o1_bf16": "o1_bf16", "paper_bf16": "paper_bf16",
          "niser_1m": "niser_1m", "gowalla_o1": "gowalla_o1",
-         "o1_wide": "o1_wide", "paper_wide": "paper_wide"}
+         "o1_wide": "o1_wide", "paper_wide": "paper_wide",
+         "o1_wide_bf16": "o1_wide_bf16"}
 TOPK = 20                                  # serving's k
 SCORE_TIE = 1e-5     # adjacent CPU scores closer than this may swap ids
 SCORE_ATOL = 1e-4    # card against CPU serving scores
@@ -998,11 +1002,14 @@ PATHS = {
 }
 
 # the kernels by which a trace counts each wrapper's launches, one per
-# wrapper call up to 256 features and past: the forward's main product; the
-# backward's d_table product (K2's and K4's in bfloat16 on the tensor
-# cores, xent_bwd_dtable_tc and xent_multi_bwd_dtable_tc), and past 256
-# features its finish kernel (the slab path's dz kernel runs once a catalog
-# chunk, its products are K2's and K4's alike)
+# wrapper call up to 256 features and past: the forward's main product (in
+# bfloat16 past 256 features too, xent_fwd_slab and xent_multi_fwd_slab
+# keep their names on the tensor cores); the backward's d_table product
+# (K2's and K4's in bfloat16 on the tensor cores, xent_bwd_dtable_tc and
+# xent_multi_bwd_dtable_tc), and past 256 features its finish kernel (the
+# slab path's dz kernel runs once a catalog chunk, its products, in
+# bfloat16 xent_slab_dtable_tc and xent_slab_dsr_tc, are K2's and K4's
+# alike, so none of them counts)
 TRACE_KERNEL = {"xent_fwd": ("xent_fwd_partial", "xent_fwd_slab"),
                 "xent_bwd": ("xent_bwd_dtable", "xent_bwd_dtable_tc",
                              "xent_bwd_finish_slab"),
@@ -2849,13 +2856,15 @@ def phase_preprocess(np, seed, tmp):
 
 
 # the paths of phase 12: MSGIFSR order 1 at its preset on the preprocessed
-# gowalla log (16 steps: 8 eager, one 8-step replay), and the o1 and paper
+# gowalla log (16 steps: 8 eager, one 8-step replay), the o1 and paper
 # heads at WIDE_D on datasets/sample (16 and 8 steps) through the slab
-# kernels
+# kernels, and the o1 head at WIDE_D in full bfloat16 (16 steps: K1's and
+# K2's slab kernels on the tensor cores)
 LATE_PATHS = {
     "gowalla_o1": dict(PATHS["path"], steps=16),
     "o1_wide": dict(PATHS["path"], dim=WIDE_D, steps=16),
     "paper_wide": dict(PATHS["paper"], dim=WIDE_D, steps=8),
+    "o1_wide_bf16": dict(PATHS["o1_bf16"], dim=WIDE_D, steps=16),
 }
 
 
@@ -2885,7 +2894,8 @@ def run_late_paths(torch, np, xent, xm, seed, dataset_dir, smi, tmp):
                              B, D), seed, path="gowalla_o1")
     launches, on_device = {}, {}
     for name, ds in (("gowalla_o1", data), ("o1_wide", dataset_dir),
-                     ("paper_wide", dataset_dir)):
+                     ("paper_wide", dataset_dir),
+                     ("o1_wide_bf16", dataset_dir)):
         t0 = time.perf_counter()
         wrapped, dev, runner, cfg, saved = phase_path(
             torch, xent, xm, name, None, seed, str(ds), smi, tmp)

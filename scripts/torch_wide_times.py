@@ -6,7 +6,7 @@
 Imports ``chip_smoke.py`` and ``sessionrec_tpu_torch`` from ``DIR`` (by
 default the repository this script is in; the kernels build into
 ``DIR/build``) and runs, one JSON line each: the card's name and power
-limit, then the set's kernel phases and, for each of its two paths,
+limit, then the set's kernel phases and, for each of its paths,
 ``chip_smoke.phase_graph_vs_plain`` on ``DIR/datasets/sample`` (8 graph
 steps against 8 plain ones, then the ``host`` line: the synchronised ms
 a step of the graph loop) and the ``profile`` line of 24 more steps
@@ -16,7 +16,9 @@ largest kernels).  The sets:
 * ``wide`` (D 512): ``chip_smoke.phase_wide_times`` (``kernel_time``,
   ``k1_launch``, ``k2_launch`` and ``multi_launch`` lines at D 512 on the
   path and north-star catalogs, float32 and bfloat16: the slab kernels in
-  both types); paths ``o1_wide``, ``paper_wide``.
+  both types); paths ``o1_wide``, ``paper_wide`` and ``o1_wide_bf16``
+  (the o1 head at D 512 in full bfloat16: K1's and K2's slab kernels on
+  the tensor cores).
 * ``d256`` (D 256, B 512, scale 12, normalised): ``phase_kernel_times``
   (K1/K2 on both catalogs in float32 and bfloat16),
   ``phase_bf16_path_times`` (K1/K2 at the o1_bf16 path's shape) and
@@ -25,14 +27,17 @@ largest kernels).  The sets:
 
 Two trees are compared on one card by running it on each in turns, as
 parent, change, change, parent, each run its own process; ``tree`` in
-the first line names the tree.  Exits 2 without a CUDA device.
+the first line names the tree: run each tree's own copy of this script
+(a tree before ``o1_wide_bf16`` runs its two wide paths).  Exits 2
+without a CUDA device.
 """
 
 import argparse
 import sys
 from pathlib import Path
 
-PATHS = {"wide": ("o1_wide", "paper_wide"), "d256": ("o1_bf16", "paper_bf16")}
+PATHS = {"wide": ("o1_wide", "paper_wide", "o1_wide_bf16"),
+         "d256": ("o1_bf16", "paper_bf16")}
 
 
 def main(argv=None):

@@ -6,22 +6,21 @@
 // fixed order, and past 256 features the backward's two products over dz
 // and their chunk loop (the slab path, below).
 //
-// float32 runs on the FMA pipes.  A staged tile keeps the operand's own
-// type and its row-major layout, with a row stride of ld = round_up(D, 32)
-// + 4 elements.  A thread reads four consecutive elements of a row with
-// one shared load (16 bytes in float32, 8 in bfloat16) and widens them to
-// float32 in registers.  That stride puts the rows that the lanes of one
-// load phase read on distinct banks (16 bytes apart modulo 128 in float32,
-// 8 or 72 apart in bfloat16), and lets cp.async copy four elements of a
-// row straight into place, with no transpose.  The products' unroll depths
-// are the fastest of those timed on the H100 (PERF.md).
+// float32 runs on the FMA pipes.  A staged tile keeps its row-major
+// layout, with a row stride of ld = round_up(D, 32) + 4 elements.  A
+// thread reads four consecutive elements of a row with one 16-byte shared
+// load.  That stride puts the rows that the lanes of one load phase read
+// on distinct banks (16 bytes apart modulo 128), and lets cp.async copy
+// four elements of a row straight into place, with no transpose.  The
+// products' unroll depths are the fastest of those timed on the H100
+// (PERF.md).
 //
-// bfloat16 up to MAX_D features runs on the tensor cores: K1's and K3's
-// forward tile loop and K2's and K4's product kernels multiply with
-// mma.sync m16n8k16 (bf16 x bf16 products, exact in float32, summed in
-// float32), fed from shared memory by ldmatrix, on tiles of their own
-// stride (the tensor-core section below).  The slab path past MAX_D
-// stays on the FMA pipes in both types.
+// bfloat16 runs on the tensor cores at every width: K1's and K3's forward
+// loops and K2's and K4's product kernels multiply with mma.sync m16n8k16
+// (bf16 x bf16 products, exact in float32, summed in float32), fed from
+// shared memory by ldmatrix, on tiles of their own stride (the
+// tensor-core section below), up to MAX_D features in one pass and past
+// it through the slab path's k-chunks and feature slabs.
 
 #pragma once
 
@@ -53,13 +52,6 @@ __device__ __forceinline__ void copy4_async(float* dst, const float* src) {
                "l"(src)
                : "memory");
 }
-__device__ __forceinline__ void copy4_async(__nv_bfloat16* dst,
-                                            const __nv_bfloat16* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -71,24 +63,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// four consecutive shared elements widened to float32
+// four consecutive shared elements
 __device__ __forceinline__ void load4(float (&x)[4], const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x;
   x[1] = v.y;
   x[2] = v.z;
   x[3] = v.w;
-}
-__device__ __forceinline__ void load4(float (&x)[4], const __nv_bfloat16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  x[0] = lo.x;
-  x[1] = lo.y;
-  x[2] = hi.x;
-  x[3] = hi.y;
 }
 
 // rows [row0, row0 + TILE) of a row-major [n_rows, D] array into dst (row
@@ -250,7 +231,7 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores, up to MAX_D features.  A staged bfloat16
+// bfloat16 on the tensor cores.  A staged bfloat16
 // tile has the row stride tc_ld(D) = round_up(D, 16) + 8 elements: rows
 // start on 16 bytes, so a row goes by 16-byte cp.async copies and each
 // 8 x 8 piece of an ldmatrix is eight 16-byte rows; the stride is an odd
@@ -265,16 +246,10 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
 // 2 (l % 4) + {0, 1}.
 // ---------------------------------------------------------------------------
 
-// bfloat16 runs on the tensor cores (float32 on the FMA pipes)
+// bfloat16 runs on the tensor cores at every width (float32 on the FMA
+// pipes)
 template <typename T>
 constexpr bool tc_type = std::is_same<T, __nv_bfloat16>::value;
-
-// whether K1's to K4's product kernels at width D in type T run on the
-// tensor cores (bfloat16 up to MAX_D)
-template <typename T>
-constexpr bool on_tensor_cores(int D) {
-  return tc_type<T> && D <= MAX_D;
-}
 
 // resident blocks per SM that a D <= MAX_D kernel's launch bounds ask for:
 // two for the tensor-core kernels, one on the FMA pipes
@@ -310,31 +285,40 @@ __device__ __forceinline__ void copy8_async(__nv_bfloat16* dst,
                : "memory");
 }
 
-// rows [row0, row0 + TILE) of a row-major bfloat16 [n_rows, D] array into
-// dst (row stride tc_ld(D)), columns [0, round_up(D, 16)), eight elements
-// a piece.  With vec (tc_vec) every piece of a live row within D goes by
-// one cp.async, to be waited for with the group that the caller commits;
-// otherwise by plain loads.  Rows at or past n_rows and columns at or past
-// D read 0.
-__device__ __forceinline__ void stage_tile_tc(
+// columns [k0, k0 + w) of rows [row0, row0 + NR) of a row-major bfloat16
+// [n_rows, D] array into dst (row stride ld, a tc_ld), as columns [0,
+// round_up(w, 16)), eight elements a piece.  With vec (tc_vec, and k0 % 8
+// == 0) every piece of a live row within w goes by one 16-byte cp.async,
+// to be waited for with the group that the caller commits; otherwise by
+// plain loads.  Rows at or past n_rows and columns at or past w read 0.
+template <int NR = TILE>
+__device__ __forceinline__ void stage_slab_tc(
     __nv_bfloat16* dst, int ld, const __nv_bfloat16* __restrict__ src,
-    int row0, int n_rows, int D, bool vec) {
-  const int q8 = tc_kp(D) >> 3;  // eight-element pieces per row
-  for (int e = threadIdx.x; e < TILE * q8; e += NT) {
+    int row0, int n_rows, int D, int k0, int w, bool vec) {
+  const int q8 = tc_kp(w) >> 3;  // eight-element pieces per row
+  for (int e = threadIdx.x; e < NR * q8; e += NT) {
     const int r = e / q8, k = (e - r * q8) * 8;
     const int gr = row0 + r;
     __nv_bfloat16* d = dst + r * ld + k;
-    if (gr >= n_rows || k >= D) {
+    const __nv_bfloat16* s = src + (size_t)gr * D + k0 + k;
+    if (gr >= n_rows || k >= w) {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     } else if (vec) {
-      copy8_async(d, src + (size_t)gr * D + k);
+      copy8_async(d, s);
     } else {
 #pragma unroll
       for (int v = 0; v < 8; ++v)
-        d[v] = k + v < D ? src[(size_t)gr * D + k + v]
-                         : from_f<__nv_bfloat16>(0.f);
+        d[v] = k + v < w ? s[v] : from_f<__nv_bfloat16>(0.f);
     }
   }
+}
+
+// rows [row0, row0 + TILE) of a row-major bfloat16 [n_rows, D] array, all
+// D columns (stage_slab_tc)
+__device__ __forceinline__ void stage_tile_tc(
+    __nv_bfloat16* dst, int ld, const __nv_bfloat16* __restrict__ src,
+    int row0, int n_rows, int D, bool vec) {
+  stage_slab_tc(dst, ld, src, row0, n_rows, D, 0, D, vec);
 }
 
 // four 8 x 8 pieces of 16-bit elements from shared memory, one a register
@@ -637,11 +621,162 @@ __device__ __forceinline__ void fwd_tile_loop_fma(
   }
 }
 
+// The running stats of a thread's two rows in the tensor cores' fragment
+// layout (K1's and K3's bfloat16 loops, fwd_tile_loop_tc and
+// fwd_slab_loop_tc): lane l of warp w owns rows rb = 16 (w >> 1) + l / 4
+// and rb + 8 of each tile and its columns cb + 8 f + {0, 1} (f < 4), cb =
+// 32 (w & 1) + 2 (l % 4); the row's other columns lie with the quad's
+// three other lanes and with warp w ^ 1.
+struct TcRows {
+  int lbl[2];
+  float m_in[2], s_in[2], m_ex[2], s_ex[2], zl[2];
+};
+
+__device__ __forceinline__ int tc_row_base() {
+  return 16 * (threadIdx.x >> 6) + ((threadIdx.x & 31) >> 2);
+}
+__device__ __forceinline__ int tc_col_base() {
+  return 32 * ((threadIdx.x >> 5) & 1) + 2 * (threadIdx.x & 3);
+}
+
+// empty stats, and the labels (shifted by shift) of the rows below R
+__device__ __forceinline__ void tc_rows_init(TcRows& st,
+                                             const int* __restrict__ labels,
+                                             int row0, int R, int B,
+                                             int shift) {
+  const int rb = tc_row_base();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rb + 8 * h;
+    st.lbl[h] = r < R ? labels[r % B] - shift : -1;
+    st.m_in[h] = st.m_ex[h] = NEG_INF;
+    st.s_in[h] = st.s_ex[h] = st.zl[h] = 0.f;
+  }
+}
+
+// the online log-sum-exp of one 64 x 64 logits tile S (product_logits_tc's
+// layout) of catalog columns [p0, p0 + TILE) into st: each logit scaled
+// (and divided by its column's norm when normalize), columns past P or at
+// or past n_valid masked, with MEMBERS a row's session columns (mask_s)
+// to the "in" partition
+template <bool MEMBERS>
+__device__ __forceinline__ void tc_tile_lse(
+    TcRows& st, const float (&S)[4][4], const unsigned long long* mask_s,
+    const float* __restrict__ nrm, int p0, int P, int n_valid, float scale,
+    int normalize) {
+  const int rb = tc_row_base(), cb = tc_col_base();
+  float n[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int col = p0 + cb + 8 * (q >> 1) + (q & 1);
+    n[q] = normalize && col < P ? nrm[col] : 1.f;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const unsigned long long bits = MEMBERS ? mask_s[rb + 8 * h] : 0ull;
+    float z[8];
+    bool mem[8];
+    float t_in = NEG_INF, t_ex = NEG_INF;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = cb + 8 * (q >> 1) + (q & 1);
+      const int col = p0 + c;
+      float v = scale * S[q >> 1][2 * h + (q & 1)];
+      if (normalize) v = v / n[q];
+      const bool in_table = col < P;
+      if (!in_table || col >= n_valid) v = NEG_INF;
+      if (in_table && col == st.lbl[h]) st.zl[h] += v;
+      mem[q] = MEMBERS && ((bits >> c) & 1ull);
+      z[q] = v;
+      if (mem[q]) t_in = fmaxf(t_in, v);
+      else t_ex = fmaxf(t_ex, v);
+    }
+    const float mi = fmaxf(st.m_in[h], t_in), me = fmaxf(st.m_ex[h], t_ex);
+    // guards: exp(NEG_INF - NEG_INF) on a partition still empty
+    const float si = fmaxf(mi, NEG_INF * 0.5f);
+    const float se = fmaxf(me, NEG_INF * 0.5f);
+    float acc_in = st.s_in[h] * expf(st.m_in[h] - si);
+    float acc_ex = st.s_ex[h] * expf(st.m_ex[h] - se);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (mem[q]) acc_in += expf(z[q] - si);
+      else acc_ex += expf(z[q] - se);
+    }
+    st.s_in[h] = acc_in;
+    st.s_ex[h] = acc_ex;
+    st.m_in[h] = mi;
+    st.m_ex[h] = me;
+  }
+}
+
+// merge each row's stats over its quad (shuffles), then warp w ^ 1's into
+// warp w's (w even) through shared memory at smem (which the caller has
+// drained and every thread is done reading), and write the split's partial
+// (fwd_tile_loop's part layout)
+template <bool MEMBERS>
+__device__ __forceinline__ void tc_rows_merge(TcRows& st, unsigned char* smem,
+                                              int row0, int R,
+                                              float* __restrict__ part) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int rb = tc_row_base();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      float mio = 0.f, sio = 0.f;
+      if constexpr (MEMBERS) {
+        mio = __shfl_xor_sync(FULL, st.m_in[h], off);
+        sio = __shfl_xor_sync(FULL, st.s_in[h], off);
+      }
+      const float meo = __shfl_xor_sync(FULL, st.m_ex[h], off);
+      const float seo = __shfl_xor_sync(FULL, st.s_ex[h], off);
+      st.zl[h] += __shfl_xor_sync(FULL, st.zl[h], off);
+      if constexpr (MEMBERS) lse_merge(st.m_in[h], st.s_in[h], mio, sio);
+      lse_merge(st.m_ex[h], st.s_ex[h], meo, seo);
+    }
+  }
+  float* red = reinterpret_cast<float*>(smem);  // [5][TILE]
+  const bool quad_head = (l & 3) == 0;
+  if ((w & 1) && quad_head) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = rb + 8 * h;
+      red[i] = st.m_in[h];
+      red[TILE + i] = st.s_in[h];
+      red[2 * TILE + i] = st.m_ex[h];
+      red[3 * TILE + i] = st.s_ex[h];
+      red[4 * TILE + i] = st.zl[h];
+    }
+  }
+  __syncthreads();
+  if ((w & 1) || !quad_head) return;
+  const size_t plane = (size_t)gridDim.y * R;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = rb + 8 * h, r = row0 + i;
+    if constexpr (MEMBERS)
+      lse_merge(st.m_in[h], st.s_in[h], red[i], red[TILE + i]);
+    lse_merge(st.m_ex[h], st.s_ex[h], red[2 * TILE + i], red[3 * TILE + i]);
+    st.zl[h] += red[4 * TILE + i];
+    if (r < R) {
+      const size_t o = (size_t)blockIdx.y * R + r;
+      if constexpr (MEMBERS) {
+        part[o] = st.m_in[h];
+        part[plane + o] = st.s_in[h];
+        part[2 * plane + o] = st.m_ex[h];
+        part[3 * plane + o] = st.s_ex[h];
+        part[4 * plane + o] = st.zl[h];
+      } else {
+        part[o] = st.m_ex[h];
+        part[plane + o] = st.s_ex[h];
+        part[2 * plane + o] = st.zl[h];
+      }
+    }
+  }
+}
+
 // fwd_tile_loop in bfloat16: the same partials, the logits on the tensor
-// cores.  Lane l of warp w owns rows rb = 16 (w >> 1) + l / 4 and rb + 8 of
-// each tile and its columns cb + 8 f + {0, 1} (f < 4), cb = 32 (w & 1) +
-// 2 (l % 4); the row's other columns lie with the quad's three other lanes
-// and with warp w ^ 1.
+// cores (product_logits_tc), the stats in the fragment layout (TcRows)
 template <bool MEMBERS>
 __device__ __forceinline__ void fwd_tile_loop_tc(
     unsigned char* smem, const __nv_bfloat16* __restrict__ sr,
@@ -655,8 +790,6 @@ __device__ __forceinline__ void fwd_tile_loop_tc(
   T* C_s = A_s + TILE * ld;                            // [2][TILE][ld] table
   unsigned long long* mask_s =
       reinterpret_cast<unsigned long long*>(C_s + 2 * TILE * ld);  // [TILE]
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int rb = 16 * (w >> 1) + (l >> 2), cb = 32 * (w & 1) + 2 * (l & 3);
   const int row0 = blockIdx.x * TILE;
   const int n_tiles = (P + TILE - 1) / TILE;
   const int t_begin = blockIdx.y * tiles_per_split;
@@ -668,15 +801,8 @@ __device__ __forceinline__ void fwd_tile_loop_tc(
   stage_tile_tc(C_s, ld, tab, t_begin * TILE, P, D, vec);
   cp_async_commit();
 
-  int lbl[2];
-  float m_in[2], s_in[2], m_ex[2], s_ex[2], zl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + rb + 8 * h;
-    lbl[h] = r < R ? labels[r % B] - shift : -1;
-    m_in[h] = m_ex[h] = NEG_INF;
-    s_in[h] = s_ex[h] = zl[h] = 0.f;
-  }
+  TcRows st;
+  tc_rows_init(st, labels, row0, R, B, shift);
 
   for (int t = t_begin; t < t_end; ++t) {
     const int buf = (t - t_begin) & 1;
@@ -692,107 +818,13 @@ __device__ __forceinline__ void fwd_tile_loop_tc(
     __syncthreads();
     float S[4][4] = {};
     product_logits_tc(S, A_s, C, ld, kp);
-    float n[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int col = p0 + cb + 8 * (q >> 1) + (q & 1);
-      n[q] = normalize && col < P ? nrm[col] : 1.f;
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const unsigned long long bits = MEMBERS ? mask_s[rb + 8 * h] : 0ull;
-      float z[8];
-      bool mem[8];
-      float t_in = NEG_INF, t_ex = NEG_INF;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int c = cb + 8 * (q >> 1) + (q & 1);
-        const int col = p0 + c;
-        float v = scale * S[q >> 1][2 * h + (q & 1)];
-        if (normalize) v = v / n[q];
-        const bool in_table = col < P;
-        if (!in_table || col >= n_valid) v = NEG_INF;
-        if (in_table && col == lbl[h]) zl[h] += v;
-        mem[q] = MEMBERS && ((bits >> c) & 1ull);
-        z[q] = v;
-        if (mem[q]) t_in = fmaxf(t_in, v);
-        else t_ex = fmaxf(t_ex, v);
-      }
-      const float mi = fmaxf(m_in[h], t_in), me = fmaxf(m_ex[h], t_ex);
-      // guards: exp(NEG_INF - NEG_INF) on a partition still empty
-      const float si = fmaxf(mi, NEG_INF * 0.5f);
-      const float se = fmaxf(me, NEG_INF * 0.5f);
-      float acc_in = s_in[h] * expf(m_in[h] - si);
-      float acc_ex = s_ex[h] * expf(m_ex[h] - se);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        if (mem[q]) acc_in += expf(z[q] - si);
-        else acc_ex += expf(z[q] - se);
-      }
-      s_in[h] = acc_in;
-      s_ex[h] = acc_ex;
-      m_in[h] = mi;
-      m_ex[h] = me;
-    }
+    tc_tile_lse<MEMBERS>(st, S, mask_s, nrm, p0, P, n_valid, scale,
+                         normalize);
     __syncthreads();  // C and the masks are consumed
   }
 
-  // merge each row's partials over its quad (shuffles), then warp w ^ 1's
-  // into warp w's (w even) through shared memory, which the tiles held
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      float mio = 0.f, sio = 0.f;
-      if constexpr (MEMBERS) {
-        mio = __shfl_xor_sync(FULL, m_in[h], off);
-        sio = __shfl_xor_sync(FULL, s_in[h], off);
-      }
-      const float meo = __shfl_xor_sync(FULL, m_ex[h], off);
-      const float seo = __shfl_xor_sync(FULL, s_ex[h], off);
-      zl[h] += __shfl_xor_sync(FULL, zl[h], off);
-      if constexpr (MEMBERS) lse_merge(m_in[h], s_in[h], mio, sio);
-      lse_merge(m_ex[h], s_ex[h], meo, seo);
-    }
-  }
   cp_async_wait<0>();
-  float* red = reinterpret_cast<float*>(smem);  // [5][TILE]
-  const bool quad_head = (l & 3) == 0;
-  if ((w & 1) && quad_head) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = rb + 8 * h;
-      red[i] = m_in[h];
-      red[TILE + i] = s_in[h];
-      red[2 * TILE + i] = m_ex[h];
-      red[3 * TILE + i] = s_ex[h];
-      red[4 * TILE + i] = zl[h];
-    }
-  }
-  __syncthreads();
-  if ((w & 1) || !quad_head) return;
-  const size_t plane = (size_t)gridDim.y * R;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = rb + 8 * h, r = row0 + i;
-    if constexpr (MEMBERS) lse_merge(m_in[h], s_in[h], red[i], red[TILE + i]);
-    lse_merge(m_ex[h], s_ex[h], red[2 * TILE + i], red[3 * TILE + i]);
-    zl[h] += red[4 * TILE + i];
-    if (r < R) {
-      const size_t o = (size_t)blockIdx.y * R + r;
-      if constexpr (MEMBERS) {
-        part[o] = m_in[h];
-        part[plane + o] = s_in[h];
-        part[2 * plane + o] = m_ex[h];
-        part[3 * plane + o] = s_ex[h];
-        part[4 * plane + o] = zl[h];
-      } else {
-        part[o] = m_ex[h];
-        part[plane + o] = s_ex[h];
-        part[2 * plane + o] = zl[h];
-      }
-    }
-  }
+  tc_rows_merge<MEMBERS>(st, smem, row0, R, part);
 }
 
 // K1's and K3's forward tile loop: bfloat16 on the tensor cores, float32
@@ -926,18 +958,23 @@ __global__ void __launch_bounds__(NT) xent_bwd_dtable_reduce(
 
 // ---------------------------------------------------------------------------
 // The slab path, for D > MAX_D.  The backward's products cut a row of D
-// features into slab_count(D) slabs of slab_width(D) features (the last one
-// narrower, none wider than MAX_D), so that a thread's 8 x 8 accumulators
-// (8 features a lane) cover one slab of an output row at any width; the
-// logits go over all D features in k-chunks of KC.
+// features into slab_count(D) slabs of slab_width<T>(D) features (the last
+// one narrower, none wider than MAX_D), so that a thread's accumulators
+// (8 x 8 on the FMA pipes, a warp's 32 rows x four feature pairs on the
+// tensor cores) cover one slab of an output row at any width; the logits
+// go over all D features in k-chunks of KC.  float32 runs every product on
+// the FMA pipes, bfloat16 on the tensor cores (mma.sync m16n8k16 from
+// ldmatrix, float32 sums): a bfloat16 k-chunk is staged at the stride
+// LDKB = KC + 8 (tc_ld), a slab at tc_ld of its width.
 //
 // K1's and K3's forward (fwd_slab_loop) walks its catalog split's (catalog
 // tile, k-chunk of KC features) pairs as one stream through a ring of
-// FWD_STAGES shared-memory stages: each chunk of the rows and of the tile
-// is issued by cp.async FWD_STAGES - 1 chunks ahead of its product, also
-// across catalog tiles, so a tile's epilogue (the online log-sum-exp) runs
-// while the next tile's first chunks land.  The ring (104 KB in float32)
-// leaves room for two resident blocks an SM.
+// fwd_stages<T>() shared-memory stages: each chunk of the rows and of the
+// tile is issued by cp.async fwd_stages - 1 chunks ahead of its product,
+// also across catalog tiles, so a tile's epilogue (the online log-sum-exp)
+// runs while the next tile's first chunks land.  The ring (104 KB of
+// three stages in float32, 72 KB of four in bfloat16) leaves room for two
+// resident blocks an SM.
 //
 // K2's and K4's backward computes dz once, then runs three products (a
 // block per output slab that recomputed the full-width logits would run
@@ -946,36 +983,43 @@ __global__ void __launch_bounds__(NT) xent_bwd_dtable_reduce(
 // cap (ops/xent.py:DZ_SCRATCH_BYTES), slab_bwd_chunks launches
 //   * the loss's dz kernel (xent_bwd_dz_slab, xent_multi_bwd_dz_slab): one
 //     block per (64-row tile, 64-row catalog tile) computes the logits once
-//     over all D features (dz_logits: k-chunks of KC features, two
-//     cp.async stages) and writes dz, rounded to the operand type as the
-//     JAX kernel feeds its matrix unit, to a [rows, chunk] scratch in that
-//     type: exact, and half the bytes in bfloat16;
-//   * xent_slab_dtable: dz^T sr, output tiles of 64 catalog rows x one slab,
-//     the R rows reduced in stages of KR, split over the grid's z axis so
+//     over all D features (dz_logits, dz_logits_tc: k-chunks of KC
+//     features, two cp.async stages) and writes dz, rounded to the operand
+//     type as the JAX kernel feeds its matrix unit, to a [rows, chunk]
+//     scratch in that type: exact, and half the bytes in bfloat16 (whose
+//     dz tile goes through shared memory to 16-byte stores);
+//   * xent_slab_dtable (xent_slab_dtable_tc in bfloat16): dz^T sr, output
+//     tiles of 64 catalog rows x one slab, the R rows reduced in stages of
+//     KR rows (TILE on the tensor cores), split over the grid's z axis so
 //     that the blocks fill the card; float32 partials [split][P][D];
-//   * xent_slab_dsr: dz t, output tiles of 64 rows x one slab, the chunk's
-//     catalog reduced in stages of KR, split over z; one float32 partial per
-//     split and chunk, summed in chunk and split order by
-//     xent_bwd_dsr_reduce.
+//   * xent_slab_dsr (xent_slab_dsr_tc): dz t, output tiles of 64 rows x one
+//     slab, the chunk's catalog reduced in stages of KR (TILE), split over
+//     z; one float32 partial per split and chunk, summed in chunk and
+//     split order by xent_bwd_dsr_reduce.
 // Then the loss's finish kernel sums d_table's partials in split order and
 // applies the l2norm VJP, whose dot product spans every slab
 // (slab_dtable_finish).  Work: 3 * 2 R P D operations, as the bound counts; dz
 // adds 3 R P operand-type elements to the bytes moved (written once, read by
 // each product): about 8% of the bound at the north star.  Each product streams
 // both of its operands through two cp.async stages (the next stage lands while
-// the current one is used) and sizes its shared memory (93 KB in float32) for
-// two resident blocks per SM.  No atomics: the same inputs give the same bits.
+// the current one is used) and sizes its shared memory (93 KB in float32, 84
+// KB in bfloat16 at slabs of 256) for two resident blocks per SM.  No
+// atomics: the same inputs give the same bits.
 // ---------------------------------------------------------------------------
 
 __host__ __device__ __forceinline__ int slab_count(int D) {
   return (D + MAX_D - 1) / MAX_D;
 }
 
-// features of every slab but the last: ceil(D / slabs) rounded up to 4, so
-// each slab starts four-element aligned
+// features of every slab but the last: ceil(D / slabs) rounded up to 4 in
+// float32, so each slab starts four-element aligned (16 bytes), and to 16
+// in bfloat16, so each slab starts on a tensor-core k step and 16 bytes
+// (its ldmatrix rows and cp.async copies stay aligned).  Past MAX_D no
+// slab is wider than MAX_D, and none is empty (slab_bwd_chunks checks).
+template <typename T>
 __host__ __device__ __forceinline__ int slab_width(int D) {
-  const int n = slab_count(D);
-  return ((D + n - 1) / n + 3) & ~3;
+  const int n = slab_count(D), a = tc_type<T> ? 16 : 4;
+  return ((D + n - 1) / n + a - 1) & ~(a - 1);
 }
 
 // columns [k0, k0 + w) of rows [row0, row0 + NR) of a row-major
@@ -1048,16 +1092,51 @@ __device__ __forceinline__ void chunk_logits(float (&S)[4][4], const T* A,
   product_logits(S, A, A + TILE * LDK, LDK, (min(KC, D - kc * KC) + 3) & ~3);
 }
 
-// ring stages of the slab forward's chunk stream: three keep two chunks in
-// flight behind the one in use, and 3 x 34,816 bytes in float32 let two
-// blocks share an SM's 228 KB
+// a bfloat16 k-chunk stage on the tensor cores: the two [TILE][LDKB] tiles
+constexpr int LDKB = KC + 8;              // tc_ld(KC)
+constexpr int CHUNK_TC = 2 * TILE * LDKB;  // elements of a chunk stage
+static_assert(LDKB == (KC + 15) / 16 * 16 + 8, "LDKB: tc_ld(KC)");
+
+// stage_chunk in bfloat16 for the tensor cores: the k-chunk at the stride
+// LDKB, its features past D (in the last chunk, up to round_up(w, 16))
+// read as 0, by 16-byte cp.async where vec (tc_vec; stage_slab_tc)
+__device__ __forceinline__ void stage_chunk_tc(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ a, int a0,
+    int a_rows, const __nv_bfloat16* __restrict__ c, int c0, int c_rows,
+    int D, int kc, bool vec) {
+  const int k0 = kc * KC, w = min(KC, D - k0);
+  stage_slab_tc(dst, LDKB, a, a0, a_rows, D, k0, w, vec);
+  stage_slab_tc(dst + TILE * LDKB, LDKB, c, c0, c_rows, D, k0, w, vec);
+}
+
+// product_logits_tc over the staged bfloat16 k-chunk kc of D at stage A:
+// round_up(w, 16) features of a chunk w wide (the last chunk of D 1,000
+// is 40 wide and runs 48)
+__device__ __forceinline__ void chunk_logits_tc(float (&S)[4][4],
+                                                const __nv_bfloat16* A, int D,
+                                                int kc) {
+  product_logits_tc(S, A, A + TILE * LDKB, LDKB, tc_kp(min(KC, D - kc * KC)));
+}
+
+// ring stages of the slab forward's chunk stream.  float32: three keep two
+// chunks in flight behind the one in use, and 3 x 34,816 bytes let two
+// blocks share an SM's 228 KB.  bfloat16: a chunk's product is a quarter
+// of float32's time on the tensor cores, so four keep three in flight, 4 x
+// 18,432 bytes, still two blocks an SM.
 constexpr int FWD_STAGES = 3;
+constexpr int FWD_STAGES_TC = 4;
+
+template <typename T>
+constexpr int fwd_stages() {
+  return tc_type<T> ? FWD_STAGES_TC : FWD_STAGES;
+}
 
 // shared memory of a slab-path forward block: the chunk ring and, with
 // MEMBERS, the rows' masks
 template <typename T, bool MEMBERS>
 constexpr size_t fwd_slab_smem() {
-  return (size_t)FWD_STAGES * CHUNK * sizeof(T) +
+  return (tc_type<T> ? (size_t)FWD_STAGES_TC * CHUNK_TC * sizeof(T)
+                     : (size_t)FWD_STAGES * CHUNK * sizeof(T)) +
          (MEMBERS ? TILE * sizeof(unsigned long long) : 0);
 }
 
@@ -1065,17 +1144,19 @@ constexpr size_t fwd_slab_smem() {
 // fwd_tile_loop for D > MAX_D: the same partial online log-sum-exp over one
 // catalog split and the same outputs.  The split's (catalog tile, k-chunk)
 // pairs, chunk q = (tile t_begin + q / n_k, k-chunk q % n_k), form one
-// stream through the ring: chunk q + FWD_STAGES - 1 is issued as soon as
+// stream through the ring: chunk q + stages - 1 is issued as soon as
 // chunk q has landed and the stage it overwrites is consumed (one
 // __syncthreads a chunk), before chunk q's product; each 64 x 64 logits
 // tile sums its chunks in ascending k (product_logits, the same fmaf chain
 // per logit as one pass over D), then its epilogue runs while the next
 // tile's chunks land.  With MEMBERS the tile's masks are built during its
 // first chunk and read after its last (n_k >= 2 past MAX_D, so a barrier
-// lies between).
+// lies between).  float32 (fwd_slab_loop_fma) holds fwd_tile_loop_fma's
+// thread layout; bfloat16 (fwd_slab_loop_tc) fwd_tile_loop_tc's, in a ring
+// of FWD_STAGES_TC stages at the tensor cores' stride.
 // ---------------------------------------------------------------------------
 template <typename T, bool MEMBERS>
-__device__ __forceinline__ void fwd_slab_loop(
+__device__ __forceinline__ void fwd_slab_loop_fma(
     unsigned char* smem, const T* __restrict__ sr, const T* __restrict__ tab,
     const float* __restrict__ nrm, const int* __restrict__ labels,
     const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
@@ -1208,6 +1289,87 @@ __device__ __forceinline__ void fwd_slab_loop(
   }
 }
 
+template <bool MEMBERS>
+__device__ __forceinline__ void fwd_slab_loop_tc(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ sr,
+    const __nv_bfloat16* __restrict__ tab, const float* __restrict__ nrm,
+    const int* __restrict__ labels, const int* __restrict__ iids, int R,
+    int B, int P, int D, int Ns, int n_valid, int col_offset, float scale,
+    int normalize, int vec, int tiles_per_split, float* __restrict__ part) {
+  typedef __nv_bfloat16 T;
+  constexpr int STAGES = FWD_STAGES_TC;
+  T* ring = reinterpret_cast<T*>(smem);            // [STAGES][CHUNK_TC]
+  unsigned long long* mask_s = reinterpret_cast<unsigned long long*>(
+      ring + STAGES * CHUNK_TC);                   // [TILE]
+  const int row0 = blockIdx.x * TILE;
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int n_k = (D + KC - 1) / KC;
+  const int n_chunks = (t_end - t_begin) * n_k;
+  const int shift = MEMBERS ? 0 : col_offset;
+  n_valid -= shift;
+
+  // chunk q into its stage, one commit group a chunk (empty past the end)
+  auto issue = [&](int q) {
+    if (q < n_chunks) {
+      const int t = q / n_k;
+      stage_chunk_tc(ring + (q % STAGES) * CHUNK_TC, sr, row0, R, tab,
+                     (t_begin + t) * TILE, P, D, q - t * n_k, vec);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int q = 0; q < STAGES - 1; ++q) issue(q);
+
+  TcRows st;
+  tc_rows_init(st, labels, row0, R, B, shift);
+
+  float S[4][4] = {};
+  int kc = 0, p0 = t_begin * TILE;  // chunk q's k-chunk and catalog tile
+  for (int q = 0; q < n_chunks; ++q) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk q
+    __syncthreads();  // everyone's; and chunk q - 1's stage is consumed
+    issue(q + STAGES - 1);
+    if constexpr (MEMBERS) {
+      if (kc == 0) row_masks(mask_s, iids, row0, R, B, Ns, col_offset + p0);
+    }
+    chunk_logits_tc(S, ring + (q % STAGES) * CHUNK_TC, D, kc);
+    if (++kc < n_k) continue;
+    tc_tile_lse<MEMBERS>(st, S, mask_s, nrm, p0, P, n_valid, scale,
+                         normalize);
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) S[f][e] = 0.f;
+    kc = 0;
+    p0 += TILE;
+  }
+
+  // the merge reuses the ring: drain it, and wait for the last product
+  cp_async_wait<0>();
+  __syncthreads();
+  tc_rows_merge<MEMBERS>(st, smem, row0, R, part);
+}
+
+// K1's and K3's forward past MAX_D: bfloat16 on the tensor cores, float32
+// on the FMA pipes
+template <typename T, bool MEMBERS>
+__device__ __forceinline__ void fwd_slab_loop(
+    unsigned char* smem, const T* __restrict__ sr, const T* __restrict__ tab,
+    const float* __restrict__ nrm, const int* __restrict__ labels,
+    const int* __restrict__ iids, int R, int B, int P, int D, int Ns,
+    int n_valid, int col_offset, float scale, int normalize, int vec,
+    int tiles_per_split, float* __restrict__ part) {
+  if constexpr (tc_type<T>)
+    fwd_slab_loop_tc<MEMBERS>(smem, sr, tab, nrm, labels, iids, R, B, P, D,
+                              Ns, n_valid, col_offset, scale, normalize, vec,
+                              tiles_per_split, part);
+  else
+    fwd_slab_loop_fma<T, MEMBERS>(smem, sr, tab, nrm, labels, iids, R, B, P,
+                                  D, Ns, n_valid, col_offset, scale,
+                                  normalize, vec, tiles_per_split, part);
+}
 
 // ---------------------------------------------------------------------------
 // The slab backward (see the slab path's note above).
@@ -1219,17 +1381,29 @@ constexpr int LDX = KR + 4;   // row stride of xent_slab_dsr's [TILE][KR] dz
 // (d_sr)
 constexpr int STAGE_X = KR * LDZ > TILE * LDX ? KR * LDZ : TILE * LDX;
 
-// shared memory of a dz block: two chunk stages
+// shared memory of a dz block: two chunk stages (at the tensor cores'
+// stride in bfloat16, where they later hold the [TILE][LDZB] dz tile)
 template <typename T>
 __host__ __device__ constexpr size_t dz_smem() {
-  return (size_t)2 * CHUNK * sizeof(T);
+  return (size_t)2 * (tc_type<T> ? CHUNK_TC : CHUNK) * sizeof(T);
+}
+
+// elements of a tensor-core product stage: the [TILE][LDZB] dz tile and
+// TILE rows of a slab sw wide at tc_ld(sw)
+__host__ __device__ __forceinline__ int stage_tc_elems(int sw) {
+  return TILE * LDZB + TILE * tc_ld(sw);
 }
 
 // shared memory of a product block: two stages of its dz tile and of KR
-// rows of its slab
+// (bfloat16: TILE) rows of its slab; in bfloat16 they later hold the
+// float32 [TILE][round_up(sw, 16) + 8] output tile, which is smaller
 template <typename T>
 size_t slab_product_smem(int D) {
-  return (size_t)2 * (STAGE_X + KR * tile_ld(slab_width(D))) * sizeof(T);
+  const int sw = slab_width<T>(D);
+  if constexpr (tc_type<T>)
+    return std::max((size_t)2 * stage_tc_elems(sw) * sizeof(T),
+                    (size_t)TILE * (tc_kp(sw) + 8) * sizeof(float));
+  return (size_t)2 * (STAGE_X + KR * tile_ld(sw)) * sizeof(T);
 }
 
 // S = the 64 x 64 logits tile of rows [a0, a0 + TILE) of a [a_rows, D]
@@ -1258,6 +1432,54 @@ __device__ __forceinline__ void dz_logits(float (&S)[4][4], T* smem,
   }
 }
 
+// dz_logits in bfloat16 on the tensor cores: the same logits tile over all
+// D features in k-chunks at the stride LDKB through two stages of smem
+// (dz_smem), in product_logits_tc's layout.  On return every thread is
+// done reading smem.
+__device__ __forceinline__ void dz_logits_tc(
+    float (&S)[4][4], __nv_bfloat16* smem,
+    const __nv_bfloat16* __restrict__ a, int a0, int a_rows,
+    const __nv_bfloat16* __restrict__ c, int c0, int c_rows, int D,
+    bool vec) {
+  const int n_k = (D + KC - 1) / KC;
+  stage_chunk_tc(smem, a, a0, a_rows, c, c0, c_rows, D, 0, vec);
+  cp_async_commit();
+  for (int kc = 0; kc < n_k; ++kc) {
+    if (kc + 1 < n_k)
+      stage_chunk_tc(smem + ((kc + 1) & 1) * CHUNK_TC, a, a0, a_rows, c, c0,
+                     c_rows, D, kc + 1, vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk has landed
+    __syncthreads();
+    chunk_logits_tc(S, smem + (kc & 1) * CHUNK_TC, D, kc);
+    __syncthreads();  // the chunk is consumed
+  }
+}
+
+// a block's bfloat16 dz tile, dz_s [TILE][LDZB] in shared memory, to rows
+// [r0, r0 + TILE) x columns [q0, q0 + TILE) of the dz scratch (row stride
+// ldz, a multiple of TILE; q0 too), eight elements a 16-byte store
+__device__ __forceinline__ void store_dz_tc(__nv_bfloat16* __restrict__ dz,
+                                            int ldz, int r0, int q0,
+                                            const __nv_bfloat16* dz_s) {
+  for (int e = threadIdx.x; e < TILE * (TILE / 8); e += NT) {
+    const int r = e / (TILE / 8), k = (e % (TILE / 8)) * 8;
+    *reinterpret_cast<uint4*>(dz + (size_t)(r0 + r) * ldz + q0 + k) =
+        *reinterpret_cast<const uint4*>(dz_s + r * LDZB + k);
+  }
+}
+
+// rows [r0, r0 + TILE) x columns [q0, q0 + TILE) of the bfloat16 dz
+// scratch into dst [TILE][LDZB], by 16-byte cp.async
+__device__ __forceinline__ void stage_dz_tc(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* __restrict__ dz,
+                                            int ldz, int r0, int q0) {
+  for (int e = threadIdx.x; e < TILE * (TILE / 8); e += NT) {
+    const int r = e / (TILE / 8), k = (e % (TILE / 8)) * 8;
+    copy8_async(dst + r * LDZB + k, dz + (size_t)(r0 + r) * ldz + q0 + k);
+  }
+}
+
 // rows [r0, r0 + NR) x columns [q0, q0 + NC) of the dz scratch (row stride
 // ldz; every element written, every four aligned) into dst (row stride
 // lds), by cp.async
@@ -1272,15 +1494,9 @@ __device__ __forceinline__ void stage_dz(T* dst, int lds,
   }
 }
 
-// two consecutive shared elements widened to float32
+// two consecutive shared elements
 __device__ __forceinline__ void load2(float (&x)[2], const float* p) {
   const float2 v = *reinterpret_cast<const float2*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-}
-__device__ __forceinline__ void load2(float (&x)[2], const __nv_bfloat16* p) {
-  const float2 v =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   x[0] = v.x;
   x[1] = v.y;
 }
@@ -1332,7 +1548,7 @@ __global__ void __launch_bounds__(NT, 2) xent_slab_dtable(
     const T* __restrict__ dz, int ldz, const T* __restrict__ sr, int R, int P,
     int D, int vec, int c0, int tiles_per_split, float* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int sw = slab_width(D), ldy = tile_ld(sw);
+  const int sw = slab_width<T>(D), ldy = tile_ld(sw);
   const int stage_elems = STAGE_X + KR * ldy;
   T* buf = reinterpret_cast<T*>(smem);
   const int q0 = blockIdx.x * TILE;
@@ -1384,7 +1600,7 @@ __global__ void __launch_bounds__(NT, 2) xent_slab_dsr(
     int D, int vec, int c0, int n_tiles, int tiles_per_split,
     float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int sw = slab_width(D), ldy = tile_ld(sw);
+  const int sw = slab_width<T>(D), ldy = tile_ld(sw);
   const int stage_elems = STAGE_X + KR * ldy;
   T* buf = reinterpret_cast<T*>(smem);
   const int r0 = blockIdx.x * TILE;
@@ -1420,6 +1636,138 @@ __global__ void __launch_bounds__(NT, 2) xent_slab_dsr(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The two slab products in bfloat16, on the tensor cores: the grids,
+// splits, chunk loop and float32 partials of xent_slab_dtable and
+// xent_slab_dsr, each stage reducing TILE rows (rank_update_tc's fixed
+// 64-deep k loop; the splits go in whole 64-row tiles and the dz scratch
+// is padded to them, so every stage is whole): the dz tile [TILE][LDZB]
+// from the scratch and TILE rows of the operand's slab at tc_ld(sw), both
+// by 16-byte cp.async (the slab's by plain loads where vec is 0), double-
+// buffered.  A warp's accumulators (32 rows x four feature pairs) go
+// through shared memory, once the stages are consumed, to the slab's
+// float32 stores in store_slab8's lane layout.
+// ---------------------------------------------------------------------------
+
+// d_table's partial (xent_slab_dtable's grid): G = dz^T sr for catalog rows
+// q0 .. q0 + 63 of the chunk and the block's slab, dz read transposed
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) xent_slab_dtable_tc(
+    const T* __restrict__ dz, int ldz, const T* __restrict__ sr, int R, int P,
+    int D, int vec, int c0, int tiles_per_split, float* __restrict__ part) {
+  static_assert(tc_type<T>, "the tensor-core kernels take bfloat16");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = slab_width<T>(D), ldy = tc_ld(sw);
+  const int stage_elems = stage_tc_elems(sw);
+  T* buf = reinterpret_cast<T*>(smem);
+  const int q0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.y * sw, w = min(sw, D - k0);
+  const int kp = tc_kp(w), np = kp / 16;
+  const int n_rows = (R + TILE - 1) / TILE;
+  const int r_begin = blockIdx.z * tiles_per_split * TILE;
+  const int r_end =
+      min(n_rows, (int)(blockIdx.z + 1) * tiles_per_split) * TILE;
+  const int n_steps = (r_end - r_begin) / TILE;
+  auto stage = [&](int s) {
+    T* X = buf + (s & 1) * stage_elems;
+    const int r = r_begin + s * TILE;
+    stage_dz_tc(X, dz, ldz, r, q0);
+    stage_slab_tc(X + TILE * LDZB, ldy, sr, r, R, D, k0, w, vec);
+  };
+  stage(0);
+  cp_async_commit();
+  float G[2][8][4] = {};
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) stage(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage has landed
+    __syncthreads();
+    const T* X = buf + (s & 1) * stage_elems;
+    rank_update_tc<4, true>(G, X, LDZB, X + TILE * LDZB, ldy, np);
+    __syncthreads();  // the stage is consumed
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* G_s = reinterpret_cast<float*>(smem);  // [TILE][kp + 8]
+  store_acc_tc<4>(G_s, kp + 8, G, np);
+  __syncthreads();
+  const int wp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int col = c0 + q0 + 8 * wp + i;
+    if (col >= P) continue;  // warp-uniform
+    float v[8];
+    load_row8(v, G_s + (8 * wp + i) * (kp + 8), w);
+    store_slab8(part + ((size_t)blockIdx.z * P + col) * D + k0, v, w, D);
+  }
+}
+
+// d_sr's partial (xent_slab_dsr's grid): dz t for rows r0 .. r0 + 63 and
+// the block's slab over the split's catalog tiles of the chunk
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) xent_slab_dsr_tc(
+    const T* __restrict__ dz, int ldz, const T* __restrict__ op, int R, int P,
+    int D, int vec, int c0, int n_tiles, int tiles_per_split,
+    float* __restrict__ out) {
+  static_assert(tc_type<T>, "the tensor-core kernels take bfloat16");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = slab_width<T>(D), ldy = tc_ld(sw);
+  const int stage_elems = stage_tc_elems(sw);
+  T* buf = reinterpret_cast<T*>(smem);
+  const int r0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.y * sw, w = min(sw, D - k0);
+  const int kp = tc_kp(w), np = kp / 16;
+  const int q_begin = blockIdx.z * tiles_per_split * TILE;
+  const int q_end =
+      min(n_tiles, (int)(blockIdx.z + 1) * tiles_per_split) * TILE;
+  const int n_steps = (q_end - q_begin) / TILE;
+  auto stage = [&](int s) {
+    T* X = buf + (s & 1) * stage_elems;
+    const int q = q_begin + s * TILE;
+    stage_dz_tc(X, dz, ldz, r0, q);
+    stage_slab_tc(X + TILE * LDZB, ldy, op, c0 + q, P, D, k0, w, vec);
+  };
+  stage(0);
+  cp_async_commit();
+  float acc[2][8][4] = {};
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) stage(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage has landed
+    __syncthreads();
+    const T* X = buf + (s & 1) * stage_elems;
+    rank_update_tc<4, false>(acc, X, LDZB, X + TILE * LDZB, ldy, np);
+    __syncthreads();  // the stage is consumed
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* acc_s = reinterpret_cast<float*>(smem);  // [TILE][kp + 8]
+  store_acc_tc<4>(acc_s, kp + 8, acc, np);
+  __syncthreads();
+  const int wp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + 8 * wp + i;
+    if (r >= R) continue;  // warp-uniform
+    float v[8];
+    load_row8(v, acc_s + (8 * wp + i) * (kp + 8), w);
+    store_slab8(out + ((size_t)blockIdx.z * R + r) * D + k0, v, w, D);
+  }
+}
+
+// the slab products of type T: on the tensor cores in bfloat16, on the FMA
+// pipes in float32
+template <typename T>
+auto slab_dtable_kernel() {
+  if constexpr (tc_type<T>) return xent_slab_dtable_tc<T>;
+  else return xent_slab_dtable<T>;
+}
+template <typename T>
+auto slab_dsr_kernel() {
+  if constexpr (tc_type<T>) return xent_slab_dsr_tc<T>;
+  else return xent_slab_dsr<T>;
+}
+
 // resident blocks per SM, registers and local memory bytes per thread of
 // kernel fn with smem bytes of dynamic shared memory (set as its maximum)
 inline void kernel_attrs(const void* fn, int smem, int* blocks, int* regs,
@@ -1436,21 +1784,22 @@ inline void kernel_attrs(const void* fn, int smem, int* blocks, int* regs,
 template <typename T>
 int set_product_smem(int D) {
   const int smem = (int)slab_product_smem<T>(D);
-  cudaFuncSetAttribute(xent_slab_dtable<T>,
+  cudaFuncSetAttribute(slab_dtable_kernel<T>(),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(xent_slab_dsr<T>,
+  cudaFuncSetAttribute(slab_dsr_kernel<T>(),
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return smem;
 }
 
 // the two product kernels' numbers at width D: blocks[k], regs[k], local[k]
-// of xent_slab_dtable (k = 0) and xent_slab_dsr (k = 1)
+// of d_table's (k = 0) and d_sr's (k = 1), xent_slab_dtable and
+// xent_slab_dsr (their _tc kernels in bfloat16)
 template <typename T>
 int slab_product_attrs(int D, int* blocks, int* regs, int* local) {
   const int smem = (int)slab_product_smem<T>(D);
-  kernel_attrs((const void*)xent_slab_dtable<T>, smem, &blocks[0], &regs[0],
-               &local[0]);
-  kernel_attrs((const void*)xent_slab_dsr<T>, smem, &blocks[1], &regs[1],
+  kernel_attrs((const void*)slab_dtable_kernel<T>(), smem, &blocks[0],
+               &regs[0], &local[0]);
+  kernel_attrs((const void*)slab_dsr_kernel<T>(), smem, &blocks[1], &regs[1],
                &local[1]);
   return (int)cudaGetLastError();
 }
@@ -1458,8 +1807,9 @@ int slab_product_attrs(int D, int* blocks, int* regs, int* local) {
 // The chunk loop of the slab backward.  The catalog's n_tiles 64-row tiles
 // go in chunks of chunk_tiles; for each chunk, launch_dz(c0, tiles, ldz)
 // writes its dz into dz [rows * 64][ldz = chunk_tiles * 64], then
-// xent_slab_dtable writes the chunk's catalog rows of dtab_part [t_split]
-// [P][D] (row splits of t_per tiles) and xent_slab_dsr its d_sr partials,
+// d_table's product (slab_dtable_kernel) writes the chunk's catalog rows of
+// dtab_part [t_split][P][D] (row splits of t_per tiles) and d_sr's
+// (slab_dsr_kernel) its d_sr partials,
 // ceil(tiles / s_per) of them, after the earlier chunks' in dsr_part
 // [parts][R][D] (into dsr itself when the whole catalog makes one).  Last,
 // xent_bwd_dsr_reduce sums the partials in chunk and split order.
@@ -1471,7 +1821,12 @@ int slab_bwd_chunks(LaunchDz launch_dz, const T* sr, const T* op, int R,
                     float* dsr_part, float* dsr, cudaStream_t stream) {
   const int n_tiles = (P + TILE - 1) / TILE, n_rows = (R + TILE - 1) / TILE;
   const int slabs = slab_count(D), ldz = chunk_tiles * TILE;
+  // every slab within MAX_D and none empty
+  if (slab_width<T>(D) > MAX_D || (slabs - 1) * slab_width<T>(D) >= D)
+    return (int)cudaErrorInvalidValue;
   const int smem = set_product_smem<T>(D);
+  const auto dtable = slab_dtable_kernel<T>();
+  const auto dsr_product = slab_dsr_kernel<T>();
   int parts = 0;
   for (int t0 = 0; t0 < n_tiles; t0 += chunk_tiles)
     parts += (std::min(chunk_tiles, n_tiles - t0) + s_per - 1) / s_per;
@@ -1482,11 +1837,11 @@ int slab_bwd_chunks(LaunchDz launch_dz, const T* sr, const T* op, int R,
     const int tiles = std::min(chunk_tiles, n_tiles - t0), c0 = t0 * TILE;
     const int e = launch_dz(c0, tiles, ldz);
     if (e) return e;
-    xent_slab_dtable<T><<<dim3(tiles, slabs, t_split), NT, smem, stream>>>(
+    dtable<<<dim3(tiles, slabs, t_split), NT, smem, stream>>>(
         dz, ldz, sr, R, P, D, vec, c0, t_per, dtab_part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     const int splits = (tiles + s_per - 1) / s_per;
-    xent_slab_dsr<T><<<dim3(n_rows, slabs, splits), NT, smem, stream>>>(
+    dsr_product<<<dim3(n_rows, slabs, splits), NT, smem, stream>>>(
         dz, ldz, op, R, P, D, vec, c0, tiles, s_per,
         out + (size_t)part * R * D);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

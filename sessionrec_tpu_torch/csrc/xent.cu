@@ -20,8 +20,8 @@
 // operations a float32 byte, far above the card's 20 (67 TFLOP/s over
 // 3.35 TB/s), and 512 a bfloat16 byte, above its 295 (989 TFLOP/s on the
 // tensor cores), so it is bound by operations: float32 on the FP32 FMA
-// pipes (TF32 would change the numerics), bfloat16 up to MAX_D features on
-// the tensor cores (bf16 x bf16 products are exact in float32, so only the
+// pipes (TF32 would change the numerics), bfloat16 on the tensor cores at
+// every width (bf16 x bf16 products are exact in float32, so only the
 // order of the float32 sums differs from the FMA loop's).
 //
 // What the design does about it (K3's tiles, tiles.cuh):
@@ -54,7 +54,10 @@
 // by cp.async, otherwise by plain loads.  Up to D = MAX_D (256) the kernel
 // above runs; wider rows run xent_fwd_slab (fwd_slab_loop, tiles.cuh), which
 // streams the split's catalog tiles in k-chunks of 64 features through a
-// ring of three cp.async stages, two blocks an SM.  Each entry point
+// ring of cp.async stages, two blocks an SM: three stages on the FMA pipes
+// in float32; four in bfloat16, each chunk multiplied on the tensor cores
+// (fwd_slab_loop_tc: product_logits_tc accumulating over the tile's
+// chunks, then fwd_tile_loop_tc's epilogue and merge).  Each entry point
 // launches on the given stream, does not synchronise and returns
 // cudaGetLastError().
 
@@ -80,7 +83,8 @@ __global__ void __launch_bounds__(NT, tile_blocks<T>()) xent_fwd_partial(
 }
 
 // K1 for D > MAX_D: the same partial, its (catalog tile, k-chunk) pairs
-// one pipelined stream (fwd_slab_loop), two blocks an SM
+// one pipelined stream (fwd_slab_loop: on the tensor cores in bfloat16),
+// two blocks an SM
 template <typename T>
 __global__ void __launch_bounds__(NT, 2) xent_fwd_slab(
     const T* __restrict__ sr, const T* __restrict__ tab,
@@ -136,15 +140,15 @@ int set_fwd_smem(int D) {
 // thread (out[2]), its local memory bytes per thread, where spills go
 // (out[3]), its dynamic shared memory bytes (out[4]), the stages its
 // staging pipelines (out[5]: the table tiles' two buffers up to MAX_D, the
-// chunk ring past it) and whether its product runs on the tensor cores
-// (out[6])
+// chunk ring's three or four stages past it) and whether its product runs
+// on the tensor cores (out[6]: bfloat16, at every width)
 template <typename T>
 int slots(int D, int* out) {
   const int smem = set_fwd_smem<T>(D);
   kernel_attrs(fwd_kernel<T>(D), smem, &out[0], &out[2], &out[3]);
   out[4] = smem;
-  out[5] = D > MAX_D ? FWD_STAGES : 2;
-  out[6] = on_tensor_cores<T>(D);
+  out[5] = D > MAX_D ? fwd_stages<T>() : 2;
+  out[6] = tc_type<T>;
   return (int)cudaGetLastError();
 }
 
@@ -160,7 +164,7 @@ int fwd(const T* sr, const T* tab, const int* labels, int B, int P, int D,
         tab, P, D, nrm);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if (on_tensor_cores<T>(D)) vec = tc_vec(vec, D, sr, tab);
+  if (tc_type<T>) vec = tc_vec(vec, D, sr, tab);
   dim3 grid((B + TILE - 1) / TILE, n_split);
   if (D > MAX_D)
     xent_fwd_slab<T><<<grid, NT, smem, stream>>>(
@@ -185,12 +189,18 @@ extern "C" {
 // kernels run, ceil(D / MAX_D) past it (the slab kernels)
 int srt_xent_slabs(int D) { return slab_count(D); }
 
+// features of every slab but the last at width D past MAX_D, in bfloat16
+// (is_bf16: a multiple of 16) or float32 (a multiple of 4)
+int srt_xent_slab_width(int D, int is_bf16) {
+  return is_bf16 ? slab_width<__nv_bfloat16>(D) : slab_width<float>(D);
+}
+
 // out[0]: resident blocks per SM of K1's partial kernel at width D on the
 // current device; out[1]: its SM count; out[2]: the kernel's registers per
 // thread; out[3]: its local memory bytes per thread; out[4]: its dynamic
 // shared memory bytes; out[5]: its staging stages; out[6]: 1 where its
-// product runs on the tensor cores (bfloat16 up to MAX_D), 0 on the FMA
-// pipes
+// product runs on the tensor cores (bfloat16, at every width), 0 on the
+// FMA pipes
 int srt_xent_fwd_slots(int D, int is_bf16, int* out) {
   const int err = is_bf16 ? slots<__nv_bfloat16>(D, out) : slots<float>(D, out);
   if (err) return err;

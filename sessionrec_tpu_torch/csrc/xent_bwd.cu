@@ -18,8 +18,8 @@
 // operations a float32 byte, far above the card's 20 (67 TFLOP/s over
 // 3.35 TB/s), and 1,540 a bfloat16 byte, far above its 295 (989 TFLOP/s
 // on the tensor cores), so it is bound by operations: float32 on the FP32
-// FMA pipes (TF32 would change the numerics), bfloat16 up to MAX_D
-// features on the tensor cores.  Four products are performed: the logits
+// FMA pipes (TF32 would change the numerics), bfloat16 on the tensor cores
+// at every width.  Four products are performed: the logits
 // are recomputed once for each output.  One pass for both outputs would
 // need either a cross-block sum of a [B, D] partial per catalog tile
 // (310 MB at the north-star catalog of 37,888 rows) or atomics, which give
@@ -74,9 +74,9 @@
 // (ops/xent.py:_bwd_grid) and its scratch; srt_xent_bwd_slots reports the
 // resident block slots of the two product kernels, their registers and
 // their local memory (spills).  Any B >= 1, P >= 1, D >= 1: with
-// D % 4 == 0 and aligned arrays the tiles are staged by cp.async (bfloat16
-// up to MAX_D: D % 8 == 0 and 16-byte aligned arrays), otherwise by plain
-// loads.
+// D % 4 == 0 and aligned arrays the tiles are staged by cp.async (bfloat16,
+// at every width: D % 8 == 0 and 16-byte aligned arrays), otherwise by
+// plain loads.
 //
 // Past D = MAX_D (256) features srt_xent_bwd_slab runs the slab path of
 // tiles.cuh.  A thread's 8 x 8 accumulators cover one slab of at most 256
@@ -84,17 +84,24 @@
 // the full-width logits would run 2 (slabs + 1) products of 2 B P D
 // operations where the bound counts 3.  It is bound by operations as
 // above: at D = 512, B = 512 and the north-star catalog (37,888 rows)
-// 3 * 2 B P D = 59.6 GFLOP, 0.88 ms at the FP32 peak.  The design computes
-// dz once and runs three products, 3 * 2 B P D operations in all:
+// 3 * 2 B P D = 59.6 GFLOP, 0.88 ms at the FP32 peak (0.06 ms at the
+// tensor cores' bf16 peak).  The design computes dz once and runs three
+// products, 3 * 2 B P D operations in all:
 //   * xent_bwd_dz_slab: one block per (64-row batch tile, 64-row catalog
 //     tile) computes its logits tile once over all D features, staged in
 //     k-chunks of 64 features through two cp.async stages, and writes dz,
 //     rounded to the operand type by dlogit, to a [B, P] scratch in that
-//     type (exact).  The scratch is capped (ops/xent.py:DZ_SCRATCH_BYTES);
-//     a larger catalog goes in chunks, each chunk's dz, then its products.
-//   * xent_slab_dtable (dz^T sr) and xent_slab_dsr (dz t), tiles.cuh's
-//     register-tiled products shared with K4: 8 x 8 accumulators a thread,
-//     the reduction axis streamed through two cp.async stages, shared
+//     type (exact).  bfloat16: the chunks at the tensor cores' stride and
+//     product (dz_logits_tc), the tile through shared memory (dz_tile_tc)
+//     to 16-byte stores.  The scratch is capped
+//     (ops/xent.py:DZ_SCRATCH_BYTES); a larger catalog goes in chunks,
+//     each chunk's dz, then its products.
+//   * d_table's product (dz^T sr) and d_sr's (dz t), tiles.cuh's products
+//     shared with K4: in float32 xent_slab_dtable and xent_slab_dsr,
+//     register-tiled on the FMA pipes (8 x 8 accumulators a thread), in
+//     bfloat16 xent_slab_dtable_tc and xent_slab_dsr_tc on the tensor cores
+//     (rank_update_tc over 64-row stages, slabs that start on a k step of
+//     16); the reduction axis streamed through two cp.async stages, shared
 //     memory sized for two resident blocks per SM, their grids split over
 //     the reduction axis to fill the card.
 //   * xent_bwd_dsr_reduce sums d_sr's partials in chunk and split order;
@@ -102,7 +109,8 @@
 //     the l2norm VJP over the whole row.
 // dz adds only bytes: written once and read by each product, 3 B P
 // elements, 233 MB in float32 at the north star (0.07 ms at 3.35 TB/s, 8%
-// of the bound).  Still no atomics.  Each entry point launches on the given
+// of the bound; in bfloat16 116 MB, 0.035 ms, above the operations'
+// bound).  Still no atomics.  Each entry point launches on the given
 // stream, does not synchronise and returns cudaGetLastError().
 
 #include "tiles.cuh"
@@ -450,9 +458,12 @@ auto dsr_kernel() {
 // ---------------------------------------------------------------------------
 // dz for D > MAX_D: grid = (64-row batch tiles, 64-row catalog tiles of the
 // chunk that starts at table row c0).  A block computes its logits tile once
-// over all D features (dz_logits) and writes its dz tile, rounded to the
-// operand type, to dz [rows * 64][ldz] at the chunk's columns; rows past B
-// and columns past P get 0.
+// over all D features and writes its dz tile, rounded to the operand type,
+// to dz [rows * 64][ldz] at the chunk's columns; rows past B and columns
+// past P get 0.  float32: dz_logits on the FMA pipes, a thread's 4 x 4 dz
+// stored where it lies.  bfloat16: dz_logits_tc on the tensor cores, the
+// tile by dz_tile_tc into shared memory (the consumed stages), then out in
+// 16-byte stores (store_dz_tc).
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(NT, 2) xent_bwd_dz_slab(
@@ -462,24 +473,34 @@ __global__ void __launch_bounds__(NT, 2) xent_bwd_dz_slab(
     int col_offset, float scale, int vec, int c0, int ldz,
     T* __restrict__ dz) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int row0 = blockIdx.x * TILE, q0 = blockIdx.y * TILE;
   const int p0 = c0 + q0;
   float S[4][4] = {};
-  dz_logits(S, reinterpret_cast<T*>(smem), sr, row0, B, op, p0, P, D, vec);
+  if constexpr (tc_type<T>) {
+    T* stages = reinterpret_cast<T*>(smem);
+    dz_logits_tc(S, stages, sr, row0, B, op, p0, P, D, vec);
+    dz_tile_tc(stages, S, g, labels, lse, row0, B, p0, P, n_valid,
+               col_offset, scale);
+    __syncthreads();
+    store_dz_tc(dz, ldz, row0, q0, stages);
+  } else {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+    dz_logits(S, reinterpret_cast<T*>(smem), sr, row0, B, op, p0, P, D,
+              vec);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    const bool row_ok = r < B;
-    const int lbl = row_ok ? labels[r] : -1;
-    const float lse_r = row_ok ? lse[r] : 0.f;
-    const float g_r = row_ok ? g[r] : 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + ty + 16 * i;
+      const bool row_ok = r < B;
+      const int lbl = row_ok ? labels[r] : -1;
+      const float lse_r = row_ok ? lse[r] : 0.f;
+      const float g_r = row_ok ? g[r] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cl = tx + 16 * j;
-      dz[(size_t)r * ldz + q0 + cl] = from_f<T>(
-          dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid, lbl,
-                    lse_r, g_r, row_ok, scale));
+      for (int j = 0; j < 4; ++j) {
+        const int cl = tx + 16 * j;
+        dz[(size_t)r * ldz + q0 + cl] = from_f<T>(
+            dlogit<T>(scale * S[i][j], p0 + cl, P, col_offset, n_valid, lbl,
+                      lse_r, g_r, row_ok, scale));
+      }
     }
   }
 }
@@ -524,6 +545,7 @@ int bwd_slab(const float* g, const T* sr, const T* tab, const int* labels,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     op = that;
   }
+  if constexpr (tc_type<T>) vec = tc_vec(vec, D, sr, op);
   const int smem = (int)dz_smem<T>();
   cudaFuncSetAttribute(xent_bwd_dz_slab<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -643,10 +665,9 @@ int srt_xent_bwd_tile() { return TILE; }
 // kernels at width D on the current device; out[2]: its SM count; out[3],
 // out[4]: the two kernels' registers per thread; out[5], out[6]: their
 // local memory bytes per thread; out[7]: 1 where they run on the tensor
-// cores (bfloat16 up to MAX_D), 0 on the FMA pipes
+// cores (bfloat16, at every width), 0 on the FMA pipes
 int srt_xent_bwd_slots(int D, int is_bf16, int* out) {
-  out[7] = is_bf16 ? on_tensor_cores<__nv_bfloat16>(D)
-                   : on_tensor_cores<float>(D);
+  out[7] = is_bf16 ? tc_type<__nv_bfloat16> : tc_type<float>;
   const bool hi = ((D + 3) & ~3) > 128;
   const int err = D > MAX_D ? (is_bf16 ? slab_slots<__nv_bfloat16>(D, out)
                                        : slab_slots<float>(D, out))

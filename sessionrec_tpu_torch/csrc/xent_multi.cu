@@ -13,8 +13,9 @@
 //                                          in bfloat16 the _tc kernels
 // and past 256 features the slab path of tiles.cuh: K3 xent_multi_fwd_slab
 // in place of the partial kernel; K4 xent_multi_bwd_dz_slab (dz once) +
-// xent_slab_dtable + xent_slab_dsr (+ xent_bwd_dsr_reduce) +
-// xent_multi_bwd_finish_slab in place of the product kernels.
+// xent_slab_dtable + xent_slab_dsr (in bfloat16 their _tc kernels)
+// (+ xent_bwd_dsr_reduce) + xent_multi_bwd_finish_slab in place of the
+// product kernels.
 //
 // The WSDM'22 paper head scores the session vector of every order k
 // against the whole catalog and splits the catalog, per example, into the
@@ -38,8 +39,8 @@
 // float32 byte, far above the card's 20 (67 TFLOP/s over 3.35 TB/s), and
 // 1,540 a bfloat16 byte, far above its 295 (989 TFLOP/s on the tensor
 // cores), so both are bound by operations: float32 on the FP32 FMA pipes
-// (TF32 would change the numerics), bfloat16 up to MAX_D features on the
-// tensor cores (K3 through K1's loop, K4 through K2's products, below).
+// (TF32 would change the numerics), bfloat16 on the tensor cores at every
+// width (K3 through K1's loops, K4 through K2's products, below).
 // K4 performs four products where its bound counts three (the logits are
 // recomputed for each output, as in K2, xent_bwd.cu), so its ceiling is
 // 75% of its bound.
@@ -98,11 +99,12 @@
 // The wrapper chooses the grids (ops/xent_multi.py) from
 // srt_xent_multi_slots.  Any K, B >= 1, P >= 1, D >= 1, Ns >= 1: with
 // D % 4 == 0 and aligned arrays the tiles are staged by cp.async
-// (bfloat16 up to MAX_D: D % 8 == 0 and 16-byte aligned arrays),
+// (bfloat16, at every width: D % 8 == 0 and 16-byte aligned arrays),
 // otherwise by plain loads.  Past D = MAX_D (256) K3 runs
 // xent_multi_fwd_slab (fwd_slab_loop with membership: the split's catalog
-// tiles in k-chunks of 64 features through a ring of three cp.async
-// stages, two blocks an SM), and K4
+// tiles in k-chunks of 64 features through a ring of cp.async stages, two
+// blocks an SM; in bfloat16 four stages on the tensor cores,
+// fwd_slab_loop_tc), and K4
 // srt_xent_multi_bwd_slab, the slab path of tiles.cuh as K2 runs it
 // (xent_bwd.cu): dz once, where a block per output slab that recomputed
 // the full-width logits would run 2 (slabs + 1) products of 2 R P D
@@ -110,10 +112,12 @@
 // star, 3 * 2 R P D = 178.9 GFLOP, 2.64 ms at the FP32 peak).
 // xent_multi_bwd_dz_slab builds a block's masks and row inputs while its
 // first k-chunk stages, computes its logits tile once over all D features
-// and writes dz (dlogits_multi, rounded to the operand type) to the
-// chunk's [R, P] scratch; K2's two products (xent_slab_dtable,
-// xent_slab_dsr) run over it, and xent_multi_bwd_finish_slab applies the
-// l2norm VJP over the whole row.  3 * 2 R P D operations in all; dz adds
+// and writes dz (dlogits_multi, rounded to the operand type; in bfloat16
+// the logits on the tensor cores, dz_logits_tc, and the tile through
+// shared memory, dz_multi_tile_tc) to the chunk's [R, P] scratch; K2's two
+// products (xent_slab_dtable, xent_slab_dsr; in bfloat16 their _tc
+// kernels on the tensor cores) run over it, and xent_multi_bwd_finish_slab
+// applies the l2norm VJP over the whole row.  3 * 2 R P D operations in all; dz adds
 // 3 R P elements to the bytes moved (699 MB in float32 at the north star,
 // 0.21 ms at 3.35 TB/s, 8% of the bound), in one chunk up to
 // DZ_SCRATCH_BYTES (ops/xent.py).  Each entry point launches on the given
@@ -144,7 +148,8 @@ __global__ void __launch_bounds__(NT, tile_blocks<T>())
 }
 
 // K3 for D > MAX_D: the same partial, its (catalog tile, k-chunk) pairs
-// one pipelined stream (fwd_slab_loop), two blocks an SM
+// one pipelined stream (fwd_slab_loop: on the tensor cores in bfloat16),
+// two blocks an SM
 template <typename T>
 __global__ void __launch_bounds__(NT, 2) xent_multi_fwd_slab(
     const T* __restrict__ sr, const T* __restrict__ tab,
@@ -586,10 +591,14 @@ auto dsr_kernel() {
 // ---------------------------------------------------------------------------
 // K4, dz for D > MAX_D: grid = (64-row tiles of the R rows, 64-row catalog
 // tiles of the chunk that starts at table row c0).  A block builds its rows'
-// masks and inputs while the first k-chunk stages, computes its logits tile
-// once over all D features (dz_logits) and writes its dz tile, rounded to
-// the operand type, to dz [rows * 64][ldz] at the chunk's columns; rows
-// past R and columns past P get 0.
+// masks and inputs (RowShared, after the chunk stages) while the first
+// k-chunk stages, computes its logits tile once over all D features and
+// writes its dz tile, rounded to the operand type, to dz [rows * 64][ldz]
+// at the chunk's columns; rows past R and columns past P get 0.  float32:
+// dz_logits on the FMA pipes, a thread's 4 x 4 dz stored where it lies.
+// bfloat16: dz_logits_tc on the tensor cores, the tile by dz_multi_tile_tc
+// into shared memory (the consumed stages), then out in 16-byte stores
+// (store_dz_tc).
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(NT, 2) xent_multi_bwd_dz_slab(
@@ -600,22 +609,32 @@ __global__ void __launch_bounds__(NT, 2) xent_multi_bwd_dz_slab(
     T* __restrict__ dz) {
   extern __shared__ __align__(16) unsigned char smem[];
   RowShared* rs = reinterpret_cast<RowShared*>(smem + dz_smem<T>());
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int row0 = blockIdx.x * TILE, q0 = blockIdx.y * TILE;
   const int p0 = c0 + q0;
   row_coefs(rs, g5, labels, row0, R, B);
   row_masks(rs->mask, iids, row0, R, B, Ns, col_offset + p0);
   float S[4][4] = {};
   // its first barrier publishes the masks and inputs
-  dz_logits(S, reinterpret_cast<T*>(smem), sr, row0, R, op, p0, P, D, vec);
+  if constexpr (tc_type<T>) {
+    T* stages = reinterpret_cast<T*>(smem);
+    dz_logits_tc(S, stages, sr, row0, R, op, p0, P, D, vec);
+    dz_multi_tile_tc(stages, S, rs, row0, R, p0, P, n_valid, scale);
+    __syncthreads();
+    store_dz_tc(dz, ldz, row0, q0, stages);
+  } else {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+    dz_logits(S, reinterpret_cast<T*>(smem), sr, row0, R, op, p0, P, D,
+              vec);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rl = ty + 16 * i;
-    float d[4];
-    dlogits_multi<T>(d, S[i], rs, rl, row0 + rl < R, p0, P, n_valid, scale);
+    for (int i = 0; i < 4; ++i) {
+      const int rl = ty + 16 * i;
+      float d[4];
+      dlogits_multi<T>(d, S[i], rs, rl, row0 + rl < R, p0, P, n_valid,
+                       scale);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dz[(size_t)(row0 + rl) * ldz + q0 + tx + 16 * j] = from_f<T>(d[j]);
+      for (int j = 0; j < 4; ++j)
+        dz[(size_t)(row0 + rl) * ldz + q0 + tx + 16 * j] = from_f<T>(d[j]);
+    }
   }
 }
 
@@ -665,15 +684,16 @@ int set_bwd_smem(int D) {
 // registers per thread (out[4..6]) and their local memory bytes per thread,
 // where spills go (out[7..9]); K3's dynamic shared memory bytes (out[10]),
 // the stages its staging pipelines (out[11]: the table tiles' two buffers
-// up to MAX_D, the chunk ring past it), and whether K3's product (out[12])
-// and K4's (out[13]) run on the tensor cores
+// up to MAX_D, the chunk ring's three or four past it), and whether K3's
+// product (out[12]) and K4's (out[13]) run on the tensor cores (bfloat16,
+// at every width)
 template <typename T, bool HI>
 int slots(int D, int* out) {
   const int fwd = set_fwd_smem<T>(D);
   kernel_attrs(fwd_kernel<T>(D), fwd, &out[0], &out[4], &out[7]);
   out[10] = fwd;
-  out[11] = D > MAX_D ? FWD_STAGES : 2;
-  out[12] = out[13] = on_tensor_cores<T>(D);
+  out[11] = D > MAX_D ? fwd_stages<T>() : 2;
+  out[12] = out[13] = tc_type<T>;
   if (D > MAX_D) {
     int blocks[2], regs[2], local[2];
     slab_product_attrs<T>(D, blocks, regs, local);
@@ -705,7 +725,7 @@ int fwd(const T* sr, const T* tab, const int* labels, const int* iids, int K,
         tab, P, D, nrm);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if (on_tensor_cores<T>(D)) vec = tc_vec(vec, D, sr, tab);
+  if (tc_type<T>) vec = tc_vec(vec, D, sr, tab);
   dim3 grid((R + TILE - 1) / TILE, n_split);
   if (D > MAX_D)
     xent_multi_fwd_slab<T><<<grid, NT, smem, stream>>>(
@@ -783,6 +803,7 @@ int bwd_slab(const float* g5, const T* sr, const T* tab, const int* labels,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     op = that;
   }
+  if constexpr (tc_type<T>) vec = tc_vec(vec, D, sr, op);
   const int smem = (int)dz_multi_smem<T>();
   cudaFuncSetAttribute(xent_multi_bwd_dz_slab<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -829,8 +850,8 @@ extern "C" {
 // out[4..6]: the three kernels' registers per thread; out[7..9]: their
 // local memory bytes per thread; out[10], out[11]: K3's dynamic shared
 // memory bytes and staging stages; out[12], out[13]: 1 where K3's and
-// K4's products run on the tensor cores (bfloat16 up to MAX_D), 0 on the
-// FMA pipes
+// K4's products run on the tensor cores (bfloat16, at every width), 0 on
+// the FMA pipes
 int srt_xent_multi_slots(int D, int is_bf16, int* out) {
   const bool hi = ((D + 3) & ~3) > 128;
   const int err = is_bf16 ? (hi ? slots<__nv_bfloat16, true>(D, out)

@@ -16,7 +16,7 @@ hand-written kernels of ``csrc/xent.cu`` (K1) and ``csrc/xent_bwd.cu``
   ``d_table`` with the l2norm VJP folded in, on a grid that ``_bwd_grid``
   sizes to the card's resident block slots.
 
-In bfloat16 up to 256 features both kernels multiply on the tensor cores
+In bfloat16 both kernels multiply on the tensor cores at every width
 (``mma.sync`` m16n8k16, float32 sums; ``product`` in their launch
 shapes), in float32 on the FMA pipes.
 
@@ -187,6 +187,8 @@ def _library():
         lib.srt_xent_bwd_tile.restype = i
         lib.srt_xent_slabs.argtypes = [i]
         lib.srt_xent_slabs.restype = i
+        lib.srt_xent_slab_width.argtypes = [i, i]
+        lib.srt_xent_slab_width.restype = i
         _lib = lib
     return _lib
 
@@ -292,6 +294,14 @@ def slabs(D):
     return _library().srt_xent_slabs(D)
 
 
+def slab_width(D, dtype):
+    """Features of every feature slab but the last past 256 features, in
+    ``dtype``: ceil(D / slabs) rounded up to 4 in float32 and to 16 in
+    bfloat16, where each slab starts on a tensor-core k step
+    (``csrc/tiles.cuh:slab_width``)."""
+    return _library().srt_xent_slab_width(D, int(dtype == torch.bfloat16))
+
+
 _slots = {}
 
 
@@ -312,8 +322,8 @@ def slots_query(fn, n, device, D, dtype):
 
 def product(on_tensor_cores):
     """The name a launch line gives a product kernel's arithmetic: bfloat16
-    up to 256 features runs on the tensor cores (``mma.sync``), the rest on
-    the FMA pipes."""
+    runs on the tensor cores (``mma.sync``) at every width, float32 on the
+    FMA pipes."""
     return "tensor_core" if on_tensor_cores else "fma"
 
 
@@ -338,7 +348,8 @@ def fwd_launch_shape(sr, P):
     catalog splits and tiles per split, resident blocks per SM, SMs, and
     the partial kernel's registers and local memory (spill) bytes per
     thread, its shared memory bytes, its staging stages (past 256
-    features the chunk ring's) and its ``product``."""
+    features the chunk ring's: three in float32, four in bfloat16) and its
+    ``product``."""
     (B, D), dev = sr.shape, sr.device
     per_sm, sms, regs, local, smem, stages, tc = _fwd_attrs(dev, D,
                                                             sr.dtype)

@@ -21,8 +21,8 @@ logits nor the ``[B, P]`` session mask exist in device memory:
 
 Both run on K2's tiles (``csrc/tiles.cuh``) over the ``K * B`` rows, on
 grids that ``ops/xent.py:_bwd_grid`` sizes to the card's resident block
-slots of their own kernels; in bfloat16 up to 256 features their products
-run on the tensor cores (``mma.sync``, float32 sums), as K1's and K2's do;
+slots of their own kernels; in bfloat16 their products run on the tensor
+cores (``mma.sync``, float32 sums) at every width, as K1's and K2's do;
 past 256 features, as K1/K2 do, on the slab
 path (``xent.slabs``): K4 computes dz once per catalog chunk and runs K2's
 two slab products over it (``xent.slab_bwd_plan``).  Session item lists
@@ -206,7 +206,7 @@ def _attrs(device, D, dtype):
     """``srt_xent_multi_slots``'s fourteen numbers for ``device``: resident
     blocks per SM of K3's partial kernel and K4's d_table and d_sr kernels
     at width ``D`` (past 256 features the slab path's products; in bfloat16
-    up to it K4's tensor-core kernels), the SM count, the three kernels'
+    the tensor-core kernels at every width), the SM count, the three kernels'
     registers and local memory bytes per thread, K3's dynamic shared memory
     bytes and staging stages, and whether K3's and K4's products run on
     the tensor cores."""
@@ -228,7 +228,7 @@ def multi_launch_shape(sr3, P):
     """K3's and K4's launches for ``sr3 [K, B, D]`` against a ``P``-row
     table: blocks, splits and resident blocks per SM of each (K3's shared
     memory bytes and staging stages too), each one's ``product`` (both on
-    the tensor cores in bfloat16 up to 256 features), and each product
+    the tensor cores in bfloat16, at every width), and each product
     kernel's registers and local memory (spill) bytes per thread; past 256
     features K4's dz kernel's too, and its chunks."""
     (K, B, D), dev = sr3.shape, sr3.device

@@ -201,10 +201,11 @@ def test_forward_kernels_spill_nothing(cuda, dtype, D):
     """K1's and K3's partial kernels keep everything in registers at the
     path's width and past 256 features: no local memory, and grids of
     their own slots.  Past 256 the chunk ring's kernels fit two blocks on
-    an SM in float32 (bfloat16: what the query reports), so their grids
-    take twice the blocks."""
+    an SM, so their grids take twice the blocks, and run on the tensor
+    cores in bfloat16 (a ring of four stages), on the FMA pipes in float32
+    (three)."""
     s = torch.zeros(512, D, device=cuda, dtype=dtype)
-    least = 2 if D > 256 and dtype == torch.float32 else 1
+    least = 2 if D > 256 else 1
     k1 = tx.fwd_launch_shape(s, 3584)
     assert k1["local_bytes"] == 0 and k1["resident_per_sm"] >= least
     assert k1["blocks"] == k1["row_tiles"] * k1["catalog_splits"] <= \
@@ -216,6 +217,10 @@ def test_forward_kernels_spill_nothing(cuda, dtype, D):
     if D > 256:
         assert k1["ring_stages"] == k3["ring_stages"] >= 2
         assert k1["registers"] <= 128 and multi["registers"]["fwd"] <= 128
+        bf16 = dtype == torch.bfloat16
+        assert k1["ring_stages"] == (4 if bf16 else 3)
+        assert k1["product"] == k3["product"] == \
+            ("tensor_core" if bf16 else "fma")
 
 
 def _k2_case(cuda, B, D, P, n, dtype, norm, seed=13):
@@ -600,11 +605,11 @@ def test_slab_backward_in_catalog_chunks(cuda, monkeypatch, D, dtype, norm):
                      lbl, iids, P, n, tol)
 
 
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 256, 512])
 def test_tensor_core_kernels_take_rows_off_16_byte_alignment(cuda, D):
     """bfloat16 rows that start 8 bytes off 16 (four-element aligned, so
     the wrapper's vec holds) go by plain loads, not 16-byte cp.async: K1
-    and K2, and K4 with its K * B rows."""
+    and K2, and K4 with its K * B rows; at 512 the slab kernels."""
     B, P, n = 100, 1000, 999
     s, t, lbl = _k1_case(cuda, B, D, P, n, torch.bfloat16)
     buf = torch.empty(B * D + 4, device=cuda, dtype=torch.bfloat16)
@@ -657,7 +662,8 @@ def test_tensor_core_kernels_spill_nothing(cuda, D):
 def test_backward_slab_kernels_spill_nothing(cuda, D, dtype):
     """K2's and K4's dz kernels and the two products past 256 features keep
     everything in registers (at most 255 a thread, no local memory), and
-    the products fit two blocks on an SM."""
+    the products fit two blocks on an SM: on the tensor cores in bfloat16,
+    on the FMA pipes in float32."""
     s = torch.zeros(512, D, device=cuda, dtype=dtype)
     for shape in (tx.bwd_launch_shape(s, 3584),
                   txm.multi_launch_shape(s.expand(3, 512, D), 3584)):
@@ -666,3 +672,20 @@ def test_backward_slab_kernels_spill_nothing(cuda, D, dtype):
             assert shape["local_bytes"][k] == 0
     k2 = tx.bwd_launch_shape(s, 3584)
     assert k2["resident_per_sm"] >= 2 and k2["dz_resident_per_sm"] >= 2
+    want = "tensor_core" if dtype == torch.bfloat16 else "fma"
+    multi = txm.multi_launch_shape(s.expand(3, 512, D), 3584)
+    assert k2["product"] == multi["k4"]["product"] == want
+
+
+@pytest.mark.parametrize("D,bf16,f32", [(258, 144, 132), (512, 256, 256),
+                                        (513, 176, 172), (1000, 256, 252)])
+def test_bf16_slab_widths_start_on_a_k_step(cuda, D, bf16, f32):
+    """Past 256 features the slabs of the backward's products start on a
+    multiple of 16 features in bfloat16 (a tensor-core k step: 16-byte
+    aligned ldmatrix rows and cp.async copies) and of 4 in float32; every
+    slab at most 256 wide and none empty."""
+    assert tx.slab_width(D, torch.bfloat16) == bf16
+    assert tx.slab_width(D, torch.float32) == f32
+    for sw in (bf16, f32):
+        n = tx.slabs(D)
+        assert sw <= 256 and 0 < D - (n - 1) * sw <= sw

@@ -419,13 +419,21 @@ def test_trace_counts_the_slab_kernels_as_their_wrappers_launches():
               ("void (anonymous namespace)::xent_multi_fwd_slab<float>(int)",
                0, 1),
               ("void (anonymous namespace)::xent_multi_bwd_dtable"
-               "<float, true>(int)", 0, 1)]
+               "<float, true>(int)", 0, 1),
+              # bfloat16 on the tensor cores: K1's slab kernel keeps its
+              # name, the products K2 and K4 share count nothing
+              ("void (anonymous namespace)::xent_fwd_slab<__nv_bfloat16>"
+               "(int)", 0, 1),
+              ("void (anonymous namespace)::xent_slab_dtable_tc"
+               "<__nv_bfloat16>(int)", 0, 1),
+              ("void (anonymous namespace)::xent_slab_dsr_tc"
+               "<__nv_bfloat16>(int)", 0, 1)]
     counts, bf16, n = cs.count_launches(events)
-    assert counts == dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=1,
+    assert counts == dict(xent_fwd=2, xent_bwd=1, xent_multi_fwd=1,
                           xent_multi_bwd=1)
-    assert bf16 == dict(xent_fwd=0, xent_bwd=1, xent_multi_fwd=0,
+    assert bf16 == dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=0,
                         xent_multi_bwd=0)
-    assert n == 6
+    assert n == 9
 
 
 def test_trace_counts_the_tensor_core_kernels_as_their_wrappers_launches():
@@ -499,7 +507,7 @@ class _Library:
     def srt_xent_slabs(D):
         return -(-D // 256)
 
-    srt_xent_multi_dz_slots = None
+    srt_xent_multi_dz_slots = srt_xent_bwd_dz_slots = None
 
 
 @pytest.fixture
@@ -586,6 +594,83 @@ def test_k4_grid_follows_its_own_kernels_slots(monkeypatch, dtype, want):
     assert (k4["dtable_blocks"], k4["dsr_blocks"], k4["resident_per_sm"]) \
         == (want["dtable_blocks"], want["dsr_blocks"], want["per_sm"])
     assert k4["dtable_blocks"] <= 132 * want["per_sm"] >= k4["dsr_blocks"]
+
+
+# The launch lines past 256 features: at D 512 the slots queries report
+# K1's to K4's slab kernels on the tensor cores in bfloat16 (K1's ring of
+# four 18,432-byte stages) and on the FMA pipes in float32 (three of
+# 34,816), two blocks an SM in both; the numbers stand in for the card.
+
+def _d512_slots(monkeypatch, dtype):
+    from sessionrec_tpu_torch.ops import xent_multi as xm
+    tc = int(dtype == torch.bfloat16)
+    ring = (73728, 4) if tc else (104448, 3)
+    monkeypatch.setattr(xent, "_library", lambda: _Library)
+    monkeypatch.setattr(xm, "_library", lambda: _Library)
+    monkeypatch.setattr(xent, "_fwd_attrs", lambda dev, D, dt: (
+        2, 132, 96, 0, *ring, tc))
+    monkeypatch.setattr(xent, "_bwd_attrs", lambda dev, D, dt: (
+        2, 2, 132, 128, 128, 0, 0, tc))
+    monkeypatch.setattr(xm, "_attrs", lambda dev, D, dt: (
+        2, 2, 2, 132, 120, 128, 128, 0, 0, 0, ring[0] + 512, ring[1], tc,
+        tc))
+    monkeypatch.setattr(xent, "slots_query", lambda *a: (3, 96, 0))
+    return xm
+
+
+@pytest.mark.parametrize("dtype,product,stages", [
+    (torch.bfloat16, "tensor_core", 4), (torch.float32, "fma", 3)])
+def test_slab_launch_lines_name_the_product(monkeypatch, dtype, product,
+                                            stages):
+    xm = _d512_slots(monkeypatch, dtype)
+    sr = torch.zeros(512, 512, dtype=dtype)
+    k1, k2 = xent.fwd_launch_shape(sr, 3584), xent.bwd_launch_shape(sr, 3584)
+    multi = xm.multi_launch_shape(sr.expand(3, 512, 512), 3584)
+    assert k1["product"] == k2["product"] == multi["k3"]["product"] == \
+        multi["k4"]["product"] == product
+    assert k1["ring_stages"] == multi["k3"]["ring_stages"] == stages
+    assert k2["slabs"] == multi["k4"]["slabs"] == 2
+    assert k2["dz_resident_per_sm"] == multi["k4"]["dz_resident_per_sm"] == 3
+    assert k2["registers"]["dz"] == 96 and k2["local_bytes"]["dz"] == 0
+
+
+# The slab backward's plan at the north star (37,888 rows) with two
+# resident product blocks an SM on 132 SMs (264 slots), D 512 (two slabs):
+# one dz chunk; d_table's product 592 catalog tiles x 2 slabs, one row
+# split (its tiles alone pass the slots: 4.48 waves); d_sr's rows x 2 slabs
+# x catalog splits within one wave.  K2 over 512 rows, K4 over 3 x 512.
+@pytest.mark.parametrize("rows,esz,want", [
+    (512, 2, dict(dz_blocks=4736, dtable_blocks=1184, dsr_blocks=256,
+                  chunks=1, row_splits=1, catalog_splits=16, dz_mib=37.0)),
+    (1536, 2, dict(dz_blocks=14208, dtable_blocks=1184, dsr_blocks=240,
+                   chunks=1, row_splits=1, catalog_splits=5, dz_mib=111.0)),
+    (512, 4, dict(dz_blocks=4736, dtable_blocks=1184, dsr_blocks=256,
+                  chunks=1, row_splits=1, catalog_splits=16, dz_mib=74.0))])
+def test_slab_plan_at_the_north_star_with_two_blocks_an_sm(monkeypatch, rows,
+                                                           esz, want):
+    monkeypatch.setattr(xent, "_library", lambda: _Library)
+    plan = xent.slab_bwd_plan(rows, 37888, esz, 264, 2)
+    assert (plan["chunk"], plan["t_split"], plan["dsr_parts"]) == \
+        (592, 1, want["catalog_splits"])
+    shape = xent.slab_grid_shape(rows, 37888, esz, 2, 132, 2)
+    assert shape == dict(want, slabs=2, resident_per_sm=2)
+    assert shape["dsr_blocks"] <= 264 < shape["dtable_blocks"]
+
+
+def test_o1_wide_bf16_is_o1_bf16_at_the_wide_width():
+    """The bfloat16 wide path: o1_bf16's model (bfloat16 table and compute,
+    K1/K2 once a step) at WIDE_D features, 16 steps."""
+    spec = cs.LATE_PATHS["o1_wide_bf16"]
+    assert spec["kernels"] == cs.PATHS["o1_bf16"]["kernels"] == cs.K12
+    assert spec["dim"] == cs.WIDE_D == 512 and spec["steps"] == 16
+    assert cs.is_bf16("o1_wide_bf16")
+    assert cs.SHORT["o1_wide_bf16"] == "o1_wide_bf16"
+    cfg = cs.path_config("o1_wide_bf16", 0, "datasets/sample", dev="cpu")
+    base = cs.path_config("o1_bf16", 0, "datasets/sample", dev="cpu")
+    assert cfg.model.embedding_dim == 512
+    assert cfg.model.table_dtype == cfg.model.compute_dtype == "bfloat16"
+    assert (cfg.model.order, cfg.data.batch_size) == \
+        (base.model.order, base.data.batch_size) == (1, 512)
 
 
 # Mutants of the tensor-core kernels' likeliest faults, in bfloat16 at
@@ -778,6 +863,113 @@ def test_bwd_check_fails_a_k4_that_folds_every_order_onto_order_0(dim):
     first_lse = [x[:1].expand_as(x) for x in lse]
     assert _k4_fails(_k4_from_logits(z, member, first, first_lse, sr3, tab,
                                      labels), want, labels, iids)
+
+
+# Mutants of the tensor-core slab kernels past 256 features, in bfloat16
+# at widths 258 and 1,000 (96 rows, 640 table rows): k-chunks of 64, so
+# the last chunk is 2 and 40 wide; the backward's slabs start on a k step
+# of 16 (csrc/tiles.cuh:slab_width: 144 + 114, and 3 x 256 + 232).  A K1
+# whose last chunk runs round_down(w, 16) features, or that sums every
+# chunk but the last; a K2 whose d_table product drops each slab's
+# features past round_down(w, 16), or whose 64-row stages skip the last
+# partial one (rows 64-95 of 96); a K4 whose d_sr takes only the first
+# slab.  chip_smoke's checks must fail each; the same arithmetic on the
+# full logits passes them.
+
+SLAB_DIMS = (258, 1000)
+
+
+def _slabs_bf16(D):
+    """[(k0, w)] of the bfloat16 feature slabs past 256 features."""
+    n = -(-D // 256)
+    sw = (-(-D // n) + 15) & ~15
+    return [(k0, min(sw, D - k0)) for k0 in range(0, D, sw)]
+
+
+def _chunk_keep(D, last):
+    """Features a K1 multiplies when its last k-chunk of 64 runs ``last``
+    of its w features."""
+    k0 = (D - 1) // 64 * 64
+    return torch.arange(D) < k0 + last(D - k0)
+
+
+def _k1_logits_of(sr, tab, keep):
+    t = tab.float()
+    n = torch.clamp(torch.linalg.vector_norm(t, dim=1), min=1e-12)
+    return cs.SCALE * ((sr.float() * keep) @ t.T) / n
+
+
+@pytest.mark.parametrize("dim", SLAB_DIMS)
+@pytest.mark.parametrize("fault", ["last_chunk_rounded_down",
+                                   "last_chunk_dropped"])
+def test_fwd_check_fails_a_slab_k1_that_loses_the_last_chunk(dim, fault):
+    sr, tab, labels, _, kw = _bf16_case(dim, seed=17)
+    want = xent.xent_fwd(sr, tab, labels, BF16_ITEMS, **kw)
+    tol = cs.TOL[("fwd", "bfloat16")]
+    full = _k1_from_logits(_k1_logits_of(sr, tab, torch.ones(dim)), labels)
+    err, bound = cs.fwd_errors(full, want, tol)
+    assert err <= bound
+    last = {"last_chunk_rounded_down": lambda w: w // 16 * 16,
+            "last_chunk_dropped": lambda w: 0}[fault]
+    keep = _chunk_keep(dim, last)
+    assert 0 < int((~keep).sum()) <= 64
+    bad = _k1_from_logits(_k1_logits_of(sr, tab, keep.float()), labels)
+    err, bound = cs.fwd_errors(bad, want, tol)
+    assert err > bound
+
+
+def _k2_slab(z, g, sr, tab, labels, lse, rows=None, feats=None):
+    """``_k2_from_logits`` with d_table's product dz^T sr over the batch
+    rows ``rows`` only and its features ``feats`` only (all by default),
+    before the l2norm VJP, as a faulty slab product would give it."""
+    that, tmm, n = xent._operand(tab, True)
+    col = torch.arange(tab.shape[0])[None, :]
+    p = torch.where(col < BF16_ITEMS, torch.exp(z - lse[:, None]), 0.0)
+    onehot = (col == labels.long()[:, None]).float()
+    dz = ((p - onehot) * (cs.SCALE * g)[:, None]).to(tab.dtype).float()
+    rows = slice(None) if rows is None else rows
+    gtab = dz[rows].T @ sr.float()[rows]
+    if feats is not None:
+        gtab = gtab * feats
+    gdot = torch.sum(gtab * that, dim=1, keepdim=True)
+    gtab = (gtab - gdot * that * (n > 1e-12).float()) / n
+    return dz @ tmm, gtab.to(tab.dtype)
+
+
+@pytest.mark.parametrize("dim", SLAB_DIMS)
+@pytest.mark.parametrize("fault", ["slab_tail_dropped",
+                                   "last_partial_stage_skipped"])
+def test_bwd_check_fails_a_slab_k2_with_a_short_product(dim, fault):
+    sr, tab, labels, g, kw = _bf16_case(dim, seed=18)
+    _, lse = xent.xent_fwd(sr, tab, labels, BF16_ITEMS, **kw)
+    want = xent.xent_bwd(g, sr, tab, labels, lse, BF16_ITEMS, **kw)
+    tmm = xent._operand(tab, True)[1]
+    z = cs.SCALE * (sr.float() @ tmm.T)
+    assert not _k2_fails(_k2_slab(z, g, sr, tab, labels, lse), want,
+                         labels)
+    if fault == "slab_tail_dropped":
+        feats = torch.ones(dim)
+        for k0, w in _slabs_bf16(dim):
+            feats[k0 + w // 16 * 16:k0 + w] = 0.0
+        assert int((feats == 0).sum()) in (2, 8)
+        bad = _k2_slab(z, g, sr, tab, labels, lse, feats=feats)
+    else:
+        assert sr.shape[0] == 96
+        bad = _k2_slab(z, g, sr, tab, labels, lse, rows=slice(0, 64))
+    assert _k2_fails(bad, want, labels)
+
+
+@pytest.mark.parametrize("dim", SLAB_DIMS)
+def test_bwd_check_fails_a_slab_k4_whose_dsr_takes_one_slab(dim):
+    xm, sr3, tab, labels, iids, cot, lse, want = _k4_case(dim, 19)
+    member = xm._member(iids, BF16_P, 0)
+    z = _k4_logits(sr3, tab, dim)
+    dsr, dtab = _k4_from_logits(z, member, cot, lse, sr3, tab, labels)
+    assert not _k4_fails((dsr, dtab), want, labels, iids)
+    first = _slabs_bf16(dim)[0][1]
+    bad = dsr.clone()
+    bad[..., first:] = 0.0
+    assert _k4_fails((bad, dtab), want, labels, iids)
 
 
 # vs_cpu's readings: the ``torch.relu`` inputs whose sign parts the card
