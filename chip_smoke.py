@@ -47,13 +47,16 @@ Phases, one JSON line each on stdout:
    optimizer steps (the first 8 eager, the rest as replays of one
    captured 8-step CUDA graph), a final eval and a checkpoint, whose
    ``epoch_0000/params.pt``, ``train.pt`` and sidecar must exist, as
-   must ``train`` and ``eval`` events with the JAX package's keys.  Every
-   kernel's launch count is set to 0 just before and read just after:
-   K1 and K2 must have launched, K3 and K4 not.  The wrappers count the
-   eager launches and the captured ones (a capture records a launch, a
-   replay runs it without calling the wrapper), so the device's launches
-   are counted two ways: the run's eager launches plus each graph's
-   captured launches times its replays, which must give K1 and K2 once
+   must ``train`` and ``eval`` events with the JAX package's keys.  The
+   kernel wrappers' counters (``xent.fwd``, ``xent.bwd``,
+   ``xent_multi.fwd``, ``xent_multi.bwd`` of ``utils/profiling.py``,
+   tracing on for the whole run) are emptied just before and read just
+   after: K1 and K2 must have launched, K3 and K4 not.  The wrappers
+   count the eager launches and the captured ones (a capture records a
+   launch, a replay runs it without calling the wrapper; a ``StepGraph``
+   keeps its capture's ``counts``), so the device's launches are counted
+   two ways: the run's eager launches plus ``runner.launches`` of each
+   graph (captured times replays), which must give K1 and K2 once
    per step and K3 and K4 never; and by kernel name in a
    ``torch.profiler`` trace of one more chunk of replays
    (``launch_count_method`` says which held; the second where the trace
@@ -1073,11 +1076,27 @@ def trace_launches(torch, fn):
     return count_launches(traced_events(torch, fn))
 
 
+# the kernel wrappers' counters (utils/profiling.py) by this script's
+# names of K1-K4
+COUNTERS = {"xent_fwd": "xent.fwd", "xent_bwd": "xent.bwd",
+            "xent_multi_fwd": "xent_multi.fwd",
+            "xent_multi_bwd": "xent_multi.bwd"}
+
+
+def wrapper_launches():
+    """{kernel: its wrapper's launches since ``profiling.reset()``}."""
+    from sessionrec_tpu_torch.utils import profiling
+    counts = profiling.snapshot()["counts"]
+    return {k: counts.get(c, 0) for k, c in COUNTERS.items()}
+
+
 def device_launches(launches, graphs):
     """The device's launches of a run from its wrapper counts: each
-    graph's capture counted its launches once and ran none; each replay
-    ran them all."""
-    return {k: n + sum(g.captured[k] * (g.replays - 1)
+    graph's capture counted its launches once and ran none; its replays
+    ran them ``runner.launches(graph)`` times."""
+    from sessionrec_tpu_torch.train.runner import launches as replayed
+    return {k: n + sum(replayed(g).get(COUNTERS[k], 0)
+                       - g.counts.get(COUNTERS[k], 0)
                        for g in graphs.values())
             for k, n in launches.items()}
 
@@ -1132,12 +1151,12 @@ def check_run_files(ckpt_dir, metrics_file):
             "metrics_keys_ok": keys_ok}
 
 
-def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
+def phase_path(torch, name, steps, seed, dataset_dir, smi, tmp):
     """The path's run (see the module docstring), with a checkpoint
     directory and a metrics file under ``tmp``; returns (wrapper launches,
     device launches, the runner, its config, the parameters it saved)."""
-    from sessionrec_tpu_torch.train.runner import launch_counts
     from sessionrec_tpu_torch.train.session import run_training
+    from sessionrec_tpu_torch.utils import profiling
 
     spec = path_spec(name)
     steps = spec.get("steps", steps)
@@ -1146,8 +1165,7 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
                       checkpoint_dir=str(Path(tmp) / name / "ckpt"),
                       metrics_file=str(Path(tmp) / name / "metrics.jsonl"))
     Path(tmp, name).mkdir(parents=True, exist_ok=True)
-    xent.reset_launches()
-    xm.reset_launches()
+    profiling.reset()
     t0 = time.perf_counter()
     runner = run_training(cfg, max_epoch_batches=steps)
     mrr, hit = runner.max_mrr, runner.max_hit
@@ -1156,9 +1174,10 @@ def phase_path(torch, xent, xm, name, steps, seed, dataset_dir, smi, tmp):
     # the parameters and buffers the run saved, before the traced chunk
     # trains on
     saved = {n: t.clone() for n, t in runner.model.state_dict().items()}
-    launches = launch_counts()
+    launches = wrapper_launches()
     on_device = device_launches(launches, runner.graphs)
-    graphs = {s: {"captured": g.captured, "replays": g.replays}
+    graphs = {s: {"counts": g.counts, "replays": g.replays,
+                  "nodes": g.nodes}
               for s, g in runner.graphs.items()}
     dtypes = table_state(torch, runner)
 
@@ -1779,7 +1798,7 @@ def with_labels(batch, labels):
     return nest_blocks(blocks)
 
 
-def phase_million_train(torch, xent, xm, name, seed, data_dir, smi, tmp):
+def phase_million_train(torch, name, seed, data_dir, smi, tmp):
     """Train path ``name`` for its steps through ``run_training`` (an
     initial and a final eval at the auto policy; niser_1m checkpoints):
     the path's kernels once a step, counted as the other paths count them,
@@ -1787,8 +1806,8 @@ def phase_million_train(torch, xent, xm, name, seed, data_dir, smi, tmp):
     whose device ms a step is the train step's.  Returns (wrapper
     launches, device launches, runner, config, the parameters saved in
     the checkpoint or None)."""
-    from sessionrec_tpu_torch.train.runner import launch_counts
     from sessionrec_tpu_torch.train.session import run_training
+    from sessionrec_tpu_torch.utils import profiling
     from sessionrec_tpu_torch.utils.profiling import busy_us
     spec = MILLION_PATHS[name]
     steps = spec["steps"]
@@ -1796,13 +1815,12 @@ def phase_million_train(torch, xent, xm, name, seed, data_dir, smi, tmp):
         if name == "niser_1m" else {}
     cfg = million_config(name, seed, data_dir, **ckpt)
     held = reset_peak(torch)
-    xent.reset_launches()
-    xm.reset_launches()
+    profiling.reset()
     t0 = time.perf_counter()
     runner = run_training(cfg, max_epoch_batches=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = wrapper_launches()
     on_device = device_launches(launches, runner.graphs)
     peak = peak_gib(torch)
     n = runner.steps
@@ -1863,7 +1881,7 @@ def graph_ranks(torch, model, batches, cutoff=TOPK, **kw):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     g, _ = _capture({}, 1, None,
-                    lambda: eval_ranks(model, slots[0], cutoff, **kw))
+                    lambda: eval_ranks(model, slots[0], cutoff, **kw), "eval")
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     ranks, ms = [], []
@@ -2162,7 +2180,7 @@ def phase_million_kernels(torch, xent, xm, seed, smi):
     torch.cuda.empty_cache()
 
 
-def run_million_paths(torch, np, xent, xm, seed, dataset_dir, smi, tmp):
+def run_million_paths(torch, np, seed, dataset_dir, smi, tmp):
     """The two million-item paths on a synthetic split written under
     ``tmp``: train, eval, serve; returns ({kernel: wrapper launches},
     {kernel: device launches}) of their training runs."""
@@ -2170,7 +2188,7 @@ def run_million_paths(torch, np, xent, xm, seed, dataset_dir, smi, tmp):
     launches, on_device = {}, {}
     for name in MILLION_PATHS:
         wrapped, dev, runner, cfg, saved = phase_million_train(
-            torch, xent, xm, name, seed, data, smi, tmp)
+            torch, name, seed, data, smi, tmp)
         for k in wrapped:
             launches[k] = launches.get(k, 0) + wrapped[k]
             on_device[k] = on_device.get(k, 0) + dev[k]
@@ -2371,20 +2389,19 @@ def step_snapshot(torch, runner):
                       if p.grad is not None}}
 
 
-def mesh_steps(torch, xent, xm, runner, batches, out, prefix, start=None):
+def mesh_steps(torch, runner, batches, out, prefix, start=None):
     """(losses, the wrappers' launches, seconds a step): eager steps on
     ``batches``, every launch count set to 0 just before and read just
     after; ``step_snapshot`` is saved as ``out/<prefix><k>.pt`` after
     step k (k = 0: before the first), and with ``start`` each step k > 1 first
     loads the state of ``out/<start><k - 1>.pt``."""
-    from sessionrec_tpu_torch.train.runner import launch_counts
+    from sessionrec_tpu_torch.utils import profiling
     from sessionrec_tpu_torch.utils.checkpoint import load_state
     losses, seconds = [], []
     snap = step_snapshot(torch, runner)
     if snap is not None:
         torch.save(snap, out / f"{prefix}0.pt")
-    xent.reset_launches()
-    xm.reset_launches()
+    profiling.reset()
     for k, b in enumerate(batches, 1):
         if start is not None and k > 1:
             load_state(runner, torch.load(out / f"{start}{k - 1}.pt",
@@ -2399,7 +2416,7 @@ def mesh_steps(torch, xent, xm, runner, batches, out, prefix, start=None):
         snap = step_snapshot(torch, runner)
         if snap is not None:
             torch.save(snap, out / f"{prefix}{k}.pt")
-    return losses, launch_counts(), seconds
+    return losses, wrapper_launches(), seconds
 
 
 def full_ranks(model):
@@ -2432,7 +2449,7 @@ def mesh_worker(torch, rank, port, out, seed, dataset_dir):
                                                  dataset_dir, mesh)
             where = Path(out) / name
             losses, launches, seconds = mesh_steps(
-                torch, xent, xm, runner, batches, where, "mesh", "card")
+                torch, runner, batches, where, "mesh", "card")
             t0 = time.perf_counter()
             sums = runner.eval_sweep().cpu()
             eval_s = time.perf_counter() - t0
@@ -2549,7 +2566,7 @@ def mesh_state_gaps(torch, out, k, wd):
     return row
 
 
-def phase_mesh(torch, xent, xm, seed, dataset_dir, smi, tmp):
+def phase_mesh(torch, seed, dataset_dir, smi, tmp):
     """The mesh paths (module docstring, phase 10): each on the card alone
     first (its steps with their states, its eval sweep and the full ranks
     of the test split at its final parameters), then on the mesh's 4
@@ -2561,8 +2578,8 @@ def phase_mesh(torch, xent, xm, seed, dataset_dir, smi, tmp):
     for name in MESH_PATHS:
         (out / name).mkdir(parents=True, exist_ok=True)
         runner, batches, tests = mesh_runner(torch, name, seed, dataset_dir)
-        losses, launches, seconds = mesh_steps(torch, xent, xm, runner,
-                                               batches, out / name, "card")
+        losses, launches, seconds = mesh_steps(torch, runner, batches,
+                                               out / name, "card")
         sums = runner.eval_sweep().cpu()
         model = runner.model
         model.eval()
@@ -2898,7 +2915,7 @@ def run_late_paths(torch, np, xent, xm, seed, dataset_dir, smi, tmp):
                      ("o1_wide_bf16", dataset_dir)):
         t0 = time.perf_counter()
         wrapped, dev, runner, cfg, saved = phase_path(
-            torch, xent, xm, name, None, seed, str(ds), smi, tmp)
+            torch, name, None, seed, str(ds), smi, tmp)
         for k in wrapped:
             launches[k] = launches.get(k, 0) + wrapped[k]
             on_device[k] = on_device.get(k, 0) + dev[k]
@@ -2937,7 +2954,10 @@ def main(argv=None):
     from sessionrec_tpu_torch.ops import cuda_build, xent
     from sessionrec_tpu_torch.ops import xent_multi as xm
     from sessionrec_tpu_torch.train.runner import set_precision
+    from sessionrec_tpu_torch.utils import profiling
     set_precision()
+    # the launch counts are the tracing registry's counters
+    profiling.enable(True)
     if args.mesh_worker:
         rank, port, out = args.mesh_worker
         return mesh_worker(torch, int(rank), port, out, args.seed,
@@ -2966,8 +2986,8 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             for name in PATHS:
                 wrapped, dev, runner, cfg, saved = phase_path(
-                    torch, xent, xm, name, args.steps, args.seed,
-                    args.dataset_dir, smi, tmp)
+                    torch, name, args.steps, args.seed, args.dataset_dir,
+                    smi, tmp)
                 for k in wrapped:
                     launches[k] += wrapped[k]
                     on_device[k] += dev[k]
@@ -2979,13 +2999,13 @@ def main(argv=None):
             for name in ("path", "lessr", "o1_bf16"):
                 phase_resume(torch, args.seed, args.dataset_dir, smi, tmp,
                              name=name)
-            wrapped, dev = run_million_paths(torch, np, xent, xm, args.seed,
+            wrapped, dev = run_million_paths(torch, np, args.seed,
                                              args.dataset_dir, smi, tmp)
             for k in wrapped:
                 launches[k] += wrapped[k]
                 on_device[k] += dev[k]
-            mesh_launches = phase_mesh(torch, xent, xm, args.seed,
-                                       args.dataset_dir, smi, tmp)
+            mesh_launches = phase_mesh(torch, args.seed, args.dataset_dir,
+                                       smi, tmp)
             wrapped, dev = run_late_paths(torch, np, xent, xm, args.seed,
                                           args.dataset_dir, smi, tmp)
             for k in wrapped:

@@ -7,7 +7,10 @@ a background thread that produces numpy arrays only; the consuming thread
 moves each batch to the device (pinned host memory, non-blocking copy),
 so the prefetch thread never touches CUDA.  Train order is *sequential*
 by default to reproduce the reference's ordered-training semantics
-(README.md:37).
+(README.md:37).  With tracing on (``utils/profiling.py``) each build is a
+``loader.build`` span (in the prefetch thread) and each wait for a built
+batch a ``loader.wait`` span, counted in ``loader.queue_empty`` where the
+queue was empty.
 
 The batch kinds are the JAX package's: 'session' (SRGNN, NISER),
 'lessr' and 'ccs' (MSGIFSR).  Batches come from the C++ builders
@@ -35,6 +38,7 @@ from sessionrec_tpu_torch.data import native_collate
 from sessionrec_tpu_torch.data.augment import AugmentedIndex
 from sessionrec_tpu_torch.graph import batch as B
 from sessionrec_tpu_torch.graph import builders
+from sessionrec_tpu_torch.utils import profiling
 
 
 def _make_batch(kind, seqs, labels, max_len, batch_size, order,
@@ -235,7 +239,9 @@ class BatchLoader:
         bs = self.batch_size
         if self.prefetch <= 0:
             for k in range(nb):
-                yield self._build(order[k * bs:(k + 1) * bs])
+                with profiling.span("loader.build"):
+                    batch = self._build(order[k * bs:(k + 1) * bs])
+                yield batch
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -254,7 +260,9 @@ class BatchLoader:
         def producer():
             try:
                 for k in range(nb):
-                    if not put(self._build(order[k * bs:(k + 1) * bs])):
+                    with profiling.span("loader.build"):
+                        batch = self._build(order[k * bs:(k + 1) * bs])
+                    if not put(batch):
                         return
                 put(None)
             except Exception as e:  # surface builder errors to the consumer
@@ -264,7 +272,10 @@ class BatchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                if profiling.enabled() and q.empty():
+                    profiling.count("loader.queue_empty")
+                with profiling.span("loader.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, Exception):

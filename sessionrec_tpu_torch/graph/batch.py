@@ -81,6 +81,16 @@ class _Container:
                 out[f.name] = _block(v, d, dp)
         return type(self)(**out)
 
+    def nbytes(self):
+        """Bytes of this batch's arrays (host or device), every tier's."""
+        total = 0
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            for e in (v if isinstance(v, tuple) else (v,)):
+                total += e.nbytes() if isinstance(e, _Container) \
+                    else e.nbytes
+        return total
+
     def to(self, device):
         """Copy of this batch with every array a tensor on ``device``."""
         out = {}

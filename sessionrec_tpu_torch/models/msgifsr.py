@@ -42,6 +42,7 @@ from sessionrec_tpu_torch.models import layers as L
 from sessionrec_tpu_torch.models.lessr import renorm_rows
 from sessionrec_tpu_torch.ops import scoring
 from sessionrec_tpu_torch.ops.masked import NEG_INF, masked_softmax
+from sessionrec_tpu_torch.utils import profiling
 
 # safe-log floor of the REnorm/fusion score (sessionrec_tpu/models/
 # msgifsr.py:_TINY): a normal float32 far below any reachable probability
@@ -152,14 +153,22 @@ class MSGIFSR(nn.Module):
 
     # -- pieces ------------------------------------------------------------
 
-    def _embed_levels(self, cp, batch, rng, training):
+    def _gather_levels(self, batch):
+        """Each level's ``[B, Nk, k, d]`` table rows, one ``model.embed``
+        span a level (its backward part is the gather's backward)."""
+        rows = []
+        for lv in batch.levels:
+            with profiling.span("model.embed") as s:
+                rows.append(s.outputs(L.embedding_lookup(
+                    self.embedding, lv.iid, self.shard)))
+        return rows
+
+    def _embed_levels(self, cp, rows, rng, training):
         feats = []
-        for l in range(1, self.order + 1):
-            lv = batch.levels[l - 1]
+        for l, feat in enumerate(rows, 1):
             # the gathered rows move to the compute dtype (the table may
             # be stored bf16 whatever the compute dtype)
-            feat = L.embedding_lookup(self.embedding, lv.iid, self.shard) \
-                .to(self.cdt or torch.float32)             # [B, Nk, k, d]
+            feat = feat.to(self.cdt or torch.float32)      # [B, Nk, k, d]
             feat = L.dropout(rng, feat, self.feat_drop, training)
             feat = L.semantic_expander_apply(cp.expander, feat, l,
                                              self.reducer)
@@ -189,25 +198,35 @@ class MSGIFSR(nn.Module):
         (shortest tier first); MSGIFSR has no BatchNorm, so the tiers are
         independent."""
         if isinstance(batch, SplitBatch):
-            return torch.cat([self._session_repr(batch.short, rng, training),
-                              self._session_repr(batch.long, rng, training)],
-                             dim=0)
+            tiers = [self._session_repr(batch.short, rng, training),
+                     self._session_repr(batch.long, rng, training)]
+            with profiling.span("model.readout") as s:
+                s.inputs(tiers)
+                return s.outputs(torch.cat(tiers, dim=0))
         cp = L.cast_floats(self, self.cdt)
-        h = self._embed_levels(cp, batch, rng, training)
-        for lp in cp.layers:
-            h = L.mshgnn_apply(lp, h, batch, rng, feat_drop=self.feat_drop,
-                               training=training, num_heads=self.num_heads)
-        if self.norm:
-            h = [L.l2norm(x) for x in h]
-        sr_g = self._readout(cp, batch, h)
-        sr_l = torch.stack([L.gather_rows(h[i], batch.levels[i].last_idx)
-                            for i in range(self.order)], dim=1)
-        sr = torch.cat([sr_l, sr_g], dim=-1)               # [B, K, 2d]
-        sr = torch.stack([cp.fc_sr[i](sr[:, i])
-                          for i in range(self.order)], dim=1)
-        if self.norm:
-            sr = L.l2norm(sr)
-        return sr
+        rows = self._gather_levels(batch)
+        with profiling.span("model.graph") as s:
+            s.inputs(rows)
+            h = self._embed_levels(cp, rows, rng, training)
+            for lp in cp.layers:
+                h = L.mshgnn_apply(lp, h, batch, rng,
+                                   feat_drop=self.feat_drop,
+                                   training=training,
+                                   num_heads=self.num_heads)
+            s.outputs(h)
+        with profiling.span("model.readout") as s:
+            s.inputs(h)
+            if self.norm:
+                h = [L.l2norm(x) for x in h]
+            sr_g = self._readout(cp, batch, h)
+            sr_l = torch.stack([L.gather_rows(h[i], batch.levels[i].last_idx)
+                                for i in range(self.order)], dim=1)
+            sr = torch.cat([sr_l, sr_g], dim=-1)           # [B, K, 2d]
+            sr = torch.stack([cp.fc_sr[i](sr[:, i])
+                              for i in range(self.order)], dim=1)
+            if self.norm:
+                sr = L.l2norm(sr)
+            return s.outputs(sr)
 
     def _session_item_mask(self, batch):
         """[B, P] 0/1 float: items occurring in the session (level-1
@@ -250,7 +269,9 @@ class MSGIFSR(nn.Module):
         ``seeds`` (a ``layers.SeedSource``) drives dropout; None disables
         it."""
         sr = self._session_repr(batch, seeds, training)
-        return sr[:, 0], self.embedding
+        with profiling.span("model.readout") as s:
+            s.inputs(sr)
+            return s.outputs(sr[:, 0]), self.embedding
 
     def head_multi(self, batch, *, training=False, seeds=None):
         """Inputs of the fused REnorm/fusion loss (ops/xent_multi.py):
@@ -258,8 +279,11 @@ class MSGIFSR(nn.Module):
         iids [B, N1])``.  ``iids`` are the level-1 session item ids, -1 on
         padding; the [B, P] session mask never exists."""
         sr = self._session_repr(batch, seeds, training)
-        phi = self._phi(sr) if self.extra else None
-        return sr, self.embedding, phi, self.alpha, self._session_iids(batch)
+        with profiling.span("model.readout") as s:
+            s.inputs(sr)
+            phi = s.outputs(self._phi(sr)) if self.extra else None
+            iids = self._session_iids(batch)
+        return sr, self.embedding, phi, self.alpha, iids
 
     def apply(self, batch, *, training=False, seeds=None):
         """``[B, P]`` log-probabilities over the catalog (padded columns
@@ -268,6 +292,12 @@ class MSGIFSR(nn.Module):
         ``phi``; fusion weights the orders by ``softmax(alpha)``, else
         order 1 is taken (msgifsr.py:276-321)."""
         sr = self._session_repr(batch, seeds, training)
+        with profiling.span("serve.score"):
+            return self._blend(batch, sr)
+
+    def _blend(self, batch, sr):
+        """``apply``'s scoring of the session vectors ``sr``: the catalog
+        products, the REnorm softmax passes and the fusion blend."""
         table = L.l2norm(self.embedding) if self.norm else self.embedding
         imask = scoring.item_mask(self.num_items, self.padded_items,
                                   sr.device).to(torch.float32)

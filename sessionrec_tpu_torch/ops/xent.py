@@ -30,8 +30,10 @@ d_table's and d_sr's products over it in feature slabs of at most 256
 
 Beside each kernel sits its plain PyTorch version (``_fwd_plain``,
 ``_bwd_plain``), the oracle: a wrapper takes it only for tensors on the
-CPU.  For CUDA tensors it launches the kernel or raises.  Logits and the
-softmax always accumulate in float32, also for bfloat16 inputs.
+CPU.  For CUDA tensors it launches the kernel or raises, and counts the
+launch in ``xent.fwd`` or ``xent.bwd`` (``utils/profiling.py``, tracing
+on; a capture counts once).  Logits and the softmax always accumulate in
+float32, also for bfloat16 inputs.
 
 The kernels and their plain versions take ``sr`` and the table in one
 type; ``catalog_xent`` maps the four combinations of the table's type and
@@ -68,21 +70,10 @@ from sessionrec_tpu_torch.ops import cuda_build
 from sessionrec_tpu_torch.ops.masked import NEG_INF
 from sessionrec_tpu_torch.parallel.mesh import (MODEL_AXIS, all_reduce,
                                                 shard_span)
+from sessionrec_tpu_torch.utils import profiling
 
 _NORM_EPS = 1e-12   # torch F.normalize eps (layers.l2norm)
 _TINY = torch.finfo(torch.float32).tiny
-
-# launch counts of the two kernel wrappers (K1, K2); each adds one where it
-# launches its kernels, nowhere else
-fwd_launches = 0
-bwd_launches = 0
-
-
-def reset_launches():
-    global fwd_launches, bwd_launches
-    fwd_launches = 0
-    bwd_launches = 0
-
 
 # ---------------------------------------------------------------------------
 # plain versions (the oracles)
@@ -483,7 +474,6 @@ def _raise_on(err, what):
 
 def _fwd_cuda(sr, table, labels, n_valid, col_offset, *, scale,
               normalize_table):
-    global fwd_launches
     _check(sr, table, labels)
     lib = _library()
     B, D = sr.shape
@@ -502,13 +492,12 @@ def _fwd_cuda(sr, table, labels, n_valid, col_offset, *, scale,
         grid["s_per"], _ptr(nrm), part.data_ptr(), loss.data_ptr(),
         lse.data_ptr(), stream)
     _raise_on(err, "xent_fwd launch")
-    fwd_launches += 1
+    profiling.count("xent.fwd")
     return loss, lse
 
 
 def _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset, *, scale,
               normalize_table):
-    global bwd_launches
     _check(sr, table, labels, g, lse)
     lib = _library()
     B, D = sr.shape
@@ -537,7 +526,7 @@ def _bwd_cuda(g, sr, table, labels, lse, n_valid, col_offset, *, scale,
             plan["s_per"], *map(_ptr, scratch), dsr.data_ptr(),
             dtab.data_ptr(), stream)
     _raise_on(err, "xent_bwd launch")
-    bwd_launches += 1
+    profiling.count("xent.bwd")
     return dsr, dtab
 
 

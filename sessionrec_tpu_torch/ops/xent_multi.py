@@ -33,7 +33,9 @@ The small ``[K, B]`` stats feed the plain-torch combiner
 (``combine_stats``: phi, alpha, fusion), whose gradients come from
 autograd.  Beside each kernel sits its plain PyTorch version
 (``_fwd_plain``, ``_bwd_plain``), taken only for tensors on the CPU; for
-CUDA tensors a wrapper launches the kernel or raises.  They take ``sr3``
+CUDA tensors a wrapper launches the kernel or raises, and counts the
+launch in ``xent_multi.fwd`` or ``xent_multi.bwd`` (``utils/profiling.py``,
+tracing on).  They take ``sr3``
 and the table in one type; ``catalog_multi_stats`` maps the combinations
 of table and compute type onto them as ``ops/xent.py`` does
 (``xent.common_dtype``: equal types as they are, mixed ones float32).
@@ -49,21 +51,10 @@ from sessionrec_tpu_torch.ops import xent
 from sessionrec_tpu_torch.ops.masked import NEG_INF
 from sessionrec_tpu_torch.parallel.mesh import (MODEL_AXIS, all_reduce,
                                                 shard_span)
+from sessionrec_tpu_torch.utils import profiling
 
 # safe-log floor of the label probability (models/msgifsr.py:_TINY)
 _TINY = 1e-30
-
-# launch counts of the two kernel wrappers (K3, K4); each adds one where it
-# launches its kernels, nowhere else
-fwd_launches = 0
-bwd_launches = 0
-
-
-def reset_launches():
-    global fwd_launches, bwd_launches
-    fwd_launches = 0
-    bwd_launches = 0
-
 
 # ---------------------------------------------------------------------------
 # plain versions (the oracles)
@@ -255,7 +246,6 @@ def multi_launch_shape(sr3, P):
 
 def _fwd_cuda(sr3, table, labels, iids, n_valid, col_offset, *, scale,
               normalize_table):
-    global fwd_launches
     _check(sr3, table, labels, iids)
     lib = _library()
     K, B, D = sr3.shape
@@ -273,13 +263,12 @@ def _fwd_cuda(sr3, table, labels, iids, n_valid, col_offset, *, scale,
         xent._vec(sr3, table), grid["s_split"], grid["s_per"], xent._ptr(nrm),
         part.data_ptr(), out.data_ptr(), stream)
     xent._raise_on(err, "xent_multi_fwd launch")
-    fwd_launches += 1
+    profiling.count("xent_multi.fwd")
     return tuple(out)
 
 
 def _bwd_cuda(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
               n_valid, col_offset, *, scale, normalize_table):
-    global bwd_launches
     g5 = torch.stack([gz, gin, gex, lse_in, lse_ex]).to(torch.float32) \
         .contiguous()
     _check(sr3, table, labels, iids, g5)
@@ -312,7 +301,7 @@ def _bwd_cuda(gz, gin, gex, sr3, table, labels, iids, lse_in, lse_ex,
             plan["s_per"], *map(xent._ptr, scratch), dsr.data_ptr(),
             dtab.data_ptr(), stream)
     xent._raise_on(err, "xent_multi_bwd launch")
-    bwd_launches += 1
+    profiling.count("xent_multi.bwd")
     return dsr, dtab
 
 

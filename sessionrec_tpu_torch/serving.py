@@ -26,7 +26,9 @@ blended probabilities in the same order and whose ids are the same.
 Top-k is ``scoring.stable_topk``: ``lax.top_k``'s order, equal scores by
 ascending id.  On CUDA the step replays a CUDA graph captured over a
 static batch slot after its first, eager batch; a capture that fails
-raises.
+raises.  With tracing on (``utils/profiling.py``) a batch's build is a
+``serving.build`` span, the scoring after the session vectors
+``serve.score`` and the top-k ``serve.topk``.
 """
 
 from __future__ import annotations
@@ -39,10 +41,11 @@ import torch
 from sessionrec_tpu_torch.data.loader import _make_batch
 from sessionrec_tpu_torch.ops.scoring import stable_topk
 from sessionrec_tpu_torch.ops.streamed_eval import streamed_multi_topk
-from sessionrec_tpu_torch.train.runner import (StepGraph, _Slots, _capture,
-                                               _on_side_stream, _streams,
-                                               eval_scores, resolve_device,
-                                               set_precision)
+from sessionrec_tpu_torch.train.runner import (StepGraph, _capture, _launch,
+                                               _on_side_stream, _Slots,
+                                               _streams, eval_scores,
+                                               resolve_device, set_precision)
+from sessionrec_tpu_torch.utils import profiling
 from sessionrec_tpu_torch.utils.checkpoint import Checkpointer
 
 
@@ -69,8 +72,9 @@ def session_batches(sessions, kind, batch_size, max_len, order=1,
                  sessions[start:start + batch_size]]
         n = len(chunk)
         chunk += [[0]] * (batch_size - n)
-        batch = _make_batch(kind, chunk, [0] * batch_size, max_len,
-                            batch_size, order, use_native)
+        with profiling.span("serving.build"):
+            batch = _make_batch(kind, chunk, [0] * batch_size, max_len,
+                                batch_size, order, use_native)
         valid = np.zeros(batch_size, np.float32)
         valid[:n] = 1.0
         yield dataclasses.replace(batch, valid=valid), n
@@ -92,7 +96,9 @@ def recommend_topk(model, batch, k, streamed=None, tile=None):
     always materialises.  ``tile``: the streamed slab rows, None for
     ``serving_tile``."""
     if model.has_plain_head or not _streams(model, batch, streamed):
-        return stable_topk(eval_scores(model, batch), k)
+        scores = eval_scores(model, batch)
+        with profiling.span("serve.topk"):
+            return stable_topk(scores, k)
     sr, table, phi, alpha, iids = model.head_multi(batch, training=False)
     return streamed_multi_topk(
         sr, table, iids, phi, alpha, num_items=model.num_items,
@@ -135,9 +141,8 @@ class RecommendStep:
                 self._slot.stage(0, batch)))
         self._slot.stage(0, batch)
         g, _ = _capture(self._graphs, 1, None,
-                        lambda: self._topk(self._slot[0]))
-        g.graph.replay()
-        g.replays += 1
+                        lambda: self._topk(self._slot[0]), "serve")
+        _launch(g)
         return tuple(t.clone() for t in g.out)
 
 

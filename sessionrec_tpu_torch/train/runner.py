@@ -13,7 +13,11 @@ loader's host batches in chunks of ``unroll``:
   weight decay and the schedule see exactly the real steps, as the JAX
   package's ``lax.cond`` skip does.  Both graphs are captured at first
   use and share one memory pool.  A capture or replay error raises; the
-  loop never drops back to eager steps.
+  loop never drops back to eager steps.  With tracing on
+  (``utils/profiling.py``) each staged batch is a ``runner.stage`` span,
+  each launch a ``runner.replay`` span, and a graph captured then keeps
+  the map of which span (``loss``, ``step.optimizer``, the model's
+  spans) owns each of its device nodes (``StepGraph.owners``).
 * on the CPU, each batch runs the plain per-step ``train_step``, which is
   also the reference the graph is held against.
 
@@ -68,7 +72,7 @@ from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -82,6 +86,7 @@ from sessionrec_tpu_torch.parallel.sharded import (bind_mesh,
                                                    sharded_loss,
                                                    sum_data_grads)
 from sessionrec_tpu_torch.train.optim import make_optimizer
+from sessionrec_tpu_torch.utils import profiling
 from sessionrec_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -126,13 +131,18 @@ def make_loss(model, batch, seeds):
     if model.has_plain_head:
         sr, table = model.head(batch, training=True, seeds=seeds)
         _check_loss_dtype(model, sr, table)
-        return xent.fused_nll_loss(sr, table, batch.labels, batch.valid, **kw)
+        with profiling.span("loss") as s:
+            s.inputs(sr)
+            return s.outputs(xent.fused_nll_loss(
+                sr, table, batch.labels, batch.valid, **kw))
     sr, table, phi, alpha, iids = model.head_multi(batch, training=True,
                                                    seeds=seeds)
     _check_loss_dtype(model, sr, table)
-    return xent_multi.multi_nll_loss(sr, table, batch.labels, batch.valid,
-                                     iids, phi, alpha, extra=model.extra,
-                                     fusion=model.fusion, **kw)
+    with profiling.span("loss") as s:
+        s.inputs((sr, phi))
+        return s.outputs(xent_multi.multi_nll_loss(
+            sr, table, batch.labels, batch.valid, iids, phi, alpha,
+            extra=model.extra, fusion=model.fusion, **kw))
 
 
 @torch.no_grad()
@@ -190,12 +200,13 @@ def eval_scores(model, batch):
     log-probabilities.  Padded catalog columns score -inf."""
     if model.has_plain_head:
         sr, table = model.head(batch, training=False)
-        if model.table_norm:
-            table = l2norm(table)
-        logits = scoring.catalog_logits(sr, table, model.cdt)
-        imask = scoring.item_mask(model.num_items, model.padded_items,
-                                  logits.device)
-        return torch.where(imask, logits, -math.inf)
+        with profiling.span("serve.score"):
+            if model.table_norm:
+                table = l2norm(table)
+            logits = scoring.catalog_logits(sr, table, model.cdt)
+            imask = scoring.item_mask(model.num_items, model.padded_items,
+                                      logits.device)
+            return torch.where(imask, logits, -math.inf)
     return model.apply(batch, training=False)
 
 
@@ -273,13 +284,6 @@ def evaluate(model, loader, cutoff=20):
     return sweep_metrics(eager_sums(model, loader, cutoff, device))
 
 
-def launch_counts():
-    """The K1-K4 wrappers' launch counters, by kernel."""
-    return {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
-            "xent_multi_fwd": xent_multi.fwd_launches,
-            "xent_multi_bwd": xent_multi.bwd_launches}
-
-
 def chunks(iterable, size: int):
     """Lists of ``size`` consecutive items, the last one shorter."""
     buf = []
@@ -296,14 +300,27 @@ def chunks(iterable, size: int):
 class StepGraph:
     """A captured run over batch slots ``0 .. n - 1``: its graph, its
     static output (a training chunk's ``[n]`` losses, or an eval chunk's
-    summed ``eval_sums``), the kernel launches it recorded (the wrappers'
-    counters during the capture, which runs nothing) and how often it
-    replayed."""
+    summed ``eval_sums``), its ``key`` (``"train.8"``, ``"eval.1"``,
+    ``"serve.1"``: the ``graph.capture.<key>`` and ``graph.replay.<key>``
+    counters) and how often it replayed.  Captured with tracing on
+    (``utils/profiling.py``) it also holds its ``nodes`` (device-work
+    nodes), ``owners`` (``profiling.Owner``: the span that owns each run
+    of nodes) and ``counts`` (the counters the capture added to, such as
+    the kernel wrappers' ``xent.fwd``); else None, [] and {}."""
 
     graph: object
     out: torch.Tensor
-    captured: dict
+    key: str
+    nodes: int | None = None
+    owners: list = field(default_factory=list)
+    counts: dict = field(default_factory=dict)
     replays: int = 0
+
+
+def launches(graph: StepGraph) -> dict:
+    """The launches the replays of ``graph`` made on the device, by
+    counter: what its capture counted times its replays."""
+    return {k: n * graph.replays for k, n in graph.counts.items()}
 
 
 class _Slots:
@@ -321,33 +338,47 @@ class _Slots:
         return self.batches[i]
 
     def stage(self, i, batch):
-        """Copy ``batch`` into slot ``i``; returns the slot."""
-        if i == len(self.batches):
-            self.batches.append(batch.to(self.device))
-        else:
-            self.batches[i].copy_(batch)
-        return self.batches[i]
+        """Copy ``batch`` into slot ``i``; returns the slot (span
+        ``runner.stage``, counter ``runner.staged_bytes``)."""
+        with profiling.span("runner.stage"):
+            if profiling.enabled():
+                profiling.count("runner.staged_bytes", batch.nbytes())
+            if i == len(self.batches):
+                self.batches.append(batch.to(self.device))
+            else:
+                self.batches[i].copy_(batch)
+            return self.batches[i]
 
 
-def _capture(graphs, n, pool, body):
+def _capture(graphs, n, pool, body, kind):
     """The graph of ``n`` slots in ``graphs``, captured at first use from
-    ``body()`` (which returns its static output) into ``pool``; returns
-    (the StepGraph, the pool)."""
+    ``body()`` (which returns its static output) into ``pool``, under the
+    key ``"<kind>.<n>"``; returns (the StepGraph, the pool)."""
     g = graphs.get(n)
     if g is None:
         graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
         with torch.cuda.graph(graph, pool=pool):
-            out = body()
-        after = launch_counts()
-        g = graphs[n] = StepGraph(graph, out,
-                                  {k: after[k] - before[k] for k in after})
+            with profiling.capturing() as cmap:
+                out = body()
+        key = f"{kind}.{n}"
+        g = graphs[n] = StepGraph(graph, out, key)
+        if cmap is not None:
+            g.nodes, g.owners, g.counts = cmap.total, cmap.owners, cmap.counts
+        profiling.count(f"graph.capture.{key}")
     return g, g.graph.pool()
 
 
-def _replay(g):
-    g.graph.replay()
+def _launch(g):
+    """Replay ``g`` (span ``runner.replay``, counter
+    ``graph.replay.<key>``)."""
+    with profiling.span("runner.replay"):
+        g.graph.replay()
     g.replays += 1
+    profiling.count(f"graph.replay.{g.key}")
+
+
+def _replay(g):
+    _launch(g)
     return g.out.clone()
 
 
@@ -440,21 +471,24 @@ class TrainRunner:
         self.model.train()
         self.seeds.begin_step()
         loss = make_loss(self.model, batch, self.seeds)
-        self.opt.zero_grad(set_to_none=False)
-        if self.table_opt is not None:
-            self.table_opt.zero_grad()
+        with profiling.span("step.optimizer"):
+            self.opt.zero_grad(set_to_none=False)
+            if self.table_opt is not None:
+                self.table_opt.zero_grad()
         loss.backward()
         if self.mesh is not None:
             sum_data_grads(self.params, self.mesh)
-            self.opt.step()
-            bf16 = self.model.embedding.dtype == torch.bfloat16
-            self.table_opt.step(self.seeds.next() if bf16 else None)
-            self.sched.step()
+            with profiling.span("step.optimizer"):
+                self.opt.step()
+                bf16 = self.model.embedding.dtype == torch.bfloat16
+                self.table_opt.step(self.seeds.next() if bf16 else None)
+                self.sched.step()
             return loss.detach()
-        self.opt.step()
-        update = self.table_opt.update() if self.table_opt else None
-        self.sched.step()
-        self._project(update)
+        with profiling.span("step.optimizer"):
+            self.opt.step()
+            update = self.table_opt.update() if self.table_opt else None
+            self.sched.step()
+            self._project(update)
         return loss.detach()
 
     def _project(self, table_update):
@@ -521,7 +555,7 @@ class TrainRunner:
         g, self._pool = _capture(
             self.graphs, steps, self._pool,
             lambda: torch.stack([self._step(self._slots[i])
-                                 for i in range(steps)]))
+                                 for i in range(steps)]), "train")
         return g
 
     def run_chunk(self, chunk):
@@ -562,7 +596,7 @@ class TrainRunner:
         their ``eval_sums``; captured at first use into the eval pool."""
         g, self._eval_pool = _capture(
             self.eval_graphs, n, self._eval_pool,
-            lambda: self._chunk_sums(self._eval_slots[:n]))
+            lambda: self._chunk_sums(self._eval_slots[:n]), "eval")
         return g
 
     def _eval_chunk(self, chunk):

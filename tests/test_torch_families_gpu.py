@@ -24,6 +24,7 @@ from sessionrec_tpu_torch.data.loader import BatchLoader
 from sessionrec_tpu_torch.models import LESSR, NISER, SRGNN
 from sessionrec_tpu_torch.ops import xent as tx
 from sessionrec_tpu_torch.train.runner import TrainRunner
+from sessionrec_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -82,7 +83,8 @@ def test_graph_matches_plain_over_8_steps(cuda, name):
     batches = cs.first_batches(loader, 16)
     runner.run_chunk(batches[:8])               # eager: Adam's state exists
     start = [t.clone() for t in runner.state_tensors()]
-    got = runner.run_chunk(batches[8:])
+    with profiling.tracing():
+        got = runner.run_chunk(batches[8:])
     after = {n: t.clone() for n, t in runner.named_state().items()}
     for t, v in zip(runner.state_tensors(), start):
         t.copy_(v)
@@ -93,4 +95,4 @@ def test_graph_matches_plain_over_8_steps(cuda, name):
     for n, t in list(runner.model.named_parameters()) + list(buffers.items()):
         assert cs.max_err(after[n], t.detach()) <= 1e-5, n
     assert runner.graphs[8].replays == 1
-    assert runner.graphs[8].captured["xent_fwd"] == 8
+    assert runner.graphs[8].counts["xent.fwd"] == 8

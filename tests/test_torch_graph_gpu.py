@@ -14,8 +14,11 @@ skips.  No JAX is imported:
     python -m pytest --noconftest tests/test_torch_graph_gpu.py -m gpu
 """
 
+import contextlib
 import copy
 import dataclasses
+import json
+import time
 
 import numpy as np
 import pytest
@@ -25,7 +28,9 @@ import chip_smoke as cs
 from sessionrec_tpu_torch import serving
 from sessionrec_tpu_torch.data.loader import BatchLoader
 from sessionrec_tpu_torch.models import MSGIFSR
-from sessionrec_tpu_torch.train.runner import TrainRunner, eager_sums
+from sessionrec_tpu_torch.train.runner import (TrainRunner, eager_sums,
+                                               launches)
+from sessionrec_tpu_torch.utils import profiling
 from sessionrec_tpu_torch.utils.checkpoint import Checkpointer
 
 pytestmark = pytest.mark.gpu
@@ -72,14 +77,77 @@ def _graph_vs_plain(runner, batches):
 
 
 @pytest.mark.parametrize("path", PATHS)
-def test_graph_matches_plain_over_8_steps(cuda, path):
+def test_untraced_graph_matches_plain_over_8_steps(cuda, path):
+    """The capture that the CLI and the benchmark's timed windows run:
+    tracing off, so the graph has no map and the registry stays empty."""
+    profiling.enable(False)
+    profiling.reset()
     runner, batches = _runner(cuda, PATHS[path], 8)
     _graph_vs_plain(runner, batches)
     g = runner.graphs[8]
     assert set(runner.graphs) == {8} and g.replays == 1
+    assert (g.nodes, g.owners, g.counts) == (None, [], {})
+    assert profiling.snapshot() == {"spans": {}, "counts": {}}
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_graph_matches_plain_over_8_steps(cuda, path):
+    runner, batches = _runner(cuda, PATHS[path], 8)
+    with profiling.tracing():
+        _graph_vs_plain(runner, batches)
+    g = runner.graphs[8]
+    assert set(runner.graphs) == {8} and g.replays == 1
     k1 = PATHS[path]["order"] == 1
-    assert g.captured["xent_fwd"] == g.captured["xent_bwd"] == 8 * k1
-    assert g.captured["xent_multi_fwd"] == 8 * (not k1)
+    got = {k: g.counts.get(k, 0) for k in ("xent.fwd", "xent.bwd",
+                                           "xent_multi.fwd")}
+    assert got == {"xent.fwd": 8 * k1, "xent.bwd": 8 * k1,
+                   "xent_multi.fwd": 8 * (not k1)}
+    assert launches(g) == {k: n * g.replays for k, n in g.counts.items()}
+
+
+def _replay_events(trace):
+    """``[[device event]]`` of each ``cudaGraphLaunch`` in a Chrome trace,
+    by its correlation id, each sorted by start."""
+    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    launches = [e["args"]["correlation"] for e in ev
+                if e.get("cat") == "cuda_runtime"
+                and e["name"].startswith("cudaGraphLaunch")]
+    return [sorted((e for e in ev if e.get("cat") in
+                    ("kernel", "gpu_memcpy", "gpu_memset")
+                    and e.get("args", {}).get("correlation") == c),
+                   key=lambda e: e["ts"]) for c in launches]
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_a_replay_zips_with_its_capture_map(cuda, path, tmp_path):
+    """Captured with tracing on, a graph's replay under the profiler shows
+    one device event a node, in node order: K1-K4 fall under ``loss``,
+    the gather's backward under ``model.embed``'s backward, and few
+    events under no span."""
+    runner, batches = _runner(cuda, PATHS[path], 4)
+    with profiling.tracing():
+        runner.run_chunk(batches[:4])     # the capture and its replay
+    g = runner.graphs[4]
+    assert g.nodes > 0 and g.owners and g.owners[-1].end <= g.nodes
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        runner.run_chunk(batches[:4])
+        torch.cuda.synchronize()
+        time.sleep(0.5)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    (events,) = _replay_events(json.loads((tmp_path / "trace.json")
+                                          .read_text()))
+    assert len(events) == g.nodes
+    who = ["other"] * g.nodes
+    for o in g.owners:
+        who[o.first:o.end] = [f"{o.span}.{o.direction}"] * (o.end - o.first)
+    owned = list(zip(who, (e["name"] for e in events)))
+    assert {w for w, n in owned if "xent_" in n} == {"loss.fwd", "loss.bwd"}
+    assert {w for w, n in owned if "indexing_backward" in n} == {
+        "model.embed.bwd"}
+    assert sum(w == "other" for w, _ in owned) < 0.02 * len(owned)
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -94,11 +162,9 @@ def test_tail_chunk_runs_its_real_steps_only(cuda, path):
     assert runner.steps == 4 + 3 + 3
 
 
-@pytest.mark.parametrize("path", PATHS)
-def test_eval_graph_matches_the_eager_sweep(cuda, path):
-    """Two sweeps of 11 test batches under unroll 4: the first runs its
-    first chunk eagerly and captures the 4-batch and the 1-batch graphs,
-    the second only replays; both give the eager sums."""
+def _two_sweeps(cuda, path, traced):
+    """Two sweeps of 11 test batches under unroll 4 against the eager
+    sums, tracing on or off; the runner and the batches."""
     kw = PATHS[path]
     test = BatchLoader(_sessions(1, 90), "ccs", 64, 15, split_len=(4, 8),
                        order=kw["order"])
@@ -106,13 +172,35 @@ def test_eval_graph_matches_the_eager_sweep(cuda, path):
     batches = list(test)
     assert len(batches) % 4
     want = eager_sums(runner.model, batches, 20, cuda)
-    for _ in range(2):
-        torch.testing.assert_close(runner.eval_sweep(), want, rtol=0,
-                                   atol=1e-6)
+    profiling.enable(False)
+    profiling.reset()
+    with profiling.tracing() if traced else contextlib.nullcontext():
+        for _ in range(2):
+            torch.testing.assert_close(runner.eval_sweep(), want, rtol=0,
+                                       atol=1e-6)
     assert set(runner.eval_graphs) == {4, 1}
     assert runner.eval_graphs[4].replays == 2 * (len(batches) // 4) - 1
     assert runner.eval_graphs[1].replays == 2 * (len(batches) % 4)
-    assert not any(runner.eval_graphs[4].captured.values())
+    return runner, batches
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_eval_graph_matches_the_eager_sweep(cuda, path):
+    """Two sweeps of 11 test batches under unroll 4: the first runs its
+    first chunk eagerly and captures the 4-batch and the 1-batch graphs,
+    the second only replays; both give the eager sums."""
+    runner, _ = _two_sweeps(cuda, path, traced=True)
+    assert not any(k.startswith("xent") for k in runner.eval_graphs[4].counts)
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_untraced_eval_graph_matches_the_eager_sweep(cuda, path):
+    """The same sweeps with tracing off, as the CLI runs them: no map, an
+    empty registry."""
+    runner, _ = _two_sweeps(cuda, path, traced=False)
+    g = runner.eval_graphs[4]
+    assert (g.nodes, g.owners, g.counts) == (None, [], {})
+    assert profiling.snapshot() == {"spans": {}, "counts": {}}
 
 
 @pytest.mark.parametrize("path", PATHS)

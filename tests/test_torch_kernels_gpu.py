@@ -24,6 +24,7 @@ import torch
 
 from sessionrec_tpu_torch.ops import xent as tx
 from sessionrec_tpu_torch.ops import xent_multi as txm
+from sessionrec_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -297,10 +298,11 @@ def test_autograd_runs_the_kernels_once_each(cuda):
     s, t, lbl = _case(cuda, B, D, P, n, torch.float32, seed=3)
     lbl[0] = 5
     s1, t1 = s.clone().requires_grad_(True), t.clone().requires_grad_(True)
-    tx.reset_launches()
-    tx.catalog_xent(s1, t1, lbl, scale=12.0, num_items=n,
-                    normalize_table=True).mean().backward()
-    assert (tx.fwd_launches, tx.bwd_launches) == (1, 1)
+    with profiling.tracing():
+        tx.catalog_xent(s1, t1, lbl, scale=12.0, num_items=n,
+                        normalize_table=True).mean().backward()
+        counts = profiling.snapshot()["counts"]
+    assert (counts.get("xent.fwd"), counts.get("xent.bwd")) == (1, 1)
     s2, t2 = s.clone().requires_grad_(True), t.clone().requires_grad_(True)
     tx.reference_xent(s2, t2, lbl, scale=12.0, num_items=n,
                       normalize_table=True).mean().backward()
@@ -526,9 +528,12 @@ def test_multi_autograd_runs_the_kernels_once_each(cuda):
               fusion=True)
     sr = s.transpose(0, 1).contiguous()
     s1, t1 = sr.clone().requires_grad_(True), t.clone().requires_grad_(True)
-    txm.reset_launches()
-    txm.multi_nll_loss(s1, t1, lbl, valid, iids, phi, alpha, **kw).backward()
-    assert (txm.fwd_launches, txm.bwd_launches) == (1, 1)
+    with profiling.tracing():
+        txm.multi_nll_loss(s1, t1, lbl, valid, iids, phi, alpha,
+                           **kw).backward()
+        counts = profiling.snapshot()["counts"]
+    assert (counts.get("xent_multi.fwd"), counts.get("xent_multi.bwd")) \
+        == (1, 1)
     s2, t2 = sr.clone().requires_grad_(True), t.clone().requires_grad_(True)
     zl, lin, lex = txm.reference_multi_stats(
         s2.transpose(0, 1), t2, lbl, iids, scale=12.0, num_items=n,

@@ -347,9 +347,9 @@ def test_stats_check_fails_a_k3_without_one_catalog_split(P):
 
 # The paths' launch check: each of the path's kernels once per real step
 # and the other pair never, counted on the device (the eager launches plus
-# each graph's captured launches times its replays, or by kernel name in
-# a trace).  A path that runs a kernel twice in a step, skips it, or runs
-# the other pair must fail.
+# each graph's captured launches times its replays, ``runner.launches``, or
+# by kernel name in a trace).  A path that runs a kernel twice in a step,
+# skips it, or runs the other pair must fail.
 
 O1 = cs.PATHS["path"]["kernels"]
 
@@ -379,14 +379,15 @@ def test_launch_check_fails_a_wrong_count(wrong, want):
 def test_device_launches_count_each_replay():
     """40 steps: 8 eager and 8 captured wrapper launches, then 4 replays
     of the 8-step graph; a graph whose step launched K1 twice shows."""
-    from types import SimpleNamespace
+    from sessionrec_tpu_torch.train.runner import StepGraph
+
+    def graph(fwd, bwd):
+        return StepGraph(None, None, "train.8", replays=4,
+                         counts={"xent.fwd": fwd, "xent.bwd": bwd})
     wrapped = _counts(xent_fwd=16, xent_bwd=16)
-    graph = SimpleNamespace(captured=_counts(xent_fwd=8, xent_bwd=8),
-                            replays=4)
-    assert cs.device_launches(wrapped, {8: graph}) == _counts()
-    double = SimpleNamespace(captured=_counts(xent_fwd=16, xent_bwd=8),
-                             replays=4)
-    got = cs.device_launches(_counts(xent_fwd=24, xent_bwd=16), {8: double})
+    assert cs.device_launches(wrapped, {8: graph(8, 8)}) == _counts()
+    got = cs.device_launches(_counts(xent_fwd=24, xent_bwd=16),
+                             {8: graph(16, 8)})
     assert cs.launch_errors(got, 40, O1) == {"xent_fwd": [72, 40]}
 
 

@@ -19,6 +19,7 @@ import torch
 from sessionrec_tpu.ops import xent_multi as jxm
 from sessionrec_tpu_torch.ops import xent as tx
 from sessionrec_tpu_torch.ops import xent_multi as txm
+from sessionrec_tpu_torch.utils import profiling
 from test_torch_xent import assert_grid_covers
 
 VAL = dict(rtol=1e-5, atol=1e-5)
@@ -205,12 +206,14 @@ def test_rows_with_no_session_item_stay_finite():
 
 
 def test_cpu_launches_no_kernel():
-    """CPU tensors take the plain versions and leave the counters alone."""
-    txm.reset_launches()
-    _torch_loss(_loss_case(B=4, D=16, seed=5),
-                dict(scale=12.0, num_items=470, normalize_table=True,
-                     extra=True, fusion=True))
-    assert txm.fwd_launches == 0 and txm.bwd_launches == 0
+    """CPU tensors take the plain versions and leave the counters alone,
+    with tracing on."""
+    with profiling.tracing():
+        _torch_loss(_loss_case(B=4, D=16, seed=5),
+                    dict(scale=12.0, num_items=470, normalize_table=True,
+                         extra=True, fusion=True))
+        counts = profiling.snapshot()["counts"]
+    assert not {k for k in counts if k.startswith("xent")}
 
 
 # K3's and K4's grids: ops/xent.py:_bwd_grid over the K * B rows (K = 3),
