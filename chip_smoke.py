@@ -40,6 +40,16 @@ Phases, one JSON line each on stdout:
    ``stochastic_round_bf16`` on the card gives the CPU's bits at 3,584 and
    37,888 rows of D, and its time and that of the whole bf16 table update
    of a step (``runner.apply_table_update``), with their byte bounds.
+   ``embed_check``: the gather's backward (``embed_bwd``,
+   csrc/embed_bwd.cu) gives the bits of its plain version on the card,
+   twice, and a float64 sum to ``EMBED_TOL``, at the o1 and paper paths'
+   first step (every tier's and level's ids) and at a padding run of
+   16,384 slots, on both catalogs, float32 and bfloat16; ``embed_time``:
+   its times at the two steps (events, and each kernel's device ms, the
+   sort's included) beside torch's index backward of one gather a tier
+   and level (``torch_ms``, the path it replaced), ``F.embedding``'s
+   backward of the flat ids (``library_ms``), the plain version and the
+   byte bound.
 4. path    — train MSGIFSR order 1 at d=256, 1 layer, batch 512, tiers
    (4, 8), feat_drop 0.1 on datasets/sample through ``run_training`` at
    the defaults (the native batch builder, ``unroll`` 8), with a
@@ -51,13 +61,14 @@ Phases, one JSON line each on stdout:
    kernel wrappers' counters (``xent.fwd``, ``xent.bwd``,
    ``xent_multi.fwd``, ``xent_multi.bwd`` of ``utils/profiling.py``,
    tracing on for the whole run) are emptied just before and read just
-   after: K1 and K2 must have launched, K3 and K4 not.  The wrappers
+   after: K1, K2 and the gather's backward (``embed.bwd``) must have
+   launched, K3 and K4 not.  The wrappers
    count the eager launches and the captured ones (a capture records a
    launch, a replay runs it without calling the wrapper; a ``StepGraph``
    keeps its capture's ``counts``), so the device's launches are counted
    two ways: the run's eager launches plus ``runner.launches`` of each
-   graph (captured times replays), which must give K1 and K2 once
-   per step and K3 and K4 never; and by kernel name in a
+   graph (captured times replays), which must give K1, K2 and
+   ``embed_bwd`` once per step and K3 and K4 never; and by kernel name in a
    ``torch.profiler`` trace of one more chunk of replays
    (``launch_count_method`` says which held; the second where the trace
    sees no kernels inside replays).  The loss must be finite and fall,
@@ -85,8 +96,8 @@ Phases, one JSON line each on stdout:
    ``host`` line: ms per step building, waiting for and running the
    batches, and examples/s, of the graph loop.
 5. paper   — the same for the WSDM'22 paper head (order 3, REnorm,
-   fusion) at the same widths: K3 and K4 launch once per step, K1 and K2
-   never; ``paper_serve``, ``paper_eval``.
+   fusion) at the same widths: K3, K4 and ``embed_bwd`` launch once per
+   step, K1 and K2 never; ``paper_serve``, ``paper_eval``.
 6. srgnn, niser, lessr — the same for SRGNN (d=64, 2 layers, batch 128,
    feat_drop 0.5, shuffled), NISER+ (the same, normalised, scale 12) and
    LESSR (d=32, 3 layers EOPA/SGAT/EOPA, batch 512, feat_drop 0.2,
@@ -167,7 +178,8 @@ Phases, one JSON line each on stdout:
    card's parameters equal on every row but near ties (``REL_TIE``,
    counted as ``excluded``) and exact ties on the card alone (counted as
    ``mismatched_at_tie``), and K1/K2 (K3/K4) once a step on every rank,
-   the others never; with which collectives gloo staged through host
+   the others never (``embed_bwd`` too: the mesh gathers through its own
+   lookup); with which collectives gloo staged through host
    memory and the seconds a step (gloo on one card: not a speed figure;
    NCCL, which needs a card a rank, is not run).
 
@@ -964,6 +976,163 @@ def phase_multi_times(torch, xm, seed, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the gather's backward (csrc/embed_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def step_ids(batch):
+    """The id tensors of a training step's gathers, in the order the
+    model hands them to ``ops/embed.py``: every tier's levels (MSGIFSR)
+    or node ids, shortest tier first."""
+    from sessionrec_tpu_torch.graph.batch import flatten_blocks
+    blocks = flatten_blocks(batch)
+    if hasattr(blocks[0], "levels"):
+        return [lv.iid for b in blocks for lv in b.levels]
+    return [b.node_iid for b in blocks]
+
+
+def run_profile(torch, ids):
+    """(slots, slots on row 0, the longest run of any other row) of a
+    step's ids."""
+    flat = torch.cat([i.reshape(-1) for i in ids]).long()
+    counts = torch.bincount(flat)
+    rest = int(counts[1:].max()) if counts.numel() > 1 else 0
+    return flat.numel(), int(counts[0]), rest
+
+
+def embed_inputs(torch, ids, P, dim, dtype, seed):
+    """Random gradient rows for the id tensors ``ids`` (one tensor of
+    ``[*ids.shape, dim]`` each, on the card) and the flat ids."""
+    gen = torch.Generator().manual_seed(seed + 2000)
+    grads = [torch.randn(*i.shape, dim, generator=gen).to("cuda", dtype)
+             for i in ids]
+    flat = torch.cat([i.reshape(-1) for i in ids]).to("cuda")
+    return grads, flat
+
+
+def embed_check(torch, embed, ids, P, dim, dtype, seed, **tags):
+    """The kernel against its plain version on the card (the bits, twice)
+    and against a float64 sum (its largest error, over the largest
+    summed magnitude); emits the ``embed_check`` line, fails on a
+    disagreement, returns the error."""
+    grads, flat = embed_inputs(torch, ids, P, dim, dtype, seed)
+    got = embed._bwd_cuda(grads, flat, P)
+    again = embed._bwd_cuda(grads, flat, P)
+    plain = embed._bwd_plain(grads, flat, P)
+    g64 = torch.cat([g.reshape(-1, dim) for g in grads]).double()
+    want = torch.zeros(P, dim, dtype=torch.float64, device="cuda")
+    absum = torch.zeros_like(want)
+    want.index_put_((flat.long(),), g64, accumulate=True)
+    absum.index_put_((flat.long(),), g64.abs(), accumulate=True)
+    err = float((got.double() - want).abs().max())
+    scale = float(absum.max())
+    tol = EMBED_TOL[str(dtype).split(".")[-1]] * scale
+    n, row0, rest = run_profile(torch, ids)
+    row = {"phase": "embed_check", "P": P, "D": dim,
+           "dtype": str(dtype).split(".")[-1], "pieces": len(ids),
+           "slots": n, "row0_slots": row0, "longest_other_run": rest,
+           **tags, "max_abs_err": err, "tol": tol,
+           "plain_bit_identical": bool(torch.equal(got, plain)),
+           "repeat_bit_identical": bool(torch.equal(got, again))}
+    row["ok"] = (row["plain_bit_identical"] and row["repeat_bit_identical"]
+                 and err <= tol)
+    emit(row)
+    check(row["ok"], f"embed_bwd disagrees with its plain version: {row}")
+    return err
+
+
+def embed_times(torch, embed, ids, P, dim, dtype, seed, smi, calls=20,
+                **tags):
+    """The gather's backward at the id tensors ``ids`` of one step: the
+    kernel (with its sort), torch's index backward of one gather a tensor
+    summed by autograd (the path it replaces), ``F.embedding``'s backward
+    of the flat ids (the library), the plain version, and the byte bound;
+    CUDA events over ``calls`` calls and device time under the profiler.
+    Emits the ``embed_time`` line and returns its times."""
+    dname = str(dtype).split(".")[-1]
+    grads, flat = embed_inputs(torch, ids, P, dim, dtype, seed)
+    table = torch.zeros(P, dim, dtype=dtype, device="cuda",
+                        requires_grad=True)
+    rows = [table[i.to("cuda").long()] for i in ids]
+    g_flat = torch.cat([g.reshape(-1, dim) for g in grads])
+    flat64 = flat.long()
+
+    def kernel():
+        return embed._bwd_cuda(grads, flat, P)
+
+    def torch_path():
+        return torch.autograd.grad(rows, table, grads, retain_graph=True)
+
+    def library():
+        return torch.ops.aten.embedding_dense_backward(
+            g_flat, flat64, P, -1, False)
+
+    n, row0, rest = run_profile(torch, ids)
+    esz = torch.empty((), dtype=dtype).element_size()
+    bound, by = bounds(n * dim * esz + n * 4 + P * dim * esz, 0, dname)
+    kms, settle = kernel_ms(torch, kernel, calls)
+    res = {"ms": time_ms(torch, kernel, calls),
+           "kernel_ms": kms, "kernel_device_ms": sum(kms.values()),
+           "torch_ms": time_ms(torch, torch_path, calls),
+           "torch_device_ms": library_kernel_ms(torch, torch_path, calls),
+           "library_ms": time_ms(torch, library, calls),
+           "library_kernel_ms": library_kernel_ms(torch, library, calls),
+           "plain_ms": time_ms(torch, lambda: embed._bwd_plain(
+               grads, flat, P), 2),
+           "bound_ms": bound, "bound_by": by}
+    emit({"phase": "embed_time", "P": P, "D": dim, "dtype": dname,
+          "pieces": len(ids), "slots": n, "row0_slots": row0,
+          "longest_other_run": rest, **tags, **res, "settle_s": settle,
+          "attrs": embed.kernel_attrs(dtype), "card": smi})
+    return res
+
+
+# embed_bwd against a float64 sum: its order is at most ~200 terms deep
+# (ops/embed.py: a tile, the partials over the ways, the ways), so float32
+# is held to 200 eps of the largest summed magnitude, bfloat16 adds its
+# rounding of the result
+EMBED_TOL = {"float32": 200 * 2.0 ** -23, "bfloat16": 2.0 ** -8}
+
+
+def phase_embed(torch, embed, seed, dataset_dir, smi):
+    """The gather's backward against its plain version and a float64 sum
+    at the o1 and paper paths' first step (datasets/sample, batch 512,
+    tiers (4, 8)) on the path and north-star catalogs, float32 and
+    bfloat16, and at a padding run of 16,384 slots; its times at the two
+    steps on both catalogs.  Returns (the largest float32 error at the o1
+    step on the path catalog, its times there)."""
+    from sessionrec_tpu_torch.ops.scoring import pad_catalog
+    from sessionrec_tpu_torch.train.session import make_loaders
+    steps = {}
+    for name in ("path", "paper"):
+        cfg = path_config(name, seed, dataset_dir, dev="cpu")
+        train, _, _, _ = make_loaders(cfg.data, cfg.model.name,
+                                      cfg.model.order)
+        steps[name] = step_ids(first_batches(train, 1)[0].to("cpu"))
+    gen = torch.Generator().manual_seed(seed)
+    pad = torch.cat([torch.zeros(16384, dtype=torch.int32),
+                     torch.randint(1, CATALOGS[0], (4096,), generator=gen,
+                                   dtype=torch.int32)])
+    steps["pad16384"] = [pad[torch.randperm(pad.numel(), generator=gen)]]
+    err = times = None
+    for name, ids in steps.items():
+        for n_items in CATALOGS:
+            P = pad_catalog(n_items)
+            for dtype in (torch.float32, torch.bfloat16):
+                e = embed_check(torch, embed, ids, P, D, dtype, seed,
+                                path=name)
+                if (name, n_items, dtype) == ("path", PATH_ITEMS,
+                                              torch.float32):
+                    err = e
+    for name in ("path", "paper"):
+        for n_items in CATALOGS:
+            t = embed_times(torch, embed, steps[name], pad_catalog(n_items),
+                            D, torch.float32, seed, smi, path=name)
+            if (name, n_items) == ("path", PATH_ITEMS):
+                times = t
+    return err, times
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the paths
 # ---------------------------------------------------------------------------
 
@@ -971,7 +1140,9 @@ def phase_multi_times(torch, xm, seed, smi):
 # once per step (the others never), and the parameters whose gradients are
 # held against the CPU (SRGNN's and NISER's GNN layers reach nothing under
 # the reference's readout-on-embedding quirk, so theirs are 0 on both)
-K12 = ("xent_fwd", "xent_bwd")
+# (every training path gathers its step's rows once: embed_bwd once a step)
+K12 = ("xent_fwd", "xent_bwd", "embed_bwd")
+K34 = ("xent_multi_fwd", "xent_multi_bwd", "embed_bwd")
 BF16 = dict(table_dtype="bfloat16", compute_dtype="bfloat16")
 PATHS = {
     "path": dict(preset="msgifsr", model=dict(order=1), kernels=K12,
@@ -979,7 +1150,7 @@ PATHS = {
                         "layers.0.conv1.intra1.fc")),
     "paper": dict(preset="msgifsr",
                   model=dict(order=3, extra=True, fusion=True),
-                  kernels=("xent_multi_fwd", "xent_multi_bwd"),
+                  kernels=K34,
                   grads=("embedding", "alpha", "sc_sr.0.l1.weight",
                          "expander.grus.0.w_ih")),
     "srgnn": dict(preset="srgnn", model={}, kernels=K12,
@@ -999,7 +1170,7 @@ PATHS = {
                                         "layers.0.conv1.intra1.fc")),
     "paper_bf16": dict(preset="msgifsr",
                        model=dict(order=3, extra=True, fusion=True, **BF16),
-                       kernels=("xent_multi_fwd", "xent_multi_bwd"),
+                       kernels=K34,
                        grads=("embedding", "alpha", "sc_sr.0.l1.weight",
                               "expander.grus.0.w_ih"), steps=16),
 }
@@ -1020,7 +1191,8 @@ TRACE_KERNEL = {"xent_fwd": ("xent_fwd_partial", "xent_fwd_slab"),
                                    "xent_multi_fwd_slab"),
                 "xent_multi_bwd": ("xent_multi_bwd_dtable",
                                    "xent_multi_bwd_dtable_tc",
-                                   "xent_multi_bwd_finish_slab")}
+                                   "xent_multi_bwd_finish_slab"),
+                "embed_bwd": ("embed_bwd_rows",)}
 
 
 def kernel_base_name(name):
@@ -1080,7 +1252,7 @@ def trace_launches(torch, fn):
 # names of K1-K4
 COUNTERS = {"xent_fwd": "xent.fwd", "xent_bwd": "xent.bwd",
             "xent_multi_fwd": "xent_multi.fwd",
-            "xent_multi_bwd": "xent_multi.bwd"}
+            "xent_multi_bwd": "xent_multi.bwd", "embed_bwd": "embed.bwd"}
 
 
 def wrapper_launches():
@@ -1739,7 +1911,7 @@ MILLION_PATHS = {
     # batch 512, feat_drop 0.1, "real" lengths, tiers (4, 8); 8 steps
     "paper_1m": dict(preset="msgifsr",
                      model=dict(order=3, extra=True, fusion=True),
-                     kernels=("xent_multi_fwd", "xent_multi_bwd"), steps=8),
+                     kernels=K34, steps=8),
 }
 
 
@@ -2600,7 +2772,8 @@ def phase_mesh(torch, seed, dataset_dir, smi, tmp):
         model, losses, seconds, sums, tests, want, lr, wd = refs[name]
         got = res[name]
         ranks = got["ranks"]
-        kernels = PATHS[name]["kernels"]
+        # the mesh gathers through its own lookup (parallel/lookup.py)
+        kernels = [k for k in PATHS[name]["kernels"] if k != "embed_bwd"]
         bad_launch = {r["d"] * MESH_MP + r["m"]: r["launches"] for r in ranks
                       if any(r["launches"][k] != (MESH_STEPS if k in kernels
                                                   else 0)
@@ -2951,7 +3124,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
-    from sessionrec_tpu_torch.ops import cuda_build, xent
+    from sessionrec_tpu_torch.ops import cuda_build, embed, xent
     from sessionrec_tpu_torch.ops import xent_multi as xm
     from sessionrec_tpu_torch.train.runner import set_precision
     from sessionrec_tpu_torch.utils import profiling
@@ -2978,6 +3151,8 @@ def main(argv=None):
         phase_bf16_path_times(torch, xent, args.seed, smi)
         phase_sround(torch, args.seed, smi)
         multi_times = phase_multi_times(torch, xm, args.seed, smi)
+        errs["embed_bwd"], embed_path = phase_embed(
+            torch, embed, args.seed, args.dataset_dir, smi)
         phase_million_kernels(torch, xent, xm, args.seed, smi)
         phase_shard_checks(torch, xent, xm, args.seed)
         phase_shard_times(torch, xent, xm, args.seed, smi)
@@ -3016,7 +3191,7 @@ def main(argv=None):
         return 1
 
     path = dict(times[(PATH_ITEMS, "float32")],
-                **multi_times[(PATH_ITEMS, "float32")])
+                **multi_times[(PATH_ITEMS, "float32")], embed_bwd=embed_path)
     kernels = {
         "xent_fwd": ("xent.cu", "sessionrec_tpu/ops/xent.py:71"),
         "xent_bwd": ("xent_bwd.cu", "sessionrec_tpu/ops/xent.py:164"),
@@ -3024,6 +3199,9 @@ def main(argv=None):
                            "sessionrec_tpu/ops/xent_multi.py:57"),
         "xent_multi_bwd": ("xent_multi.cu",
                            "sessionrec_tpu/ops/xent_multi.py:157"),
+        # the gather's backward replaces no Pallas kernel (XLA's
+        # scatter-add in the JAX package)
+        "embed_bwd": ("embed_bwd.cu", None),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda",

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sessionrec_tpu_torch.ops import dropout as _dropout
+from sessionrec_tpu_torch.ops import embed as _embed
 from sessionrec_tpu_torch.ops.gru import gru_cell, gru_scan, masked_mailbox_gru
 from sessionrec_tpu_torch.ops.masked import masked_mean, masked_softmax
 from sessionrec_tpu_torch.parallel.lookup import sharded_lookup
@@ -144,13 +145,16 @@ def compute_dtype(name: str):
     return None if name == "float32" else getattr(torch, name)
 
 
-def embedding_lookup(table, ids, shard=None):
-    """``table[ids]`` — a plain gather; callers cast the rows.  With a
-    ``shard`` (``parallel/sharded.py:TableShard``; ``table`` is then this
-    rank's rows) the mesh's lookup (``parallel/lookup.py``)."""
+def embedding_lookups(table, ids, shard=None):
+    """``[table[i] for i in ids]`` — a step's gathers, each id tensor's
+    rows; callers cast them.  On the card, with gradients on, one autograd
+    node whose backward writes the table's gradient once
+    (``ops/embed.py``).  With a ``shard`` (``parallel/sharded.py:
+    TableShard``; ``table`` is then this rank's rows) the mesh's lookup
+    (``parallel/lookup.py``) of each."""
     if shard is not None:
-        return sharded_lookup(shard.mesh, table, ids, shard.grad)
-    return table[ids.to(torch.int64)]
+        return [sharded_lookup(shard.mesh, table, i, shard.grad) for i in ids]
+    return _embed.gather(table, ids)
 
 
 def l2norm(x, eps=1e-12, dim=-1):

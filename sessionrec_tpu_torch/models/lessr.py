@@ -135,8 +135,8 @@ class LESSR(nn.Module):
         # the gathered rows move to the compute dtype (the table may be
         # stored bf16 whatever the compute dtype)
         mesh = self.shard.mesh if self.shard is not None else None
-        feats = [L.embedding_lookup(self.embedding, b.node_iid, self.shard)
-                 .to(cdt or torch.float32) for b in parts]
+        feats = [f.to(cdt or torch.float32) for f in L.embedding_lookups(
+            self.embedding, [b.node_iid for b in parts], self.shard)]
         for i, lp in enumerate(cp.layers):
             ins = _normalised(lp, feats, masks, training, mesh)
             if i % 2 == 0:

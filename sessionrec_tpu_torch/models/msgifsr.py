@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sessionrec_tpu_torch.graph.batch import SplitBatch
+from sessionrec_tpu_torch.graph.batch import SplitBatch, flatten_blocks
 from sessionrec_tpu_torch.models import layers as L
 from sessionrec_tpu_torch.models.lessr import renorm_rows
 from sessionrec_tpu_torch.ops import scoring
@@ -154,14 +154,14 @@ class MSGIFSR(nn.Module):
     # -- pieces ------------------------------------------------------------
 
     def _gather_levels(self, batch):
-        """Each level's ``[B, Nk, k, d]`` table rows, one ``model.embed``
-        span a level (its backward part is the gather's backward)."""
-        rows = []
-        for lv in batch.levels:
-            with profiling.span("model.embed") as s:
-                rows.append(s.outputs(L.embedding_lookup(
-                    self.embedding, lv.iid, self.shard)))
-        return rows
+        """Every tier's and level's ``[B, Nk, k, d]`` table rows, shortest
+        tier first, each tier's levels in order: the step's gathers in one
+        ``model.embed`` span (its backward part is the gather's backward,
+        one ``ops/embed.py`` launch on the card)."""
+        ids = [lv.iid for blk in flatten_blocks(batch) for lv in blk.levels]
+        with profiling.span("model.embed") as s:
+            return s.outputs(L.embedding_lookups(self.embedding, ids,
+                                                 self.shard))
 
     def _embed_levels(self, cp, rows, rng, training):
         feats = []
@@ -192,19 +192,23 @@ class MSGIFSR(nn.Module):
             outs.append(torch.sum(all_feat * alpha, dim=1))
         return torch.stack(outs, dim=1)                    # [B, K, d]
 
-    def _session_repr(self, batch, rng, training):
+    def _session_repr(self, batch, rng, training, rows=None):
         """Per-order session vectors ``sr [B, K, d]``.  A SplitBatch runs
         the graph side once per length tier and concatenates the rows
         (shortest tier first); MSGIFSR has no BatchNorm, so the tiers are
-        independent."""
+        independent.  The table rows of every tier are gathered first, at
+        once (``rows``: an iterator over them, in ``_gather_levels``'s
+        order, shared by the tiers)."""
+        if rows is None:
+            rows = iter(self._gather_levels(batch))
         if isinstance(batch, SplitBatch):
-            tiers = [self._session_repr(batch.short, rng, training),
-                     self._session_repr(batch.long, rng, training)]
+            tiers = [self._session_repr(batch.short, rng, training, rows),
+                     self._session_repr(batch.long, rng, training, rows)]
             with profiling.span("model.readout") as s:
                 s.inputs(tiers)
                 return s.outputs(torch.cat(tiers, dim=0))
         cp = L.cast_floats(self, self.cdt)
-        rows = self._gather_levels(batch)
+        rows = [next(rows) for _ in batch.levels]
         with profiling.span("model.graph") as s:
             s.inputs(rows)
             h = self._embed_levels(cp, rows, rng, training)

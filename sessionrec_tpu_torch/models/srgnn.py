@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sessionrec_tpu_torch.graph.batch import SplitBatch
+from sessionrec_tpu_torch.graph.batch import SplitBatch, flatten_blocks
 from sessionrec_tpu_torch.models import layers as L
 from sessionrec_tpu_torch.ops import scoring
 
@@ -89,20 +89,25 @@ class SRGNN(nn.Module):
     def project_params(self):
         """No max-norm table: nothing to project."""
 
-    def _session_repr(self, batch, rng, training):
+    def _session_repr(self, batch, rng, training, rows=None):
         """``sr [B, d]``.  A SplitBatch runs the graph side once per length
         tier and concatenates the rows, shortest tier first; there is no
-        BatchNorm, so the tiers are independent."""
+        BatchNorm, so the tiers are independent.  Every tier's table rows
+        are gathered first, at once (``rows``: an iterator over them,
+        shortest tier first, shared by the tiers)."""
+        if rows is None:
+            rows = iter(L.embedding_lookups(
+                self.embedding, [b.node_iid for b in flatten_blocks(batch)],
+                self.shard))
         if isinstance(batch, SplitBatch):
-            return torch.cat([self._session_repr(batch.short, rng, training),
-                              self._session_repr(batch.long, rng, training)],
-                             dim=0)
+            return torch.cat(
+                [self._session_repr(batch.short, rng, training, rows),
+                 self._session_repr(batch.long, rng, training, rows)], dim=0)
         cdt = self.cdt
         cp = L.cast_floats(self, cdt)
         # the gathered rows move to the compute dtype (the table may be
         # stored bf16 whatever the compute dtype)
-        emb = L.embedding_lookup(self.embedding, batch.node_iid,
-                                 self.shard).to(cdt or torch.float32)
+        emb = next(rows).to(cdt or torch.float32)
         adj = batch.adj if cdt is None else batch.adj.to(cdt)
         feat = L.dropout(rng, emb, self.feat_drop, training)
         if self.norm:

@@ -36,8 +36,8 @@ update, the schedule, the projection), ``serve.score`` and
 ``loader.build`` (prefetch thread), ``loader.wait`` and
 ``serving.build``.  Counters: ``runner.staged_bytes``,
 ``loader.queue_empty``, ``graph.capture.<key>``, ``graph.replay.<key>``
-and the kernel wrappers' ``xent.fwd``, ``xent.bwd``, ``xent_multi.fwd``
-and ``xent_multi.bwd``.
+and the kernel wrappers' ``xent.fwd``, ``xent.bwd``, ``xent_multi.fwd``,
+``xent_multi.bwd`` and ``embed.bwd``.
 
 ``trace(log_dir)`` records a ``torch.profiler`` trace of a block, with
 tracing on inside it (the CLI's ``--profile-dir``).  Run as a module,

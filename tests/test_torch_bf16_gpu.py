@@ -67,8 +67,7 @@ def test_bf16_graph_matches_plain_bit_for_bit(cuda, path):
     assert float(st["adam/embedding/step"]) == 16.0
     counts, bf16, events = cs.trace_launches(
         torch, lambda: runner.run_chunk(batches[16:]))
-    kernels = cs.K12 if PATHS[path]["order"] == 1 \
-        else ("xent_multi_fwd", "xent_multi_bwd")
+    kernels = cs.K12 if PATHS[path]["order"] == 1 else cs.K34
     if events:
         assert cs.launch_errors(counts, 8, kernels) == {}
         assert bf16 == counts

@@ -96,3 +96,4 @@ def test_graph_matches_plain_over_8_steps(cuda, name):
         assert cs.max_err(after[n], t.detach()) <= 1e-5, n
     assert runner.graphs[8].replays == 1
     assert runner.graphs[8].counts["xent.fwd"] == 8
+    assert runner.graphs[8].counts["embed.bwd"] == 8     # one gather a step

@@ -99,9 +99,9 @@ def test_graph_matches_plain_over_8_steps(cuda, path):
     assert set(runner.graphs) == {8} and g.replays == 1
     k1 = PATHS[path]["order"] == 1
     got = {k: g.counts.get(k, 0) for k in ("xent.fwd", "xent.bwd",
-                                           "xent_multi.fwd")}
+                                           "xent_multi.fwd", "embed.bwd")}
     assert got == {"xent.fwd": 8 * k1, "xent.bwd": 8 * k1,
-                   "xent_multi.fwd": 8 * (not k1)}
+                   "xent_multi.fwd": 8 * (not k1), "embed.bwd": 8}
     assert launches(g) == {k: n * g.replays for k, n in g.counts.items()}
 
 
@@ -122,8 +122,9 @@ def _replay_events(trace):
 def test_a_replay_zips_with_its_capture_map(cuda, path, tmp_path):
     """Captured with tracing on, a graph's replay under the profiler shows
     one device event a node, in node order: K1-K4 fall under ``loss``,
-    the gather's backward under ``model.embed``'s backward, and few
-    events under no span."""
+    the gather's backward (``csrc/embed_bwd.cu``, torch's index backward
+    nowhere) under ``model.embed``'s backward, and few events under no
+    span."""
     runner, batches = _runner(cuda, PATHS[path], 4)
     with profiling.tracing():
         runner.run_chunk(batches[:4])     # the capture and its replay
@@ -145,8 +146,8 @@ def test_a_replay_zips_with_its_capture_map(cuda, path, tmp_path):
         who[o.first:o.end] = [f"{o.span}.{o.direction}"] * (o.end - o.first)
     owned = list(zip(who, (e["name"] for e in events)))
     assert {w for w, n in owned if "xent_" in n} == {"loss.fwd", "loss.bwd"}
-    assert {w for w, n in owned if "indexing_backward" in n} == {
-        "model.embed.bwd"}
+    assert {w for w, n in owned if "embed_bwd_" in n} == {"model.embed.bwd"}
+    assert not any("indexing_backward" in n for _, n in owned)
     assert sum(w == "other" for w, _ in owned) < 0.02 * len(owned)
 
 

@@ -356,7 +356,7 @@ O1 = cs.PATHS["path"]["kernels"]
 
 def _counts(**kw):
     return dict(dict(xent_fwd=40, xent_bwd=40, xent_multi_fwd=0,
-                     xent_multi_bwd=0), **kw)
+                     xent_multi_bwd=0, embed_bwd=40), **kw)
 
 
 def test_launch_check_passes_once_per_step():
@@ -371,9 +371,33 @@ def test_launch_check_passes_once_per_step():
     (dict(xent_fwd=80), {"xent_fwd": [80, 40]}),            # twice a step
     (dict(xent_bwd=39), {"xent_bwd": [39, 40]}),            # one skipped
     (dict(xent_fwd=0), {"xent_fwd": [0, 40]}),              # never
-    (dict(xent_multi_fwd=40), {"xent_multi_fwd": [40, 0]})])  # other pair
+    (dict(xent_multi_fwd=40), {"xent_multi_fwd": [40, 0]}),   # other pair
+    (dict(embed_bwd=120), {"embed_bwd": [120, 40]})])  # a gather a tier
 def test_launch_check_fails_a_wrong_count(wrong, want):
     assert cs.launch_errors(_counts(**wrong), 40, O1) == want
+
+
+@pytest.mark.parametrize("name,levels", [("path", 1), ("paper", 3),
+                                         ("lessr", 0)])
+def test_step_ids_are_the_gathers_of_a_step(name, levels):
+    """The embed phase's ids: every tier's levels (MSGIFSR) or node ids,
+    shortest tier first, as the models gather them; their run profile."""
+    from sessionrec_tpu_torch.graph.batch import flatten_blocks
+    from sessionrec_tpu_torch.train.session import make_loaders
+    cfg = cs.path_config(name, 0, "datasets/sample", dev="cpu",
+                         batch_size=64)
+    train, _, _, _ = make_loaders(cfg.data, cfg.model.name, cfg.model.order)
+    batch = cs.first_batches(train, 1)[0].to("cpu")
+    blocks = flatten_blocks(batch)
+    ids = cs.step_ids(batch)
+    want = ([lv.iid for b in blocks for lv in b.levels] if levels
+            else [b.node_iid for b in blocks])
+    assert len(ids) == 3 * max(levels, 1) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(ids, want))
+    n, row0, rest = cs.run_profile(torch, ids)
+    flat = torch.cat([i.reshape(-1) for i in ids])
+    assert n == flat.numel() and row0 == int((flat == 0).sum()) > 0
+    assert 0 < rest < row0
 
 
 def test_device_launches_count_each_replay():
@@ -431,9 +455,9 @@ def test_trace_counts_the_slab_kernels_as_their_wrappers_launches():
                "<__nv_bfloat16>(int)", 0, 1)]
     counts, bf16, n = cs.count_launches(events)
     assert counts == dict(xent_fwd=2, xent_bwd=1, xent_multi_fwd=1,
-                          xent_multi_bwd=1)
+                          xent_multi_bwd=1, embed_bwd=0)
     assert bf16 == dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=0,
-                        xent_multi_bwd=0)
+                        xent_multi_bwd=0, embed_bwd=0)
     assert n == 9
 
 
@@ -456,9 +480,28 @@ def test_trace_counts_the_tensor_core_kernels_as_their_wrappers_launches():
               ("void (anonymous namespace)::xent_multi_bwd_dsr_tc"
                "<__nv_bfloat16, true>(int)", 0, 1)]
     counts, bf16, n = cs.count_launches(events)
-    want = dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=1, xent_multi_bwd=1)
+    want = dict(xent_fwd=1, xent_bwd=1, xent_multi_fwd=1, xent_multi_bwd=1,
+                embed_bwd=0)
     assert counts == bf16 == want
     assert n == 6
+
+
+def test_trace_counts_the_gathers_backward_by_its_rows_kernel():
+    """The gather's backward launches its sort, embed_bwd_tiles and
+    embed_bwd_rows once a call; the rows kernel counts the call."""
+    events = [("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel"
+               "<int>(int)", 0, 1),
+              ("void (anonymous namespace)::embed_bwd_tiles<float, 4>"
+               "(int)", 0, 1),
+              ("void (anonymous namespace)::embed_bwd_rows<float, 4>(int)",
+               0, 1),
+              ("void (anonymous namespace)::embed_bwd_tiles"
+               "<__nv_bfloat16, 4>(int)", 0, 1),
+              ("void (anonymous namespace)::embed_bwd_rows"
+               "<__nv_bfloat16, 4>(int)", 0, 1)]
+    counts, bf16, n = cs.count_launches(events)
+    assert (counts["embed_bwd"], bf16["embed_bwd"], n) == (2, 1, 5)
+    assert sum(counts.values()) == 2
 
 
 @pytest.mark.parametrize("kernel_sum,events,coverage,complete", [
