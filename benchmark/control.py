@@ -7,7 +7,8 @@ the faults', at a cell's own size, many seeds in one process.
 * ``program``: what a run compares, from the program's timed path and
   feed (a training cell's set-up steps, the eager first one and the
   first full chunk; a serving cell's sampled requests after a short
-  closed loop), against the reference.
+  closed loop), against the reference.  A cell is a training or a
+  serving one by its driver's role (``Cell.role``).
 * ``control``: the reference put in the program's place, its products
   in TF32 (the precision below the configuration's float32 with TF32
   off), and in bfloat16 as a second witness.
@@ -96,10 +97,10 @@ def serve_readings(ctx, mode):
     for precision in ("tf32", "bfloat16"):
         low = {}
         for i in picked:
-            lp = ref.serve_log_probs(ctx.cell.config, weights,
-                                     server.sessions_of(i), device=ctx.device,
-                                     precision=precision)
-            vals, ids = torch.topk(lp, k, dim=1)
+            want = ref.serve_scores(ctx.cell.config, weights,
+                                    server.sessions_of(i), device=ctx.device,
+                                    precision=precision)
+            vals, ids = torch.topk(want, k, dim=1)
             low[i] = (ids.cpu(), vals.cpu())
         yield precision, drv.reference_numbers(ctx, server, low)
 
@@ -107,8 +108,7 @@ def serve_readings(ctx, mode):
 def readings(cell, seed, mode, device):
     ctx = Context(cell=cell, seed=seed, seconds=0.0, trace=False,
                   device=device, t0=time.perf_counter())
-    fn = train_readings if cell.traffic["driver"] == "train" \
-        else serve_readings
+    fn = train_readings if cell.role == "train" else serve_readings
     yield from fn(ctx, mode)
 
 

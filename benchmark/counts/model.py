@@ -1,4 +1,6 @@
-"""Model FLOPs of an MSGIFSR training step, counted from the examples.
+"""Model FLOPs of an MSGIFSR training step, counted from the examples,
+and the head its configuration's keys state.  The harness finds it by the
+family's name (``counts/flops/msgifsr.py``).
 
 The products of the forward (2 FLOPs a multiply-add) over each example's
 own graph, its real nodes and no padding, and the catalog loss over the
@@ -29,9 +31,23 @@ width ``d``, 8 heads of width ``d``:
 
 from __future__ import annotations
 
-from counts.xent import plain_head
-
 HEADS = 8
+
+
+def plain_head(model) -> bool:
+    """The loss is plain softmax cross-entropy of the order-1 logits (no
+    REnorm, and order 1 or no fusion; msgifsr.py:316-317)."""
+    return not model["extra"] and (model["order"] == 1
+                                   or not model["fusion"])
+
+
+def head(cfg):
+    """The head that MSGIFSR's keys state, in ``harness/program.py``'s
+    terms (``head``)."""
+    m = cfg["model"]
+    plain = plain_head(m)
+    return {"plain": plain, "table_norm": bool(m["norm"]),
+            "orders": 1 if plain else m["order"]}
 
 
 def level_sizes(seq, order):

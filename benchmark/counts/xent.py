@@ -69,25 +69,23 @@ def least_seconds(ops, nbytes, dtype="float32", peaks=PEAKS):
                ops / peaks["flops_per_s"][dtype])
 
 
-def step_loss_seconds(cfg, rows):
+def step_loss_seconds(cfg, rows, head=None):
     """Least time of one training step's fused loss, forward and
-    backward, at ``rows`` valid examples: K1 + K2 for the plain head, K3 +
-    K4 for the multi-order head."""
-    m = cfg["model"]
-    n, d, dtype = cfg["catalog"]["num_items"], m["embedding_dim"], \
-        cfg["dtype"]
-    if plain_head(m):
-        parts = (k1(rows, n, d, norm=m["norm"]), k2(rows, n, d,
-                                                    norm=m["norm"]))
+    backward, at ``rows`` valid examples: K1 + K2 for a plain head, with
+    the table's norms where the head normalises it, K3 + K4 for a
+    multi-order head of ``orders`` rows a session.  ``head`` is the
+    program's head of the configuration's model (``harness/program.py``:
+    ``head``); None takes MSGIFSR's, as its keys state it
+    (``counts/model.py``: ``head``)."""
+    if head is None:
+        from counts.model import head as stated
+        head = stated(cfg)
+    n, d, dtype = cfg["catalog"]["num_items"], \
+        cfg["model"]["embedding_dim"], cfg["dtype"]
+    if head["plain"]:
+        norm = head["table_norm"]
+        parts = (k1(rows, n, d, norm=norm), k2(rows, n, d, norm=norm))
     else:
-        ns = cfg["data"]["max_len"]
-        parts = (k3(rows, m["order"], n, d, ns), k4(rows, m["order"], n, d,
-                                                    ns))
+        ns, K = cfg["data"]["max_len"], head["orders"]
+        parts = (k3(rows, K, n, d, ns), k4(rows, K, n, d, ns))
     return sum(least_seconds(o, b, dtype) for o, b in parts)
-
-
-def plain_head(model) -> bool:
-    """The loss is plain softmax cross-entropy of the order-1 logits (no
-    REnorm, and order 1 or no fusion; msgifsr.py:316-317)."""
-    return not model["extra"] and (model["order"] == 1
-                                   or not model["fusion"])

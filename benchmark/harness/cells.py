@@ -5,12 +5,16 @@ names in ``BENCHMARK.json``.
 * a configuration: the ``file`` its entry names, and its plain reference
   ``reference/<config's "reference">.py``;
 * a traffic mix: ``traffic/<traffic>.json``, whose ``driver`` names the
-  generator ``traffic/<driver>.py``;
+  generator ``traffic/<driver>.py``; a driver that defines ``Setup`` is a
+  training one, one that defines ``Server`` a serving one (``role``);
+* a model family's count of a training step's model FLOPs:
+  ``counts/flops/<the configuration's model name>.py`` (``step_flops``),
+  none for a family without that file;
 * a per-layer metric: ``metrics/<metric>.py``, whose ``read(run)``
   returns the value or None.
 
-A later cell, configuration, mix or metric is new files and new entries,
-and no edit here.
+A later cell, configuration, mix, family or metric is new files and new
+entries, and no edit here.
 """
 
 from __future__ import annotations
@@ -48,9 +52,26 @@ class Cell:
         return load_module(self.home / "traffic"
                            / f"{self.traffic['driver']}.py")
 
+    @property
+    def role(self) -> str:
+        """``"train"`` or ``"serve"``: what the cell's driver defines."""
+        drv = self.driver()
+        roles = [r for r, name in (("train", "Setup"), ("serve", "Server"))
+                 if hasattr(drv, name)]
+        if len(roles) != 1:
+            raise ValueError(f"driver {self.traffic['driver']!r} defines "
+                             "neither or both of Setup and Server")
+        return roles[0]
+
     def reference(self):
         return load_module(self.home / "reference"
                            / f"{self.config['reference']}.py")
+
+    def flops(self):
+        """The family's FLOP count module, or None without one."""
+        path = (self.home / "counts" / "flops"
+                / f"{self.config['model']['name']}.py")
+        return load_module(path) if path.exists() else None
 
     def reader(self, metric: str):
         return load_module(self.home / "metrics" / f"{metric}.py")

@@ -5,8 +5,15 @@ the program's norm and the reference's, not the norm of their
 difference, over the reference's norm of that leaf or of the median
 leaf, whichever is larger (some gradients are all but zero).  A number
 is the worst leaf's gap (``grad_gap``, ``change_gap``) or the median
-leaf's (``grad_gap.median``, ``change_gap.median``); a cell's limits
-name the numbers it compares, and the others are printed beside them.
+leaf's (``grad_gap.median``, ``change_gap.median``); where the reference
+returns the model's buffers (running statistics, ``state``) after the
+same steps, ``state_gap`` is the worst buffer's gap by the same rule.  A
+cell's limits name the numbers it compares, and the others are printed
+beside them.
+
+Serving compares each served score with the reference's score of the
+same item in the quantity the configuration's head serves (the
+reference's ``serve_scores``).
 """
 
 from __future__ import annotations
@@ -40,9 +47,10 @@ def moving_leaves(grad_raw: dict) -> list:
 
 def train_numbers(prog: dict, ref: dict) -> dict:
     """The compared numbers of a training cell from the program's and the
-    reference's readings (``losses``, ``grad``, ``change``; the
-    reference's ``grad_raw`` picks the leaves of the change, and its
-    ``projected`` rows are printed beside them)."""
+    reference's readings (``losses``, ``grad``, ``change``, and ``state``
+    where the reference gives it; the reference's ``grad_raw`` picks the
+    leaves of the change, and its ``projected`` rows are printed beside
+    them)."""
     loss = max(abs(a - b) / abs(b) for a, b in zip(prog["losses"],
                                                    ref["losses"]))
     out = {"loss_gap": loss, "_leaves": {},
@@ -55,19 +63,25 @@ def train_numbers(prog: dict, ref: dict) -> dict:
         out[name] = gaps[worst]
         out[name + ".median"] = statistics.median(gaps.values())
         out["_leaves"][name] = worst
+    if ref.get("state"):
+        gaps = leaf_gaps(prog["state"], ref["state"], ref["state"])
+        worst = max(gaps, key=gaps.get)
+        out["state_gap"] = gaps[worst]
+        out["_leaves"]["state_gap"] = worst
     return out
 
 
-def serve_numbers(ids, scores, ref_log_probs) -> dict:
+def serve_numbers(ids, scores, ref_scores) -> dict:
     """``score_gap``: the largest gap between a served score and the
-    reference's log-probability of the same item; ``rank_gap``: the
-    largest by which the reference's score of the item served at rank j
-    lies below the reference's j-th best score."""
+    reference's score of the same item (``ref_scores [S, n]``, in the
+    head's served quantity); ``rank_gap``: the largest by which the
+    reference's score of the item served at rank j lies below the
+    reference's j-th best score."""
     import torch
-    ids = ids.to(ref_log_probs.device, torch.int64)
-    scores = scores.to(ref_log_probs.device, torch.float32)
-    at = torch.gather(ref_log_probs, 1, ids)
-    best = torch.topk(ref_log_probs, ids.shape[1], dim=1).values
+    ids = ids.to(ref_scores.device, torch.int64)
+    scores = scores.to(ref_scores.device, torch.float32)
+    at = torch.gather(ref_scores, 1, ids)
+    best = torch.topk(ref_scores, ids.shape[1], dim=1).values
     return {"score_gap": float(torch.max(torch.abs(scores - at))),
             "rank_gap": max(float(torch.max(best - at)), 0.0)}
 

@@ -7,8 +7,9 @@ with tracing on keeps a capture map: its device-work node count and the
 ``owners``, the span (and direction, forward or backward) that owns each
 run of nodes.  The traffic drivers run the program with tracing off, so
 a ``--trace 1`` run's readers of those spans get them here: the cell is
-set up once more, by its driver's own ``Setup`` (training; a stream cut
-to what this run takes) or ``Server`` (serving), with tracing on, so its
+set up once more, by its driver's own ``Setup`` (a training driver; a
+stream cut to what this run takes) or ``Server`` (a serving driver;
+``Cell.role``), with tracing on, so its
 graph is captured with its map; then
 
 * an untraced window of ``WINDOW`` times the cell's profiled chunks or
@@ -133,8 +134,8 @@ def measure(cell, seed):
     from sessionrec_tpu_torch.utils import profiling
     with profiling.tracing():
         try:
-            cut = (TrainCut if cell.traffic["driver"] == "train"
-                   else ServeCut)(cell, seed)
+            cut = (TrainCut if cell.role == "train" else ServeCut)(cell,
+                                                                   seed)
             try:
                 profiling.reset()
                 cut.window(WINDOW)

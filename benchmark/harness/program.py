@@ -1,8 +1,29 @@
 """The calls into the program under test (``sessionrec_tpu_torch``) that
-every driver shares: the model of a configuration, with the benchmark's
-weights loaded into it by name."""
+every driver shares: the model of a configuration, the kind of batch it
+reads, what its head is, and the benchmark's weights loaded into it by
+name.  Nothing here names a model family: what differs between them is
+asked of the program."""
 
 from __future__ import annotations
+
+
+def batch_kind(cfg):
+    """``(kind, order)`` of the batches the configuration's model reads:
+    the kind the program gives its family (``models.graph_kind``), and the
+    configuration's ``order`` where it states one, else 1."""
+    from sessionrec_tpu_torch.models import graph_kind
+    m = cfg["model"]
+    return graph_kind(m["name"]), int(m.get("order", 1))
+
+
+def head(model):
+    """The program's head of ``model``: ``{"plain": the loss and the
+    served scores are the plain catalog logits (K1/K2), else the
+    multi-order head's (K3/K4); "table_norm": the table is l2-normalised
+    in them; "orders": score rows a session}``."""
+    plain = bool(model.has_plain_head)
+    return {"plain": plain, "table_norm": bool(model.table_norm),
+            "orders": 1 if plain else int(model.order)}
 
 
 def build_model(cfg, device):
@@ -45,6 +66,12 @@ def leaf_norms(tensors, n_items):
     return {n: float(torch.linalg.vector_norm(
         (t[:n_items] if n == "embedding" else t).float()))
         for n, t in tensors.items()}
+
+
+def buffer_norms(model, n_items):
+    """``leaf_norms`` of the model's buffers (running statistics), by
+    name; empty for a model that holds none."""
+    return leaf_norms(dict(model.named_buffers()), n_items)
 
 
 def synchronize(device):

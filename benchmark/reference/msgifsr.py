@@ -580,3 +580,39 @@ def serve_log_probs(cfg, params, sessions, *, device, precision="float32"):
     for b, s in enumerate(seqs):
         smask[b, sorted(set(s))] = 1.0
     return model.log_probs(p, sr, smask)
+
+
+def plain_head(cfg) -> bool:
+    """The configuration's head is the plain softmax of the order-1
+    logits: no REnorm, and order 1 or no fusion (msgifsr.py:316-317)."""
+    m = cfg["model"]
+    return not m["extra"] and (m["order"] == 1 or not m["fusion"])
+
+
+@torch.no_grad()
+def serve_logits(cfg, params, sessions, *, device, precision="float32"):
+    """``[S, n]`` catalog logits of the plain head for each whole session
+    (no dropout, the node cap as ``serve_log_probs``): the order-1 session
+    vector against the table, l2-normalised where the configuration
+    normalises it, with no scale.  A positive scale and the softmax keep
+    each row's order, so these are what a plain head ranks by and serves."""
+    exact_float32()
+    model = MSGIFSR(cfg, precision)
+    cap = cfg["data"]["max_len"]
+    p = {n: params[n].detach().to(device, torch.float32).clone()
+         for n, _, _ in param_spec(cfg)}
+    _renorm(p["embedding"])
+    seqs = [list(s[-cap:]) for s in sessions]
+    g = build_graphs(seqs, model.K, cap, device)
+    sr = model.session_vectors(p, g, None)[:, 0]
+    table = l2norm(p["embedding"]) if model.norm else p["embedding"]
+    return model.mm(sr, table.T)
+
+
+def serve_scores(cfg, params, sessions, *, device, precision="float32"):
+    """``[S, n]``: what the configuration's head serves for each whole
+    session, in its own terms: the plain head's catalog logits
+    (``serve_logits``), the multi-order head's log-probabilities
+    (``serve_log_probs``)."""
+    fn = serve_logits if plain_head(cfg) else serve_log_probs
+    return fn(cfg, params, sessions, device=device, precision=precision)

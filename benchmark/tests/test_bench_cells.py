@@ -60,3 +60,41 @@ def test_new_files_are_found_by_name(tmp_path):
     assert "steps.train" in [m["name"] for m in old.per_layer]
     serve = Bench(tmp_path, home).cell("paper-yc4-serve")
     assert "steps.train" not in [m["name"] for m in serve.per_layer]
+
+
+def test_a_new_family_is_found_by_name(tmp_path):
+    """A LESSR cell from new files alone: its configuration, reference and
+    workload; the batches are the program's kind for the family, its
+    role the driver's, and it has no FLOP count until one is added."""
+    from harness import program
+    home = tmp_path / "benchmark"
+    shutil.copytree(HOME, home, ignore=shutil.ignore_patterns(
+        "__pycache__", "tests"))
+    cfg = json.loads((home / "configs" / "msgifsr-o1-yc4.json").read_text())
+    cfg.update(name="lessr-yc4", reference="lessr")
+    cfg["model"] = {"name": "lessr", "embedding_dim": 32, "num_layers": 3,
+                    "feat_drop": 0.2, "batch_norm": True}
+    (home / "configs" / "lessr-yc4.json").write_text(json.dumps(cfg))
+    (home / "reference" / "lessr.py").write_text(
+        "def init_params(cfg, seed, device):\n    return {}\n")
+    cell = json.loads((home / "workloads" / "o1-yc4-train.json").read_text())
+    (home / "workloads" / "lessr-yc4-train.json").write_text(
+        json.dumps(cell))
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "lessr-yc4", "source": "x",
+                            "file": "benchmark/configs/lessr-yc4.json",
+                            "reduced": [], "why": "x"})
+    spec["workloads"].append({"name": "lessr-yc4-train",
+                              "config": "lessr-yc4", "traffic": "train",
+                              "chips": 1, "why": "x"})
+    spec["end_to_end"][0]["workloads"].append("lessr-yc4-train")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    new = Bench(tmp_path, home).cell("lessr-yc4-train")
+    assert new.role == "train"
+    assert program.batch_kind(new.config) == ("lessr", 1)
+    assert new.reference().init_params(new.config, 1, "cpu") == {}
+    assert new.flops() is None
+    assert "train_examples_per_s" in [m["name"] for m in new.end_to_end]
+    old = Bench(tmp_path, home).cell("o1-yc4-train")
+    assert old.flops() is not None
+    assert program.batch_kind(old.config) == ("ccs", 1)

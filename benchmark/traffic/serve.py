@@ -14,7 +14,10 @@ Set-up makes the pool and the step and serves two requests, the eager
 one and the one that captures the graph.  After the window the reference
 scores a sample of the window's requests, drawn from the seed and
 holding the pool's longest session, and the check compares what was
-served with it.
+served with it, in the served quantity of the configuration's head
+(the reference's ``serve_scores``: log-probabilities of a multi-order
+head, the masked catalog logits of a plain one).  Batches are of the
+kind the program gives the configuration's model.
 """
 
 from __future__ import annotations
@@ -67,9 +70,10 @@ class Server:
         program.load_weights(self.model, ctx.cell.reference().init_params(
             cfg, ctx.seed, ctx.device))
         self.step = serving.make_recommend_step(self.model, k=mix["k"])
+        kind, order = program.batch_kind(cfg)
         self.batches = serving.session_batches(
-            Cycle(self.pool, self.rows * 10 ** 7), "ccs", self.rows,
-            cfg["data"]["max_len"], order=cfg["model"]["order"])
+            Cycle(self.pool, self.rows * 10 ** 7), kind, self.rows,
+            cfg["data"]["max_len"], order=order)
         self.served = 0
 
     def request(self, spans):
@@ -113,10 +117,10 @@ def reference_numbers(ctx, server, answers, precision="float32"):
     weights = ref.init_params(ctx.cell.config, ctx.seed, ctx.device)
     worst = {}
     for i, (ids, scores) in answers.items():
-        lp = ref.serve_log_probs(ctx.cell.config, weights,
-                                 server.sessions_of(i), device=ctx.device,
-                                 precision=precision)
-        for k, v in check.serve_numbers(ids, scores, lp).items():
+        want = ref.serve_scores(ctx.cell.config, weights,
+                                server.sessions_of(i), device=ctx.device,
+                                precision=precision)
+        for k, v in check.serve_numbers(ids, scores, want).items():
             worst[k] = max(worst.get(k, 0.0), v)
     return worst
 

@@ -14,8 +14,13 @@ full chunk, steps 2 to ``1 + unroll``, which captures the ``unroll``-step
 graph and replays it: the same graph object, over the same slots, that
 the window replays.  After the window the reference follows those steps
 from the same weights and sessions, and the check compares every step's
-loss, each leaf's first gradient as Adam holds it after step 1, and each
-leaf's change after the first full chunk.
+loss, each leaf's first gradient as Adam holds it after step 1, each
+leaf's change after the first full chunk, and, where the model holds
+buffers (running statistics), each buffer after that chunk.
+
+The batches are of the kind the program gives the configuration's model
+(``program.batch_kind``), so a cell of any family the port trains is a
+configuration, a reference and a cell, with no edit here.
 
 Spans: ``loader_wait`` around each chunk's ``next()``, ``dispatch``
 around ``run_chunk``, both per step.
@@ -93,12 +98,13 @@ class Setup:
         self.n_items = cfg["catalog"]["num_items"]
         self.stream = make_stream(ctx)
         self.sessions = self.stream.sessions
+        kind, order = program.batch_kind(cfg)
         self.loader = BatchLoader(
-            self.sessions, "ccs", d["batch_size"], d["max_len"],
-            shuffle=False, order=cfg["model"]["order"],
-            prefetch=mix["prefetch"], split_len=tuple(d["tiers"]),
-            use_native=True)
+            self.sessions, kind, d["batch_size"], d["max_len"],
+            shuffle=False, order=order, prefetch=mix["prefetch"],
+            split_len=tuple(d["tiers"]), use_native=True)
         model = program.build_model(cfg, ctx.device)
+        self.head = program.head(model)
         t = cfg["train"]
         self.runner = TrainRunner(
             model, self.loader, None, lr=t["lr"],
@@ -131,7 +137,8 @@ class Setup:
              for n, p in params.items()}, self.n_items)
         self.weights = None
         return {"losses": torch.cat([x.reshape(-1) for x in losses]).tolist(),
-                "grad": grad, "change": change}
+                "grad": grad, "change": change,
+                "state": program.buffer_norms(r.model, self.n_items)}
 
     def close(self):
         self.chunks.close()
@@ -217,4 +224,5 @@ def run(ctx):
         metrics={"train_examples_per_s": examples / wall, "setup_s": setup_s},
         attempted=steps, failed=failed, checks=checks,
         memory_peak_bytes=peak, profile=profile,
-        data={"profiled_steps": profiled, "readings": numbers})
+        data={"profiled_steps": profiled, "readings": numbers,
+              "head": setup.head})
